@@ -1,0 +1,268 @@
+"""Flagship workload: the 512-stream batched DSP pipeline (rodio_tpu/flagship.py).
+
+BASELINE.json config 5: resample 44.1 -> 48 kHz, RBJ low-pass, per-stream
+gain, mix and master limit for 512 concurrent stereo streams on one card.
+The stream axis folds into the channel axis (512 stereo streams = one
+1024-channel chain):
+
+  SamplesBuffer[1024ch PCM @44.1k]
+    -> FusedWidePipeline   (K1: resample + gain + biquad + mix -> [2, T])
+    -> Limit               (K3: the blocked stereo master limiter)
+
+and its parity partner, the unfused chain
+
+  SamplesBuffer -> Resample -> BltFilter (K4) -> Amplify -> WideMixer -> Limit
+
+The JAX package's TPU schedule knobs (``lookahead``, ``subblk``,
+``firfold``, ``ufir``, ``dma_depth``, ``m``, ``binary_mix``,
+``inkernel_limit``) have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .conversions.resample import (
+    Resample, drain_bookkeeping, lerp_weights, output_positions,
+    resample_output_frames)
+from .core.node import Node, State, mask_block
+from .core.types import StreamSpec
+from .effects.basic import Amplify
+from .effects.blt import BltFilter, blt_coefficients
+from .effects.limit import Limit, LimitSettings
+from .ops.fused import fused_resample_biquad_mix
+from .parallel.batch import WideMixer
+from .sources.generators import SamplesBuffer
+from .utils.device import DeviceLike
+
+PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
+
+
+def _content_probe(input_node) -> tuple:
+    """(int16_grid_exact, int24_grid_exact, two_piece_exact) of the node's
+    PCM, in one device pass with one read-back, cached on the node."""
+    data = getattr(input_node, "_data", None)
+    if data is None:
+        return (False, False, False)
+    cached = getattr(input_node, "_content_probe_cache", None)
+    if cached is not None:
+        return cached
+    s = data * 32768.0  # exact: a pure exponent shift in f32
+    k = torch.round(s)
+    g16 = ((s == k) & (k >= -32768.0) & (k <= 32767.0)).all()
+    s24 = data * 8388608.0
+    k24 = torch.round(s24)
+    g24 = ((s24 == k24) & (k24 >= -8388608.0) & (k24 <= 8388607.0)).all()
+    p1 = data.to(torch.bfloat16).to(data.dtype)
+    r = data - p1
+    tp = (r == r.to(torch.bfloat16).to(data.dtype)).all()
+    res = torch.stack([g16, g24, tp]).cpu().tolist()  # one read-back
+    out = (bool(res[0]), bool(res[1]), bool(res[2]))
+    input_node._content_probe_cache = out
+    return out
+
+
+class FusedWidePipeline(Node):
+    """Resample + gain + biquad + stream mix in ONE kernel (K1).
+
+    Fuses the flagship's Resample -> BltFilter -> Amplify -> WideMixer
+    chain so each block makes one pass over the input PCM. The upstream
+    must be a random-access, sliceable source (a SamplesBuffer).
+
+    Outputs match the unfused chain to ~1e-6 (the gain is applied before
+    the biquad rather than after it, and the mix sums in another order),
+    except the final drain frame of the stream, which the unfused resampler
+    emits as the raw last input frame while the kernel resamples it with a
+    zero right neighbour.
+
+    ``precision`` accepts the JAX package's values and runs the same
+    content probe; ``"i8"``/``"i24"`` on content off their sample grid
+    raise. Every value stores the PCM as f32 here (narrower storage is a
+    later change).
+    """
+
+    def __init__(self, input_node: Node, to_rate: int, gains, n_streams: int,
+                 kind: str = "low_pass", freq: float = 2000.0, q: float = 0.5,
+                 *, precision: str = "auto", with_agc: bool = False):
+        if with_agc:
+            raise NotImplementedError(
+                "the fused AGC pipeline is kernel K2 (rodio_tpu/ops/fused.py "
+                "fused_resample_biquad_agc_mix), not ported yet")
+        if not (getattr(input_node, "RANDOM_ACCESS", False)
+                and hasattr(input_node, "slice_frames")):
+            raise TypeError("FusedWidePipeline needs a sliceable random-access source")
+        self.input = input_node
+        self.device = input_node.device
+        wide = input_node.spec.channels
+        if wide % n_streams:
+            raise ValueError("channel count not divisible by stream count")
+        self.n_streams = n_streams
+        C = wide // n_streams
+        self.spec = StreamSpec(C, to_rate)
+        from_rate = input_node.spec.sample_rate
+        g = math.gcd(from_rate, to_rate)
+        self.from_ = from_rate // g
+        self.to = to_rate // g
+        if self.from_ == self.to:
+            raise ValueError("identity ratio: use the plain chain")
+        self.precision = self._resolve_precision(precision)
+        self._kind, self._freq, self._q = kind, float(freq), float(q)
+        self.coeffs = blt_coefficients(kind, to_rate, freq, q).as_tuple()
+        gains = np.asarray(gains, dtype=np.float32)
+        per_lane = np.repeat(gains, C) if gains.shape == (n_streams,) else gains
+        if per_lane.shape != (wide,):
+            raise ValueError(f"gains must be [{n_streams}] or [{wide}]")
+        self._gains = per_lane
+        # [to, 2]: the two lerp weights of each phase
+        self._wtab = torch.from_numpy(
+            np.stack(lerp_weights(self.from_, self.to), axis=1)).to(self.device)
+        self._taps_cache = {}
+        self._wide = wide
+        self._s0 = getattr(input_node, "_start", 0)
+
+    def _resolve_precision(self, precision: str) -> str:
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}")
+        if precision == "auto":
+            if self.to > 1024:
+                return "highest"
+            g16, g24, tp2 = _content_probe(self.input)
+            return "i8" if g16 else "i24" if g24 else "int2" if tp2 else "int3"
+        if precision in ("i8", "i24"):
+            if self.to > 1024:
+                raise ValueError(f"precision={precision!r} needs to <= 1024")
+            g16, g24, _ = _content_probe(self.input)
+            if not (g16 if precision == "i8" else g24):
+                grid = "int16 grid (k / 2^15)" if precision == "i8" else "int24 grid (k / 2^23)"
+                raise ValueError(
+                    f"precision={precision!r} needs content exactly on the "
+                    f"{grid}; off-grid samples would be silently rounded")
+        return precision
+
+    def total_frames(self) -> Optional[int]:
+        n_in = self.input.total_frames()
+        if n_in is None:
+            return None
+        return resample_output_frames(n_in, self.from_, self.to)
+
+    def init_state(self) -> State:
+        in_state = self.input.init_state()
+        # one-time restructure of the PCM: time-major [frames, lanes], so a
+        # block's lerp reads whole rows; the upstream's copy is dropped
+        pcm = in_state["data"][:, self._s0:].T.contiguous()
+        in_state = {k: v for k, v in in_state.items() if k != "data"}
+        dev = self.device
+        return {
+            "in": in_state,
+            "pcm": pcm,
+            "out_o": 0,  # host int: advances by n per emit
+            "drained": torch.tensor(False, device=dev),
+            "bq": torch.zeros((4, self._wide), dtype=torch.float32, device=dev),
+            # coefficients and gains live in the state: the kernel reads
+            # them as data, so a retune rebuilds nothing
+            "coeffs": torch.tensor(self.coeffs, dtype=torch.float32, device=dev),
+            "gains": torch.from_numpy(self._gains.copy()).to(dev),
+        }
+
+    def retune(self, state: State, kind: Optional[str] = None,
+               freq: Optional[float] = None, q: Optional[float] = None) -> State:
+        """Live filter retune (src/source/blt.rs:68-91): new coefficients
+        swapped into the state; the biquad carries persist."""
+        kind = self._kind if kind is None else kind
+        freq = self._freq if freq is None else float(freq)
+        q = self._q if q is None else float(q)
+        co = blt_coefficients(kind, self.spec.sample_rate, freq, q).as_tuple()
+        return {**state, "coeffs": torch.tensor(co, dtype=torch.float32,
+                                                device=self.device)}
+
+    def _taps(self, o0: int, n: int):
+        """(left rows [n], lerp weights [n, 2]) of output frames o0 ..
+        o0+n-1. left(o0 + t) = (o0 // to)*from + left(o0 % to + t), so the
+        rows and weights of each (o0 % to, n) are built once and a block
+        costs one add."""
+        key = (o0 % self.to, n)
+        taps = self._taps_cache.get(key)
+        if taps is None:
+            if len(self._taps_cache) >= 8:
+                self._taps_cache.clear()
+            left, phase = output_positions(key[0], n, self.from_, self.to,
+                                           self.device)
+            taps = self._taps_cache[key] = (left, self._wtab.index_select(0, phase))
+        return taps[0] + (o0 // self.to) * self.from_, taps[1]
+
+    def emit(self, state: State, n: int):
+        o0 = state["out_o"]
+        left, wts = self._taps(o0, n)
+        mix, bq = fused_resample_biquad_mix(
+            state["pcm"], left, wts, gains=state["gains"],
+            coeffs=state["coeffs"], bq=state["bq"], channels=self.spec.channels)
+        # validity + drain bookkeeping (conversions/resample.py)
+        _, in_end = self.input.access_window(state["in"])
+        _, _, valid, drained = drain_bookkeeping(left, in_end, state["drained"], n)
+        return ({**state, "out_o": o0 + n, "drained": drained, "bq": bq},
+                mask_block(mix, valid), valid)
+
+
+def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
+                  in_rate: int = 44100, out_rate: int = 48000,
+                  channels: int = 2, seed: int = 0, scan_mode: str = "exact",
+                  with_agc: bool = False,
+                  source_pcm: Optional[np.ndarray] = None,
+                  max_block: int = 8192, precision: str = "auto",
+                  device: DeviceLike = None):
+    """Build (master_node, state) for the flagship pipeline.
+
+    The PCM and gains come from numpy with ``seed``, exactly as the JAX
+    package makes them, so both packages see identical input. ``scan_mode``
+    "fused" builds FusedWidePipeline -> Limit; "exact" and "auto" build the
+    unfused chain (on a CUDA device, "auto" runs K4 and K3).
+    """
+    if with_agc:
+        raise NotImplementedError(
+            "with_agc: the AGC stage (fused: kernel K2) is not ported yet")
+    rng = np.random.default_rng(seed)
+    frames = int(seconds * in_rate)
+    if source_pcm is None:
+        base = rng.standard_normal((channels, frames)).astype(np.float32) * 0.1
+    else:
+        base = np.asarray(source_pcm, dtype=np.float32)
+        if base.shape[1] < frames:
+            reps = -(-frames // base.shape[1])
+            base = np.tile(base, (1, reps))
+        base = base[:channels, :frames]
+
+    # wide-channel data: [S*C, frames], each stream a rotated copy
+    shifts = rng.integers(0, frames, size=n_streams)
+    wide = np.empty((n_streams * channels, frames), dtype=np.float32)
+    for s in range(n_streams):
+        wide[s * channels : (s + 1) * channels] = np.roll(
+            base, int(shifts[s]), axis=1
+        )
+    gains = (
+        rng.uniform(0.5, 1.5, size=n_streams).astype(np.float32) / n_streams
+    )
+
+    # pad the buffer for the largest window a block of max_block needs
+    g = np.gcd(in_rate, out_rate)
+    fr_, to_ = in_rate // g, out_rate // g
+    pad_needed = (max_block // to_ + 2) * fr_
+    chain = SamplesBuffer(
+        n_streams * channels, in_rate, wide,
+        pad_frames=max(8192, -(-pad_needed // 256) * 256), device=device,
+    )
+    if scan_mode == "fused":
+        fused = FusedWidePipeline(chain, out_rate, gains, n_streams,
+                                  "low_pass", 2000.0, 0.5, precision=precision)
+        master = Limit(fused, LimitSettings(), mode="auto")
+        return master, master.init_state()
+    if scan_mode not in ("exact", "auto"):
+        raise NotImplementedError(f"scan_mode {scan_mode!r} is not ported")
+    chain = Resample(chain, out_rate)
+    chain = BltFilter(chain, "low_pass", 2000.0, 0.5, mode=scan_mode)
+    chain = Amplify(chain, np.repeat(gains, channels))
+    chain = WideMixer(chain, n_streams)
+    master = Limit(chain, LimitSettings(), mode=scan_mode)
+    return master, master.init_state()

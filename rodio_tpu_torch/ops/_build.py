@@ -1,0 +1,157 @@
+"""Build and bind the port's CUDA kernels.
+
+``rodio_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``. The build runs at first
+use, into ``build/rodio_tpu_torch/`` at the root of the checkout, and again
+whenever a source or a flag changes (the library's name carries their hash).
+
+Rounding is part of the contract: ``-fmad=false`` keeps every mul and add
+rounded on its own, as the sequential scans of the JAX package and the plain
+PyTorch versions round; no fast math, IEEE division, no flush to zero.
+
+Each C entry point launches on the stream it is given and returns the
+``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
+code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "rodio_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas", "-v",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+F = ctypes.c_float
+
+#: argument types of each C entry point (all return a cudaError_t as int)
+SIGNATURES = {
+    # x, y, coef, x1, x2, y1, y2 (in), x1, x2, y1, y2 (out), L, T, stream
+    "rt_biquad_df1": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
+    # x, y, integ0, peak0, integ_out, peak_out, relpow, attpow, scratch,
+    # T, P, att, rel, ca, cr, att^Lc, rel^Lc, threshold, knee_width,
+    # inv_knee_8, log2->dB scale, dB->log2 scale, stream
+    "rt_limiter_master": (P, P, P, P, P, P, P, P, P, I, I,
+                          F, F, F, F, F, F, F, F, F, F, F, P),
+    # pcm, F, L, left, wts, gains, coef, bq_in, bq_out, partial, out, n,
+    # C, stream
+    "rt_fused_resample_biquad_mix": (P, LL, I, P, P, P, P, P, P, P, P, I, I,
+                                     P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+#: seconds the last nvcc compile in this process took (0.0 if none ran)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librodio_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library of the same sources exists."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    if verbose:
+        print(res.stdout + res.stderr, flush=True)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """The bound kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build(verbose)))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's launch reported a CUDA error."""
+    if err != 0:
+        msg = load_library().rt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _typed_arg(name: str, t: torch.Tensor, dtype: torch.dtype,
+               device: torch.device, shape) -> torch.Tensor:
+    if t.dtype != dtype or t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name} must be {dtype} {tuple(shape)} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def f32_arg(name: str, t: torch.Tensor, device: torch.device,
+            shape) -> torch.Tensor:
+    """``t`` as a contiguous f32 tensor; raises unless it is f32 of
+    ``shape`` on ``device``, which is all a kernel takes."""
+    return _typed_arg(name, t, torch.float32, device, shape)
+
+
+def i64_arg(name: str, t: torch.Tensor, device: torch.device,
+            shape) -> torch.Tensor:
+    """``t`` as a contiguous int64 tensor, checked as :func:`f32_arg`."""
+    return _typed_arg(name, t, torch.int64, device, shape)

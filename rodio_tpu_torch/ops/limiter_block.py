@@ -1,0 +1,169 @@
+"""K3: the blocked stereo master-bus limiter (rodio_tpu/ops/limiter_block.py).
+
+The limiter (src/source/limit.rs:854-930) is, per channel, a soft-knee dB
+gain computer, a max-affine integrator ``integ = max(db, rel*integ' +
+(1-rel)*db)``, a linear peak envelope ``peak = att*peak' + (1-att)*integ``
+and the coupled gain. Both recurrences have constant coefficients, so time
+is cut into P chunks of Lc = T/P rows: local prefix maps per chunk, log2 P
+combine rounds across chunks, then the carry-in with rel^(t+1) / att^(t+1)
+tables made in float64 on the host. Sequential depth Lc + log2 P, not T.
+
+:func:`limiter_master` runs ``csrc/limiter_block.cu`` on a CUDA tensor and
+:func:`limiter_master_plain`, the same blocked algorithm vectorised in
+PyTorch with the same rounding order, on a CPU tensor.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.math import DB_TO_LOG2, LOG2_TO_DB, TINY, exp2_precise, linear_to_db
+from . import _build
+
+#: kernel launches made by :func:`limiter_master`
+launches = 0
+
+_BIG = 3.0e38
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def limiter_gain_db(x, threshold: float, knee_width: float, inv_knee_8: float):
+    """Soft-knee gain computer (src/source/limit.rs:854-873), elementwise."""
+    bias_db = linear_to_db(torch.abs(x) + TINY) - threshold
+    kb = bias_db * 2.0
+    xk = kb + knee_width
+    quad = xk * xk * inv_knee_8
+    zero = torch.zeros_like(kb)
+    return torch.where(kb < -knee_width, zero,
+                       torch.where(torch.abs(kb) <= knee_width, quad, bias_db))
+
+
+@functools.lru_cache(maxsize=32)
+def _power_tables(att: float, rel: float, Lc: int, device: torch.device):
+    """(rel^(t+1), att^(t+1)) for t < Lc, made in float64, stored f32."""
+    tt = np.arange(1, Lc + 1, dtype=np.float64)
+    return tuple(
+        torch.from_numpy(np.power(float(c), tt).astype(np.float32)).to(device)
+        for c in (rel, att)
+    )
+
+
+def _check_shape(x: torch.Tensor, P: int):
+    C, T = x.shape
+    if C != 2 or T % P or P > 128 or P & (P - 1) or P < 1:
+        raise ValueError(
+            f"limiter_master needs x [2, T] with T % P == 0 and P a power of "
+            f"two <= 128; got {tuple(x.shape)}, P={P}"
+        )
+    return T // P
+
+
+def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
+                         threshold: float, knee_width: float,
+                         inv_knee_8: float, P: int):
+    """The plain PyTorch version of K3, on any device."""
+    Lc = _check_shape(x, P)
+    T = x.shape[1]
+    relpow, attpow = _power_tables(att, rel, Lc, x.device)
+    cr, ca = _f32(1.0 - rel), _f32(1.0 - att)
+    x3 = x.reshape(2, P, Lc)  # x3[c, p, t] = x[c, p*Lc + t]
+    d = limiter_gain_db(x3, threshold, knee_width, inv_knee_8)
+    lane = torch.arange(P, device=x.device)
+
+    # pass 1: local prefix maps of the integrator
+    B = torch.full((2, P), -_BIG, dtype=x.dtype, device=x.device)
+    Cv = torch.zeros_like(B)
+    bs, cs = [], []
+    for t in range(Lc):
+        dt_ = d[:, :, t]
+        B = torch.maximum(dt_, B * rel + dt_ * cr)
+        Cv = Cv * rel + dt_ * cr
+        bs.append(B)
+        cs.append(Cv)
+    b_all, c_all = torch.stack(bs, -1), torch.stack(cs, -1)
+
+    # chunk combine (integ)
+    A = torch.full_like(B, _f32(rel ** Lc))
+    k = 1
+    while k < P:
+        As, Bs, Cs = (torch.roll(v, k, 1) for v in (A, B, Cv))
+        m = lane >= k
+        B, Cv, A = (torch.where(m, torch.maximum(B, A * Bs + Cv), B),
+                    torch.where(m, A * Cs + Cv, Cv),
+                    torch.where(m, A * As, A))
+        k *= 2
+    i0 = integ0[:, None].expand(2, P)
+    As, Bs, Cs = (torch.roll(v, 1, 1) for v in (A, B, Cv))
+    v_integ = torch.where(lane == 0, i0, torch.maximum(Bs, As * i0 + Cs))
+
+    # pass 2: integ carry applied; local maps of the peak envelope
+    integ = torch.maximum(b_all, relpow * v_integ[:, :, None] + c_all)
+    Cp = torch.zeros_like(B)
+    cps = []
+    for t in range(Lc):
+        Cp = Cp * att + integ[:, :, t] * ca
+        cps.append(Cp)
+    cp_all = torch.stack(cps, -1)
+
+    # chunk combine (peak)
+    A2 = torch.full_like(B, _f32(att ** Lc))
+    C2 = Cp
+    k = 1
+    while k < P:
+        As, Cs = torch.roll(A2, k, 1), torch.roll(C2, k, 1)
+        m = lane >= k
+        C2, A2 = torch.where(m, A2 * Cs + C2, C2), torch.where(m, A2 * As, A2)
+        k *= 2
+    p0 = peak0[:, None].expand(2, P)
+    v_peak = torch.where(lane == 0, p0,
+                         torch.roll(A2, 1, 1) * p0 + torch.roll(C2, 1, 1))
+
+    # pass 3: peaks, stereo coupling (ch0 takes ch1's previous peak), gain
+    peak = attpow * v_peak[:, :, None] + cp_all
+    prev1 = torch.cat([v_peak[1][:, None], peak[1, :, :-1]], dim=1)
+    mp = torch.stack([torch.maximum(peak[0], prev1),
+                      torch.maximum(peak[0], peak[1])])
+    y = x3 * exp2_precise(mp * -DB_TO_LOG2)
+    return y.reshape(2, T), (integ[:, P - 1, Lc - 1], peak[:, P - 1, Lc - 1])
+
+
+def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
+                   *, att: float, rel: float, threshold: float,
+                   knee_width: float, inv_knee_8: float, P: int):
+    """Whole master-bus limiter on x [2, T] -> (y [2, T], (integ', peak')).
+
+    T % P == 0, P a power of two <= 128. The carries are those of the
+    block's last sample."""
+    if x.device.type == "cpu":
+        return limiter_master_plain(
+            x, integ0, peak0, att=att, rel=rel, threshold=threshold,
+            knee_width=knee_width, inv_knee_8=inv_knee_8, P=P)
+    if x.device.type != "cuda":
+        raise ValueError(f"limiter_master: unsupported device {x.device}")
+    Lc = _check_shape(x, P)
+    T = x.shape[1]
+    x = _build.f32_arg("x", x, x.device, (2, T))
+    integ0 = _build.f32_arg("integ0", integ0, x.device, (2,))
+    peak0 = _build.f32_arg("peak0", peak0, x.device, (2,))
+    relpow, attpow = _power_tables(att, rel, Lc, x.device)
+    y = torch.empty_like(x)
+    carries = torch.empty((2, 2), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((3, Lc, 2 * P), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    err = lib.rt_limiter_master(
+        x.data_ptr(), y.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+        carries[0].data_ptr(), carries[1].data_ptr(), relpow.data_ptr(),
+        attpow.data_ptr(), scratch.data_ptr(), T, P,
+        att, rel, 1.0 - att, 1.0 - rel, att ** Lc, rel ** Lc,
+        threshold, knee_width, inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
+        _build.stream_handle(x.device),
+    )
+    _build.check(err, "rt_limiter_master")
+    global launches
+    launches += 1
+    return y, (carries[0], carries[1])

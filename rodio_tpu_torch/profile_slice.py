@@ -1,0 +1,130 @@
+"""Where the time goes in the flagship slice on one CUDA card.
+
+    python -m rodio_tpu_torch.profile_slice [--streams 512] [--block 12800]
+        [--blocks 12] [--out FILE]
+
+For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
+K4 -> Amplify -> WideMixer -> K3) it prints, per block of ``--block``
+frames:
+
+- ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
+  no profiler;
+- ``host_enqueue_ms``: host time of the same calls up to the return of
+  ``render_blocks``, before the synchronize;
+- from one ``torch.profiler`` run: ``kernels`` (device ms per kernel name,
+  kernel rows only, so no op is counted twice), ``device_busy_ms`` (the
+  union of the kernels' intervals) and ``idle_share`` (1 - busy / the
+  render's host span, synchronize included).
+
+The result is one JSON object on stdout, also written to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+_SPAN = "slice.render"
+
+
+def _kernel_intervals(prof):
+    """(name, start_us, end_us) of every device event of a profile that is
+    device work: kernels, copies and fills, not the device side of a
+    ``record_function`` range."""
+    from torch.autograd import DeviceType
+
+    return [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name != _SPAN]
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted((s, e) for _, s, e in intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_cell(scan_mode: str, streams: int, block: int, blocks: int) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import rodio_tpu_torch as rtt
+
+    node, st = rtt.make_flagship(streams, seconds=4.0, scan_mode=scan_mode,
+                                 device="cuda", max_block=block)
+    st, _, _ = rtt.render_blocks(node, st, 2, block)  # warm-up
+    torch.cuda.synchronize()
+    walls, hosts = [], []
+    for _ in range(3):
+        st = node.init_state()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        st, _, _ = rtt.render_blocks(node, st, blocks, block)
+        t1 = time.perf_counter()
+        e.record()
+        torch.cuda.synchronize()
+        walls.append(s.elapsed_time(e) / blocks)
+        hosts.append((t1 - t0) * 1e3 / blocks)
+    st = node.init_state()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(_SPAN):
+            st, _, _ = rtt.render_blocks(node, st, blocks, block)
+            torch.cuda.synchronize()
+    span = [ev for ev in prof.events()
+            if ev.name == _SPAN and ev.device_type == DeviceType.CPU][0]
+    span_us = span.time_range.end - span.time_range.start
+    kern = _kernel_intervals(prof)
+    if not kern:
+        raise RuntimeError("the profile holds no device events")
+    per_name: dict = {}
+    for name, s, e in kern:
+        per_name[name] = per_name.get(name, 0.0) + (e - s) / 1e3 / blocks
+    busy_us = _union_us(kern)
+    return {
+        "wall_ms": walls,
+        "host_enqueue_ms": hosts,
+        "kernels": dict(sorted(per_name.items(), key=lambda kv: -kv[1])),
+        "device_busy_ms": busy_us / 1e3 / blocks,
+        "span_ms": span_us / 1e3 / blocks,
+        "idle_share": 1.0 - busy_us / span_us,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--streams", type=int, default=512)
+    ap.add_argument("--block", type=int, default=12800)
+    ap.add_argument("--blocks", type=int, default=12)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    res = {"device": smi, "streams": args.streams, "block": args.block,
+           "blocks": args.blocks}
+    for cell, mode in (("fused", "fused"), ("unfused", "auto")):
+        res[cell] = profile_cell(mode, args.streams, args.block, args.blocks)
+        torch.cuda.empty_cache()
+    text = json.dumps(res, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
+False (decided inside the fixture, never at import). On a GPU host:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Bounds: K4 bit-equal (same op order, every op rounded alone); K3 bit-equal
+to the same blocked order (1e-6 allowed); K1 1e-6 (only the mix's
+summation order differs), its biquad carries bit-equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from rodio_tpu_torch import make_flagship, render_blocks
+from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
+from rodio_tpu_torch.effects.blt import blt_coefficients
+from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block
+from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def _f32(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("L,T", [(5, 1), (5, 2), (64, 300), (1024, 1000)])
+def test_k4_biquad_matches_plain(dev, L, T):
+    rng = np.random.default_rng(L * 7 + T)
+    x = _f32(rng.standard_normal((L, T)) * 0.3, dev)
+    coef = _f32(blt_coefficients("high_pass", 48000, 300.0, 0.8).as_tuple(), dev)
+    st = tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
+    before = cuda_scan.launches
+    yk, sk = cuda_scan.biquad_df1(x, coef, st)
+    yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
+    torch.cuda.synchronize()
+    assert cuda_scan.launches == before + 1
+    assert torch.equal(yk, yp)
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (12800, 128)])
+def test_k3_limiter_matches_plain(dev, T, P):
+    rng = np.random.default_rng(T + P)
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32)),
+                LimitSettings.mastering())
+    kw = dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
+              knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
+    x = _f32(rng.standard_normal((2, T)) * 0.8, dev)
+    i0, p0 = _f32([0.3, 1.2], dev), _f32([0.6, 0.1], dev)
+    yk, ck = limiter_block.limiter_master(x, i0, p0, **kw)
+    yp, cp = limiter_block.limiter_master_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (yk - yp).abs().max().item() <= 1e-6
+    for a, b in zip(ck, cp):
+        assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("S,C,n,o0,F", [
+    (3, 2, 640, 0, 5000), (8, 2, 320, 480, 5000), (5, 1, 640, 160, 700),
+    (512, 2, 1280, 160, 4000),
+])
+def test_k1_fused_matches_plain(dev, S, C, n, o0, F):
+    """F small enough in one case that the reads run past the PCM (zero)."""
+    rng = np.random.default_rng(S * 100 + n)
+    L = S * C
+    fr, to = 147, 160
+    pcm = _f32(rng.standard_normal((F, L)) * 0.1, dev)
+    left, phase = output_positions(o0, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    kw = dict(
+              gains=_f32(rng.uniform(0.1, 1.0, L), dev),
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), channels=C)
+    mk, bk = fused.fused_resample_biquad_mix(pcm, left, wts, **kw)
+    mp, bp = fused.fused_resample_biquad_mix_plain(pcm, left, wts, **kw)
+    torch.cuda.synchronize()
+    assert (mk - mp).abs().max().item() <= 1e-6
+    assert torch.equal(bk, bp)
+
+
+def test_flagship_on_card_matches_cpu(dev):
+    """The fused slice and the unfused chain on the card against the same
+    graphs on the CPU (plain versions), 3 blocks of 640."""
+    for mode, bound in (("fused", 1e-6), ("auto", 1e-6)):
+        node_g, st_g = make_flagship(8, seconds=0.5, scan_mode=mode, device=dev)
+        node_c, st_c = make_flagship(8, seconds=0.5, scan_mode=mode)
+        before = (fused.launches, limiter_block.launches, cuda_scan.launches)
+        _, og, vg = render_blocks(node_g, st_g, 3, 640)
+        _, oc, vc = render_blocks(node_c, st_c, 3, 640)
+        after = (fused.launches, limiter_block.launches, cuda_scan.launches)
+        assert torch.equal(vg.cpu(), vc)
+        # the card's limiter is the blocked order, the CPU's the sequential
+        assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= bound + 4e-6
+        k1 = 3 if mode == "fused" else 0
+        assert after == (before[0] + k1, before[1] + 3, before[2] + 3 - k1)
+
+
+def test_sequential_limit_on_card_raises_k5(dev):
+    node, st = make_flagship(4, seconds=0.2, scan_mode="exact", device=dev)
+    with pytest.raises(NotImplementedError, match="K5"):
+        node.emit(st, 640)
+
+
+def test_emit_never_waits_for_the_card(dev):
+    """A render of the fused slice and of the unfused chain makes no
+    host-device synchronisation (set_sync_debug_mode raises on one)."""
+    for mode in ("fused", "auto"):
+        node, st = make_flagship(8, seconds=0.5, scan_mode=mode, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, out, valids = render_blocks(node, st, 3, 640)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert out.shape == (2, 1920)

@@ -1,0 +1,200 @@
+"""The plain versions of the port's kernels against the JAX functions they
+replace, run as the JAX package's own tests run them on the CPU (Pallas in
+interpret mode). Inputs are numpy arrays from fixed seeds fed to both.
+
+Bounds and why:
+- K4 (biquad): 1e-6. The port rounds each mul and add alone; XLA:CPU may
+  contract a mul-add into an FMA, ~1 ulp per step, decaying through the
+  filter's memory.
+- K3 (blocked limiter): 1e-6 against the same blocked order, 4e-6 against
+  the sequential JAX Limit (reassociated envelopes; ROADMAP's bound). The
+  envelope carries are in dB (~10), so they are held to 1e-6 relative.
+- K1 (fused pipeline): 1e-6 against the JAX FusedWidePipeline (another lerp
+  and mix summation order, gains folded into the PCM vs applied after the
+  lerp, the JAX kernel's look-ahead biquad).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rodio_tpu.effects.limit import Limit as JLimit
+from rodio_tpu.effects.limit import LimitSettings as JLimitSettings
+from rodio_tpu.flagship import FusedWidePipeline as JFused
+from rodio_tpu.ops.limiter_block import limiter_master_pallas
+from rodio_tpu.ops.pallas_scan import biquad_df1_pallas
+from rodio_tpu.ops.scan import biquad_df1 as j_biquad
+from rodio_tpu.sources.generators import SamplesBuffer as JBuffer
+from rodio_tpu_torch import resolve_device
+from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
+from rodio_tpu_torch.effects.blt import blt_coefficients
+from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+from rodio_tpu_torch.flagship import FusedWidePipeline
+from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block
+from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+@pytest.mark.parametrize("L,T", [(16, 640), (7, 1), (7, 2), (1024, 96)])
+def test_k4_plain_matches_pallas_interpret(L, T):
+    rng = np.random.default_rng(L + T)
+    x = (rng.standard_normal((L, T)) * 0.3).astype(np.float32)
+    st = [(rng.standard_normal(L) * 0.1).astype(np.float32) for _ in range(4)]
+    co = blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple()
+    yj, sj = biquad_df1_pallas(jnp.asarray(x), co, tuple(map(jnp.asarray, st)),
+                               interpret=True)
+    ye, se = j_biquad(jnp.asarray(x), co, tuple(map(jnp.asarray, st)))
+    yt, stt = cuda_scan.biquad_df1(_t(x), _t(co), tuple(map(_t, st)))
+    # at T < 2 the Pallas wrapper returns the kernel's carries, which have
+    # run on through the zero padding of its time tile (ROADMAP F5); the
+    # port keeps the sequential scan's carries there
+    refs = ((yj, sj), (ye, se)) if T >= 2 else ((yj, se), (ye, se))
+    for ref, ref_st in refs:
+        np.testing.assert_allclose(yt.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+        for a, b in zip(stt, ref_st):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
+
+
+def _limiter_kw(settings, rate=48000):
+    lim = Limit(SamplesBuffer(2, rate, np.zeros((2, 1), np.float32)), settings)
+    return dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
+                knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8)
+
+
+@pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (1280, 128), (64, 8)])
+@pytest.mark.parametrize("preset", ["default", "mastering", "live_performance"])
+def test_k3_plain_matches_pallas_interpret(T, P, preset):
+    rng = np.random.default_rng(T * P)
+    x = (rng.standard_normal((2, T)) * 0.8).astype(np.float32)
+    i0 = np.array([0.4, 1.5], np.float32)
+    p0 = np.array([0.9, 0.2], np.float32)
+    kw = _limiter_kw(getattr(LimitSettings, preset)())
+    yj, (ij, pj) = limiter_master_pallas(
+        jnp.asarray(x), jnp.asarray(i0), jnp.asarray(p0), P=P, interpret=True, **kw)
+    yt, (it, pt) = limiter_block.limiter_master(_t(x), _t(i0), _t(p0), P=P, **kw)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-6, rtol=0)
+    # the carries are envelopes in dB (~10 here): a few f32 ulp
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-6, atol=1e-6)
+
+
+def test_k3_plain_matches_sequential_jax_limit_over_blocks():
+    """The blocked plain version, block after block with its carries, against
+    the JAX package's sequential Limit (mode="exact") on the same input."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 5 * 640)) * 0.9).astype(np.float32)
+    jnode = JLimit(JBuffer(2, 48000, x), JLimitSettings(), mode="exact")
+    js = jnode.init_state()
+    jemit = jax.jit(lambda s: jnode.emit(s, 640))
+    kw = _limiter_kw(LimitSettings())
+    integ = peak = torch.zeros(2)
+    for b in range(5):
+        js, yj, _ = jemit(js)
+        yt, (integ, peak) = limiter_block.limiter_master(
+            _t(x[:, b * 640:(b + 1) * 640]), integ, peak, P=128, **kw)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=4e-6, rtol=0)
+    # envelope carries in dB (~10): the blocked-vs-sequential class, relative
+    np.testing.assert_allclose(integ.numpy(), np.asarray(js["integ"]), rtol=4e-6)
+    np.testing.assert_allclose(peak.numpy(), np.asarray(js["peak"]), rtol=4e-6)
+
+
+def _fused_pair(S, frames, seed, gains=None):
+    rng = np.random.default_rng(seed)
+    wide = (rng.standard_normal((S * 2, frames)) * 0.1).astype(np.float32)
+    if gains is None:
+        gains = (rng.uniform(0.5, 1.5, S) / S).astype(np.float32)
+    jn = JFused(JBuffer(S * 2, 44100, wide), 48000, gains, S, "low_pass", 2000.0, 0.5)
+    tn = FusedWidePipeline(SamplesBuffer(S * 2, 44100, wide), 48000, gains, S,
+                           "low_pass", 2000.0, 0.5)
+    return jn, tn
+
+
+@pytest.mark.parametrize("S,frames,blocks", [(8, 44100, 5), (4, 13230, 25)])
+def test_k1_plain_matches_jax_fused_interpret(S, frames, blocks):
+    """5 blocks of 640 mid-stream, and (S=4, 0.3 s) blocks past the drain."""
+    jn, tn = _fused_pair(S, frames, seed=S)
+    js, ts = jn.init_state(), tn.init_state()
+    jemit = jax.jit(lambda s: jn.emit(s, 640))
+    for b in range(blocks):
+        js, oj, vj = jemit(js)
+        ts, ot, vt = tn.emit(ts, 640)
+        assert int(vt) == int(vj), b
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-6, rtol=0,
+                                   err_msg=f"block {b}")
+    for a, b in zip(ts["bq"], js["bq"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[: S * 2], atol=1e-6)
+
+
+@pytest.mark.parametrize("o0,n", [(0, 640), (37, 640), (803, 333),
+                                  (10**6 + 11, 1), (160 * 80, 12800)])
+def test_k1_taps_match_output_positions(o0, n):
+    """K1's cached rows and weights of a block equal output_positions at
+    that block's o0 and the lerp weights of its phases, exactly."""
+    _, tn = _fused_pair(2, 4410, seed=3)
+    for _ in range(2):  # built, then taken from the cache
+        left, wts = tn._taps(o0, n)
+        want_left, phase = output_positions(o0, n, tn.from_, tn.to, "cpu")
+        assert torch.equal(left, want_left)
+        w0, w1 = lerp_weights(tn.from_, tn.to)
+        np.testing.assert_array_equal(wts.numpy(), np.stack([w0, w1], 1)[phase.numpy()])
+
+
+def test_k1_plain_block_size_invariance():
+    """Blocks of 320 and of 640 (and an odd 733, which K1 allows) give the
+    same samples: the kernel state carries across blocks exactly."""
+    _, tn = _fused_pair(4, 22050, seed=9)
+
+    def run(T, nb):
+        s = tn.init_state()
+        outs = []
+        for _ in range(nb):
+            s, o, _ = tn.emit(s, T)
+            outs.append(o)
+        return torch.cat(outs, dim=1).numpy()
+
+    a, b, c = run(320, 6), run(640, 3), run(733, 3)
+    np.testing.assert_allclose(a, b, atol=1e-7, rtol=0)
+    np.testing.assert_allclose(c[:, :1920], b, atol=1e-7, rtol=0)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    rng = np.random.default_rng(3)
+    before = (cuda_scan.launches, limiter_block.launches, fused.launches)
+    co = _t(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple())
+    z = torch.zeros(8)
+    cuda_scan.biquad_df1(_t(rng.standard_normal((8, 64))), co, (z, z, z, z))
+    limiter_block.limiter_master(_t(rng.standard_normal((2, 64))), torch.zeros(2),
+                                 torch.zeros(2), P=8, **_limiter_kw(LimitSettings()))
+    _, tn = _fused_pair(4, 4410, seed=1)
+    tn.emit(tn.init_state(), 640)
+    assert (cuda_scan.launches, limiter_block.launches, fused.launches) == before
+
+
+def test_resolve_device_cuda_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        SamplesBuffer(2, 44100, np.zeros((2, 10), np.float32), device="cuda")
+    assert resolve_device(None) == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError):
+        cuda_scan.biquad_df1(x, torch.zeros(5, device="meta"),
+                             tuple(torch.zeros(2, device="meta") for _ in range(4)))
+    with pytest.raises(ValueError):
+        limiter_block.limiter_master(x, x[:, 0], x[:, 0], P=8,
+                                     **_limiter_kw(LimitSettings()))
+    with pytest.raises(ValueError):
+        limiter_block.limiter_master_plain(torch.zeros((2, 60)), torch.zeros(2),
+                                           torch.zeros(2), P=8,
+                                           **_limiter_kw(LimitSettings()))
