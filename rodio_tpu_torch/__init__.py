@@ -11,16 +11,19 @@ Layers (the counterparts of rodio_tpu's modules of the same names):
 - :mod:`rodio_tpu_torch.core`        — sample model, precise math, Node
 - :mod:`rodio_tpu_torch.sources`     — SamplesBuffer
 - :mod:`rodio_tpu_torch.conversions` — the rational lerp resampler
-- :mod:`rodio_tpu_torch.effects`     — BltFilter, Amplify, Limit
+- :mod:`rodio_tpu_torch.effects`     — BltFilter, Amplify, Limit,
+  AutomaticGainControl
 - :mod:`rodio_tpu_torch.parallel`    — WideMixer
 - :mod:`rodio_tpu_torch.ops`         — plain scans, the CUDA kernels
-  (K1 fused, K3 limiter, K4 biquad) and their build
+  (K1 fused, K2 fused AGC, K3 limiter, K4 biquad, K6 AGC loop, K7
+  first-order scan, K8 blocked max-affine) and their build
 - :mod:`rodio_tpu_torch.graph`       — render / render_blocks / record
 - :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship
 - :mod:`rodio_tpu_torch.convert`     — carry a JAX render's state across
 """
 
 from .core.types import StreamSpec
+from .effects import AgcSettings, AutomaticGainControl
 from .flagship import FusedWidePipeline, make_flagship
 from .graph.render import record, render, render_blocks
 from .utils.device import resolve_device
@@ -28,6 +31,8 @@ from .utils.device import resolve_device
 __version__ = "0.1.0"
 
 __all__ = [
+    "AgcSettings",
+    "AutomaticGainControl",
     "FusedWidePipeline",
     "StreamSpec",
     "make_flagship",

@@ -3,10 +3,17 @@
 :func:`state_from_jax` takes a port node and the state of the JAX node that
 mirrors it, as numpy arrays (``jax.device_get(state)``), and returns the
 port's state: biquad coefficients and carries, per-lane gains, the limiter
-carries, the output offset, the drain flag and the input position. A
-render can then start in one package and continue in the other. The PCM
-itself is not copied: the port node holds its own, made from the same
-numpy input.
+carries, the AGC's carries, window and knobs, the output offset, the drain
+flag and the input position. A render can then start in one package and
+continue in the other. The PCM itself is not copied: the port node holds
+its own, made from the same numpy input.
+
+The JAX fused AGC pipeline keeps its lanes channel-major (lane c*512 + s,
+rodio_tpu/flagship.py:414-420), packs its per-stream carries as [12, 128]
+(rows 0-3 rms_sum, 4-7 peak, 8-11 gain, stream s at (s // 128, s % 128))
+and its square history as a ring of grid steps [slots, m*to, 8, 128] (slot =
+step mod slots); the port's lanes are 2s + c, its carries [3, S] and its
+ring [4096, lanes] by frame mod 4096.
 """
 from __future__ import annotations
 
@@ -15,12 +22,16 @@ import torch
 
 from .conversions.resample import Resample
 from .core.node import Node, State
+from .effects.agc import AutomaticGainControl
 from .effects.basic import Amplify
 from .effects.blt import BltFilter
 from .effects.limit import Limit
 from .flagship import FusedWidePipeline
+from .ops.fused import AGC_RING_FRAMES
 from .parallel.batch import WideMixer
 from .sources.generators import SamplesBuffer
+
+_JAX_LANES = 1024  # the JAX fused kernel's lane count
 
 
 def _t(value, node: Node) -> torch.Tensor:
@@ -54,18 +65,28 @@ def state_from_jax(node: Node, jstate) -> State:
         return {"in": state_from_jax(node.input, jstate["in"]),
                 "out_o": int(jstate["out_o"]),
                 "drained": _t(jstate["drained"], node)}
+    if isinstance(node, AutomaticGainControl):
+        keys = ("peak", "gain", "rms_sum", "window", "widx", "enabled", "att",
+                "rel")
+        return {"in": state_from_jax(node.input, jstate["in"]),
+                **{k: _t(jstate[k], node) for k in keys},
+                "consts": node.consts()}
     if isinstance(node, FusedWidePipeline):
         L = node._wide
         st = node.init_state()  # the port's own PCM layout and gains
+        # the JAX kernel pads its lanes to 1024, channel-major under AGC
+        lanes = _channel_major(L) if node.with_agc else np.arange(L)
         st.update(
             {"in": state_from_jax(node.input, jstate["in"]),
              "out_o": int(jstate["out_o"]),
              "drained": _t(jstate["drained"], node),
-             # the JAX kernel pads its lanes to 1024
-             "bq": _t(np.stack([np.asarray(b)[:L] for b in jstate["bq"]]), node),
+             "bq": _t(np.stack([np.asarray(b)[lanes] for b in jstate["bq"]]),
+                      node),
              "coeffs": _t(jstate["coeffs"], node)})
         if "gv" in jstate:  # gain_post layout: the gains ride the state
             st["gains"] = _t(np.asarray(jstate["gv"]).reshape(-1)[:L], node)
+        if node.with_agc:
+            st.update(_fused_agc_from_jax(node, jstate, st["ring"].dtype))
         return st
     if isinstance(node, SamplesBuffer):
         st = {"pos": _t(jstate["pos"], node), "end": _t(jstate["end"], node)}
@@ -73,3 +94,26 @@ def state_from_jax(node: Node, jstate) -> State:
             st["data"] = node._data
         return st
     raise NotImplementedError(f"no state conversion for {type(node).__name__}")
+
+
+def _channel_major(L: int) -> np.ndarray:
+    """The JAX fused AGC lane (c*512 + s) of each port lane 2s + c."""
+    lane = np.arange(L)
+    return (lane % 2) * (_JAX_LANES // 2) + lane // 2
+
+
+def _fused_agc_from_jax(node: FusedWidePipeline, jstate, ring_dtype) -> State:
+    S, L, R = node.n_streams, node._wide, AGC_RING_FRAMES
+    agc = np.asarray(jstate["agc"]).reshape(3, _JAX_LANES // 2)[:, :S]
+    jring = np.asarray(jstate["ring"]).astype(np.float32)
+    slots, mto = jring.shape[:2]
+    jring = jring.reshape(slots, mto, _JAX_LANES)[:, :, _channel_major(L)]
+    # frame f of the last R holds its square at slot (f // mto) % slots,
+    # row f % mto; frames before the stream's start are zero
+    o0 = int(jstate["out_o"])
+    f = np.arange(o0 - R, o0)
+    ring = np.zeros((R, L), np.float32)
+    ring[f % R] = np.where((f >= 0)[:, None], jring[(f // mto) % slots, f % mto], 0.0)
+    return {"agc": _t(agc, node),
+            "ring": _t(ring, node).to(ring_dtype),
+            "agc_par": _t(jstate["agc_par"], node)}

@@ -68,6 +68,11 @@ class Node:
 
         return Limit(self, settings or LimitSettings())
 
+    def automatic_gain_control(self, settings=None) -> "Node":
+        from ..effects.agc import AgcSettings, AutomaticGainControl
+
+        return AutomaticGainControl(self, settings or AgcSettings())
+
     def render(self, *, max_frames: Optional[int] = None,
                block_frames: int = 4096) -> np.ndarray:
         """Render to a [channels, frames] numpy array (pull to exhaustion)."""

@@ -1,0 +1,85 @@
+// Device-side AGC arithmetic shared by K2, K6 and K7
+// (src/source/agc.rs:397-496).
+//
+// Each function keeps the JAX kernels' operation order, each op rounded
+// alone; the plain PyTorch versions (rodio_tpu_torch/ops/cuda_scan.py
+// desired_gain / smooth_gain) write the same ops in the same order. The
+// smoother and the peak detector are loop-carried chains, so they are
+// written for a short dependent path: both candidates of a select are
+// computed before the choice (the same ops on the same values, so the same
+// result), and min / max are one instruction each.
+#pragma once
+
+#include "precise_math.cuh"
+
+namespace rt {
+
+// min and max that propagate NaN, as torch.minimum / torch.maximum do: one
+// FMNMX each (PTX min.NaN / max.NaN, sm_80 and later)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// min(max(v, lo), hi), NaN in v or hi passed on (torch.clamp, then
+// torch.minimum)
+__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
+  return min_nan(max_nan(v, lo), hi);
+}
+
+// 1 / sqrt(x), both correctly rounded: the one rsqrt definition of the port
+// (torch's and CUDA's rsqrtf are approximate to ~2 ulp)
+__device__ __forceinline__ float rsqrt_rn(float x) {
+  return __fdiv_rn(1.0f, __fsqrt_rn(x));
+}
+
+// The AGC's parameters, as the kernels take them (data, not constants)
+struct AgcParams {
+  float att, rel, target, max_gain, floor, inv_window;
+};
+
+__device__ __forceinline__ AgcParams load_agc_params(const float* p) {
+  return AgcParams{p[0], p[1], p[2], p[3], p[4], p[5]};
+}
+
+// desired gain from the running window sum rs and the peak pk:
+// max(min(rg, pg), floor) with rg = target * rsqrt(rs * (1/W)) where
+// rs > 0 (else max_gain) and pg = min(target / pk, max_gain) where pk > 0
+// (else max_gain)
+__device__ __forceinline__ float desired_gain(float rs, float pk,
+                                              const AgcParams& p) {
+  const float rg =
+      rs > 0.0f ? mul(p.target, rsqrt_rn(mul(rs, p.inv_window))) : p.max_gain;
+  const float pg =
+      pk > 0.0f ? min_nan(__fdiv_rn(p.target, pk), p.max_gain) : p.max_gain;
+  return max_nan(min_nan(rg, pg), p.floor);
+}
+
+// the dual-rate gain smoother: speed = att while the desired gain is above
+// the current one, else rel; g = clip(g*speed + des*(1-speed), 0.1, max).
+// Both candidates are clipped before the choice, so the select is the
+// chain's last op.
+__device__ __forceinline__ float smooth_gain(float g, float des, float att,
+                                             float rel, float max_gain) {
+  const float up = clip_nan(add(mul(g, att), mul(des, sub(1.0f, att))), 0.1f,
+                            max_gain);
+  const float down = clip_nan(add(mul(g, rel), mul(des, sub(1.0f, rel))),
+                              0.1f, max_gain);
+  return des > g ? up : down;
+}
+
+// the peak detector's select form (src/source/agc.rs:397-407):
+// coeff = x > peak ? 0 : rel; peak*coeff + x*(1 - coeff)
+__device__ __forceinline__ float peak_select(float peak, float x, float rel) {
+  const float up = add(mul(peak, 0.0f), mul(x, 1.0f));
+  const float down = add(mul(peak, rel), mul(x, sub(1.0f, rel)));
+  return x > peak ? up : down;
+}
+
+}  // namespace rt

@@ -58,16 +58,16 @@ def blt_coefficients(kind: str, sample_rate: int, freq: float,
 class BltFilter(Node):
     """Low-pass / high-pass biquad (Audio-EQ-Cookbook), per-channel state.
 
-    ``mode``: "auto" and "exact" both run the sequential order, which is
-    the order K4 runs: the kernel on a CUDA tensor, the plain scan on a
-    CPU tensor. The associative scan ("assoc") is not ported yet."""
+    ``mode``: "auto", "exact" and "pallas" all run the sequential order,
+    which is the order K4 runs: the kernel on a CUDA tensor, the plain scan
+    on a CPU tensor. The associative scan ("assoc") is not ported yet."""
 
     def __init__(self, input_node: Node, kind: str, freq: float, q: float = 0.5,
                  *, mode: str = "auto"):
         if mode in ("assoc", "parallel"):
             raise NotImplementedError(
                 f"BltFilter mode {mode!r} (the associative scan) is not ported yet")
-        if mode not in ("auto", "exact"):
+        if mode not in ("auto", "exact", "pallas"):
             raise ValueError(f"unknown BltFilter mode {mode!r}")
         self.input = input_node
         self.spec = input_node.spec

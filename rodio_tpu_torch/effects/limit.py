@@ -7,11 +7,13 @@ Per channel: the soft-knee dB gain computer, the max-affine integrator
 samples, so at frame t channel c's gain sees fresh peaks for channels <= c
 and the previous frame's peaks for channels > c; that staleness is kept.
 
-Dispatch (``mode="auto"``): a 1-stream stereo input whose block allows
-P = min(128, n & -n) >= 8 chunks runs K3, the blocked limiter, on a CUDA
-tensor. On a CPU tensor ``"auto"`` runs the sequential envelopes, as the
-JAX package does off the TPU. On a CUDA tensor the sequential envelopes
-are kernel K5, which is not ported yet: such an input raises.
+Dispatch (``mode="auto"`` or ``"pallas"``): a 1-stream stereo input whose
+block allows P = min(128, n & -n) >= 8 chunks runs K3, the blocked
+limiter, on a CUDA tensor. On a CPU tensor ``"auto"`` runs the sequential
+envelopes, as the JAX package does off the TPU, and ``"pallas"`` runs K3's
+plain version (the blocked order), as the JAX node's interpret run does.
+On a CUDA tensor the sequential envelopes are kernel K5, which is not
+ported yet: such an input raises.
 """
 from __future__ import annotations
 
@@ -81,7 +83,7 @@ class Limit(Node):
 
     def __init__(self, input_node: Node, settings: LimitSettings = None,
                  *, mode: str = "auto", streams: int = 1):
-        if mode not in ("auto", "exact"):
+        if mode not in ("auto", "exact", "pallas"):
             raise ValueError(f"Limit mode {mode!r} is not ported")
         settings = settings or LimitSettings()
         self.input = input_node
@@ -113,16 +115,15 @@ class Limit(Node):
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
         P = min(128, n & -n)
-        blocked = (self.mode == "auto" and self.streams == 1
+        blocked = (self.mode in ("auto", "pallas") and self.streams == 1
                    and self.spec.channels == 2 and P >= 8)
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" or (blocked and self.mode == "pallas"):
             if not blocked:
                 raise NotImplementedError(
                     "the sequential limiter envelopes on CUDA are kernel K5 "
                     "(rodio_tpu/ops/pallas_scan.py limiter_env_pallas), not "
-                    "ported yet; use mode='auto' on a 1-stream stereo input "
-                    "with n divisible by 8"
-                )
+                    "ported yet; use mode='auto' or 'pallas' on a 1-stream "
+                    "stereo input with n divisible by 8")
             y, (integ, peak) = limiter_master(
                 x, state["integ"], state["peak"],
                 att=self.attack, rel=self.release, threshold=self.threshold,

@@ -13,6 +13,11 @@ and its parity partner, the unfused chain
 
   SamplesBuffer -> Resample -> BltFilter (K4) -> Amplify -> WideMixer -> Limit
 
+With the AGC on (``with_agc=True``: BASELINE config 5 with the config-2
+AGC stage per stream), the fused node runs K2 (resample + biquad + AGC +
+gain + mix), and the unfused chain gains an AutomaticGainControl (K6 with
+``scan_mode="pallas"``) after the filter.
+
 The JAX package's TPU schedule knobs (``lookahead``, ``subblk``,
 ``firfold``, ``ufir``, ``dma_depth``, ``m``, ``binary_mix``,
 ``inkernel_limit``) have no counterpart here.
@@ -30,15 +35,22 @@ from .conversions.resample import (
     resample_output_frames)
 from .core.node import Node, State, mask_block
 from .core.types import StreamSpec
+from .core.math import duration_to_coefficient
+from .core.types import duration_to_nanos
+from .effects.agc import RMS_WINDOW_SIZE, AgcSettings, AutomaticGainControl
 from .effects.basic import Amplify
 from .effects.blt import BltFilter, blt_coefficients
 from .effects.limit import Limit, LimitSettings
-from .ops.fused import fused_resample_biquad_mix
+from .ops.fused import (
+    AGC_RING_FRAMES, fused_resample_biquad_agc_mix, fused_resample_biquad_mix)
 from .parallel.batch import WideMixer
 from .sources.generators import SamplesBuffer
 from .utils.device import DeviceLike
 
 PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
+#: the JAX package's fused-AGC plans that are TPU schedules of K2
+AGC_REL0_PLANS = ("rel0", "rel0f", "rel0b", "rel0b16", "rel0b32", "rel0b64",
+                  "rel0c", "rel0c8", "rel0c16", "rel0c32")
 
 
 def _content_probe(input_node) -> tuple:
@@ -66,7 +78,8 @@ def _content_probe(input_node) -> tuple:
 
 
 class FusedWidePipeline(Node):
-    """Resample + gain + biquad + stream mix in ONE kernel (K1).
+    """Resample + gain + biquad + stream mix in ONE kernel (K1; K2 with the
+    AGC).
 
     Fuses the flagship's Resample -> BltFilter -> Amplify -> WideMixer
     chain so each block makes one pass over the input PCM. The upstream
@@ -82,15 +95,25 @@ class FusedWidePipeline(Node):
     content probe; ``"i8"``/``"i24"`` on content off their sample grid
     raise. Every value stores the PCM as f32 here (narrower storage is a
     later change).
+
+    ``with_agc=True`` (stereo streams) puts one AGC per stream
+    (``agc_settings``, default ``AgcSettings()``) between the biquad and
+    the mix, and applies the stream gains after it, as the JAX package
+    does. Its state: per-stream carries ``agc`` [3, S] (rms_sum, peak,
+    gain), the square-history ring ``ring`` [4096, lanes] (``agc_ring``
+    "bf16" rounds each square to bf16 before it enters the window sum, the
+    same value leaving it 4096 frames later; "f32" keeps f32), and the
+    parameters ``agc_par`` as data, so :meth:`set_agc_params` rebuilds
+    nothing. ``agc_plan`` "auto"/"serial" is the serial plan; the rel0
+    plans and ``agc_group`` > 0 (K2's group branch) are not ported.
     """
 
     def __init__(self, input_node: Node, to_rate: int, gains, n_streams: int,
                  kind: str = "low_pass", freq: float = 2000.0, q: float = 0.5,
-                 *, precision: str = "auto", with_agc: bool = False):
-        if with_agc:
-            raise NotImplementedError(
-                "the fused AGC pipeline is kernel K2 (rodio_tpu/ops/fused.py "
-                "fused_resample_biquad_agc_mix), not ported yet")
+                 *, precision: str = "auto", with_agc: bool = False,
+                 agc_settings: Optional[AgcSettings] = None,
+                 agc_ring: str = "bf16", agc_group: int = 0,
+                 agc_plan: str = "auto"):
         if not (getattr(input_node, "RANDOM_ACCESS", False)
                 and hasattr(input_node, "slice_frames")):
             raise TypeError("FusedWidePipeline needs a sliceable random-access source")
@@ -122,6 +145,38 @@ class FusedWidePipeline(Node):
         self._taps_cache = {}
         self._wide = wide
         self._s0 = getattr(input_node, "_start", 0)
+        self.with_agc = bool(with_agc)
+        if self.with_agc:
+            self._init_agc(C, to_rate, agc_settings, agc_ring, agc_group,
+                           agc_plan)
+
+    def _init_agc(self, C, to_rate, settings, ring, group, plan):
+        if C != 2:
+            raise ValueError("the fused AGC supports stereo streams")
+        if ring not in ("bf16", "f32"):
+            raise ValueError(f"agc_ring must be 'bf16' or 'f32', got {ring!r}")
+        if group:
+            raise NotImplementedError(
+                "agc_group > 0 is K2's group branch (rodio_tpu/ops/fused.py:"
+                "652-764), not ported yet (ROADMAP queue 2)")
+        if plan in AGC_REL0_PLANS:
+            raise NotImplementedError(
+                f"agc_plan={plan!r} is one of K2's rel0 plans (TPU "
+                "schedules), not ported yet (ROADMAP queue 2)")
+        if plan not in ("auto", "serial"):
+            raise ValueError(f"unknown agc_plan {plan!r}")
+        st = settings or AgcSettings()
+
+        def coeff(seconds):
+            nanos = min(duration_to_nanos(seconds), 10_000_000_000)
+            return float(duration_to_coefficient(0, to_rate, nanos=nanos))
+
+        self._agc_params = (
+            coeff(st.attack_time), coeff(st.release_time),
+            float(np.float32(st.target_level)),
+            float(np.float32(st.absolute_max_gain)), 0.0,
+            float(np.float32(1.0) / np.float32(RMS_WINDOW_SIZE)))
+        self._agc_ring = ring
 
     def _resolve_precision(self, precision: str) -> str:
         if precision not in PRECISIONS:
@@ -165,7 +220,47 @@ class FusedWidePipeline(Node):
             # them as data, so a retune rebuilds nothing
             "coeffs": torch.tensor(self.coeffs, dtype=torch.float32, device=dev),
             "gains": torch.from_numpy(self._gains.copy()).to(dev),
+        } | (self._agc_state() if self.with_agc else {})
+
+    def _agc_state(self) -> State:
+        dev = self.device
+        S = self.n_streams
+        agc = torch.zeros((3, S), dtype=torch.float32, device=dev)
+        agc[2] = 1.0  # rows: rms_sum, peak, gain
+        rdt = torch.bfloat16 if self._agc_ring == "bf16" else torch.float32
+        return {
+            "agc": agc,
+            "ring": torch.zeros((AGC_RING_FRAMES, self._wide), dtype=rdt,
+                                device=dev),
+            "agc_par": torch.tensor(self._agc_params, dtype=torch.float32,
+                                    device=dev),
         }
+
+    def set_agc_params(self, state: State, *, attack=None, release=None,
+                       target_level=None, absolute_max_gain=None) -> State:
+        """Live AGC knobs (agc.rs set_attack_time / set_release_time
+        semantics), applied from the next block: a state update, read back
+        to the host once here (not in ``emit``)."""
+        if not self.with_agc:
+            raise ValueError("set_agc_params needs with_agc=True")
+        att, rel, tgt, mg, fl, invw = state["agc_par"].tolist()
+        rate = self.spec.sample_rate
+
+        def coeff(seconds):
+            nanos = min(duration_to_nanos(seconds), 10_000_000_000)
+            return float(duration_to_coefficient(0, rate, nanos=nanos))
+
+        if attack is not None:
+            att = coeff(attack)
+        if release is not None:
+            rel = coeff(release)
+        if target_level is not None:
+            tgt = float(np.float32(target_level))
+        if absolute_max_gain is not None:
+            mg = float(np.float32(absolute_max_gain))
+        return {**state, "agc_par": torch.tensor(
+            (att, rel, tgt, mg, fl, invw), dtype=torch.float32,
+            device=self.device)}
 
     def retune(self, state: State, kind: Optional[str] = None,
                freq: Optional[float] = None, q: Optional[float] = None) -> State:
@@ -196,14 +291,24 @@ class FusedWidePipeline(Node):
     def emit(self, state: State, n: int):
         o0 = state["out_o"]
         left, wts = self._taps(o0, n)
-        mix, bq = fused_resample_biquad_mix(
-            state["pcm"], left, wts, gains=state["gains"],
-            coeffs=state["coeffs"], bq=state["bq"], channels=self.spec.channels)
+        extra = {}
+        if self.with_agc:
+            mix, bq, agc, ring = fused_resample_biquad_agc_mix(
+                state["pcm"], left, wts, gains=state["gains"],
+                coeffs=state["coeffs"], bq=state["bq"], agc=state["agc"],
+                agc_params=state["agc_par"], ring=state["ring"],
+                ring_row=o0 % AGC_RING_FRAMES)
+            extra = {"agc": agc, "ring": ring}
+        else:
+            mix, bq = fused_resample_biquad_mix(
+                state["pcm"], left, wts, gains=state["gains"],
+                coeffs=state["coeffs"], bq=state["bq"],
+                channels=self.spec.channels)
         # validity + drain bookkeeping (conversions/resample.py)
         _, in_end = self.input.access_window(state["in"])
         _, _, valid, drained = drain_bookkeeping(left, in_end, state["drained"], n)
-        return ({**state, "out_o": o0 + n, "drained": drained, "bq": bq},
-                mask_block(mix, valid), valid)
+        return ({**state, "out_o": o0 + n, "drained": drained, "bq": bq,
+                 **extra}, mask_block(mix, valid), valid)
 
 
 def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
@@ -212,17 +317,18 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
                   with_agc: bool = False,
                   source_pcm: Optional[np.ndarray] = None,
                   max_block: int = 8192, precision: str = "auto",
-                  device: DeviceLike = None):
+                  agc_ring: str = "bf16", agc_group: int = 0,
+                  agc_plan: str = "auto", device: DeviceLike = None):
     """Build (master_node, state) for the flagship pipeline.
 
     The PCM and gains come from numpy with ``seed``, exactly as the JAX
     package makes them, so both packages see identical input. ``scan_mode``
-    "fused" builds FusedWidePipeline -> Limit; "exact" and "auto" build the
-    unfused chain (on a CUDA device, "auto" runs K4 and K3).
+    "fused" builds FusedWidePipeline -> Limit (K1, or K2 with the AGC, then
+    K3); "exact", "auto" and "pallas" build the unfused chain (on a CUDA
+    device "auto" and "pallas" run K4 and K3, and with the AGC "pallas"
+    runs K6; the AGC's "auto" mode is not ported and raises). ``agc_ring``,
+    ``agc_group`` and ``agc_plan`` are the fused AGC's knobs.
     """
-    if with_agc:
-        raise NotImplementedError(
-            "with_agc: the AGC stage (fused: kernel K2) is not ported yet")
     rng = np.random.default_rng(seed)
     frames = int(seconds * in_rate)
     if source_pcm is None:
@@ -255,13 +361,18 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
     )
     if scan_mode == "fused":
         fused = FusedWidePipeline(chain, out_rate, gains, n_streams,
-                                  "low_pass", 2000.0, 0.5, precision=precision)
+                                  "low_pass", 2000.0, 0.5, precision=precision,
+                                  with_agc=with_agc, agc_ring=agc_ring,
+                                  agc_group=agc_group, agc_plan=agc_plan)
         master = Limit(fused, LimitSettings(), mode="auto")
         return master, master.init_state()
-    if scan_mode not in ("exact", "auto"):
+    if scan_mode not in ("exact", "auto", "pallas"):
         raise NotImplementedError(f"scan_mode {scan_mode!r} is not ported")
     chain = Resample(chain, out_rate)
     chain = BltFilter(chain, "low_pass", 2000.0, 0.5, mode=scan_mode)
+    if with_agc:
+        chain = AutomaticGainControl(chain, AgcSettings(), mode=scan_mode,
+                                     streams=n_streams)
     chain = Amplify(chain, np.repeat(gains, channels))
     chain = WideMixer(chain, n_streams)
     master = Limit(chain, LimitSettings(), mode=scan_mode)

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-``rodio_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at first
+``rodio_tpu_torch/csrc/*.cu`` compile with ``nvcc``, one process per source
+started together, and link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first
 use, into ``build/rodio_tpu_torch/`` at the root of the checkout, and again
 whenever a source or a flag changes (the library's name carries their hash).
 
@@ -32,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "rodio_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xptxas", "-v",
 )
@@ -55,6 +56,19 @@ SIGNATURES = {
     # C, stream
     "rt_fused_resample_biquad_mix": (P, LL, I, P, P, P, P, P, P, P, P, I, I,
                                      P),
+    # xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, stream
+    "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
+    # a, b, c, init, params, y, L, T, op, stream
+    "rt_first_order": (P, P, P, P, P, P, I, LL, I, P),
+    # x, v0, power table, y, scratch, rows, M, P, stream
+    "rt_blocked_max_affine": (P, P, P, P, P, I, I, I, P),
+    # pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in, agc_out,
+    # params, ring, ring_bf16, ring_row, partial, out, n, stream
+    "rt_fused_resample_biquad_agc_mix": (P, LL, I, P, P, P, P, P, P, P, P, P,
+                                         P, I, I, P, P, I, P),
+    # no arguments; returns K2's lanes per block (its partials' row count
+    # is ceil(L / that)), not an error code
+    "rt_fused_agc_block_lanes": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -85,26 +99,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"librodio_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first that fails. Returns
+    their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library of the same sources exists."""
+    """Compile the kernels unless a library of the same sources exists: one
+    nvcc per source, all started together, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print(log, flush=True)
     os.replace(tmp, out)
     return out
 

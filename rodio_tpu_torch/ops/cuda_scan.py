@@ -1,9 +1,22 @@
-"""K4: the standalone biquad kernel (rodio_tpu/ops/pallas_scan.py counterpart).
+"""K4, K6 and K7: the per-lane serial scans (rodio_tpu/ops/pallas_scan.py).
 
-:func:`biquad_df1` runs ``csrc/biquad.cu`` on a CUDA tensor and its plain
-version, the sequential scan of :mod:`rodio_tpu_torch.ops.scan`, on a CPU
-tensor. Both round every mul and add alone in the same order, so on the
-card they agree bit for bit. ``launches`` counts the kernel's launches.
+- :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad.
+- :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop.
+- :func:`first_order` (K7, ``csrc/first_order.cu``): a first-order
+  recurrence, ``linear``, ``max_affine`` or ``agc_gain`` (the AGC's gain
+  smoother).
+
+Each wrapper runs its kernel on a CUDA tensor and its plain version, a
+sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
+add alone in the same order, so on the card they agree bit for bit.
+``launches``, ``agc_launches`` and ``first_order_launches`` count each
+kernel's launches.
+
+:func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
+the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
+of K2, K6 and K7 and by the AGC node. The one rsqrt of the port is
+``1 / sqrt(x)``, both correctly rounded (``torch.rsqrt`` and CUDA's
+``rsqrtf`` are approximate).
 """
 from __future__ import annotations
 
@@ -11,9 +24,16 @@ import torch
 
 from . import _build
 from .scan import biquad_df1 as _biquad_scan
+from .scan import linear_scan, max_affine_scan
 
-#: kernel launches made by :func:`biquad_df1`
+#: kernel launches made by :func:`biquad_df1` (K4)
 launches = 0
+#: kernel launches made by :func:`agc` (K6)
+agc_launches = 0
+#: kernel launches made by :func:`first_order` (K7)
+first_order_launches = 0
+
+FIRST_ORDER_OPS = ("linear", "max_affine", "agc_gain")
 
 
 def biquad_df1_plain(x, coeffs, state):
@@ -49,3 +69,155 @@ def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
     global launches
     launches += 1
     return y, (out[0], out[1], out[2], out[3])
+
+
+def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x), each correctly rounded (the kernels' ``rsqrt_rn``)."""
+    return 1.0 / torch.sqrt(x)
+
+
+def desired_gain(rs, pk, target, max_gain, floor, inv_window):
+    """The AGC's desired gain from the running window sum ``rs`` and the
+    peak ``pk`` (src/source/agc.rs:450-460, in the TPU kernels' form):
+    ``max(min(rg, pg), floor)``, ``rg = target * rsqrt(rs * inv_window)``
+    where rs > 0 (else max_gain), ``pg = min(target / pk, max_gain)`` where
+    pk > 0 (else max_gain). Scalars are 0-dim f32 tensors."""
+    rg = torch.where(rs > 0.0, target * rsqrt_rn(rs * inv_window), max_gain)
+    pg = torch.where(pk > 0.0, torch.minimum(target / pk, max_gain), max_gain)
+    return torch.maximum(torch.minimum(rg, pg), floor)
+
+
+def smooth_gain(g, des, att, rel, max_gain):
+    """One step of the dual-rate gain smoother (src/source/agc.rs:486-496):
+    ``clip(g*speed + des*(1-speed), 0.1, max_gain)``, speed = att while
+    des > g, else rel."""
+    speed = torch.where(des > g, att, rel)
+    v = g * speed + des * (1.0 - speed)
+    # clamp compares with 0.1 rounded to f32, and passes NaN, as maxn does
+    return torch.minimum(torch.clamp(v, min=0.1), max_gain)
+
+
+def smooth_gains(des, g0, att, rel, max_gain):
+    """The smoother run over des [L, T] from g0 [L]: the gains [L, T]."""
+    g = g0
+    out = []
+    for t in range(des.shape[-1]):
+        g = smooth_gain(g, des[:, t], att, rel, max_gain)
+        out.append(g)
+    return torch.stack(out, dim=-1) if out else torch.empty_like(des)
+
+
+def _scalars(params, n: int, like: torch.Tensor) -> torch.Tensor:
+    """``params`` (a sequence of floats or 0-dim tensors, or a tensor) as
+    an f32 [n] tensor on ``like``'s device."""
+    if isinstance(params, torch.Tensor):
+        p = params.to(dtype=torch.float32, device=like.device).reshape(-1)
+    else:
+        p = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                         device=like.device).reshape(())
+                         for v in params])
+    if p.shape != (n,):
+        raise ValueError(f"expected {n} parameters, got {tuple(p.shape)}")
+    return p
+
+
+def agc_plain(xs, delta, peak0, sum0, gain0, params):
+    """The plain PyTorch version of K6, on any device."""
+    att, rel, target, max_gain, floor, inv_window = _scalars(params, 6, xs)
+    peak, rsum = peak0, sum0
+    zero = torch.zeros_like(peak0)
+    pks, rss = [], []
+    for t in range(xs.shape[-1]):
+        x = xs[:, t]
+        coeff = torch.where(x > peak, zero, rel)
+        peak = peak * coeff + x * (1.0 - coeff)
+        rsum = rsum + delta[:, t]
+        pks.append(peak)
+        rss.append(rsum)
+    if not pks:
+        return torch.empty_like(xs), (peak0, sum0, gain0)
+    des = desired_gain(torch.stack(rss, -1), torch.stack(pks, -1), target,
+                       max_gain, floor, inv_window)
+    g = smooth_gains(des, gain0, att, rel, max_gain)
+    return g, (peak, rsum, g[:, -1])
+
+
+def agc(xs: torch.Tensor, delta: torch.Tensor, peak0: torch.Tensor,
+        sum0: torch.Tensor, gain0: torch.Tensor, params):
+    """The AGC's per-sample loop over xs = |x| [L, M] and delta = sq - old
+    [L, M] from the carries peak0, sum0, gain0 [L]; params = (att, rel,
+    target, max_gain, floor, 1/window), floats, 0-dim tensors or an f32
+    [6] tensor. Returns (gain_seq [L, M], (peak', sum', gain'))."""
+    if xs.device.type == "cpu":
+        return agc_plain(xs, delta, peak0, sum0, gain0, params)
+    if xs.device.type != "cuda":
+        raise ValueError(f"agc: unsupported device {xs.device}")
+    if xs.dim() != 2:
+        raise ValueError(f"agc: xs must be [L, M], got {tuple(xs.shape)}")
+    L, M = xs.shape
+    dev = xs.device
+    xs = _build.f32_arg("xs", xs, dev, (L, M))
+    delta = _build.f32_arg("delta", delta, dev, (L, M))
+    carries = [_build.f32_arg(name, v, dev, (L,)) for name, v in
+               (("peak0", peak0), ("sum0", sum0), ("gain0", gain0))]
+    p = _build.f32_arg("params", _scalars(params, 6, xs), dev, (6,))
+    g = torch.empty_like(xs)
+    out = torch.empty((3, L), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    err = lib.rt_agc(xs.data_ptr(), delta.data_ptr(), p.data_ptr(),
+                     *[c.data_ptr() for c in carries], g.data_ptr(),
+                     out.data_ptr(), L, M, _build.stream_handle(dev))
+    _build.check(err, "rt_agc")
+    global agc_launches
+    agc_launches += 1
+    return g, (out[0], out[1], out[2])
+
+
+def first_order_plain(a, b, init, c=None, *, op: str = "linear", params=()):
+    """The plain PyTorch version of K7, on any device."""
+    if op == "linear":
+        return linear_scan(a, b, init)
+    if op == "max_affine":
+        return max_affine_scan(a, b, c, init)
+    if op == "agc_gain":
+        att, rel, max_gain = _scalars(params, 3, a)
+        return smooth_gains(a, init, att, rel, max_gain)
+    raise ValueError(f"unknown first-order op {op!r}")
+
+
+def first_order(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
+                c: torch.Tensor = None, *, op: str = "linear", params=()):
+    """A first-order recurrence over [L, T] from init [L]:
+
+    - ``linear``:     y = a*y' + b
+    - ``max_affine``: y = max(a, b + c*y')
+    - ``agc_gain``:   the AGC's gain smoother toward a, ``params`` =
+      (att, rel, max_gain) as data (b is not read)
+
+    Returns y [L, T] (the carry is y[:, -1])."""
+    if op not in FIRST_ORDER_OPS:
+        raise ValueError(f"unknown first-order op {op!r}")
+    if a.device.type == "cpu":
+        return first_order_plain(a, b, init, c, op=op, params=params)
+    if a.device.type != "cuda":
+        raise ValueError(f"first_order: unsupported device {a.device}")
+    if a.dim() != 2:
+        raise ValueError(f"first_order: a must be [L, T], got {tuple(a.shape)}")
+    L, T = a.shape
+    dev = a.device
+    a = _build.f32_arg("a", a, dev, (L, T))
+    b = _build.f32_arg("b", b, dev, (L, T)) if op != "agc_gain" else a
+    c = _build.f32_arg("c", c, dev, (L, T)) if op == "max_affine" else a
+    init = _build.f32_arg("init", init, dev, (L,))
+    p = (_build.f32_arg("params", _scalars(params, 3, a), dev, (3,))
+         if op == "agc_gain" else init)
+    y = torch.empty_like(a)
+    lib = _build.load_library()
+    err = lib.rt_first_order(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                             init.data_ptr(), p.data_ptr(), y.data_ptr(), L,
+                             T, FIRST_ORDER_OPS.index(op),
+                             _build.stream_handle(dev))
+    _build.check(err, "rt_first_order")
+    global first_order_launches
+    first_order_launches += 1
+    return y

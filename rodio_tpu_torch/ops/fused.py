@@ -1,4 +1,6 @@
-"""K1: the fused resample + gain + biquad + mix kernel (rodio_tpu/ops/fused.py).
+"""K1 and K2: the fused pipeline kernels (rodio_tpu/ops/fused.py).
+
+K1 is the fused resample + gain + biquad + mix kernel.
 
 One pass per block over the time-major PCM ``pcm [F, L]`` (lane l = stream
 s*C + c): for the block's output frames, whose left input frames and
@@ -11,28 +13,44 @@ blocks, and the sum over streams into C channels.
 and :func:`fused_resample_biquad_mix_plain` on CPU tensors. They agree up
 to the order of the mix's sum (the kernel sums in a fixed order per block
 of streams, then over blocks).
+
+K2, :func:`fused_resample_biquad_agc_mix` (``csrc/fused_agc.cu``), is K1
+with a per-stream AGC between the biquad and the mix, the gain applied
+after it; :func:`fused_resample_biquad_agc_mix_plain` is its plain version.
+``launches`` counts K1's launches, ``agc_launches`` K2's.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .cuda_scan import desired_gain, smooth_gains
 from .scan import biquad_df1
 
-#: kernel launches made by :func:`fused_resample_biquad_mix`
+#: kernel launches made by :func:`fused_resample_biquad_mix` (K1)
 launches = 0
+#: kernel launches made by :func:`fused_resample_biquad_agc_mix` (K2)
+agc_launches = 0
+
+#: frames of K2's RMS window: 8192 interleaved samples of a stereo stream
+AGC_RING_FRAMES = 4096
 
 
-def _lerp_gain(pcm, left, wts, gains):
-    """[n, L] gained lerp ``wts[:, 0]*x[left] + wts[:, 1]*x[left+1]`` (rows
-    past F read as zero)."""
+def _lerp(pcm, left, wts):
+    """[n, L] lerp ``wts[:, 0]*x[left] + wts[:, 1]*x[left+1]`` (rows past F
+    read as zero)."""
     F = pcm.shape[0]
 
     def rows(idx):
         r = pcm[torch.clamp(idx, max=F - 1)]
         return torch.where((idx < F)[:, None], r, torch.zeros_like(r))
 
-    return (rows(left) * wts[:, 0:1] + rows(left + 1) * wts[:, 1:2]) * gains
+    return rows(left) * wts[:, 0:1] + rows(left + 1) * wts[:, 1:2]
+
+
+def _lerp_gain(pcm, left, wts, gains):
+    """[n, L] gained lerp: the gain after the lerp (``gain_post``)."""
+    return _lerp(pcm, left, wts) * gains
 
 
 def fused_resample_biquad_mix_plain(pcm, left, wts, *, gains, coeffs, bq,
@@ -91,3 +109,117 @@ def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
     global launches
     launches += 1
     return mix, bq_out
+
+
+def _interleave(v: torch.Tensor) -> torch.Tensor:
+    """[S, 2, n] -> [S, 2n] in interleaved order (frame t: ch 0, then ch 1)."""
+    S, C, n = v.shape
+    return v.transpose(1, 2).reshape(S, C * n)
+
+
+def fused_resample_biquad_agc_mix_plain(pcm, left, wts, *, gains, coeffs, bq,
+                                        agc, agc_params, ring, ring_row: int):
+    """The plain PyTorch version of K2, on any device."""
+    L = pcm.shape[1]
+    n = left.shape[0]
+    S = L // 2
+    R = AGC_RING_FRAMES
+    att, rel, target, max_gain, floor, inv_window = (
+        agc_params[i] for i in range(6))
+    v = _lerp(pcm, left, wts)                                # [n, L]
+    y, st = biquad_df1(v.T, coeffs, tuple(bq))               # [L, n]
+    # the squares, rounded to the ring's type, and the ones leaving the
+    # window: ring row (ring_row + t) % R, or this block's own 4096 frames
+    # back
+    q = (y * y).to(ring.dtype)                               # [L, n]
+    rows = (torch.arange(n, device=pcm.device) + ring_row) % R
+    old = ring[rows[: min(n, R)]].T
+    if n > R:
+        old = torch.cat([old, q[:, : n - R]], dim=1)
+    d = _interleave((q.float() - old.float()).reshape(S, 2, n))
+    xs = _interleave(torch.abs(y).reshape(S, 2, n))
+    crel = 1.0 - rel
+    rs, pk = agc[0], agc[1]
+    rss, pks = [], []
+    for t in range(2 * n):
+        rs = rs + d[:, t]
+        x = xs[:, t]
+        pk = torch.maximum(x, rel * pk + crel * x)
+        rss.append(rs)
+        pks.append(pk)
+    des = desired_gain(torch.stack(rss, -1), torch.stack(pks, -1), target,
+                       max_gain, floor, inv_window)
+    g = smooth_gains(des, agc[2], att, rel, max_gain)        # [S, 2n]
+    g3 = g.reshape(S, n, 2).transpose(1, 2)                  # [S, 2, n]
+    out = y.reshape(S, 2, n) * g3 * gains.reshape(S, 2, 1)
+    new_ring = ring.clone()
+    keep = min(n, R)
+    new_ring[rows[n - keep:]] = q[:, n - keep:].T
+    return (out.sum(0), torch.stack(st), torch.stack([rs, pk, g[:, -1]]),
+            new_ring)
+
+
+def fused_resample_biquad_agc_mix(pcm: torch.Tensor, left: torch.Tensor,
+                                  wts: torch.Tensor, *, gains: torch.Tensor,
+                                  coeffs: torch.Tensor, bq: torch.Tensor,
+                                  agc: torch.Tensor, agc_params: torch.Tensor,
+                                  ring: torch.Tensor, ring_row: int):
+    """One block of the fused AGC pipeline (stereo streams, lane 2s + c).
+
+    pcm, left, wts, coeffs, bq: as :func:`fused_resample_biquad_mix`.
+    gains: [L], applied after the AGC. agc: [3, S] per-stream carries
+    (rms_sum, peak, gain). agc_params: f32 [6] (att, rel, target, max_gain,
+    floor, 1/8192). ring: [4096, L] f32 or bf16, row f % 4096 holding the
+    rounded square of global frame f - 4096 for the frames to come;
+    ring_row: the block's first global frame mod 4096 (a host int).
+    Returns (mix [2, n], bq' [4, L], agc' [3, S], ring'); the input ring is
+    left as it was."""
+    if pcm.device.type == "cpu":
+        return fused_resample_biquad_agc_mix_plain(
+            pcm, left, wts, gains=gains, coeffs=coeffs, bq=bq, agc=agc,
+            agc_params=agc_params, ring=ring, ring_row=ring_row)
+    if pcm.device.type != "cuda":
+        raise ValueError(
+            f"fused_resample_biquad_agc_mix: unsupported device {pcm.device}")
+    F, L = pcm.shape
+    n = left.shape[0]
+    R = AGC_RING_FRAMES
+    if L < 2 or L % 2 or n < 1 or F < 1 or not 0 <= ring_row < R:
+        raise ValueError(
+            f"fused_resample_biquad_agc_mix: need stereo lanes (L even), "
+            f"n >= 1, F >= 1 and 0 <= ring_row < {R}; got L={L}, n={n}, "
+            f"F={F}, ring_row={ring_row}")
+    if ring.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ring must be float32 or bfloat16, got {ring.dtype}")
+    dev = pcm.device
+    pcm = _build.f32_arg("pcm", pcm, dev, (F, L))
+    left = _build.i64_arg("left", left, dev, (n,))
+    wts = _build.f32_arg("wts", wts, dev, (n, 2))
+    gains = _build.f32_arg("gains", gains, dev, (L,))
+    coeffs = _build.f32_arg("coeffs", coeffs, dev, (5,))
+    bq = _build.f32_arg("bq", bq, dev, (4, L))
+    agc = _build.f32_arg("agc", agc, dev, (3, L // 2))
+    agc_params = _build.f32_arg("agc_params", agc_params, dev, (6,))
+    if ring.device != dev or tuple(ring.shape) != (R, L):
+        raise ValueError(f"ring must be ({R}, {L}) on {dev}, got "
+                         f"{tuple(ring.shape)} on {ring.device}")
+    # the kernel reads and rewrites its rows in place, on a copy (8 MB at
+    # 1024 lanes in bf16), so the state passed in stays valid
+    new_ring = ring.clone(memory_format=torch.contiguous_format)
+    lib = _build.load_library()
+    nblk = -(-L // lib.rt_fused_agc_block_lanes())
+    partial = torch.empty((nblk, 2, n), dtype=torch.float32, device=dev)
+    mix = torch.empty((2, n), dtype=torch.float32, device=dev)
+    bq_out = torch.empty_like(bq)
+    agc_out = torch.empty_like(agc)
+    err = lib.rt_fused_resample_biquad_agc_mix(
+        pcm.data_ptr(), F, L, left.data_ptr(), wts.data_ptr(),
+        gains.data_ptr(), coeffs.data_ptr(), bq.data_ptr(), bq_out.data_ptr(),
+        agc.data_ptr(), agc_out.data_ptr(), agc_params.data_ptr(),
+        new_ring.data_ptr(), int(ring.dtype == torch.bfloat16), ring_row,
+        partial.data_ptr(), mix.data_ptr(), n, _build.stream_handle(dev),
+    )
+    _build.check(err, "rt_fused_resample_biquad_agc_mix")
+    global agc_launches
+    agc_launches += 1
+    return mix, bq_out, agc_out, new_ring

@@ -1,4 +1,6 @@
-"""K3: the blocked stereo master-bus limiter (rodio_tpu/ops/limiter_block.py).
+"""K3 and K8: the blocked scans of rodio_tpu/ops/limiter_block.py.
+
+K3 is the blocked stereo master-bus limiter.
 
 The limiter (src/source/limit.rs:854-930) is, per channel, a soft-knee dB
 gain computer, a max-affine integrator ``integ = max(db, rel*integ' +
@@ -11,6 +13,11 @@ tables made in float64 on the host. Sequential depth Lc + log2 P, not T.
 :func:`limiter_master` runs ``csrc/limiter_block.cu`` on a CUDA tensor and
 :func:`limiter_master_plain`, the same blocked algorithm vectorised in
 PyTorch with the same rounding order, on a CPU tensor.
+
+K8, :func:`blocked_max_affine_const` (``csrc/bma.cu``), is the same blocked
+order for one max-affine recurrence with its coefficient as data: the
+AGC's peak detector. ``launches`` counts K3's launches, ``bma_launches``
+K8's.
 """
 from __future__ import annotations
 
@@ -22,8 +29,10 @@ import torch
 from ..core.math import DB_TO_LOG2, LOG2_TO_DB, TINY, exp2_precise, linear_to_db
 from . import _build
 
-#: kernel launches made by :func:`limiter_master`
+#: kernel launches made by :func:`limiter_master` (K3)
 launches = 0
+#: kernel launches made by :func:`blocked_max_affine_const` (K8)
+bma_launches = 0
 
 _BIG = 3.0e38
 
@@ -167,3 +176,95 @@ def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     global launches
     launches += 1
     return y, (carries[0], carries[1])
+
+
+def _check_bma_shape(x: torch.Tensor, P: int) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"blocked_max_affine_const: x must be [L, M], got "
+                         f"{tuple(x.shape)}")
+    L, M = x.shape
+    if not 1 <= L <= 8 or P < 1 or P > 128 or P & (P - 1) or M % P or M < P:
+        raise ValueError(
+            f"blocked_max_affine_const needs x [L, M] with L <= 8, M % P == 0 "
+            f"and P a power of two <= 128; got {tuple(x.shape)}, P={P}")
+    return M // P
+
+
+def bma_power_table(a, Lc: int, device) -> torch.Tensor:
+    """a^(t+1) for t < Lc as f32 on ``device``, made in float64 from the f32
+    coefficient ``a`` (a float or a 0-dim tensor: a live knob stays on the
+    card). One table serves K8 and its plain version, so they agree
+    exactly; the JAX package makes it with an f32 ``cumprod``, a few ulp
+    away."""
+    a64 = torch.as_tensor(a, device=device).to(torch.float64).reshape(())
+    tt = torch.arange(1, Lc + 1, dtype=torch.float64, device=device)
+    return torch.pow(a64, tt).to(torch.float32)
+
+
+def blocked_max_affine_const_plain(x, v0, a, *, P: int):
+    """The plain PyTorch version of K8, on any device: the same blocked
+    order, vectorised."""
+    Lc = _check_bma_shape(x, P)
+    L, M = x.shape
+    pw = bma_power_table(a, Lc, x.device)
+    av = pw[0]
+    ca = 1.0 - av
+    x3 = x.reshape(L, P, Lc)  # x3[r, p, t] = x[r, p*Lc + t]
+    lane = torch.arange(P, device=x.device)
+
+    # pass 1: local prefix maps of each chunk
+    B = torch.full((L, P), -_BIG, dtype=x.dtype, device=x.device)
+    Cv = torch.zeros_like(B)
+    bs, cs = [], []
+    for t in range(Lc):
+        d = x3[:, :, t]
+        B = torch.maximum(d, av * B + ca * d)
+        Cv = av * Cv + ca * d
+        bs.append(B)
+        cs.append(Cv)
+    b_all, c_all = torch.stack(bs, -1), torch.stack(cs, -1)
+
+    # chunk combine: inclusive Hillis-Steele within each row
+    A = pw[Lc - 1].expand(L, P)
+    k = 1
+    while k < P:
+        As, Bs, Cs = (torch.roll(v, k, 1) for v in (A, B, Cv))
+        m = lane >= k
+        B, Cv, A = (torch.where(m, torch.maximum(B, A * Bs + Cv), B),
+                    torch.where(m, A * Cs + Cv, Cv),
+                    torch.where(m, A * As, A))
+        k *= 2
+    v = v0[:, None].expand(L, P)
+    As, Bs, Cs = (torch.roll(t, 1, 1) for t in (A, B, Cv))
+    v_in = torch.where(lane == 0, v, torch.maximum(Bs, As * v + Cs))
+
+    # pass 2: the carry-in applied
+    y = torch.maximum(b_all, pw * v_in[:, :, None] + c_all)
+    return y.reshape(L, M)
+
+
+def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
+    """y_t = max(x_t, a*y_{t-1} + (1-a)*x_t) over x [L, M] from v0 [L]
+    (L <= 8, M % P == 0, P a power of two <= 128), sequential depth
+    M/P + log2 P. ``a`` is a float or a 0-dim tensor (data: a live knob
+    rebuilds nothing). Returns y [L, M]; the carry is y[:, -1]."""
+    if x.device.type == "cpu":
+        return blocked_max_affine_const_plain(x, v0, a, P=P)
+    if x.device.type != "cuda":
+        raise ValueError(f"blocked_max_affine_const: unsupported device {x.device}")
+    Lc = _check_bma_shape(x, P)
+    L, M = x.shape
+    dev = x.device
+    x = _build.f32_arg("x", x, dev, (L, M))
+    v0 = _build.f32_arg("v0", v0, dev, (L,))
+    pw = bma_power_table(a, Lc, dev)
+    y = torch.empty_like(x)
+    scratch = torch.empty((2, Lc, L * P), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    err = lib.rt_blocked_max_affine(
+        x.data_ptr(), v0.data_ptr(), pw.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), L, M, P, _build.stream_handle(dev))
+    _build.check(err, "rt_blocked_max_affine")
+    global bma_launches
+    bma_launches += 1
+    return y

@@ -1,11 +1,13 @@
 """Where the time goes in the flagship slice on one CUDA card.
 
     python -m rodio_tpu_torch.profile_slice [--streams 512] [--block 12800]
-        [--blocks 12] [--out FILE]
+        [--blocks 12] [--with-agc] [--out FILE]
 
 For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
-K4 -> Amplify -> WideMixer -> K3) it prints, per block of ``--block``
-frames:
+K4 -> Amplify -> WideMixer -> K3; with ``--with-agc``, the AGC slice
+instead: ``agc_fused``, K2 then K3, and ``agc_unfused``, Resample -> K4 ->
+AutomaticGainControl (K6) -> Amplify -> WideMixer -> K3) it prints, per
+block of ``--block`` frames:
 
 - ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
   no profiler;
@@ -50,7 +52,8 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_cell(scan_mode: str, streams: int, block: int, blocks: int) -> dict:
+def profile_cell(scan_mode: str, streams: int, block: int, blocks: int,
+                 with_agc: bool = False) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -58,7 +61,8 @@ def profile_cell(scan_mode: str, streams: int, block: int, blocks: int) -> dict:
     import rodio_tpu_torch as rtt
 
     node, st = rtt.make_flagship(streams, seconds=4.0, scan_mode=scan_mode,
-                                 device="cuda", max_block=block)
+                                 with_agc=with_agc, device="cuda",
+                                 max_block=block)
     st, _, _ = rtt.render_blocks(node, st, 2, block)  # warm-up
     torch.cuda.synchronize()
     walls, hosts = [], []
@@ -103,6 +107,8 @@ def main(argv=None) -> int:
     ap.add_argument("--streams", type=int, default=512)
     ap.add_argument("--block", type=int, default=12800)
     ap.add_argument("--blocks", type=int, default=12)
+    ap.add_argument("--with-agc", action="store_true",
+                    help="profile the AGC slice (K2; unfused: K6)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -114,9 +120,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     res = {"device": smi, "streams": args.streams, "block": args.block,
-           "blocks": args.blocks}
-    for cell, mode in (("fused", "fused"), ("unfused", "auto")):
-        res[cell] = profile_cell(mode, args.streams, args.block, args.blocks)
+           "blocks": args.blocks, "with_agc": args.with_agc}
+    cells = ((("agc_fused", "fused"), ("agc_unfused", "pallas")) if args.with_agc
+             else (("fused", "fused"), ("unfused", "auto")))
+    for cell, mode in cells:
+        res[cell] = profile_cell(mode, args.streams, args.block, args.blocks,
+                                 args.with_agc)
         torch.cuda.empty_cache()
     text = json.dumps(res, indent=1)
     print(text)

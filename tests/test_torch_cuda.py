@@ -7,7 +7,9 @@ False (decided inside the fixture, never at import). On a GPU host:
 
 Bounds: K4 bit-equal (same op order, every op rounded alone); K3 bit-equal
 to the same blocked order (1e-6 allowed); K1 1e-6 (only the mix's
-summation order differs), its biquad carries bit-equal.
+summation order differs), its biquad carries bit-equal. K6, K7 and K8
+bit-equal (the same op order; K8 the same blocked order and the same power
+table); K2 1e-6 on the mix, its carries and ring bit-equal.
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 from rodio_tpu_torch import make_flagship, render_blocks
 from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
+from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
 from rodio_tpu_torch.effects.blt import blt_coefficients
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
 from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block
@@ -124,3 +127,150 @@ def test_emit_never_waits_for_the_card(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert out.shape == (2, 1920)
+
+
+#: (att, rel, target, max_gain, floor, 1/8192): fast knobs, so the smoother
+#: moves both ways
+AGC_PARAMS = (0.99583, 0.99896, 0.8, 5.0, 0.0, 1.0 / 8192)
+
+
+def _agc_inputs(S, M, dev, seed):
+    rng = np.random.default_rng(seed)
+    env = 0.05 + 0.5 * (0.5 + 0.5 * np.sin(np.arange(M) / 200.0))
+    xs = np.abs(rng.standard_normal((S, M)) * env)
+    sq = (xs * xs).astype(np.float32)
+    delta = sq - sq * rng.uniform(0.0, 1.0, (S, M)).astype(np.float32)
+    carries = [rng.uniform(lo, hi, S) for lo, hi in ((0, .5), (10, 200), (.5, 3))]
+    return (_f32(xs, dev), _f32(delta, dev), *[_f32(c, dev) for c in carries])
+
+
+@pytest.mark.parametrize("S,M", [(3, 1), (5, 70), (64, 1000), (512, 25600)])
+def test_k6_agc_matches_plain(dev, S, M):
+    xs, delta, p0, s0, g0 = _agc_inputs(S, M, dev, S + M)
+    params = _f32(AGC_PARAMS, dev)
+    before = cuda_scan.agc_launches
+    gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, params)
+    gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
+    torch.cuda.synchronize()
+    assert cuda_scan.agc_launches == before + 1
+    assert torch.equal(gk, gp)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", ["linear", "max_affine", "agc_gain"])
+@pytest.mark.parametrize("L,T", [(1, 8192), (37, 300), (3, 1)])
+def test_k7_first_order_matches_plain(dev, op, L, T):
+    rng = np.random.default_rng(L * T)
+    a = _f32(rng.uniform(0.2, 6.0, (L, T)) if op == "agc_gain"
+             else rng.uniform(0.9, 1.0, (L, T)), dev)
+    b = _f32(rng.standard_normal((L, T)) * 0.1, dev)
+    c = _f32(rng.uniform(0.5, 1.0, (L, T)), dev)
+    init = _f32(rng.uniform(0.5, 2.0, L), dev)
+    params = _f32([AGC_PARAMS[0], AGC_PARAMS[1], AGC_PARAMS[3]], dev)
+    kw = dict(op=op, params=params)
+    before = cuda_scan.first_order_launches
+    yk = cuda_scan.first_order(a, b, init, c, **kw)
+    yp = cuda_scan.first_order_plain(a, b, init, c, **kw)
+    torch.cuda.synchronize()
+    assert cuda_scan.first_order_launches == before + 1
+    assert torch.equal(yk, yp)
+
+
+@pytest.mark.parametrize("L,P,M", [(1, 128, 8192), (3, 8, 64), (8, 32, 3200)])
+def test_k8_blocked_max_affine_matches_plain(dev, L, P, M):
+    rng = np.random.default_rng(L * P)
+    x = _f32(np.abs(rng.standard_normal((L, M)) * 0.3), dev)
+    v0 = _f32(rng.uniform(0, 1, L), dev)
+    for a in (0.0, 0.99896, _f32(0.9, dev)):
+        before = limiter_block.bma_launches
+        yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
+        yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
+        torch.cuda.synchronize()
+        assert limiter_block.bma_launches == before + 1
+        assert torch.equal(yk, yp)
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,n,o0,F", [
+    (3, 640, 0, 5000), (16, 333, 4000, 5000), (512, 1280, 160, 4000),
+    (4, 5000, 320, 6000),  # n > 4096: the block reads its own squares back
+])
+def test_k2_fused_agc_matches_plain(dev, ring_dtype, S, n, o0, F):
+    rng = np.random.default_rng(S * 100 + n)
+    L = 2 * S
+    fr, to = 147, 160
+    pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)
+    left, phase = output_positions(o0, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    agc = _f32(np.stack([rng.uniform(10, 100, S), rng.uniform(0, .5, S),
+                         rng.uniform(.5, 3, S)]), dev)
+    ring = _f32(rng.uniform(0, 0.1, (4096, L)), dev).to(ring_dtype)
+    # stream gains of the flagship's scale (1/S), so the mix is of unit
+    # scale and the bound is about the summation order alone
+    gains = np.repeat(rng.uniform(0.5, 1.5, S) / S, 2)
+    kw = dict(gains=_f32(gains, dev),
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
+              agc_params=_f32(AGC_PARAMS, dev), ring=ring, ring_row=o0 % 4096)
+    before = fused.agc_launches
+    mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
+    mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
+    torch.cuda.synchronize()
+    assert fused.agc_launches == before + 1
+    assert (mk - mp).abs().max().item() <= 1e-6
+    assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
+
+
+def test_agc_flagship_on_card_matches_cpu(dev):
+    """The fused AGC slice and the unfused pallas AGC chain on the card
+    against the same graphs on the CPU (plain versions), 3 blocks of 640."""
+    counters = (lambda: (fused.agc_launches, cuda_scan.agc_launches,
+                         limiter_block.launches, cuda_scan.launches))
+    for mode, want in (("fused", (3, 0, 3, 0)), ("pallas", (0, 3, 3, 3))):
+        node_g, st_g = make_flagship(12, seconds=0.5, scan_mode=mode,
+                                     with_agc=True, device=dev)
+        node_c, st_c = make_flagship(12, seconds=0.5, scan_mode=mode,
+                                     with_agc=True)
+        before = counters()
+        _, og, vg = render_blocks(node_g, st_g, 3, 640)
+        after = counters()
+        _, oc, vc = render_blocks(node_c, st_c, 3, 640)
+        assert torch.equal(vg.cpu(), vc)
+        # fused: the card's limiter is the blocked order, the CPU's the
+        # sequential one (4e-6)
+        bound = 5e-6 if mode == "fused" else 1e-6
+        assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= bound
+        assert tuple(a - b for a, b in zip(after, before)) == want
+
+
+def test_config2_chain_on_card_matches_cpu(dev):
+    """Path B: low_pass -> AGC (decomposed: K8 + K7) -> Limit (K3), with
+    the per-sample and the group-rate smoother."""
+    rng = np.random.default_rng(2)
+    data = (rng.standard_normal((2, 3 * 4096)) * 0.3).astype(np.float32)
+    for group in (0, 8):
+        outs = []
+        for device in (dev, None):
+            node = SamplesBuffer(2, 44100, data, device=device).low_pass(2000.0)
+            node = AutomaticGainControl(node, AgcSettings(), mode="pallas",
+                                        group=group)
+            node = Limit(node, LimitSettings(), mode="pallas")
+            before = (limiter_block.bma_launches, cuda_scan.first_order_launches)
+            _, out, _ = render_blocks(node, node.init_state(), 3, 4096)
+            after = (limiter_block.bma_launches, cuda_scan.first_order_launches)
+            if device is not None:
+                assert after == (before[0] + 3, before[1] + 3)
+            outs.append(out.cpu().numpy())
+        assert np.abs(outs[0] - outs[1]).max() <= 1e-6
+
+
+def test_fused_agc_emit_never_waits_for_the_card(dev):
+    node, st = make_flagship(8, seconds=0.5, scan_mode="fused", with_agc=True,
+                             device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, out, valids = render_blocks(node, st, 3, 640)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (2, 1920)

@@ -5,6 +5,15 @@ seed (identical numpy PCM and gains) and render blocks of 640. Bounds:
 1e-6 against the JAX fused path (another lerp and mix summation order, the
 gain before the biquad), 1e-5 against the JAX unfused chain away from the
 drain frame (the JAX package's own fused-vs-unfused bound).
+
+With the AGC on: 2e-5 against the JAX package (the AGC kernel bound). The
+JAX package on XLA:CPU contracts the smoother's ``g*att + des*(1-att)``
+into an FMA (ROADMAP F4); through the default attack coefficient, 1 - 5e-6,
+that drifts ~1e-5 from the port within a few blocks, where the port's own
+fused, "exact" and "pallas" chains agree to 0 and its exact AGC equals the
+scalar oracle bit for bit (``tests/test_torch_agc.py``). So the port's
+fused AGC is held to its unfused exact chain at 5e-7, the JAX package's
+own fused-vs-exact bound.
 """
 import subprocess
 import sys
@@ -12,6 +21,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from rodio_tpu.flagship import make_flagship as j_make_flagship
 from rodio_tpu_torch import make_flagship, render_blocks
@@ -127,9 +137,15 @@ def test_precision_off_grid_raises(precision):
 
 
 def test_refused_configurations():
-    with pytest.raises(NotImplementedError, match="K2"):
-        FusedWidePipeline(SamplesBuffer(4, 44100, np.zeros((4, 100), np.float32)),
-                          48000, np.ones(2, np.float32), 2, with_agc=True)
+    buf = SamplesBuffer(4, 44100, np.zeros((4, 100), np.float32))
+    with pytest.raises(NotImplementedError, match="group branch"):
+        FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
+                          agc_group=8)
+    with pytest.raises(NotImplementedError, match="rel0"):
+        FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
+                          agc_plan="rel0b16")
+    with pytest.raises(ValueError, match="stereo"):
+        FusedWidePipeline(buf, 48000, np.ones(4, np.float32), 4, with_agc=True)
     with pytest.raises(ValueError, match="identity"):
         FusedWidePipeline(SamplesBuffer(4, 48000, np.zeros((4, 100), np.float32)),
                           48000, np.ones(2, np.float32), 2)
@@ -137,13 +153,112 @@ def test_refused_configurations():
         make_flagship(4, seconds=0.1, scan_mode="fused", precision="bf16")
     with pytest.raises(NotImplementedError):
         make_flagship(4, seconds=0.1, scan_mode="assoc")
-    with pytest.raises(NotImplementedError):
-        make_flagship(4, seconds=0.1, with_agc=True)
+    with pytest.raises(NotImplementedError, match="M10"):
+        make_flagship(4, seconds=0.1, scan_mode="auto", with_agc=True)
+
+
+def test_agc_flagship_builds_in_every_ported_mode():
+    for mode in ("fused", "exact", "pallas"):
+        node, st = make_flagship(4, seconds=0.1, scan_mode=mode, with_agc=True)
+        _, out, valid = node.emit(st, 640)
+        assert out.shape == (2, 640) and int(valid) == 640
+        assert float(out.abs().max()) > 0
+
+
+def test_fused_agc_matches_jax_fused():
+    jf, jfs = j_make_flagship(4, seconds=0.5, seed=7, scan_mode="fused",
+                              with_agc=True)
+    tn, ts = make_flagship(4, seconds=0.5, seed=7, scan_mode="fused",
+                           with_agc=True)
+    assert tn.input.precision == jf.input.precision
+    jfs, of, vf = _jax_blocks(jf, jfs, 4)
+    ts, ot, vt = render_blocks(tn, ts, 4, 640)
+    assert vt.tolist() == vf == [640] * 4
+    np.testing.assert_allclose(ot.numpy(), of, atol=2e-5, rtol=0)
+    jagc = np.asarray(jfs["in"]["agc"]).reshape(3, 512)[:, :4]
+    # the gain carry drifts with F4 (1e-4, the JAX package's CPU bound)
+    np.testing.assert_allclose(ts["in"]["agc"].numpy(), jagc, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["exact", "pallas"])
+def test_fused_agc_matches_the_ports_unfused_chain(mode):
+    """9 blocks of 640 = 5760 frames > the 4096-frame window: the ring's
+    old squares leave the window sum (the JAX package's own test)."""
+    tf, tfs = make_flagship(8, seconds=2.0, seed=3, scan_mode="fused",
+                            with_agc=True, max_block=1920)
+    tu, tus = make_flagship(8, seconds=2.0, seed=3, scan_mode=mode,
+                            with_agc=True, max_block=1920)
+    _, of, vf = render_blocks(tf, tfs, 9, 640)
+    _, ou, vu = render_blocks(tu, tus, 9, 640)
+    assert vf.tolist() == vu.tolist() == [640] * 9
+    np.testing.assert_allclose(of.numpy(), ou.numpy(), atol=5e-7, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["drain", "f32_ring", "live_params"])
+def test_fused_agc_cases_match_jax(case):
+    """Through the stream's drain (0.3 s, 24 blocks), with an f32 ring, and
+    with set_agc_params between blocks."""
+    kw = dict(seed=2, scan_mode="fused", with_agc=True)
+    seconds, blocks = (0.3, 24) if case == "drain" else (0.5, 5)
+    if case == "f32_ring":
+        kw["agc_ring"] = "f32"
+    jf, jfs = j_make_flagship(4, seconds=seconds, **kw)
+    tn, ts = make_flagship(4, seconds=seconds, **kw)
+    if case == "f32_ring":
+        assert ts["in"]["ring"].dtype == torch.float32
+    if case == "live_params":
+        jfs, o1, _ = _jax_blocks(jf, jfs, 2)
+        ts, t1, _ = render_blocks(tn, ts, 2, 640)
+        knobs = dict(attack=0.01, release=0.05, target_level=0.5,
+                     absolute_max_gain=3.0)
+        jfs = {**jfs, "in": jf.input.set_agc_params(jfs["in"], **knobs)}
+        ts = {**ts, "in": tn.input.set_agc_params(ts["in"], **knobs)}
+        np.testing.assert_array_equal(ts["in"]["agc_par"].numpy(),
+                                      np.asarray(jfs["in"]["agc_par"]))
+        np.testing.assert_allclose(t1.numpy(), o1, atol=2e-5, rtol=0)
+    jfs, of, vf = _jax_blocks(jf, jfs, blocks)
+    ts, ot, vt = render_blocks(tn, ts, blocks, 640)
+    assert vt.tolist() == vf
+    if case == "drain":
+        assert vf[-1] == 0 and 0 < min(v for v in vf if v) < 640
+    np.testing.assert_allclose(ot.numpy(), of, atol=2e-5, rtol=0)
+    jagc = np.asarray(jfs["in"]["agc"]).reshape(3, 512)[:, :4]
+    # the gain carry drifts with F4 (1e-4, the JAX package's CPU bound)
+    np.testing.assert_allclose(ts["in"]["agc"].numpy(), jagc, rtol=1e-4, atol=1e-6)
+
+
+def test_fused_agc_state_carried_from_jax_into_the_port():
+    """8 blocks (5120 frames, past the 4096-frame window, over the JAX
+    ring's slot wrap) in JAX, the state carried across, 3 more in the port;
+    against 11 blocks in JAX."""
+    jn, js = j_make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
+                             with_agc=True)
+    tn, _ = make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
+                          with_agc=True)
+    js8, _, _ = _jax_blocks(jn, js, 8)
+    _, o3, v3 = _jax_blocks(jn, js8, 3)
+    ts = state_from_jax(tn, jax.device_get(js8))
+    ts, ot, vt = render_blocks(tn, ts, 3, 640)
+    assert vt.tolist() == v3
+    np.testing.assert_allclose(ot.numpy(), o3, atol=2e-5, rtol=0)
+    # the ring carried across holds the JAX kernel's last 4096 squares:
+    # the port, continuing from it, matches the port continuing from its
+    # own render of the same 8 blocks
+    tn2, ts2 = make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
+                             with_agc=True)
+    ts2, _, _ = render_blocks(tn2, ts2, 8, 640)
+    ring_j = ts["in"]["ring"]  # after the 3 port blocks
+    ts2, _, _ = render_blocks(tn2, ts2, 3, 640)
+    np.testing.assert_allclose(ring_j.float().numpy(),
+                               ts2["in"]["ring"].float().numpy(),
+                               rtol=2e-2, atol=1e-9)
 
 
 def test_import_loads_no_jax():
     code = ("import sys, rodio_tpu_torch, rodio_tpu_torch.convert, "
-            "rodio_tpu_torch.ops.fused; "
+            "rodio_tpu_torch.ops.fused, rodio_tpu_torch.ops.cuda_scan, "
+            "rodio_tpu_torch.ops.limiter_block, rodio_tpu_torch.effects, "
+            "rodio_tpu_torch.effects.agc, rodio_tpu_torch.profile_slice; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'rodio_tpu' or m.startswith('rodio_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -12,6 +12,21 @@ Bounds and why:
 - K1 (fused pipeline): 1e-6 against the JAX FusedWidePipeline (another lerp
   and mix summation order, gains folded into the PCM vs applied after the
   lerp, the JAX kernel's look-ahead biquad).
+- K6 (the AGC loop): 2e-5, the AGC kernel bound (``lax.rsqrt`` against the
+  port's 1/sqrt, FMA contraction through the smoother's near-unity attack
+  coefficient).
+- K7 (first-order recurrence): 1e-6 plus 2e-6 relative (16 ulp): XLA:CPU
+  contracts ``a*y + b`` and the smoother's mul-adds into FMAs (ROADMAP F4),
+  ~1 ulp per step, which a coefficient near 1 carries over ~1/(1-a) steps.
+- K8 (blocked max-affine): the same, for the same reason; besides, the JAX
+  power table is an f32 cumprod and the port's a^(t+1) is made in float64,
+  a few ulp apart.
+- K2 (fused AGC pipeline): 2e-5 on the mix, the AGC kernel bound: the JAX
+  kernel on XLA:CPU contracts the smoother's mul-adds into FMAs (F4), and
+  through the default attack coefficient (1 - 5e-6) the gain drifts ~1e-5
+  from the port's in a few blocks; the port's K2 equals its unfused exact
+  chain, whose AGC equals the scalar oracle bit for bit
+  (tests/test_torch_flagship.py, tests/test_torch_agc.py).
 """
 import jax
 import jax.numpy as jnp
@@ -22,8 +37,9 @@ import torch
 from rodio_tpu.effects.limit import Limit as JLimit
 from rodio_tpu.effects.limit import LimitSettings as JLimitSettings
 from rodio_tpu.flagship import FusedWidePipeline as JFused
+from rodio_tpu.ops.limiter_block import blocked_max_affine_const as j_bma
 from rodio_tpu.ops.limiter_block import limiter_master_pallas
-from rodio_tpu.ops.pallas_scan import biquad_df1_pallas
+from rodio_tpu.ops.pallas_scan import agc_pallas, biquad_df1_pallas, first_order_pallas
 from rodio_tpu.ops.scan import biquad_df1 as j_biquad
 from rodio_tpu.sources.generators import SamplesBuffer as JBuffer
 from rodio_tpu_torch import resolve_device
@@ -102,14 +118,15 @@ def test_k3_plain_matches_sequential_jax_limit_over_blocks():
     np.testing.assert_allclose(peak.numpy(), np.asarray(js["peak"]), rtol=4e-6)
 
 
-def _fused_pair(S, frames, seed, gains=None):
+def _fused_pair(S, frames, seed, gains=None, **kw):
     rng = np.random.default_rng(seed)
     wide = (rng.standard_normal((S * 2, frames)) * 0.1).astype(np.float32)
     if gains is None:
         gains = (rng.uniform(0.5, 1.5, S) / S).astype(np.float32)
-    jn = JFused(JBuffer(S * 2, 44100, wide), 48000, gains, S, "low_pass", 2000.0, 0.5)
+    jn = JFused(JBuffer(S * 2, 44100, wide), 48000, gains, S, "low_pass", 2000.0,
+                0.5, **kw)
     tn = FusedWidePipeline(SamplesBuffer(S * 2, 44100, wide), 48000, gains, S,
-                           "low_pass", 2000.0, 0.5)
+                           "low_pass", 2000.0, 0.5, **kw)
     return jn, tn
 
 
@@ -127,6 +144,24 @@ def test_k1_plain_matches_jax_fused_interpret(S, frames, blocks):
                                    err_msg=f"block {b}")
     for a, b in zip(ts["bq"], js["bq"]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b)[: S * 2], atol=1e-6)
+
+
+def test_k2_plain_matches_jax_fused_agc_interpret():
+    """S = 4, 4 blocks of 640 against the JAX fused AGC kernel (interpret):
+    the mix, and the per-stream carries."""
+    S = 4
+    jn, tn = _fused_pair(S, 44100, seed=7, with_agc=True)
+    js, ts = jn.init_state(), tn.init_state()
+    jemit = jax.jit(lambda s: jn.emit(s, 640))
+    for b in range(4):
+        js, oj, vj = jemit(js)
+        ts, ot, vt = tn.emit(ts, 640)
+        assert int(vt) == int(vj) == 640
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-5, rtol=0,
+                                   err_msg=f"block {b}")
+    jagc = np.asarray(js["agc"]).reshape(3, 512)[:, :S]
+    # the gain carry drifts with F4 (1e-4, the JAX package's CPU bound)
+    np.testing.assert_allclose(ts["agc"].numpy(), jagc, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("o0,n", [(0, 640), (37, 640), (803, 333),
@@ -161,17 +196,113 @@ def test_k1_plain_block_size_invariance():
     np.testing.assert_allclose(c[:, :1920], b, atol=1e-7, rtol=0)
 
 
+def _counts():
+    return (cuda_scan.launches, cuda_scan.agc_launches,
+            cuda_scan.first_order_launches, limiter_block.launches,
+            limiter_block.bma_launches, fused.launches, fused.agc_launches)
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     rng = np.random.default_rng(3)
-    before = (cuda_scan.launches, limiter_block.launches, fused.launches)
+    before = _counts()
     co = _t(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple())
     z = torch.zeros(8)
-    cuda_scan.biquad_df1(_t(rng.standard_normal((8, 64))), co, (z, z, z, z))
+    x = _t(rng.standard_normal((8, 64)))
+    cuda_scan.biquad_df1(x, co, (z, z, z, z))
+    cuda_scan.agc(x.abs(), x, z, z, z + 1, AGC_PARAMS)
+    cuda_scan.first_order(x, x, z, op="agc_gain", params=AGC_PARAMS[[0, 1, 3]])
     limiter_block.limiter_master(_t(rng.standard_normal((2, 64))), torch.zeros(2),
                                  torch.zeros(2), P=8, **_limiter_kw(LimitSettings()))
+    limiter_block.blocked_max_affine_const(x, z, 0.9, P=8)
     _, tn = _fused_pair(4, 4410, seed=1)
     tn.emit(tn.init_state(), 640)
-    assert (cuda_scan.launches, limiter_block.launches, fused.launches) == before
+    _, tn = _fused_pair(4, 4410, seed=1, with_agc=True)
+    tn.emit(tn.init_state(), 640)
+    assert _counts() == before
+
+
+#: (att, rel, target, max_gain, floor, 1/8192): a fast attack and release
+#: at 48 kHz, so the smoother moves both ways
+AGC_PARAMS = torch.tensor([0.99583, 0.99896, 0.8, 5.0, 0.0, 1.0 / 8192],
+                          dtype=torch.float32)
+
+
+@pytest.mark.parametrize("S,M", [(3, 1000), (3, 9000), (512, 300)])
+def test_k6_plain_matches_pallas_interpret(S, M):
+    rng = np.random.default_rng(S + M)
+    env = 0.05 + 0.5 * (0.5 + 0.5 * np.sin(np.arange(M) / 200.0))
+    xs = np.abs(rng.standard_normal((S, M)) * env).astype(np.float32)
+    sq = xs * xs
+    old = (sq * rng.uniform(0.0, 1.0, (S, M))).astype(np.float32)
+    delta = sq - old
+    peak0 = rng.uniform(0.0, 0.5, S).astype(np.float32)
+    sum0 = rng.uniform(10.0, 200.0, S).astype(np.float32)
+    gain0 = rng.uniform(0.5, 3.0, S).astype(np.float32)
+    p = AGC_PARAMS.numpy()
+    gj, cj = agc_pallas(*map(jnp.asarray, (xs, delta, peak0, sum0, gain0)),
+                        params=tuple(jnp.float32(v) for v in p), interpret=True)
+    gt, ct = cuda_scan.agc(*map(_t, (xs, delta, peak0, sum0, gain0)), AGC_PARAMS)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-5, rtol=0)
+    for a, b in zip(ct, cj):  # peak, window sum (~100: relative), gain
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6, atol=2e-5)
+
+
+@pytest.mark.parametrize("op", ["linear", "max_affine", "agc_gain"])
+@pytest.mark.parametrize("L,T", [(1, 1000), (5, 700)])
+def test_k7_plain_matches_pallas_interpret(op, L, T):
+    """T not a multiple of the TPU kernel's 256-step tile: its padding."""
+    rng = np.random.default_rng(T + L)
+    if op == "linear":
+        a = rng.uniform(0.5, 0.95, (L, T))
+        b = rng.standard_normal((L, T)) * 0.05
+    elif op == "max_affine":
+        a = rng.standard_normal((L, T)) * 0.3
+        b = rng.standard_normal((L, T)) * 0.05
+    else:
+        a = rng.uniform(0.05, 1.0, (L, T))
+        b = a
+    c = rng.uniform(0.5, 1.0, (L, T))
+    init = rng.uniform(0.5, 2.0, L)
+    a, b, c, init = (v.astype(np.float32) for v in (a, b, c, init))
+    # a 2 ms attack and a 5 ms release at 48 kHz
+    params = np.float32([0.9896, 0.99584, 5.0]) if op == "agc_gain" else ()
+    yj = first_order_pallas(jnp.asarray(a), jnp.asarray(b), jnp.asarray(init),
+                            c=jnp.asarray(c) if op == "max_affine" else None,
+                            op=op, params=tuple(jnp.float32(v) for v in params),
+                            interpret=True)
+    yt = cuda_scan.first_order(_t(a), _t(b), _t(init),
+                               _t(c) if op == "max_affine" else None, op=op,
+                               params=tuple(float(v) for v in params))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+@pytest.mark.parametrize("P", [8, 32, 128])
+def test_k8_plain_matches_pallas_interpret(L, P):
+    rng = np.random.default_rng(L * P)
+    M = P * 24
+    x = np.abs(rng.standard_normal((L, M)) * 0.3).astype(np.float32)
+    v0 = rng.uniform(0.0, 1.0, L).astype(np.float32)
+    for a in (0.0, 0.99896, 0.9):
+        yj = j_bma(jnp.asarray(x), jnp.asarray(v0), jnp.float32(a), P=P,
+                   interpret=True)
+        yt = limiter_block.blocked_max_affine_const(_t(x), _t(v0), a, P=P)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-6,
+                                   rtol=2e-6, err_msg=f"a={a}")
+
+
+def test_k8_plain_is_the_peak_detector():
+    """The blocked order against the sequential max-affine scan it
+    reassociates, y = max(x, a*y' + (1-a)*x): ulp-class."""
+    rng = np.random.default_rng(8)
+    x = _t(np.abs(rng.standard_normal((2, 4096)) * 0.3))
+    v0 = _t([0.2, 0.9])
+    a = np.float32(0.99896)
+    y = limiter_block.blocked_max_affine_const(x, v0, float(a), P=128)
+    ca = float(np.float32(1.0) - a)
+    ref = cuda_scan.first_order(x, x * ca, v0, torch.full_like(x, float(a)),
+                                op="max_affine")
+    np.testing.assert_allclose(y.numpy(), ref.numpy(), atol=1e-6, rtol=0)
 
 
 def test_resolve_device_cuda_raises_without_cuda():
@@ -188,6 +319,19 @@ def test_resolve_device_cuda_raises_without_cuda():
 
 def test_kernel_wrappers_refuse_other_devices():
     x = torch.zeros((2, 64), device="meta")
+    z = x[:, 0]
+    with pytest.raises(ValueError):
+        cuda_scan.agc(x, x, z, z, z, AGC_PARAMS)
+    with pytest.raises(ValueError):
+        cuda_scan.first_order(x, x, z, op="linear")
+    with pytest.raises(ValueError):
+        cuda_scan.first_order(torch.zeros((2, 8)), torch.zeros((2, 8)),
+                              torch.zeros(2), op="bogus")
+    with pytest.raises(ValueError):
+        limiter_block.blocked_max_affine_const(x, z, 0.5, P=8)
+    with pytest.raises(ValueError):  # more than 8 rows
+        limiter_block.blocked_max_affine_const(torch.zeros((9, 64)),
+                                               torch.zeros(9), 0.5, P=8)
     with pytest.raises(ValueError):
         cuda_scan.biquad_df1(x, torch.zeros(5, device="meta"),
                              tuple(torch.zeros(2, device="meta") for _ in range(4)))
