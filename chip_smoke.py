@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,15 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from rodio_tpu_torch/csrc with nvcc;
-3. kernels: K4, K3, K1, K2, K6, K7 and K8 against their plain PyTorch
-   versions on the card, at the shapes of the paths below, with their times;
+3. kernels: the latency of a dependent rounded f32 op, measured on one
+   thread (benches/op_latency.py); then K4, K3, K1, K2, K6, K7, K8, K5, K2g
+   (K2's group branch) and K9 against their plain PyTorch versions on the
+   card, at the shapes of the paths below, with their times, their
+   roofline bounds (bytes over 3.35 TB/s or operations over 67 TFLOP/s
+   f32, the larger: ``bound_ms``), the chain floor of a recurrence (its
+   serial steps times the dependent ops of a step times that latency:
+   ``chain_ms``) and, where one PyTorch call computes the same function,
+   its time;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -20,11 +27,21 @@ Phases (each raises on failure, so the script exits non-zero):
    - path B, BASELINE config 2: low_pass -> AGC -> Limit on 10 s of seeded
      stereo PCM in blocks of 4096 (K4, K8, K7, K3 once per block), per
      sample and with group=8, its first 2 blocks against the CPU;
-5. times: ms per block and the aggregate realtime factor of the slice, of
-   path A and of path B.
+   - path C, the per-stream chain of BASELINE config 5's 512 streams:
+     Resample -> BltFilter (K4) -> AutomaticGainControl(streams=512) (K6)
+     -> Amplify -> Limit(streams=512) (K5) -> WideMixer -> master Limit
+     (K3), 12 blocks of 12800, each node with mode="pallas"; its first 2
+     blocks at 16 streams against the CPU; Limit on a mono input and on
+     blocks of 4410 frames (K5) against the CPU;
+   - path D, the group-rate fused AGC: path A with agc_group=16 (K2g and
+     K3 once per block), its first 2 blocks against path A's;
+5. times: ms per block and the aggregate realtime factor of the slice and
+   of paths A, B, C and D.
 
 It prints one JSON line of per-kernel results (each kernel's launches are
-those of the render whose path runs it), then, as the last line,
+those of the render whose path runs it; K9's, a tool on no render path,
+those of its bandwidth probe, counted as a render's are), then, as the
+last line,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it fails before printing any result.
 """
@@ -39,21 +56,36 @@ N_STREAMS = 512
 T = 12800
 N_BLOCKS = 12
 SEED = 0
+AGC_GROUP = 16
 
-# bounds against the plain versions, and fused vs unfused chain
+# bounds against the plain versions, and between paths
 BOUND_K4 = 0.0     # same op order, every op rounded alone
 BOUND_K3 = 1e-6    # same blocked order; aim 0
 BOUND_K1 = 1e-6    # same order except the mix's summation order
 BOUND_K2 = 1e-6    # as K1; its carries and ring the same order
 BOUND_K6 = BOUND_K7 = BOUND_K8 = 0.0  # same op order (K8: same blocked order)
+BOUND_K5 = BOUND_K9 = 0.0  # same op order (K9: the same sum order)
 BOUND_SLICE = 1e-5  # the JAX package's fused-vs-unfused bound
-BOUND_B = 1e-6     # path B on the card against the CPU
+BOUND_B = 1e-6     # a path on the card against the CPU
+BOUND_D_REL = 2e-3  # the group AGC against the serial plan, relative
 
 PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
 PATH_B_BLOCKS = -(-10 * PATH_B_RATE // PATH_B_BLOCK)  # 10 s of audio
+PATH_C_CHECK_STREAMS = 16
 #: (att, rel, target, max_gain, floor, 1/8192) of AgcSettings() at 48 kHz,
 #: with a 50 ms release so the peak detector has memory
 AGC_PARAMS = (0.99999480, 0.99958340, 1.0, 7.0, 0.0, 1.0 / 8192)
+
+# the card's peaks (H100 SXM data sheet)
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+
+
+def _bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the f32 operations over the peak rate."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -84,10 +116,11 @@ def main() -> int:
     import numpy as np
 
     import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.benches import dma_roofline, op_latency
+    from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
     from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
     from rodio_tpu_torch.effects.blt import blt_coefficients
     from rodio_tpu_torch.effects.limit import Limit, LimitSettings
-    from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
     from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block
     from rodio_tpu_torch.sources.generators import SamplesBuffer
 
@@ -110,6 +143,38 @@ def main() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)")
 
     # -- 3. kernels against their plain versions, main-path shapes ----------
+    op_s = op_latency.seconds_per_op(dev)
+    print(f"chain: a dependent rounded f32 op (FMUL, FADD) takes {op_s * 1e9:.4f} ns "
+          f"on one thread {tag}")
+
+    def _chain_ms(steps: int, ops: int) -> float:
+        """The dependency-chain floor: serial steps times the dependent
+        rounded ops of a step, at the latency just measured."""
+        return steps * ops * op_s * 1e3
+
+    # Each run's launch counts are its own: every counter is set to 0 just
+    # before the run (a render, or K9's probe) and read just after it.
+    counters = {"K1": (fused, "launches"), "K2": (fused, "agc_launches"),
+                "K2g": (fused, "agc_group_launches"),
+                "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
+                "K5": (cuda_scan, "limiter_env_launches"),
+                "K6": (cuda_scan, "agc_launches"),
+                "K7": (cuda_scan, "first_order_launches"),
+                "K8": (limiter_block, "bma_launches"),
+                "K9": (dma_roofline, "launches")}
+
+    def reset():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    def expect(run, name, **want):
+        got = {k: v for k, v in run.items() if v}
+        if got != want:
+            raise AssertionError(f"{name} launches {run}, expected {want}")
+
     rng = np.random.default_rng(SEED)
 
     def dev_f32(a):
@@ -119,7 +184,20 @@ def main() -> int:
     coef = dev_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple())
     results = []
 
-    # K4: biquad over [1024, 12800]
+    def record(kid, name, src, rep, err, bound_err, ms, pms, nbytes, flops,
+               chain_ms, library_ms=None, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"{kid} {name}{note}: max|d| {err:.3e} (bound {bound_err}); kernel "
+              f"{ms:.4f} ms, plain {pms:.2f} ms; roofline {bound_ms:.4f} ms "
+              f"({bound_by}), chain floor {chain_ms:.4f} ms, library {lib} {tag}")
+        results.append(dict(kid=kid, name=name, source=src, replaces=rep,
+                            max_abs_err=err, bound_err=bound_err, ms=ms,
+                            plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
+                            chain_ms=chain_ms, library_ms=library_ms))
+
+    # K4: biquad over [1024, 12800]; per sample 5 mul + 4 add, and its
+    # chain y1 -> mul, sub, sub
     x = dev_f32(rng.standard_normal((L, T)) * 0.1)
     st = tuple(dev_f32(rng.standard_normal(L) * 0.01) for _ in range(4))
     yk, sk = cuda_scan.biquad_df1(x, coef, st)
@@ -127,13 +205,14 @@ def main() -> int:
     err4 = max(_max_err(yk, yp), *(_max_err(a, b) for a, b in zip(sk, sp)))
     ms4 = _time_ms(lambda: cuda_scan.biquad_df1(x, coef, st), 20)
     pms4 = _time_ms(lambda: cuda_scan.biquad_df1_plain(x, coef, st), 2)
-    print(f"K4 biquad_df1 [{L}, {T}]: max|d| {err4:.3e} (bound {BOUND_K4}); "
-          f"kernel {ms4:.4f} ms, plain {pms4:.2f} ms {tag}")
-    results.append(("biquad_df1", "rodio_tpu_torch/csrc/biquad.cu",
-                    "rodio_tpu/ops/pallas_scan.py:82", err4, ms4, pms4, BOUND_K4))
+    record("K4", "biquad_df1", "rodio_tpu_torch/csrc/biquad.cu",
+           "rodio_tpu/ops/pallas_scan.py:82", err4, BOUND_K4, ms4, pms4,
+           2 * L * T * 4, 9 * L * T, _chain_ms(T, 3), note=f" [{L}, {T}]")
 
-    # K3: the master limiter over [2, 12800], P = 128, loud enough to limit
-    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32)),
+    # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
+    # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its
+    # chain: n/P + log2 P steps of the integrator (3 ops) then the peak (2)
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device=dev),
                 LimitSettings())  # the master bus's coefficients at 48 kHz
     kw = dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
               knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=128)
@@ -144,12 +223,14 @@ def main() -> int:
     err3 = max(_max_err(yk, yp), *(_max_err(a, b) for a, b in zip(ck, cp)))
     ms3 = _time_ms(lambda: limiter_block.limiter_master(xm, i0, p0, **kw), 50)
     pms3 = _time_ms(lambda: limiter_block.limiter_master_plain(xm, i0, p0, **kw), 5)
-    print(f"K3 limiter_master [2, {T}] P=128: max|d| {err3:.3e} (bound {BOUND_K3}); "
-          f"kernel {ms3:.4f} ms, plain {pms3:.2f} ms {tag}")
-    results.append(("limiter_master", "rodio_tpu_torch/csrc/limiter_block.cu",
-                    "rodio_tpu/ops/limiter_block.py:175", err3, ms3, pms3, BOUND_K3))
+    record("K3", "limiter_master", "rodio_tpu_torch/csrc/limiter_block.cu",
+           "rodio_tpu/ops/limiter_block.py:175", err3, BOUND_K3, ms3, pms3,
+           2 * 2 * T * 4, 60 * 2 * T, _chain_ms(T // 128 + 7, 5),
+           note=f" [2, {T}] P=128")
 
-    # K1: 512 stereo streams, one block of 12800 frames at 44.1 -> 48 kHz
+    # K1: 512 stereo streams, one block of 12800 frames at 44.1 -> 48 kHz;
+    # it reads the block's PCM rows once (K9's stream); per sample the lerp
+    # (3), the gain, the biquad (9) and the mix; chain: the biquad's
     fr, to = 147, 160
     F = (T // to + 4) * fr * 3
     pcm = dev_f32(rng.standard_normal((F, L)) * 0.1)
@@ -158,18 +239,21 @@ def main() -> int:
     kw1 = dict(gains=gains, coeffs=coef, bq=bq, channels=2)
     left, phase = output_positions(3 * to, T, fr, to, dev)
     wts = dev_f32(np.stack(lerp_weights(fr, to), axis=1))[phase]
+    rows_read, tile_rows = dma_roofline.k1_stream(T, fr, to)
+    pcm_bytes = rows_read * L * 4 + T * (8 + 8)  # rows, left, weights
     mk, bk = fused.fused_resample_biquad_mix(pcm, left, wts, **kw1)
     mp, bp = fused.fused_resample_biquad_mix_plain(pcm, left, wts, **kw1)
     err1 = max(_max_err(mk, mp), _max_err(bk, bp))
     ms1 = _time_ms(lambda: fused.fused_resample_biquad_mix(pcm, left, wts, **kw1), 20)
     pms1 = _time_ms(lambda: fused.fused_resample_biquad_mix_plain(pcm, left, wts, **kw1), 2)
-    print(f"K1 fused_resample_biquad_mix 512x2 streams, n={T}: max|d| {err1:.3e} "
-          f"(bound {BOUND_K1}); kernel {ms1:.4f} ms, plain {pms1:.2f} ms {tag}")
-    results.append(("fused_resample_biquad_mix", "rodio_tpu_torch/csrc/fused.cu",
-                    "rodio_tpu/ops/fused.py:1841", err1, ms1, pms1, BOUND_K1))
+    record("K1", "fused_resample_biquad_mix", "rodio_tpu_torch/csrc/fused.cu",
+           "rodio_tpu/ops/fused.py:1841", err1, BOUND_K1, ms1, pms1,
+           pcm_bytes + 2 * T * 4, 14 * L * T, _chain_ms(T, 3),
+           note=f" 512x2 streams, n={T}")
 
     # K2: the same block with the AGC, the ring warm: every row holds a
-    # square that leaves the window, and each stream's window sum is theirs
+    # square that leaves the window, and each stream's window sum is theirs;
+    # ~40 ops a sample; chain: the smoother's 5 ops per interleaved sample
     params = dev_f32(AGC_PARAMS)
     ring = (dev_f32(rng.uniform(0.0, 0.01, (4096, L)))).to(torch.bfloat16)
     rs0 = ring.float().reshape(4096, N_STREAMS, 2).sum((0, 2))
@@ -182,14 +266,52 @@ def main() -> int:
     err2 = max(_max_err(a.float(), b.float()) for a, b in zip(outk, outp))
     ms2 = _time_ms(lambda: fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw2), 20)
     pms2 = _time_ms(lambda: fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw2), 1)
-    print(f"K2 fused_resample_biquad_agc_mix 512x2 streams, n={T}, bf16 ring: "
-          f"max|d| {err2:.3e} (bound {BOUND_K2}); kernel {ms2:.4f} ms, plain "
-          f"{pms2:.2f} ms {tag}")
-    results.append(("fused_resample_biquad_agc_mix", "rodio_tpu_torch/csrc/fused_agc.cu",
-                    "rodio_tpu/ops/fused.py:1957", err2, ms2, pms2, BOUND_K2))
-    del x, pcm, ring, outk, outp
+    record("K2", "fused_resample_biquad_agc_mix", "rodio_tpu_torch/csrc/fused_agc.cu",
+           "rodio_tpu/ops/fused.py:1957", err2, BOUND_K2, ms2, pms2,
+           pcm_bytes + 2 * ring.numel() * 2 + 2 * T * 4, 40 * L * T,
+           _chain_ms(2 * T, 5), note=f" 512x2 streams, n={T}, bf16 ring")
 
-    # K6: the AGC loop over [512, 25600] interleaved samples
+    # K2g: K2's group branch at path D's shape, the group ring warm; ~19
+    # ops a sample; chains: the biquad's per frame, rs/pk and the smoother
+    # per group
+    grows = 4096 // AGC_GROUP
+    gring = dev_f32(rng.uniform(0.0, 0.01 * AGC_GROUP, (grows, N_STREAMS))).to(torch.bfloat16)
+    agcg = torch.stack([gring.float().sum(0), dev_f32(rng.uniform(0, 0.3, N_STREAMS)),
+                        dev_f32(rng.uniform(1, 3, N_STREAMS))])
+    kwg = dict(kw2, agc=agcg, ring=gring, ring_row=77, agc_group=AGC_GROUP)
+    outk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kwg)
+    outp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kwg)
+    errg_state = max(_max_err(a.float(), b.float()) for a, b in zip(outk[1:], outp[1:]))
+    if errg_state != 0.0:
+        raise AssertionError(f"K2g: carries and ring differ from the plain version "
+                             f"by {errg_state}")
+    errg = _max_err(outk[0], outp[0])
+    # and a group of 128 frames, over two of the kernel's tiles (the JAX
+    # package admits it at 22.05 -> 48 kHz), its ring cold
+    zeros = torch.zeros(N_STREAMS, device=dev)
+    kwl = dict(kwg, agc=torch.stack([zeros, zeros, zeros + 1.0]), agc_group=128,
+               ring=torch.zeros((32, N_STREAMS), dtype=torch.bfloat16, device=dev),
+               ring_row=5)
+    outk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kwl)
+    outp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kwl)
+    errl_state = max(_max_err(a.float(), b.float()) for a, b in zip(outk[1:], outp[1:]))
+    if errl_state != 0.0:
+        raise AssertionError(f"K2g (agc_group=128): carries and ring differ from the "
+                             f"plain version by {errl_state}")
+    errg = max(errg, _max_err(outk[0], outp[0]))
+    msg = _time_ms(lambda: fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kwg), 20)
+    pmsg = _time_ms(lambda: fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kwg), 2)
+    record("K2g", "fused_resample_biquad_agc_mix (agc_group)",
+           "rodio_tpu_torch/csrc/fused_agc_group.cu", "rodio_tpu/ops/fused.py:1957",
+           errg, BOUND_K2, msg, pmsg, pcm_bytes + 2 * gring.numel() * 2 + 2 * T * 4,
+           19 * L * T, max(_chain_ms(T, 3), _chain_ms(T // AGC_GROUP, 5)),
+           note=f" 512x2 streams, n={T}, agc_group={AGC_GROUP}, bf16 ring; "
+                f"carries and ring max|d| {errg_state}; the mix's max|d| and "
+                f"carries and ring at agc_group=128 too")
+    del x, ring, outk, outp, gring
+
+    # K6: the AGC loop over [512, 25600] interleaved samples; ~24 ops a
+    # step; chain: the smoother's 5
     M6 = 2 * T
     xs = dev_f32(np.abs(rng.standard_normal((N_STREAMS, M6)) * 0.05))
     sq = xs * xs
@@ -201,14 +323,13 @@ def main() -> int:
     err6 = max(_max_err(gk, gp), *(_max_err(a, b) for a, b in zip(ck, cp)))
     ms6 = _time_ms(lambda: cuda_scan.agc(xs, d6, *c6, params), 20)
     pms6 = _time_ms(lambda: cuda_scan.agc_plain(xs, d6, *c6, params), 1)
-    print(f"K6 agc [{N_STREAMS}, {M6}]: max|d| {err6:.3e} (bound {BOUND_K6}); "
-          f"kernel {ms6:.4f} ms, plain {pms6:.2f} ms {tag}")
-    results.append(("agc", "rodio_tpu_torch/csrc/agc.cu",
-                    "rodio_tpu/ops/pallas_scan.py:330", err6, ms6, pms6, BOUND_K6))
+    record("K6", "agc", "rodio_tpu_torch/csrc/agc.cu", "rodio_tpu/ops/pallas_scan.py:330",
+           err6, BOUND_K6, ms6, pms6, 3 * N_STREAMS * M6 * 4, 24 * N_STREAMS * M6,
+           _chain_ms(M6, 5), note=f" [{N_STREAMS}, {M6}]")
     del xs, sq, d6, gk, gp
 
     # K7: the smoother over [1, 8192] (path B's block), and the linear and
-    # max-affine ops at a small shape
+    # max-affine ops at a small shape; ~10 ops a step, 5 on the chain
     des = dev_f32(rng.uniform(0.5, 7.0, (1, 8192)))
     g0 = dev_f32([1.0])
     p7 = params[[0, 1, 3]]
@@ -223,47 +344,83 @@ def main() -> int:
     ms7 = _time_ms(lambda: cuda_scan.first_order(des, des, g0, op="agc_gain", params=p7), 50)
     pms7 = _time_ms(lambda: cuda_scan.first_order_plain(des, des, g0, op="agc_gain",
                                                         params=p7), 1)
-    print(f"K7 first_order agc_gain [1, 8192] (+ linear, max_affine [8, 512]): "
-          f"max|d| {err7:.3e} (bound {BOUND_K7}); kernel {ms7:.4f} ms, plain "
-          f"{pms7:.2f} ms {tag}")
-    results.append(("first_order", "rodio_tpu_torch/csrc/first_order.cu",
-                    "rodio_tpu/ops/pallas_scan.py:433", err7, ms7, pms7, BOUND_K7))
+    record("K7", "first_order", "rodio_tpu_torch/csrc/first_order.cu",
+           "rodio_tpu/ops/pallas_scan.py:433", err7, BOUND_K7, ms7, pms7,
+           2 * 8192 * 4, 10 * 8192, _chain_ms(8192, 5),
+           note=" agc_gain [1, 8192] (+ linear, max_affine [8, 512])")
 
-    # K8: the peak detector over [1, 8192], P = 128, release as data
+    # K8: the peak detector over [1, 8192], P = 128, release as data; chain:
+    # n/P + log2 P steps of 3 ops
     x8 = dev_f32(np.abs(rng.standard_normal((1, 8192)) * 0.3))
     v8, a8 = dev_f32([0.4]), params[1]
     err8 = _max_err(limiter_block.blocked_max_affine_const(x8, v8, a8, P=128),
                     limiter_block.blocked_max_affine_const_plain(x8, v8, a8, P=128))
     ms8 = _time_ms(lambda: limiter_block.blocked_max_affine_const(x8, v8, a8, P=128), 50)
     pms8 = _time_ms(lambda: limiter_block.blocked_max_affine_const_plain(x8, v8, a8, P=128), 5)
-    print(f"K8 blocked_max_affine_const [1, 8192] P=128: max|d| {err8:.3e} "
-          f"(bound {BOUND_K8}); kernel {ms8:.4f} ms, plain {pms8:.2f} ms {tag}")
-    results.append(("blocked_max_affine_const", "rodio_tpu_torch/csrc/bma.cu",
-                    "rodio_tpu/ops/limiter_block.py:293", err8, ms8, pms8, BOUND_K8))
-    for name, _, _, err, _, _, bound in results:
-        if not err <= bound:
-            raise AssertionError(f"{name}: max|d| {err} exceeds {bound}")
+    record("K8", "blocked_max_affine_const", "rodio_tpu_torch/csrc/bma.cu",
+           "rodio_tpu/ops/limiter_block.py:293", err8, BOUND_K8, ms8, pms8,
+           2 * 8192 * 4, 4 * 8192, _chain_ms(8192 // 128 + 7, 3),
+           note=" [1, 8192] P=128")
 
-    # -- 4. the slice ------------------------------------------------------
-    # Each render's launch counts are its own: every counter is set to 0
-    # just before the render and read just after it.
-    counters = {"K1": (fused, "launches"), "K2": (fused, "agc_launches"),
-                "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
-                "K6": (cuda_scan, "agc_launches"),
-                "K7": (cuda_scan, "first_order_launches"),
-                "K8": (limiter_block, "bma_launches")}
+    # K5: the limiter envelopes at path C's shape [1024, 12800] and at a
+    # ragged [6, 700]; 7 ops a step, the integrator's chain mul, add, max
+    lkw = dict(att=lim.attack, rel=lim.release)
+    err5 = 0.0
+    for shape in ((6, 700), (L, T)):
+        db = dev_f32(rng.uniform(0.0, 12.0, shape) * (rng.uniform(size=shape) < 0.3))
+        e0, q0 = dev_f32(rng.uniform(0, 6, shape[0])), dev_f32(rng.uniform(0, 6, shape[0]))
+        pk5, ck5 = cuda_scan.limiter_env(db, e0, q0, **lkw)
+        pp5, cp5 = cuda_scan.limiter_env_plain(db, e0, q0, **lkw)
+        err5 = max(err5, _max_err(pk5, pp5), *(_max_err(a, b) for a, b in zip(ck5, cp5)))
+    ms5 = _time_ms(lambda: cuda_scan.limiter_env(db, e0, q0, **lkw), 20)
+    pms5 = _time_ms(lambda: cuda_scan.limiter_env_plain(db, e0, q0, **lkw), 1)
+    record("K5", "limiter_env", "rodio_tpu_torch/csrc/limiter_env.cu",
+           "rodio_tpu/ops/pallas_scan.py:389", err5, BOUND_K5, ms5, pms5,
+           2 * L * T * 4, 7 * L * T, _chain_ms(T, 3),
+           note=f" [{L}, {T}] (+ [6, 700])")
+    del db, pk5, pp5
 
-    def reset():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+    # K9: K1's chunk stream, the ring 4 tiles deep, each call reading its
+    # buffer from memory (calls rotate through copies); against clone() of
+    # the same buffer
+    xk9 = dev_f32(rng.standard_normal((rows_read, L)))
+    err9 = _max_err(dma_roofline.dma_ring(xk9, tr=tile_rows, depth=4),
+                    dma_roofline.dma_ring_plain(xk9, tr=tile_rows))
+    err9 = max(err9, _max_err(dma_roofline.stream_max(xk9),
+                              dma_roofline.stream_max_plain(
+                                  xk9, blocks=dma_roofline.stream_blocks(xk9))))
+    pms9 = _time_ms(lambda: dma_roofline.dma_ring_plain(xk9, tr=tile_rows), 5)
+    lib9 = dma_roofline.time_ms_cold(torch.clone, xk9)
+    reset()
+    ms9 = dma_roofline.time_ms_cold(
+        lambda t: dma_roofline.dma_ring(t, tr=tile_rows, depth=4), xk9, reps=20)
+    dma_run = counts()
+    expect(dma_run, "K9 probe", K9=21)  # a warm-up call and 20 timed
+    ms9s = dma_roofline.time_ms_cold(dma_roofline.stream_max, xk9)
+    nb9 = xk9.numel() * 4
+    record("K9", "dma_ring", "rodio_tpu_torch/csrc/dma_roofline.cu",
+           "benches/dma_roofline.py:83", err9, BOUND_K9, ms9, pms9, nb9 + L * 4,
+           rows_read // tile_rows * L, _chain_ms(-(-rows_read // tile_rows), 1),
+           library_ms=lib9, note=f" [{rows_read}, {L}] f32, tiles of {tile_rows} rows, "
+           f"depth 4: {nb9 / ms9 / 1e6:.1f} GB/s; contiguous stream {ms9s:.4f} ms, "
+           f"{nb9 / ms9s / 1e6:.1f} GB/s; clone {2 * nb9 / lib9 / 1e6:.1f} GB/s moved")
+    del xk9
+    for r in results:
+        if not r["max_abs_err"] <= r["bound_err"]:
+            raise AssertionError(f"{r['kid']}: max|d| {r['max_abs_err']} exceeds "
+                                 f"{r['bound_err']}")
 
-    def counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-
-    def expect(run, name, **want):
-        got = {k: v for k, v in run.items() if v}
-        if got != want:
-            raise AssertionError(f"{name} launches {run}, expected {want}")
+    # -- 4. the paths --------------------------------------------------------
+    def check_output(out, valids, name, n_blocks, block):
+        if tuple(out.shape) != (2, n_blocks * block) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} output {tuple(out.shape)} not finite "
+                                 f"[2, {n_blocks * block}]")
+        if not bool((valids == block).all()):
+            raise AssertionError(f"{name} valid counts {valids.tolist()}")
+        peak = float(out.abs().max().item())
+        if not 0.0 < peak < 1.0:
+            raise AssertionError(f"{name} output peak {peak} outside (0, 1)")
+        return peak
 
     master, state = rtt.make_flagship(N_STREAMS, seconds=4.0, scan_mode="fused",
                                       device="cuda", max_block=T, seed=SEED)
@@ -274,14 +431,8 @@ def main() -> int:
     fused_run = counts()
     torch.cuda.synchronize()
     print(f"slice: fused render of {N_BLOCKS} x {T}: launches {fused_run}")
-    if tuple(out.shape) != (2, N_BLOCKS * T) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"slice output {tuple(out.shape)} not finite [2, {N_BLOCKS * T}]")
     expect(fused_run, "fused render", K1=N_BLOCKS, K3=N_BLOCKS)
-    if not bool((valids == T).all()):
-        raise AssertionError(f"valid counts {valids.tolist()}")
-    peak = float(out.abs().max().item())
-    if not 0.0 < peak < 1.0:
-        raise AssertionError(f"slice output peak {peak} outside (0, 1)")
+    peak = check_output(out, valids, "slice", N_BLOCKS, T)
 
     unfused, ustate = rtt.make_flagship(N_STREAMS, seconds=4.0, scan_mode="auto",
                                         device="cuda", max_block=T, seed=SEED)
@@ -311,13 +462,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"path A: fused AGC render of {N_BLOCKS} x {T}: launches {agc_run}")
     expect(agc_run, "path A", K2=N_BLOCKS, K3=N_BLOCKS)
-    if tuple(aout.shape) != (2, N_BLOCKS * T) or not bool(torch.isfinite(aout).all()):
-        raise AssertionError(f"path A output {tuple(aout.shape)} not finite [2, {N_BLOCKS * T}]")
-    if not bool((avalids == T).all()):
-        raise AssertionError(f"path A valid counts {avalids.tolist()}")
-    apeak = float(aout.abs().max().item())
-    if not 0.0 < apeak < 1.0:
-        raise AssertionError(f"path A output peak {apeak} outside (0, 1)")
+    apeak = check_output(aout, avalids, "path A", N_BLOCKS, T)
     del astate
 
     # path A': the unfused AGC chain (K4, K6, K3), 2 blocks
@@ -336,6 +481,7 @@ def main() -> int:
           f"2 blocks: max|d| {err_a:.3e} (bound {BOUND_SLICE}); output peak {apeak:.4f}")
     if not err_a <= BOUND_SLICE:
         raise AssertionError(f"path A fused vs unfused {err_a} exceeds {BOUND_SLICE}")
+    aout2 = aout[:, :2 * T].clone()  # path D is held to these blocks
     del auout, agc_unfused, austate, aout
 
     # path B: BASELINE config 2 on 10 s of seeded stereo PCM at 44.1 kHz,
@@ -362,7 +508,7 @@ def main() -> int:
         if int(bvalids.sum().item()) != 10 * PATH_B_RATE or not bool(torch.isfinite(bout).all()):
             raise AssertionError(f"path B output: valid {int(bvalids.sum())}, finite "
                                  f"{bool(torch.isfinite(bout).all())}")
-        cnode = config2(None, group)
+        cnode = config2("cpu", group)
         _, cout, _ = rtt.render_blocks(cnode, cnode.init_state(), 2, PATH_B_BLOCK)
         err_b = _max_err(bout[:, :2 * PATH_B_BLOCK].cpu(), cout)
         print(f"path B (group={group}): card vs CPU, 2 blocks: max|d| {err_b:.3e} "
@@ -370,6 +516,75 @@ def main() -> int:
         if not err_b <= BOUND_B:
             raise AssertionError(f"path B card vs CPU {err_b} exceeds {BOUND_B}")
         path_b_runs[group] = run
+
+    # path C: the per-stream chain of tests/test_parallel.py:106-117 with
+    # the TPU dispatch of each node ("pallas"), BASELINE config 5's 512
+    # streams on 4 s of seeded PCM, then the master limiter
+    def path_c(device, S):
+        return rtt.make_per_stream_chain(S, seed=SEED + 3, device=device)[0]
+
+    path_c_node = path_c("cuda", N_STREAMS)
+    reset()
+    _, cout, cvalids = rtt.render_blocks(path_c_node, path_c_node.init_state(), N_BLOCKS, T)
+    path_c_run = counts()
+    torch.cuda.synchronize()
+    print(f"path C: per-stream chain render of {N_BLOCKS} x {T}: launches {path_c_run}")
+    expect(path_c_run, "path C", K3=N_BLOCKS, K4=N_BLOCKS, K5=N_BLOCKS, K6=N_BLOCKS)
+    cpeak = check_output(cout, cvalids, "path C", N_BLOCKS, T)
+    del cout
+    S16 = PATH_C_CHECK_STREAMS
+    outs = []
+    for device in ("cuda", "cpu"):
+        node = path_c(device, S16)
+        _, o, _ = rtt.render_blocks(node, node.init_state(), 2, T)
+        outs.append(o.cpu())
+    err_c = _max_err(*outs)
+    print(f"path C: {S16} streams, card vs CPU, 2 blocks: max|d| {err_c:.3e} "
+          f"(bound {BOUND_B}); output peak {cpeak:.4f}")
+    if not err_c <= BOUND_B:
+        raise AssertionError(f"path C card vs CPU {err_c} exceeds {BOUND_B}")
+    path_c_limits = {}
+    for label, channels, n in (("mono", 1, T), ("P=2", 2, 4410)):
+        data = (np.random.default_rng(SEED + 4).uniform(-1, 1, (channels, 3 * n))
+                * 2.0).astype(np.float32)
+        res = []
+        reset()
+        for device in ("cuda", "cpu"):
+            node = Limit(SamplesBuffer(channels, 48000, data, device=device),
+                         LimitSettings(), mode="pallas")
+            st, o, _ = rtt.render_blocks(node, node.init_state(), 3, n)
+            res.append((o.cpu(), st["integ"].cpu(), st["peak"].cpu()))
+        run = counts()
+        expect(run, f"Limit ({label})", K5=3)
+        err_o = _max_err(res[0][0], res[1][0])
+        err_e = max(_max_err(res[0][1], res[1][1]), _max_err(res[0][2], res[1][2]))
+        print(f"path C: Limit ({label}, blocks of {n}): card vs CPU, 3 blocks: output "
+              f"max|d| {err_o:.3e} (bound {BOUND_B}), envelope carries {err_e:.3e} "
+              f"(bound 0.0); launches {run}")
+        if not (err_o <= BOUND_B and err_e == 0.0):
+            raise AssertionError(f"Limit ({label}) card vs CPU {err_o}, {err_e}")
+        path_c_limits[label] = run
+
+    # path D: the group-rate fused AGC, K2g then K3 per block
+    grp_master, gstate = rtt.make_flagship(
+        N_STREAMS, seconds=4.0, scan_mode="fused", with_agc=True,
+        agc_group=AGC_GROUP, device="cuda", max_block=T, seed=SEED)
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    _, dout, dvalids = rtt.render_blocks(grp_master, gstate, N_BLOCKS, T)
+    torch.cuda.set_sync_debug_mode("default")
+    path_d_run = counts()
+    torch.cuda.synchronize()
+    print(f"path D: fused group AGC (agc_group={AGC_GROUP}) render of {N_BLOCKS} x {T}: "
+          f"launches {path_d_run}")
+    expect(path_d_run, "path D", K2g=N_BLOCKS, K3=N_BLOCKS)
+    dpeak = check_output(dout, dvalids, "path D", N_BLOCKS, T)
+    rel_d = float(((dout[:, :2 * T] - aout2).abs() / (aout2.abs() + 1e-6)).max().item())
+    print(f"path D vs path A, 2 blocks: max relative |d| {rel_d:.3e} "
+          f"(bound {BOUND_D_REL}); output peak {dpeak:.4f}")
+    if not rel_d < BOUND_D_REL:
+        raise AssertionError(f"path D vs path A {rel_d} exceeds {BOUND_D_REL}")
+    del dout, aout2
 
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
@@ -383,7 +598,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / 1e3 / n_blocks
 
-    for label, node in (("slice", master), ("path A (AGC)", agc_master)):
+    for label, node in (("slice", master), ("path A (AGC)", agc_master),
+                        ("path C (per-stream chain)", path_c_node),
+                        (f"path D (agc_group={AGC_GROUP})", grp_master)):
         sec_per_block = time_render(node, N_BLOCKS, T)
         rt_factor = (N_STREAMS * T / 48000) / sec_per_block
         print(f"{label}: {sec_per_block * 1e3:.3f} ms per block of {T} frames x "
@@ -393,21 +610,25 @@ def main() -> int:
           f"{PATH_B_BLOCK} frames x 1 stream; realtime factor "
           f"{PATH_B_BLOCK / PATH_B_RATE / sec_per_block:.1f}x {tag}")
 
-    # launches: from the render of the path that runs the kernel;
-    # launches_by_run keeps every render's counts apart
+    # launches: from the render of the path that runs the kernel (K9: its
+    # probe); launches_by_run keeps every render's counts apart
     runs = {"fused": fused_run, "unfused": unfused_run, "agc_fused": agc_run,
             "agc_unfused": agc_unfused_run, "config2": path_b_runs[0],
-            "config2_group8": path_b_runs[8]}
-    kernel_paths = (("K4", "unfused"), ("K3", "fused"), ("K1", "fused"),
-                    ("K2", "agc_fused"), ("K6", "agc_unfused"),
-                    ("K7", "config2"), ("K8", "config2"))
+            "config2_group8": path_b_runs[8], "per_stream": path_c_run,
+            "limit_mono": path_c_limits["mono"], "limit_p2": path_c_limits["P=2"],
+            "agc_group": path_d_run, "dma_probe": dma_run}
+    kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
+                    "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",
+                    "K8": "config2", "K5": "per_stream", "K9": "dma_probe"}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": runs[path][kid], "path": path,
-         "launches_by_run": {r: c[kid] for r, c in runs.items()},
-         "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for (name, src, rep, err, ms, pms, _), (kid, path) in zip(
-            results, kernel_paths)
+        {"name": r["name"], "id": r["kid"], "route": "cuda", "source": r["source"],
+         "replaces": r["replaces"], "launches": runs[kernel_paths[r["kid"]]][r["kid"]],
+         "path": kernel_paths[r["kid"]],
+         "launches_by_run": {k: c[r["kid"]] for k, c in runs.items()},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "chain_ms": r["chain_ms"],
+         "library_ms": r["library_ms"]}
+        for r in results
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

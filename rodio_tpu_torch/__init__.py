@@ -15,16 +15,23 @@ Layers (the counterparts of rodio_tpu's modules of the same names):
   AutomaticGainControl
 - :mod:`rodio_tpu_torch.parallel`    — WideMixer
 - :mod:`rodio_tpu_torch.ops`         — plain scans, the CUDA kernels
-  (K1 fused, K2 fused AGC, K3 limiter, K4 biquad, K6 AGC loop, K7
-  first-order scan, K8 blocked max-affine) and their build
+  (K1 fused, K2 fused AGC and K2g its group branch, K3 limiter, K4
+  biquad, K5 limiter envelopes, K6 AGC loop, K7 first-order scan, K8
+  blocked max-affine) and their build
 - :mod:`rodio_tpu_torch.graph`       — render / render_blocks / record
-- :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship
+- :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship,
+  make_per_stream_chain
 - :mod:`rodio_tpu_torch.convert`     — carry a JAX render's state across
+- :mod:`rodio_tpu_torch.benches`     — K9, the streaming-read probe of
+  K1's input, and the dependent-op latency probe (chain floors)
+
+Entry points run on the current CUDA device unless the caller passes
+``device="cpu"``; without a card they raise.
 """
 
 from .core.types import StreamSpec
 from .effects import AgcSettings, AutomaticGainControl
-from .flagship import FusedWidePipeline, make_flagship
+from .flagship import FusedWidePipeline, make_flagship, make_per_stream_chain
 from .graph.render import record, render, render_blocks
 from .utils.device import resolve_device
 
@@ -36,6 +43,7 @@ __all__ = [
     "FusedWidePipeline",
     "StreamSpec",
     "make_flagship",
+    "make_per_stream_chain",
     "record",
     "render",
     "render_blocks",

@@ -1,0 +1,1 @@
+"""Measurement tools of the port (counterparts of the repository's benches/)."""

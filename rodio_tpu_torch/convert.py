@@ -12,8 +12,9 @@ The JAX fused AGC pipeline keeps its lanes channel-major (lane c*512 + s,
 rodio_tpu/flagship.py:414-420), packs its per-stream carries as [12, 128]
 (rows 0-3 rms_sum, 4-7 peak, 8-11 gain, stream s at (s // 128, s % 128))
 and its square history as a ring of grid steps [slots, m*to, 8, 128] (slot =
-step mod slots); the port's lanes are 2s + c, its carries [3, S] and its
-ring [4096, lanes] by frame mod 4096.
+step mod slots; in group mode [slots, m*to / AG, 8, 128], a group sum per
+stream); the port's lanes are 2s + c, its carries [3, S] and its ring
+[4096, lanes] by frame mod 4096 ([4096 / AG, S] by group in group mode).
 """
 from __future__ import annotations
 
@@ -106,14 +107,21 @@ def _fused_agc_from_jax(node: FusedWidePipeline, jstate, ring_dtype) -> State:
     S, L, R = node.n_streams, node._wide, AGC_RING_FRAMES
     agc = np.asarray(jstate["agc"]).reshape(3, _JAX_LANES // 2)[:, :S]
     jring = np.asarray(jstate["ring"]).astype(np.float32)
-    slots, mto = jring.shape[:2]
-    jring = jring.reshape(slots, mto, _JAX_LANES)[:, :, _channel_major(L)]
-    # frame f of the last R holds its square at slot (f // mto) % slots,
-    # row f % mto; frames before the stream's start are zero
+    slots, rr = jring.shape[:2]  # rr: ring rows per grid step
+    jring = jring.reshape(slots, rr, _JAX_LANES)
     o0 = int(jstate["out_o"])
-    f = np.arange(o0 - R, o0)
-    ring = np.zeros((R, L), np.float32)
-    ring[f % R] = np.where((f >= 0)[:, None], jring[(f // mto) % slots, f % mto], 0.0)
+    ag = node._agc_group
+    if ag:
+        # group mode: a row per group of ag frames, each stream's group sum
+        # in both halves of the lanes (the first half taken)
+        jring, rows, now = jring[:, :, :S], R // ag, o0 // ag
+    else:
+        jring, rows, now = jring[:, :, _channel_major(L)], R, o0
+    k = np.arange(now - rows, now)
+    # unit k (frame or group) of the last window holds its value at slot
+    # (k // rr) % slots, row k % rr; units before the stream's start are zero
+    ring = np.zeros((rows, jring.shape[2]), np.float32)
+    ring[k % rows] = np.where((k >= 0)[:, None], jring[(k // rr) % slots, k % rr], 0.0)
     return {"agc": _t(agc, node),
             "ring": _t(ring, node).to(ring_dtype),
             "agc_par": _t(jstate["agc_par"], node)}

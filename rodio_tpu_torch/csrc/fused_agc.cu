@@ -64,62 +64,22 @@
 // desired gain and 2 of pk, with the staged rows. A second kernel sums the
 // per-block partials in block order, so the mix is deterministic. Every op
 // rounds alone.
-#include <cuda_bf16.h>
-
-#include <type_traits>
-
-#include "agc_math.cuh"
-#include "lane_pipeline.cuh"
+#include "fused_agc_common.cuh"
 
 namespace {
 
-using rt::kTile;
-using U64 = unsigned long long;
+using namespace rt::fused_agc;
 
-constexpr int kBL = 8;       // lanes per block (whole stereo streams)
-constexpr int kRing = 4096;  // frames of the RMS window: 8192 samples / 2 ch
 constexpr int kYBufs = 7, kDBufs = 4, kPBufs = 2;
 constexpr int kDepth = 6;    // iterations from a tile's fill to its mix
 constexpr int kCh = 8;       // frames per register chunk of warps 1 and 2
-constexpr int kBqCh = 16;    // frames per register chunk of warp 0
-// warps 3, 4, 7 and 8 are the elementwise warps (SMSPs 3, 0, 3, 0, beside
-// the light biquad warp); warps 5 and 6 stay idle
-constexpr int kNWork = 4 * 32;
-constexpr int kAgcThreads = 9 * 32;
 constexpr int kPer = kTile * kBL / kNWork;  // tile elements per thread
 static_assert(kPer * kNWork == kTile * kBL, "whole tiles per thread");
-static_assert(kBL % 2 == 0 && kBL <= 32, "whole streams, one warp of lanes");
 
-typedef float Tile[kTile][kBL + 1];  // +1: no bank conflicts on columns
-
-// the elementwise slot of a warp, or -1
-__device__ __forceinline__ int work_slot(int warp) {
-  return warp == 3 || warp == 4 ? warp - 3 : warp == 7 || warp == 8 ? warp - 5
-                                                                    : -1;
-}
-
-// a frame's left input row and lerp weights, staged in shared memory
-struct Row {
-  long long left;
-  float2 w;
-};
 constexpr size_t kTiles = sizeof(Tile) * (kYBufs + kDBufs + kPBufs);
 constexpr size_t kShmem = kTiles + sizeof(Row) * 2 * kTile;
 static_assert(kTiles % alignof(Row) == 0, "staged rows aligned");
 static_assert(kShmem <= 48 * 1024, "more shared memory needs opting in");
-
-__device__ __forceinline__ float ring_f32(float v) { return v; }
-__device__ __forceinline__ float ring_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename R>
-__device__ __forceinline__ R ring_round(float v);
-template <>
-__device__ __forceinline__ float ring_round<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 ring_round<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // frames t0 .. t0+kCh-1 of a stream's two lanes (l0, l0 + 1) of a tile
 __device__ __forceinline__ void load_chunk(const Tile& b, int t0, int l0,
@@ -130,9 +90,6 @@ __device__ __forceinline__ void load_chunk(const Tile& b, int t0, int l0,
     v[u][1] = b[t0 + u][l0 + 1];
   }
 }
-// a whole tile's tt is rt::Steps<kTile>, a tail tile's an int
-template <class TT>
-constexpr bool kWhole = !std::is_same<TT, int>::value;
 
 template <class TT>
 __device__ __forceinline__ void store_chunk(Tile& b, int t0, int l0, TT tt,
@@ -181,17 +138,6 @@ __device__ __forceinline__ void stream_chunks(const Tile& A, const Tile& B,
       }
     }
   }
-}
-
-// run(tt) for a tile of tt steps: a whole tile runs with tt a compile-time
-// kTile, so its copy of run has no per-step test (a branch per step costs
-// the serial warps more than the step)
-template <class Run>
-__device__ __forceinline__ void full_or_tail(int tt, Run run) {
-  if (tt == kTile)
-    run(rt::Steps<kTile>{});
-  else
-    run(tt);
 }
 
 template <typename R>
@@ -285,31 +231,9 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
     if (warp == 0) {
       const int j = it - 1;
       if (live(j) && wl < nl) {
-        // kBqCh frames of the column at a time in registers, so that no
-        // step waits on a load
         Tile& b = Y[j % kYBufs];
         auto run = [&](auto tt) {
-          using TT = decltype(tt);
-#pragma unroll 1
-          for (int t0 = 0; t0 < kTile; t0 += kBqCh) {
-            float v[kBqCh];
-#pragma unroll
-            for (int u = 0; u < kBqCh; ++u) v[u] = b[t0 + u][wl];
-#pragma unroll
-            for (int u = 0; u < kBqCh; ++u) {
-              if (kWhole<TT> || t0 + u < tt) {
-                const float yt = rt::biquad_step(cf, v[u], x1, x2, y1, y2);
-                x2 = x1;
-                x1 = v[u];
-                y2 = y1;
-                y1 = yt;
-                v[u] = yt;
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < kBqCh; ++u)
-              if (kWhole<TT> || t0 + u < tt) b[t0 + u][wl] = v[u];
-          }
+          biquad_column(b, wl, tt, cf, x1, x2, y1, y2);
         };
         full_or_tail(rt::tile_len(n, j), run);
       }
@@ -430,7 +354,6 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
   }
 }
 
-// out[c, t] = sum over blocks b (in order) of partial[b, c, t]
 __global__ void agc_mix_partials_kernel(const float* __restrict__ partial,
                                         float* __restrict__ out, int nblk,
                                         long long cn) {
@@ -457,6 +380,14 @@ cudaError_t launch(const float* pcm, long long F, int L, const long long* left,
 
 }  // namespace
 
+cudaError_t rt::fused_agc::sum_partials(const float* partial, float* out,
+                                        int nblk, int n, cudaStream_t s) {
+  const long long cn = 2LL * n;
+  agc_mix_partials_kernel<<<(unsigned)((cn + 255) / 256), 256, 0, s>>>(
+      partial, out, nblk, cn);
+  return cudaGetLastError();
+}
+
 // lanes per block: partial holds [ceil(L / this), 2, n] floats
 extern "C" int rt_fused_agc_block_lanes() { return kBL; }
 
@@ -479,8 +410,5 @@ extern "C" int rt_fused_resample_biquad_agc_mix(
                                 bq_out, agc_in, agc_out, params, ring,
                                 ring_row, partial, n, nblk, s);
   if (err != cudaSuccess) return (int)err;
-  const long long cn = 2LL * n;
-  agc_mix_partials_kernel<<<(unsigned)((cn + 255) / 256), 256, 0, s>>>(
-      partial, out, nblk, cn);
-  return (int)cudaGetLastError();
+  return (int)sum_partials(partial, out, nblk, n, s);
 }

@@ -38,7 +38,7 @@ import torch
 from ..core.math import duration_to_coefficient
 from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
-from ..ops.cuda_scan import agc, desired_gain, first_order, smooth_gains
+from ..ops.cuda_scan import agc, desired_gain, first_order, ipow, smooth_gains
 from ..ops.limiter_block import blocked_max_affine_const
 
 RMS_WINDOW_SIZE = 8192
@@ -58,19 +58,6 @@ class AgcSettings:
 def _coefficient(seconds: float, rate: int) -> float:
     nanos = min(duration_to_nanos(seconds), _MAX_NANOS)
     return float(duration_to_coefficient(0, rate, nanos=nanos))
-
-
-def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x**n for an int n >= 1 by binary powering, each product rounded in
-    x's dtype: the order of JAX's ``lax.integer_pow``."""
-    acc = None
-    while n > 0:
-        if n & 1:
-            acc = x if acc is None else acc * x
-        n >>= 1
-        if n:
-            x = x * x
-    return acc
 
 
 class AutomaticGainControl(Node):

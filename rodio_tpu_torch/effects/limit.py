@@ -7,13 +7,18 @@ Per channel: the soft-knee dB gain computer, the max-affine integrator
 samples, so at frame t channel c's gain sees fresh peaks for channels <= c
 and the previous frame's peaks for channels > c; that staleness is kept.
 
-Dispatch (``mode="auto"`` or ``"pallas"``): a 1-stream stereo input whose
-block allows P = min(128, n & -n) >= 8 chunks runs K3, the blocked
-limiter, on a CUDA tensor. On a CPU tensor ``"auto"`` runs the sequential
-envelopes, as the JAX package does off the TPU, and ``"pallas"`` runs K3's
-plain version (the blocked order), as the JAX node's interpret run does.
-On a CUDA tensor the sequential envelopes are kernel K5, which is not
-ported yet: such an input raises.
+Dispatch. A 1-stream stereo input whose block allows P = min(128, n & -n)
+>= 8 chunks, under ``mode="auto"`` or ``"pallas"``, runs K3, the blocked
+limiter, on a CUDA tensor; on a CPU tensor ``"pallas"`` runs K3's plain
+version (the blocked order), as the JAX node's interpret run does, and
+``"auto"`` the sequential envelopes, as the JAX package does off the TPU.
+Every other case (``streams`` > 1, mono or multichannel input, a block
+with P < 8, and ``mode="exact"`` on any input) runs the sequential
+envelopes through :func:`ops.cuda_scan.limiter_env`: kernel K5 on a CUDA
+tensor, which is the same recurrence in the same op order, so ``"exact"``
+runs it too, as ``BltFilter`` runs K4; its plain version, the sequential
+scans, on a CPU tensor. The coupling within each group of channels and the
+gain stay torch ops, as in the JAX node.
 """
 from __future__ import annotations
 
@@ -26,8 +31,8 @@ import torch
 from ..core.math import db_to_linear, duration_to_coefficient
 from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
+from ..ops.cuda_scan import limiter_env
 from ..ops.limiter_block import limiter_gain_db, limiter_master
-from ..ops.scan import linear_scan, max_affine_scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,29 +122,15 @@ class Limit(Node):
         P = min(128, n & -n)
         blocked = (self.mode in ("auto", "pallas") and self.streams == 1
                    and self.spec.channels == 2 and P >= 8)
-        if x.device.type == "cuda" or (blocked and self.mode == "pallas"):
-            if not blocked:
-                raise NotImplementedError(
-                    "the sequential limiter envelopes on CUDA are kernel K5 "
-                    "(rodio_tpu/ops/pallas_scan.py limiter_env_pallas), not "
-                    "ported yet; use mode='auto' or 'pallas' on a 1-stream "
-                    "stereo input with n divisible by 8")
+        if blocked and (x.device.type == "cuda" or self.mode == "pallas"):
             y, (integ, peak) = limiter_master(
                 x, state["integ"], state["peak"],
                 att=self.attack, rel=self.release, threshold=self.threshold,
                 knee_width=self.knee_width, inv_knee_8=self.inv_knee_8, P=P)
             return {"in": s, "integ": integ, "peak": peak}, mask_block(y, valid), valid
-        return self._emit_sequential(state, s, x, valid, n)
-
-    def _emit_sequential(self, state, s, x, valid, n):
-        rel, att = self.release, self.attack
         db = limiter_gain_db(x, self.threshold, self.knee_width, self.inv_knee_8)
-        integ = max_affine_scan(
-            db, db * float(np.float32(1.0 - rel)), torch.full_like(db, rel),
-            state["integ"])
-        peak = linear_scan(
-            torch.full_like(integ, att), integ * float(np.float32(1.0 - att)),
-            state["peak"])  # [C, T]
+        peak, (integ_c, peak_c) = limiter_env(
+            db, state["integ"], state["peak"], att=self.attack, rel=self.release)
 
         c = self.spec.channels
         cg = c // self.streams
@@ -161,4 +152,4 @@ class Limit(Node):
             max_peak = torch.maximum(fresh_cummax, stale_above).reshape(c, n)
 
         y = mask_block(x * db_to_linear(-max_peak), valid)
-        return ({"in": s, "integ": integ[:, -1], "peak": peak[:, -1]}, y, valid)
+        return {"in": s, "integ": integ_c, "peak": peak_c}, y, valid

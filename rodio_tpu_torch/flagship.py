@@ -15,7 +15,8 @@ and its parity partner, the unfused chain
 
 With the AGC on (``with_agc=True``: BASELINE config 5 with the config-2
 AGC stage per stream), the fused node runs K2 (resample + biquad + AGC +
-gain + mix), and the unfused chain gains an AutomaticGainControl (K6 with
+gain + mix; K2g, its group branch, with ``agc_group`` > 0), and the
+unfused chain gains an AutomaticGainControl (K6 with
 ``scan_mode="pallas"``) after the filter.
 
 The JAX package's TPU schedule knobs (``lookahead``, ``subblk``,
@@ -48,6 +49,8 @@ from .sources.generators import SamplesBuffer
 from .utils.device import DeviceLike
 
 PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
+#: the precisions whose PCM the JAX package splits into integer pieces
+INT_PIECES = ("int3", "int2", "i8", "i24")
 #: the JAX package's fused-AGC plans that are TPU schedules of K2
 AGC_REL0_PLANS = ("rel0", "rel0f", "rel0b", "rel0b16", "rel0b32", "rel0b64",
                   "rel0c", "rel0c8", "rel0c16", "rel0c32")
@@ -105,7 +108,19 @@ class FusedWidePipeline(Node):
     same value leaving it 4096 frames later; "f32" keeps f32), and the
     parameters ``agc_par`` as data, so :meth:`set_agc_params` rebuilds
     nothing. ``agc_plan`` "auto"/"serial" is the serial plan; the rel0
-    plans and ``agc_group`` > 0 (K2's group branch) are not ported.
+    plans are not ported.
+
+    ``agc_group`` = AG > 0 is the JAX package's group-rate AGC (its
+    AgcGroup contract, an opt-in that changes results): window sums, peaks
+    and the gain smoother (with att^(2 AG), rel^(2 AG)) advance once per
+    group of AG frames, the gain applied as a staircase (K2g). The ring then
+    holds 4096 / AG rounded group sums per stream. AG takes the JAX
+    package's values for the same rates and precision: >= 2, dividing the
+    RMS lag 4096 and m*to, where m is the JAX pipeline's frames-per-step
+    factor under the AGC (2, or 1 for to > 320 with an int-piece
+    precision). Groups start at multiples of AG from the stream's start, so
+    every block must hold whole groups, as the JAX pipeline's blocks of
+    whole m*to steps do.
     """
 
     def __init__(self, input_node: Node, to_rate: int, gains, n_streams: int,
@@ -156,9 +171,15 @@ class FusedWidePipeline(Node):
         if ring not in ("bf16", "f32"):
             raise ValueError(f"agc_ring must be 'bf16' or 'f32', got {ring!r}")
         if group:
-            raise NotImplementedError(
-                "agc_group > 0 is K2's group branch (rodio_tpu/ops/fused.py:"
-                "652-764), not ported yet (ROADMAP queue 2)")
+            # the JAX pipeline's frames per grid step under the AGC
+            # (rodio_tpu/flagship.py:242-276): its groups must divide them
+            m = 1 if self.precision in INT_PIECES and self.to > 320 else 2
+            mto = m * self.to
+            if group < 2 or mto % group or AGC_RING_FRAMES % group:
+                raise ValueError(
+                    f"agc_group {group} must be >= 2 and divide both m*to = "
+                    f"{mto} and the RMS lag {AGC_RING_FRAMES}")
+        self._agc_group = int(group)
         if plan in AGC_REL0_PLANS:
             raise NotImplementedError(
                 f"agc_plan={plan!r} is one of K2's rel0 plans (TPU "
@@ -228,10 +249,12 @@ class FusedWidePipeline(Node):
         agc = torch.zeros((3, S), dtype=torch.float32, device=dev)
         agc[2] = 1.0  # rows: rms_sum, peak, gain
         rdt = torch.bfloat16 if self._agc_ring == "bf16" else torch.float32
+        ag = self._agc_group
+        # a square per frame and lane, or a group sum per group and stream
+        shape = (AGC_RING_FRAMES // ag, S) if ag else (AGC_RING_FRAMES, self._wide)
         return {
             "agc": agc,
-            "ring": torch.zeros((AGC_RING_FRAMES, self._wide), dtype=rdt,
-                                device=dev),
+            "ring": torch.zeros(shape, dtype=rdt, device=dev),
             "agc_par": torch.tensor(self._agc_params, dtype=torch.float32,
                                     device=dev),
         }
@@ -293,11 +316,13 @@ class FusedWidePipeline(Node):
         left, wts = self._taps(o0, n)
         extra = {}
         if self.with_agc:
+            ag = self._agc_group
             mix, bq, agc, ring = fused_resample_biquad_agc_mix(
                 state["pcm"], left, wts, gains=state["gains"],
                 coeffs=state["coeffs"], bq=state["bq"], agc=state["agc"],
                 agc_params=state["agc_par"], ring=state["ring"],
-                ring_row=o0 % AGC_RING_FRAMES)
+                ring_row=(o0 // ag) % (AGC_RING_FRAMES // ag) if ag
+                else o0 % AGC_RING_FRAMES, agc_group=ag)
             extra = {"agc": agc, "ring": ring}
         else:
             mix, bq = fused_resample_biquad_mix(
@@ -376,4 +401,35 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
     chain = Amplify(chain, np.repeat(gains, channels))
     chain = WideMixer(chain, n_streams)
     master = Limit(chain, LimitSettings(), mode=scan_mode)
+    return master, master.init_state()
+
+
+def make_per_stream_chain(n_streams: int = 512, *, seconds: float = 4.0,
+                          seed: int = 0, mode: str = "pallas",
+                          device: DeviceLike = None):
+    """Build (master_node, state) for the per-stream chain: every stream of
+    BASELINE config 5 (44.1 -> 48 kHz) through its own stateful effects, as the JAX
+    package's sharded pipeline builds them (tests/test_parallel.py:106-117,
+    ``__graft_entry__.py``), then the mix and the master limiter:
+
+      SamplesBuffer -> Resample -> BltFilter (low-pass 2 kHz, Q 0.5)
+        -> AutomaticGainControl(streams=S) -> Amplify(per-stream gain)
+        -> Limit(streams=S) -> WideMixer -> Limit (the master bus)
+
+    ``mode`` goes to every node: "pallas" runs K4, K6, K5 and K3 on the
+    card (the JAX package's TPU dispatch), "exact" the sequential scans
+    (K4 and K5 on the card, which run the same recurrences). The PCM and
+    gains come from numpy with ``seed``."""
+    rng = np.random.default_rng(seed)
+    pcm = (rng.standard_normal((n_streams * 2, int(seconds * 44100)))
+           * 0.1).astype(np.float32)
+    gains = np.repeat(rng.uniform(0.5, 1.5, n_streams).astype(np.float32)
+                      / n_streams, 2)
+    node = Resample(SamplesBuffer(n_streams * 2, 44100, pcm, device=device),
+                    48000)
+    node = BltFilter(node, "low_pass", 2000.0, 0.5, mode=mode)
+    node = AutomaticGainControl(node, AgcSettings(), mode=mode, streams=n_streams)
+    node = Limit(Amplify(node, gains), LimitSettings(), mode=mode,
+                 streams=n_streams)
+    master = Limit(WideMixer(node, n_streams), LimitSettings(), mode=mode)
     return master, master.init_state()

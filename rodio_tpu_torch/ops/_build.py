@@ -56,6 +56,9 @@ SIGNATURES = {
     # C, stream
     "rt_fused_resample_biquad_mix": (P, LL, I, P, P, P, P, P, P, P, P, I, I,
                                      P),
+    # db, integ0, peak0, peak_out, carry_out, L, T, att, rel, 1-att, 1-rel,
+    # stream
+    "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),
     # xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, stream
     "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
     # a, b, c, init, params, y, L, T, op, stream
@@ -66,6 +69,15 @@ SIGNATURES = {
     # params, ring, ring_bf16, ring_row, partial, out, n, stream
     "rt_fused_resample_biquad_agc_mix": (P, LL, I, P, P, P, P, P, P, P, P, P,
                                          P, I, I, P, P, I, P),
+    # the same with agc_group after ring_row
+    "rt_fused_resample_biquad_agc_group_mix": (P, LL, I, P, P, P, P, P, P, P,
+                                               P, P, P, I, I, I, P, P, I, P),
+    # x, R, L, rows per tile, depth, out, stream
+    "rt_dma_ring": (P, LL, I, I, I, P, P),
+    # x, float4 count, blocks, out, stream
+    "rt_stream_max": (P, LL, I, P, P),
+    # (x0, a, b), out, iterations, stream
+    "rt_op_chain": (P, P, LL, P),
     # no arguments; returns K2's lanes per block (its partials' row count
     # is ceil(L / that)), not an error code
     "rt_fused_agc_block_lanes": (),

@@ -1,6 +1,8 @@
-"""K4, K6 and K7: the per-lane serial scans (rodio_tpu/ops/pallas_scan.py).
+"""K4, K5, K6 and K7: the per-lane serial scans (rodio_tpu/ops/pallas_scan.py).
 
 - :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad.
+- :func:`limiter_env` (K5, ``csrc/limiter_env.cu``): the limiter's two
+  envelope recurrences.
 - :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop.
 - :func:`first_order` (K7, ``csrc/first_order.cu``): a first-order
   recurrence, ``linear``, ``max_affine`` or ``agc_gain`` (the AGC's gain
@@ -9,8 +11,8 @@
 Each wrapper runs its kernel on a CUDA tensor and its plain version, a
 sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
-``launches``, ``agc_launches`` and ``first_order_launches`` count each
-kernel's launches.
+``launches``, ``limiter_env_launches``, ``agc_launches`` and
+``first_order_launches`` count each kernel's launches.
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -20,6 +22,7 @@ of K2, K6 and K7 and by the AGC node. The one rsqrt of the port is
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -28,6 +31,8 @@ from .scan import linear_scan, max_affine_scan
 
 #: kernel launches made by :func:`biquad_df1` (K4)
 launches = 0
+#: kernel launches made by :func:`limiter_env` (K5)
+limiter_env_launches = 0
 #: kernel launches made by :func:`agc` (K6)
 agc_launches = 0
 #: kernel launches made by :func:`first_order` (K7)
@@ -71,6 +76,52 @@ def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
     return y, (out[0], out[1], out[2], out[3])
 
 
+def _one_minus(c: float) -> float:
+    """1 - c rounded to f32, as the JAX kernel's ``(1.0 - c) * x`` takes
+    it."""
+    return float(np.float32(1.0 - c))
+
+
+def limiter_env_plain(db, integ0, peak0, *, att: float, rel: float):
+    """The plain PyTorch version of K5, on any device: the sequential
+    scans of the limiter's ``mode="exact"`` path, one op at a time."""
+    crel, catt = _one_minus(rel), _one_minus(att)
+    integ = max_affine_scan(db, db * crel, torch.full_like(db, rel), integ0)
+    peak = linear_scan(torch.full_like(integ, att), integ * catt, peak0)
+    return peak, (integ[:, -1], peak[:, -1])
+
+
+def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
+                *, att: float, rel: float):
+    """The limiter envelopes over db [L, T] (the soft-knee gain in dB) from
+    the carries integ0, peak0 [L]; att and rel are the f32 coefficients as
+    floats. Per step ``integ = max(db, rel*integ + (1-rel)*db)``, ``peak =
+    att*peak + (1-att)*integ``. Returns (peak [L, T], (integ', peak')), the
+    carries of the last step. T >= 1."""
+    if db.device.type == "cpu":
+        return limiter_env_plain(db, integ0, peak0, att=att, rel=rel)
+    if db.device.type != "cuda":
+        raise ValueError(f"limiter_env: unsupported device {db.device}")
+    if db.dim() != 2 or db.shape[1] < 1:
+        raise ValueError(f"limiter_env: db must be [L, T >= 1], got {tuple(db.shape)}")
+    L, T = db.shape
+    dev = db.device
+    db = _build.f32_arg("db", db, dev, (L, T))
+    integ0 = _build.f32_arg("integ0", integ0, dev, (L,))
+    peak0 = _build.f32_arg("peak0", peak0, dev, (L,))
+    peak = torch.empty_like(db)
+    out = torch.empty((2, L), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    err = lib.rt_limiter_env(db.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+                             peak.data_ptr(), out.data_ptr(), L, T, att, rel,
+                             _one_minus(att), _one_minus(rel),
+                             _build.stream_handle(dev))
+    _build.check(err, "rt_limiter_env")
+    global limiter_env_launches
+    limiter_env_launches += 1
+    return peak, (out[0], out[1])
+
+
 def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """1 / sqrt(x), each correctly rounded (the kernels' ``rsqrt_rn``)."""
     return 1.0 / torch.sqrt(x)
@@ -95,6 +146,20 @@ def smooth_gain(g, des, att, rel, max_gain):
     v = g * speed + des * (1.0 - speed)
     # clamp compares with 0.1 rounded to f32, and passes NaN, as maxn does
     return torch.minimum(torch.clamp(v, min=0.1), max_gain)
+
+
+def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n for an int n >= 1 by binary powering, each product rounded in
+    x's dtype: the products of JAX's ``lax.integer_pow`` and of the JAX
+    package's ``_ipow`` (rodio_tpu/ops/fused.py:86)."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n:
+            x = x * x
+    return acc
 
 
 def smooth_gains(des, g0, att, rel, max_gain):

@@ -1,13 +1,17 @@
 """Where the time goes in the flagship slice on one CUDA card.
 
     python -m rodio_tpu_torch.profile_slice [--streams 512] [--block 12800]
-        [--blocks 12] [--with-agc] [--out FILE]
+        [--blocks 12] [--with-agc | --path C | --path D] [--out FILE]
 
 For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
 K4 -> Amplify -> WideMixer -> K3; with ``--with-agc``, the AGC slice
 instead: ``agc_fused``, K2 then K3, and ``agc_unfused``, Resample -> K4 ->
-AutomaticGainControl (K6) -> Amplify -> WideMixer -> K3) it prints, per
-block of ``--block`` frames:
+AutomaticGainControl (K6) -> Amplify -> WideMixer -> K3; with ``--path
+C``, ``per_stream``, the per-stream chain of ``make_per_stream_chain``:
+Resample -> K4 -> AGC (K6) -> Amplify -> Limit(streams=S) (K5) ->
+WideMixer -> K3; with ``--path D``, ``agc_group``, the fused AGC slice with
+``agc_group=16``: K2g then K3) it prints, per block of ``--block``
+frames:
 
 - ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
   no profiler;
@@ -52,17 +56,16 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_cell(scan_mode: str, streams: int, block: int, blocks: int,
-                 with_agc: bool = False) -> dict:
+def profile_cell(build, block: int, blocks: int) -> dict:
+    """Profile the render of ``build()`` = (node, state) in blocks of
+    ``block`` frames."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import rodio_tpu_torch as rtt
 
-    node, st = rtt.make_flagship(streams, seconds=4.0, scan_mode=scan_mode,
-                                 with_agc=with_agc, device="cuda",
-                                 max_block=block)
+    node, st = build()
     st, _, _ = rtt.render_blocks(node, st, 2, block)  # warm-up
     torch.cuda.synchronize()
     walls, hosts = [], []
@@ -109,10 +112,15 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=12)
     ap.add_argument("--with-agc", action="store_true",
                     help="profile the AGC slice (K2; unfused: K6)")
+    ap.add_argument("--path", choices=("C", "D"), default=None,
+                    help="profile path C (the per-stream chain: K4, K6, K5, "
+                         "K3) or path D (the group-rate fused AGC: K2g, K3)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     import torch
+
+    import rodio_tpu_torch as rtt
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
@@ -120,12 +128,23 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     res = {"device": smi, "streams": args.streams, "block": args.block,
-           "blocks": args.blocks, "with_agc": args.with_agc}
-    cells = ((("agc_fused", "fused"), ("agc_unfused", "pallas")) if args.with_agc
-             else (("fused", "fused"), ("unfused", "auto")))
-    for cell, mode in cells:
-        res[cell] = profile_cell(mode, args.streams, args.block, args.blocks,
-                                 args.with_agc)
+           "blocks": args.blocks, "with_agc": args.with_agc, "path": args.path}
+    kw = dict(seconds=4.0, device="cuda", max_block=args.block)
+    if args.path == "C":
+        cells = {"per_stream": lambda: rtt.make_per_stream_chain(
+            args.streams, seconds=4.0, device="cuda")}
+    elif args.path == "D":
+        cells = {"agc_group": lambda: rtt.make_flagship(
+            args.streams, scan_mode="fused", with_agc=True,
+            agc_group=16, **kw)}
+    else:
+        cells = {("agc_" if args.with_agc else "") + cell: (
+            lambda mode=mode: rtt.make_flagship(args.streams, scan_mode=mode,
+                                                with_agc=args.with_agc, **kw))
+                 for cell, mode in (("fused", "fused"),
+                                    ("unfused", "pallas" if args.with_agc else "auto"))}
+    for cell, build in cells.items():
+        res[cell] = profile_cell(build, args.block, args.blocks)
         torch.cuda.empty_cache()
     text = json.dumps(res, indent=1)
     print(text)

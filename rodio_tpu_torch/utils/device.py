@@ -1,7 +1,10 @@
 """Device selection for the port.
 
-Every node takes an explicit ``device``. Asking for CUDA on a host without
-it raises: the port never drops silently to the CPU, because a CPU run would
+Every entry point (``SamplesBuffer``, ``make_flagship``, and every node
+built on them) runs on the card unless the caller asks for the CPU:
+``device=None`` means the current CUDA device, and ``device="cpu"`` the
+CPU. Asking for CUDA, explicitly or by default, on a host without it
+raises: the port never drops silently to the CPU, because a CPU run would
 then be mistaken for a measurement of the card.
 """
 from __future__ import annotations
@@ -14,13 +17,14 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the CPU; ``"cuda"`` (or ``"cuda:N"``) must exist."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` and ``"cuda"`` mean the current CUDA device, ``"cuda:N"``
+    card N (each must exist); ``"cpu"`` the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {dev} requested but torch.cuda.is_available() is "
-                "False on this host"
+                "False on this host; pass device='cpu' to run on the CPU"
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -49,7 +49,7 @@ def _pair(mode, S, seed, settings=None, group=0, frames=12000, rate=48000):
     st = settings or {}
     jn = JAgc(JBuffer(2 * S, rate, data), JAgcSettings(**st), mode=mode,
               streams=S, group=group)
-    tn = AutomaticGainControl(SamplesBuffer(2 * S, rate, data),
+    tn = AutomaticGainControl(SamplesBuffer(2 * S, rate, data, device="cpu"),
                               AgcSettings(**st), mode=mode, streams=S,
                               group=group)
     return jn, tn
@@ -67,7 +67,7 @@ def test_exact_matches_the_oracle(settings):
                        absolute_max_gain=settings.get("absolute_max_gain", 7.0),
                        **ns))
     expected = ref.collect()
-    node = AutomaticGainControl(SamplesBuffer(2, 48000, data),
+    node = AutomaticGainControl(SamplesBuffer(2, 48000, data, device="cpu"),
                                 AgcSettings(**settings), mode="exact")
     got = render(node, block_frames=1500).T.reshape(-1)
     assert got.shape == expected.shape
@@ -161,7 +161,7 @@ def test_kernel_modes_match_the_oracle(S, settings):
     ns = {"attack_ns": round(settings.get("attack_time", 4.0) * 1e9),
           "release_ns": round(settings.get("release_time", 0.0) * 1e9)}
     for mode, atol in (("exact", 0.0), ("pallas", 2e-5)):
-        node = AutomaticGainControl(SamplesBuffer(2 * S, 48000, data),
+        node = AutomaticGainControl(SamplesBuffer(2 * S, 48000, data, device="cpu"),
                                     AgcSettings(**settings), mode=mode,
                                     streams=S)
         got = render(node, block_frames=1750)
@@ -179,7 +179,7 @@ def test_kernel_modes_match_the_oracle(S, settings):
 
 
 def test_unported_modes_raise():
-    src = SamplesBuffer(2, 48000, np.zeros((2, 10), np.float32))
+    src = SamplesBuffer(2, 48000, np.zeros((2, 10), np.float32), device="cpu")
     for mode in ("auto", "parallel"):
         with pytest.raises(NotImplementedError, match="M10"):
             AutomaticGainControl(src, mode=mode)
@@ -209,7 +209,7 @@ def test_config2_chain_matches_jax(group):
     jn = JBuffer(2, 44100, data).low_pass(2000.0)
     jn = JAgc(jn, JAgcSettings(), mode="pallas", group=group)
     jn = JLimit(jn, JLimitSettings(), mode="pallas")
-    tn = SamplesBuffer(2, 44100, data).low_pass(2000.0)
+    tn = SamplesBuffer(2, 44100, data, device="cpu").low_pass(2000.0)
     tn = AutomaticGainControl(tn, AgcSettings(), mode="pallas", group=group)
     tn = Limit(tn, LimitSettings(), mode="pallas")
     js, ts = jn.init_state(), tn.init_state()

@@ -9,13 +9,16 @@ Bounds: K4 bit-equal (same op order, every op rounded alone); K3 bit-equal
 to the same blocked order (1e-6 allowed); K1 1e-6 (only the mix's
 summation order differs), its biquad carries bit-equal. K6, K7 and K8
 bit-equal (the same op order; K8 the same blocked order and the same power
-table); K2 1e-6 on the mix, its carries and ring bit-equal.
+table); K2 1e-6 on the mix, its carries and ring bit-equal. K5 bit-equal
+(the same op order); K2g (K2's group branch) as K2; K9 bit-equal (the same
+sum order; the contiguous stream's max is order-free).
 """
 import numpy as np
 import pytest
 import torch
 
 from rodio_tpu_torch import make_flagship, render_blocks
+from rodio_tpu_torch.benches import dma_roofline, op_latency
 from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
 from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
 from rodio_tpu_torch.effects.blt import blt_coefficients
@@ -56,7 +59,7 @@ def test_k4_biquad_matches_plain(dev, L, T):
 @pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (12800, 128)])
 def test_k3_limiter_matches_plain(dev, T, P):
     rng = np.random.default_rng(T + P)
-    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32)),
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
                 LimitSettings.mastering())
     kw = dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
               knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
@@ -98,7 +101,7 @@ def test_flagship_on_card_matches_cpu(dev):
     graphs on the CPU (plain versions), 3 blocks of 640."""
     for mode, bound in (("fused", 1e-6), ("auto", 1e-6)):
         node_g, st_g = make_flagship(8, seconds=0.5, scan_mode=mode, device=dev)
-        node_c, st_c = make_flagship(8, seconds=0.5, scan_mode=mode)
+        node_c, st_c = make_flagship(8, seconds=0.5, scan_mode=mode, device="cpu")
         before = (fused.launches, limiter_block.launches, cuda_scan.launches)
         _, og, vg = render_blocks(node_g, st_g, 3, 640)
         _, oc, vc = render_blocks(node_c, st_c, 3, 640)
@@ -110,10 +113,116 @@ def test_flagship_on_card_matches_cpu(dev):
         assert after == (before[0] + k1, before[1] + 3, before[2] + 3 - k1)
 
 
-def test_sequential_limit_on_card_raises_k5(dev):
-    node, st = make_flagship(4, seconds=0.2, scan_mode="exact", device=dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        node.emit(st, 640)
+@pytest.mark.parametrize("L,T", [(6, 700), (1024, 12800), (3, 1), (40, 33)])
+def test_k5_limiter_env_matches_plain(dev, L, T):
+    rng = np.random.default_rng(L + T)
+    db = rng.uniform(0.0, 12.0, (L, T)) * (rng.uniform(size=(L, T)) < 0.3)
+    x = _f32(db, dev)
+    i0, p0 = _f32(rng.uniform(0, 6, L), dev), _f32(rng.uniform(0, 6, L), dev)
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
+                LimitSettings())
+    kw = dict(att=lim.attack, rel=lim.release)
+    before = cuda_scan.limiter_env_launches
+    pk, ck = cuda_scan.limiter_env(x, i0, p0, **kw)
+    pp, cp = cuda_scan.limiter_env_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert cuda_scan.limiter_env_launches == before + 1
+    assert torch.equal(pk, pp)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+
+
+def test_limit_off_k3_on_card_matches_cpu(dev):
+    """Limit's K5 cases on the card (streams=4, mono, P = 2, and "exact")
+    against the CPU: the envelopes bit-equal, the output 1e-6 (path B's
+    bound: db_to_linear's polynomial through torch's elementwise ops)."""
+    rng = np.random.default_rng(3)
+    for channels, streams, n, mode in ((8, 4, 640, "pallas"), (1, 1, 640, "pallas"),
+                                       (2, 1, 4410, "pallas"), (2, 1, 640, "exact")):
+        data = (rng.uniform(-1, 1, (channels, 3 * n)) * 2.0).astype(np.float32)
+        outs, states = [], []
+        for device in (dev, "cpu"):
+            node = Limit(SamplesBuffer(channels, 48000, data, device=device),
+                         LimitSettings(), mode=mode, streams=streams)
+            before = cuda_scan.limiter_env_launches
+            st, out, _ = render_blocks(node, node.init_state(), 3, n)
+            if device != "cpu":
+                assert cuda_scan.limiter_env_launches == before + 3
+            outs.append(out.cpu())
+            states.append((st["integ"].cpu(), st["peak"].cpu()))
+        assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+        assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,n,o0,F,ag", [
+    (3, 640, 0, 5000, 16), (16, 320, 4000, 5000, 2), (512, 1280, 160, 4000, 16),
+    (4, 5120, 320, 6000, 64),  # n > 4096: the block reads its own sums back
+    (6, 352, 0, 1000, 32),     # a tail tile of 32 frames
+    # groups over 2, 4 and 64 tiles; at 128, 40 groups wrap the 32-row ring
+    (4, 5120, 128, 6000, 128), (3, 1024, 512, 2000, 256), (2, 8192, 0, 9000, 4096),
+])
+def test_k2g_fused_agc_group_matches_plain(dev, ring_dtype, S, n, o0, F, ag):
+    rng = np.random.default_rng(S * 100 + n + ag)
+    L = 2 * S
+    fr, to = 147, 160
+    pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)
+    left, phase = output_positions(o0, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    agc = _f32(np.stack([rng.uniform(10, 100, S), rng.uniform(0, .5, S),
+                         rng.uniform(.5, 3, S)]), dev)
+    rows = 4096 // ag
+    ring = _f32(rng.uniform(0, 0.1 * ag, (rows, S)), dev).to(ring_dtype)
+    gains = np.repeat(rng.uniform(0.5, 1.5, S) / S, 2)
+    kw = dict(gains=_f32(gains, dev),
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
+              agc_params=_f32(AGC_PARAMS, dev), ring=ring,
+              ring_row=(o0 // ag) % rows, agc_group=ag)
+    before = (fused.agc_group_launches, fused.agc_launches)
+    mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
+    mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
+    torch.cuda.synchronize()
+    assert (fused.agc_group_launches, fused.agc_launches) == (before[0] + 1, before[1])
+    assert (mk - mp).abs().max().item() <= 1e-6
+    assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
+
+
+def test_group_agc_flagship_on_card_matches_cpu(dev):
+    """make_flagship(agc_group=16) on the card against the CPU, 3 blocks of
+    640: K2g and K3 once per block."""
+    kw = dict(seconds=0.5, scan_mode="fused", with_agc=True, agc_group=16)
+    node_g, st_g = make_flagship(12, device=dev, **kw)
+    node_c, st_c = make_flagship(12, device="cpu", **kw)
+    before = (fused.agc_group_launches, limiter_block.launches)
+    _, og, _ = render_blocks(node_g, st_g, 3, 640)
+    after = (fused.agc_group_launches, limiter_block.launches)
+    _, oc, _ = render_blocks(node_c, st_c, 3, 640)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 3)
+    # the card's master limiter is the blocked order, the CPU's the
+    # sequential one (4e-6)
+    assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 5e-6
+
+
+@pytest.mark.parametrize("R,L,tr,depth", [(11761, 1024, 59, 4), (100, 36, 7, 2),
+                                          (1000, 64, 59, 6), (5, 8, 59, 3)])
+def test_k9_dma_ring_matches_plain(dev, R, L, tr, depth):
+    x = _f32(np.random.default_rng(R).standard_normal((R, L)), dev)
+    before = dma_roofline.launches
+    got = dma_roofline.dma_ring(x, tr=tr, depth=depth)
+    want = dma_roofline.dma_ring_plain(x, tr=tr)
+    torch.cuda.synchronize()
+    assert dma_roofline.launches == before + 1
+    assert torch.equal(got, want)
+    want = dma_roofline.stream_max_plain(x, blocks=dma_roofline.stream_blocks(x))
+    assert torch.equal(dma_roofline.stream_max(x), want)
+
+
+def test_op_chain_matches_plain(dev):
+    xab = torch.tensor([1.0, 0.999, 1e-3], device=dev)
+    assert torch.equal(op_latency.op_chain(xab, 5),
+                       op_latency.op_chain_plain(xab, 5))
+    assert 0.0 < op_latency.seconds_per_op(dev) < 1e-8
 
 
 def test_emit_never_waits_for_the_card(dev):
@@ -231,7 +340,7 @@ def test_agc_flagship_on_card_matches_cpu(dev):
         node_g, st_g = make_flagship(12, seconds=0.5, scan_mode=mode,
                                      with_agc=True, device=dev)
         node_c, st_c = make_flagship(12, seconds=0.5, scan_mode=mode,
-                                     with_agc=True)
+                                     with_agc=True, device="cpu")
         before = counters()
         _, og, vg = render_blocks(node_g, st_g, 3, 640)
         after = counters()
@@ -251,7 +360,7 @@ def test_config2_chain_on_card_matches_cpu(dev):
     data = (rng.standard_normal((2, 3 * 4096)) * 0.3).astype(np.float32)
     for group in (0, 8):
         outs = []
-        for device in (dev, None):
+        for device in (dev, "cpu"):
             node = SamplesBuffer(2, 44100, data, device=device).low_pass(2000.0)
             node = AutomaticGainControl(node, AgcSettings(), mode="pallas",
                                         group=group)
@@ -259,7 +368,7 @@ def test_config2_chain_on_card_matches_cpu(dev):
             before = (limiter_block.bma_launches, cuda_scan.first_order_launches)
             _, out, _ = render_blocks(node, node.init_state(), 3, 4096)
             after = (limiter_block.bma_launches, cuda_scan.first_order_launches)
-            if device is not None:
+            if device != "cpu":
                 assert after == (before[0] + 3, before[1] + 3)
             outs.append(out.cpu().numpy())
         assert np.abs(outs[0] - outs[1]).max() <= 1e-6

@@ -43,7 +43,7 @@ def _jax_blocks(node, state, n_blocks, T=640):
 def test_fused_slice_matches_jax_fused_and_unfused():
     jf, jfs = j_make_flagship(8, seconds=0.5, scan_mode="fused")
     je, jes = j_make_flagship(8, seconds=0.5, scan_mode="exact")
-    tn, ts = make_flagship(8, seconds=0.5, scan_mode="fused")
+    tn, ts = make_flagship(8, seconds=0.5, scan_mode="fused", device="cpu")
     assert tn.input.precision == jf.input.precision
     _, of, vf = _jax_blocks(jf, jfs, 5)
     _, oe, ve = _jax_blocks(je, jes, 5)
@@ -55,7 +55,7 @@ def test_fused_slice_matches_jax_fused_and_unfused():
 
 def test_unfused_slice_matches_jax_exact():
     je, jes = j_make_flagship(8, seconds=0.5, scan_mode="exact")
-    tn, ts = make_flagship(8, seconds=0.5, scan_mode="exact")
+    tn, ts = make_flagship(8, seconds=0.5, scan_mode="exact", device="cpu")
     assert tn.total_frames() == je.total_frames()
     _, oe, ve = _jax_blocks(je, jes, 5)
     _, ot, vt = render_blocks(tn, ts, 5, 640)
@@ -69,7 +69,7 @@ def test_fused_slice_through_the_drain():
     one drain frame."""
     jf, jfs = j_make_flagship(4, seconds=0.3, seed=2, scan_mode="fused")
     je, jes = j_make_flagship(4, seconds=0.3, seed=2, scan_mode="exact")
-    tn, ts = make_flagship(4, seconds=0.3, seed=2, scan_mode="fused")
+    tn, ts = make_flagship(4, seconds=0.3, seed=2, scan_mode="fused", device="cpu")
     _, of, vf = _jax_blocks(jf, jfs, 24)
     _, oe, ve = _jax_blocks(je, jes, 24)
     _, ot, vt = render_blocks(tn, ts, 24, 640)
@@ -87,7 +87,7 @@ def test_state_carried_from_jax_into_the_port(scan_mode):
     """Render 3 blocks in JAX, carry the state across, render 3 more in the
     port; compare with 6 blocks in JAX."""
     jn, js = j_make_flagship(8, seconds=0.5, seed=4, scan_mode=scan_mode)
-    tn, _ = make_flagship(8, seconds=0.5, seed=4, scan_mode=scan_mode)
+    tn, _ = make_flagship(8, seconds=0.5, seed=4, scan_mode=scan_mode, device="cpu")
     js3, o3, _ = _jax_blocks(jn, js, 3)
     _, o6, v6 = _jax_blocks(jn, js3, 3)
     ts = state_from_jax(tn, jax.device_get(js3))
@@ -99,7 +99,7 @@ def test_state_carried_from_jax_into_the_port(scan_mode):
 
 def test_fused_retune_matches_jax():
     jf, jfs = j_make_flagship(8, seconds=0.5, seed=1, scan_mode="fused")
-    tn, ts = make_flagship(8, seconds=0.5, seed=1, scan_mode="fused")
+    tn, ts = make_flagship(8, seconds=0.5, seed=1, scan_mode="fused", device="cpu")
     jfs, _, _ = _jax_blocks(jf, jfs, 2)
     ts, _, _ = render_blocks(tn, ts, 2, 640)
     jfs = {**jfs, "in": jf.input.retune(jfs["in"], freq=900.0, q=0.8)}
@@ -121,45 +121,45 @@ def _grid_pcm(bits, frames=4000, seed=3):
 def test_precision_probe_matches_jax(bits, label):
     pcm = _grid_pcm(bits)
     jn, _ = j_make_flagship(4, seconds=0.1, scan_mode="fused", source_pcm=pcm)
-    tn, _ = make_flagship(4, seconds=0.1, scan_mode="fused", source_pcm=pcm)
+    tn, _ = make_flagship(4, seconds=0.1, scan_mode="fused", source_pcm=pcm, device="cpu")
     assert tn.input.precision == jn.input.precision == label
     tn2, _ = make_flagship(4, seconds=0.1, scan_mode="fused", source_pcm=pcm,
-                           precision=label)
+                           precision=label, device="cpu")
     assert tn2.input.precision == label
 
 
 @pytest.mark.parametrize("precision", ["i8", "i24"])
 def test_precision_off_grid_raises(precision):
     with pytest.raises(ValueError, match="grid"):
-        make_flagship(4, seconds=0.1, scan_mode="fused", precision=precision)
+        make_flagship(4, seconds=0.1, scan_mode="fused", precision=precision, device="cpu")
     with pytest.raises(AssertionError):
         j_make_flagship(4, seconds=0.1, scan_mode="fused", precision=precision)
 
 
 def test_refused_configurations():
-    buf = SamplesBuffer(4, 44100, np.zeros((4, 100), np.float32))
-    with pytest.raises(NotImplementedError, match="group branch"):
+    buf = SamplesBuffer(4, 44100, np.zeros((4, 100), np.float32), device="cpu")
+    with pytest.raises(ValueError, match="agc_group"):  # 7 divides no m*to
         FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
-                          agc_group=8)
+                          agc_group=7)
     with pytest.raises(NotImplementedError, match="rel0"):
         FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
                           agc_plan="rel0b16")
     with pytest.raises(ValueError, match="stereo"):
         FusedWidePipeline(buf, 48000, np.ones(4, np.float32), 4, with_agc=True)
     with pytest.raises(ValueError, match="identity"):
-        FusedWidePipeline(SamplesBuffer(4, 48000, np.zeros((4, 100), np.float32)),
+        FusedWidePipeline(SamplesBuffer(4, 48000, np.zeros((4, 100), np.float32), device="cpu"),
                           48000, np.ones(2, np.float32), 2)
     with pytest.raises(ValueError):
-        make_flagship(4, seconds=0.1, scan_mode="fused", precision="bf16")
+        make_flagship(4, seconds=0.1, scan_mode="fused", precision="bf16", device="cpu")
     with pytest.raises(NotImplementedError):
-        make_flagship(4, seconds=0.1, scan_mode="assoc")
+        make_flagship(4, seconds=0.1, scan_mode="assoc", device="cpu")
     with pytest.raises(NotImplementedError, match="M10"):
-        make_flagship(4, seconds=0.1, scan_mode="auto", with_agc=True)
+        make_flagship(4, seconds=0.1, scan_mode="auto", with_agc=True, device="cpu")
 
 
 def test_agc_flagship_builds_in_every_ported_mode():
     for mode in ("fused", "exact", "pallas"):
-        node, st = make_flagship(4, seconds=0.1, scan_mode=mode, with_agc=True)
+        node, st = make_flagship(4, seconds=0.1, scan_mode=mode, with_agc=True, device="cpu")
         _, out, valid = node.emit(st, 640)
         assert out.shape == (2, 640) and int(valid) == 640
         assert float(out.abs().max()) > 0
@@ -169,7 +169,7 @@ def test_fused_agc_matches_jax_fused():
     jf, jfs = j_make_flagship(4, seconds=0.5, seed=7, scan_mode="fused",
                               with_agc=True)
     tn, ts = make_flagship(4, seconds=0.5, seed=7, scan_mode="fused",
-                           with_agc=True)
+                           with_agc=True, device="cpu")
     assert tn.input.precision == jf.input.precision
     jfs, of, vf = _jax_blocks(jf, jfs, 4)
     ts, ot, vt = render_blocks(tn, ts, 4, 640)
@@ -185,9 +185,9 @@ def test_fused_agc_matches_the_ports_unfused_chain(mode):
     """9 blocks of 640 = 5760 frames > the 4096-frame window: the ring's
     old squares leave the window sum (the JAX package's own test)."""
     tf, tfs = make_flagship(8, seconds=2.0, seed=3, scan_mode="fused",
-                            with_agc=True, max_block=1920)
+                            with_agc=True, max_block=1920, device="cpu")
     tu, tus = make_flagship(8, seconds=2.0, seed=3, scan_mode=mode,
-                            with_agc=True, max_block=1920)
+                            with_agc=True, max_block=1920, device="cpu")
     _, of, vf = render_blocks(tf, tfs, 9, 640)
     _, ou, vu = render_blocks(tu, tus, 9, 640)
     assert vf.tolist() == vu.tolist() == [640] * 9
@@ -203,7 +203,7 @@ def test_fused_agc_cases_match_jax(case):
     if case == "f32_ring":
         kw["agc_ring"] = "f32"
     jf, jfs = j_make_flagship(4, seconds=seconds, **kw)
-    tn, ts = make_flagship(4, seconds=seconds, **kw)
+    tn, ts = make_flagship(4, seconds=seconds, **kw, device="cpu")
     if case == "f32_ring":
         assert ts["in"]["ring"].dtype == torch.float32
     if case == "live_params":
@@ -234,7 +234,7 @@ def test_fused_agc_state_carried_from_jax_into_the_port():
     jn, js = j_make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
                              with_agc=True)
     tn, _ = make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
-                          with_agc=True)
+                          with_agc=True, device="cpu")
     js8, _, _ = _jax_blocks(jn, js, 8)
     _, o3, v3 = _jax_blocks(jn, js8, 3)
     ts = state_from_jax(tn, jax.device_get(js8))
@@ -245,7 +245,7 @@ def test_fused_agc_state_carried_from_jax_into_the_port():
     # the port, continuing from it, matches the port continuing from its
     # own render of the same 8 blocks
     tn2, ts2 = make_flagship(8, seconds=0.5, seed=4, scan_mode="fused",
-                             with_agc=True)
+                             with_agc=True, device="cpu")
     ts2, _, _ = render_blocks(tn2, ts2, 8, 640)
     ring_j = ts["in"]["ring"]  # after the 3 port blocks
     ts2, _, _ = render_blocks(tn2, ts2, 3, 640)
@@ -258,7 +258,8 @@ def test_import_loads_no_jax():
     code = ("import sys, rodio_tpu_torch, rodio_tpu_torch.convert, "
             "rodio_tpu_torch.ops.fused, rodio_tpu_torch.ops.cuda_scan, "
             "rodio_tpu_torch.ops.limiter_block, rodio_tpu_torch.effects, "
-            "rodio_tpu_torch.effects.agc, rodio_tpu_torch.profile_slice; "
+            "rodio_tpu_torch.effects.agc, rodio_tpu_torch.profile_slice, "
+            "rodio_tpu_torch.benches.dma_roofline; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'rodio_tpu' or m.startswith('rodio_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

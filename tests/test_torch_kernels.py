@@ -76,7 +76,7 @@ def test_k4_plain_matches_pallas_interpret(L, T):
 
 
 def _limiter_kw(settings, rate=48000):
-    lim = Limit(SamplesBuffer(2, rate, np.zeros((2, 1), np.float32)), settings)
+    lim = Limit(SamplesBuffer(2, rate, np.zeros((2, 1), np.float32), device="cpu"), settings)
     return dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
                 knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8)
 
@@ -125,7 +125,7 @@ def _fused_pair(S, frames, seed, gains=None, **kw):
         gains = (rng.uniform(0.5, 1.5, S) / S).astype(np.float32)
     jn = JFused(JBuffer(S * 2, 44100, wide), 48000, gains, S, "low_pass", 2000.0,
                 0.5, **kw)
-    tn = FusedWidePipeline(SamplesBuffer(S * 2, 44100, wide), 48000, gains, S,
+    tn = FusedWidePipeline(SamplesBuffer(S * 2, 44100, wide, device="cpu"), 48000, gains, S,
                            "low_pass", 2000.0, 0.5, **kw)
     return jn, tn
 
@@ -312,7 +312,10 @@ def test_resolve_device_cuda_raises_without_cuda():
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         SamplesBuffer(2, 44100, np.zeros((2, 10), np.float32), device="cuda")
-    assert resolve_device(None) == torch.device("cpu")
+    # the card is the default device: without one, None raises too
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
 

@@ -1,0 +1,210 @@
+"""K5 (the limiter envelopes) and the limiter's every non-K3 case, against
+the JAX package, on the CPU; and the per-stream chain (path C).
+
+Inputs are numpy arrays from fixed seeds fed to both packages. Bounds:
+
+- K5's plain version against JAX ``limiter_env_pallas(interpret=True)``:
+  1e-6 absolute plus 2e-6 relative (16 ulp of the dB envelopes), the F4
+  allowance of ROADMAP queue 3: XLA:CPU contracts ``rel*integ +
+  (1-rel)*db`` into an FMA, ~1 ulp a step, carried ~1/(1-rel) steps. Against
+  the same recurrence written out step by step in torch: 0.0.
+- ``Limit(mode="pallas")`` against the JAX node (which runs K5 in interpret
+  mode there) over 4 blocks: 2e-6, the JAX node's own distance from the
+  scalar oracle on loud input (tests/test_torch_nodes.py); the carries in
+  dB at 2e-6 relative.
+- The per-stream chain of tests/test_parallel.py (Resample -> BltFilter ->
+  AGC -> Amplify -> Limit(streams=S) -> WideMixer) with the TPU dispatch of
+  each node (``mode="pallas"``), then the master Limit: 2e-5 against the
+  JAX chain, the AGC bound under F4; against the port's own ``"exact"``
+  chain up to the mix: 0.0 (the same recurrences in the same order).
+- K9's plain version against a numpy sum of the same rows in the same
+  order: 0.0.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rodio_tpu.conversions.resample import Resample as JResample
+from rodio_tpu.effects.agc import AgcSettings as JAgcSettings
+from rodio_tpu.effects.agc import AutomaticGainControl as JAgc
+from rodio_tpu.effects.basic import Amplify as JAmplify
+from rodio_tpu.effects.blt import BltFilter as JBlt
+from rodio_tpu.effects.limit import Limit as JLimit
+from rodio_tpu.effects.limit import LimitSettings as JLimitSettings
+from rodio_tpu.ops.pallas_scan import limiter_env_pallas
+from rodio_tpu.parallel.batch import WideMixer as JWideMixer
+from rodio_tpu.sources.generators import SamplesBuffer as JBuffer
+import rodio_tpu_torch as rtt
+from rodio_tpu_torch.benches import dma_roofline, op_latency
+from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+from rodio_tpu_torch.ops import cuda_scan, limiter_block
+from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+
+def _coefs(settings=None):
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
+                settings or LimitSettings())
+    return lim.attack, lim.release
+
+
+def _db(L, T, seed):
+    """Soft-knee gains in dB: mostly below the knee (0), bursts above."""
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(0.0, 12.0, (L, T)) * (rng.uniform(size=(L, T)) < 0.3)
+    return db.astype(np.float32)
+
+
+@pytest.mark.parametrize("L,T", [(6, 700), (16, 1030)])
+@pytest.mark.parametrize("preset", ["default", "live_performance"])
+def test_k5_plain_matches_pallas_interpret(L, T, preset):
+    att, rel = _coefs(getattr(LimitSettings, preset)())
+    db = _db(L, T, L * T)
+    rng = np.random.default_rng(L)
+    i0 = rng.uniform(0, 6, L).astype(np.float32)
+    p0 = rng.uniform(0, 6, L).astype(np.float32)
+    pj, (ij, qj) = limiter_env_pallas(jnp.asarray(db), jnp.asarray(i0),
+                                      jnp.asarray(p0), att=att, rel=rel,
+                                      interpret=True)
+    before = cuda_scan.limiter_env_launches
+    pt, (it, qt) = cuda_scan.limiter_env(torch.from_numpy(db), torch.from_numpy(i0),
+                                         torch.from_numpy(p0), att=att, rel=rel)
+    assert cuda_scan.limiter_env_launches == before  # the plain version
+    for a, b in ((pt, pj), (it, ij), (qt, qj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=2e-6)
+    # the recurrence written out, one rounded op at a time: 0.0
+    crel, catt = float(np.float32(1.0 - rel)), float(np.float32(1.0 - att))
+    integ, peak = torch.from_numpy(i0), torch.from_numpy(p0)
+    x = torch.from_numpy(db)
+    for t in range(T):
+        integ = torch.maximum(x[:, t], rel * integ + crel * x[:, t])
+        peak = att * peak + catt * integ
+        assert torch.equal(pt[:, t], peak)
+    assert torch.equal(it, integ) and torch.equal(qt, peak)
+
+
+def _limit_pair(channels, streams, frames, seed, mode="pallas"):
+    rng = np.random.default_rng(seed)
+    data = (rng.uniform(-1, 1, (channels, frames)) * 2.0).astype(np.float32)
+    jn = JLimit(JBuffer(channels, 48000, data), JLimitSettings(), mode=mode,
+                streams=streams)
+    tn = Limit(SamplesBuffer(channels, 48000, data, device="cpu"), LimitSettings(),
+               mode=mode, streams=streams)
+    return jn, tn
+
+
+@pytest.mark.parametrize("channels,streams,n", [
+    (8, 4, 640),   # streams=4 stereo: the per-stream limiter
+    (1, 1, 640),   # mono
+    (2, 1, 4410),  # stereo, P = 2: below K3's 8 chunks
+])
+def test_limit_pallas_matches_jax(channels, streams, n):
+    jn, tn = _limit_pair(channels, streams, 4 * n + 100, channels * n)
+    js, ts = jn.init_state(), tn.init_state()
+    jemit = jax.jit(lambda s: jn.emit(s, n))
+    k3, k5 = limiter_block.launches, cuda_scan.limiter_env_launches
+    for b in range(4):
+        js, oj, vj = jemit(js)
+        ts, ot, vt = tn.emit(ts, n)
+        assert int(vt) == int(vj) == n
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-6, rtol=0,
+                                   err_msg=f"block {b}")
+    assert (limiter_block.launches, cuda_scan.limiter_env_launches) == (k3, k5)
+    np.testing.assert_allclose(ts["integ"].numpy(), np.asarray(js["integ"]), rtol=2e-6)
+    np.testing.assert_allclose(ts["peak"].numpy(), np.asarray(js["peak"]), rtol=2e-6)
+
+
+@pytest.mark.parametrize("channels,streams,n", [(8, 4, 640), (1, 1, 640), (2, 1, 4410)])
+def test_limit_pallas_equals_exact_on_the_cpu(channels, streams, n):
+    """Off the blocked case, "pallas" is K5, whose plain version is the
+    sequential scans of "exact": 0.0."""
+    _, tp = _limit_pair(channels, streams, 2 * n, 7, mode="pallas")
+    _, te = _limit_pair(channels, streams, 2 * n, 7, mode="exact")
+    _, op, _ = rtt.render_blocks(tp, tp.init_state(), 2, n)
+    _, oe, _ = rtt.render_blocks(te, te.init_state(), 2, n)
+    assert torch.equal(op, oe)
+
+
+def _jax_path_c(S, seconds, seed, mode):
+    """The JAX package's per-stream chain (tests/test_parallel.py:106-117)
+    with ``mode`` on every node and the master limiter, from the numpy
+    draws of the port's ``make_per_stream_chain``."""
+    rng = np.random.default_rng(seed)
+    pcm = (rng.standard_normal((S * 2, int(seconds * 44100))) * 0.1).astype(np.float32)
+    gains = np.repeat(rng.uniform(0.5, 1.5, S).astype(np.float32) / S, 2)
+    n = JResample(JBuffer(S * 2, 44100, pcm), 48000, max_block=640)
+    n = JBlt(n, "low_pass", 2000.0, 0.5, mode=mode)
+    n = JAgc(n, JAgcSettings(), mode=mode, streams=S)
+    n = JLimit(JAmplify(n, gains), JLimitSettings(), mode=mode, streams=S)
+    return JLimit(JWideMixer(n, S), JLimitSettings(), mode=mode)
+
+
+def test_path_c_matches_jax_and_the_exact_chain():
+    S, blocks = 4, 5
+    jn = _jax_path_c(S, 0.5, 3, "pallas")
+    tn, ts = rtt.make_per_stream_chain(S, seconds=0.5, seed=3, mode="pallas",
+                                       device="cpu")
+    te, _ = rtt.make_per_stream_chain(S, seconds=0.5, seed=3, mode="exact",
+                                      device="cpu")
+    js = jn.init_state()
+    jemit = jax.jit(lambda s: jn.emit(s, 640))
+    outs = []
+    for _ in range(blocks):
+        js, o, v = jemit(js)
+        assert int(v) == 640
+        outs.append(np.asarray(o))
+    _, ot, vt = rtt.render_blocks(tn, ts, blocks, 640)
+    assert vt.tolist() == [640] * blocks
+    assert np.abs(ot.numpy()).max() > 0.01
+    np.testing.assert_allclose(ot.numpy(), np.concatenate(outs, 1), atol=2e-5, rtol=0)
+    # the per-stream chain up to the mix (the master limiter aside, whose
+    # "pallas" is the blocked order): the same recurrences, 0.0
+    _, mp, _ = rtt.render_blocks(tn.input, tn.input.init_state(), blocks, 640)
+    _, me, _ = rtt.render_blocks(te.input, te.input.init_state(), blocks, 640)
+    assert torch.equal(mp, me)
+
+
+def test_dma_ring_plain_is_the_tile_row_sum():
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1000, 64)).astype(np.float32)
+    got = dma_roofline.dma_ring(torch.from_numpy(x), tr=59, depth=4)
+    want = np.zeros(64, np.float32)
+    for i in range(0, 1000, 59):
+        want = want + x[i]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert dma_roofline.launches == 0  # the plain version, on the CPU
+    assert dma_roofline.k1_stream(12800) == (11761, 59)
+
+
+def test_stream_max_plain_is_the_chunk_max():
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((100, 12)).astype(np.float32)
+    got = dma_roofline.stream_max_plain(torch.from_numpy(x), blocks=7)
+    flat = x.reshape(-1)
+    chunk = -(-300 // 7) * 4
+    want = [flat[b * chunk:(b + 1) * chunk].max() if b * chunk < 1200 else -np.inf
+            for b in range(7)]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
+
+
+def test_op_chain_plain_is_the_rounded_chain():
+    xab = np.array([1.0, 0.999, 1e-3], np.float32)
+    x = xab[0]
+    for _ in range(3 * 16):
+        x = np.float32(np.float32(x * xab[1]) + xab[2])
+    got = op_latency.op_chain(torch.from_numpy(xab), 3)
+    np.testing.assert_array_equal(got.numpy(), [x])
+
+
+def test_entry_points_default_to_the_card():
+    """With no device the port runs on the card; on a host without one it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        rtt.make_flagship(4, seconds=0.1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SamplesBuffer(2, 44100, np.zeros((2, 10), np.float32))
+    node, st = rtt.make_flagship(4, seconds=0.1, device="cpu")
+    assert node.device == torch.device("cpu")

@@ -71,7 +71,7 @@ def test_samples_buffer_matches(interleaved, start, pad):
     data = _pcm(3, 3001, seed=1)
     arg = data.T.reshape(-1) if interleaved else data
     jn = JBuffer(3, 44100, arg, start_frame=start, pad_frames=pad)
-    tn = SamplesBuffer(3, 44100, arg, start_frame=start, pad_frames=pad)
+    tn = SamplesBuffer(3, 44100, arg, start_frame=start, pad_frames=pad, device="cpu")
     assert tn.total_frames() == jn.total_frames()
     assert tn.PAD_FRAMES == jn.PAD_FRAMES
     _compare(jn, tn, [640, 437] * 4, atol=0.0)
@@ -83,7 +83,7 @@ def test_samples_buffer_windows_match(start):
     and gather_frames (zero outside the buffer): bit-equal."""
     data = _pcm(2, 3001, seed=3)
     jn = JBuffer(2, 44100, data, start_frame=100, pad_frames=700)
-    tn = SamplesBuffer(2, 44100, data, start_frame=100, pad_frames=700)
+    tn = SamplesBuffer(2, 44100, data, start_frame=100, pad_frames=700, device="cpu")
     js, ts = jn.init_state(), tn.init_state()
     for a, b in zip(tn.access_window(ts), jn.access_window(js)):
         assert int(a) == int(b)
@@ -104,7 +104,7 @@ def test_samples_buffer_windows_match(start):
 def test_resample_matches(from_rate, to_rate, frames):
     data = _pcm(8, frames, seed=frames)
     jn = JResample(JBuffer(8, from_rate, data), to_rate)
-    tn = Resample(SamplesBuffer(8, from_rate, data), to_rate)
+    tn = Resample(SamplesBuffer(8, from_rate, data, device="cpu"), to_rate)
     assert tn.total_frames() == jn.total_frames()
     _compare(jn, tn, SIZES + [640] * 8)
 
@@ -114,7 +114,7 @@ def test_resample_matches(from_rate, to_rate, frames):
 def test_blt_filter_exact_matches_with_retune(kind, freq, q):
     data = _pcm(6, 4000, seed=2)  # the flagship's per-stream level
     jn = JBlt(JBuffer(6, 48000, data), kind, freq, q, mode="exact")
-    tn = BltFilter(SamplesBuffer(6, 48000, data), kind, freq, q, mode="exact")
+    tn = BltFilter(SamplesBuffer(6, 48000, data, device="cpu"), kind, freq, q, mode="exact")
     js, ts = _compare(jn, tn, SIZES[:4], to_end=False)
     # live retune mid-stream: history kept, new response from the next block
     js, ts = jn.retune(js, freq=900.0, q=0.7), tn.retune(ts, freq=900.0, q=0.7)
@@ -139,14 +139,14 @@ def test_blt_filter_bit_equal_to_the_oracle(kind, freq, q):
     data = _pcm(3, 3000, seed=7, scale=0.5)
     src = ri.BltFilter(ri.SamplesBuffer(3, 48000, data.T.reshape(-1)), kind, freq, q)
     expected = np.array(src.collect(), np.float32)
-    got = render(BltFilter(SamplesBuffer(3, 48000, data), kind, freq, q),
+    got = render(BltFilter(SamplesBuffer(3, 48000, data, device="cpu"), kind, freq, q),
                  block_frames=437)
     np.testing.assert_array_equal(got.T.reshape(-1), expected)
 
 
 def test_blt_filter_assoc_not_ported():
     with pytest.raises(NotImplementedError):
-        BltFilter(SamplesBuffer(1, 48000, np.zeros((1, 4), np.float32)),
+        BltFilter(SamplesBuffer(1, 48000, np.zeros((1, 4), np.float32), device="cpu"),
                   "low_pass", 1000.0, mode="assoc")
 
 
@@ -155,12 +155,12 @@ def test_amplify_and_wide_mixer_match(S):
     data = _pcm(S * 2, 3000, seed=S)
     gains = np.repeat(np.random.default_rng(S).uniform(0.5, 1.5, S), 2)
     jn = JWideMixer(JAmplify(JBuffer(S * 2, 48000, data), gains), S)
-    tn = WideMixer(Amplify(SamplesBuffer(S * 2, 48000, data), gains), S)
+    tn = WideMixer(Amplify(SamplesBuffer(S * 2, 48000, data, device="cpu"), gains), S)
     assert tn.spec.channels == jn.spec.channels == 2
     _compare(jn, tn, SIZES[:8])
     # scalar factor
     jn = JAmplify(JBuffer(2, 48000, data[:2]), 0.25)
-    tn = Amplify(SamplesBuffer(2, 48000, data[:2]), 0.25)
+    tn = Amplify(SamplesBuffer(2, 48000, data[:2], device="cpu"), 0.25)
     _compare(jn, tn, SIZES[:8], atol=0.0)
 
 
@@ -173,7 +173,7 @@ def test_limit_sequential_matches(channels, streams, preset):
     data = (rng.uniform(-1, 1, (channels, 3000)) * 2.0).astype(np.float32)
     jn = JLimit(JBuffer(channels, 48000, data),
                 getattr(JLimitSettings, preset)(), mode="exact", streams=streams)
-    tn = Limit(SamplesBuffer(channels, 48000, data),
+    tn = Limit(SamplesBuffer(channels, 48000, data, device="cpu"),
                getattr(LimitSettings, preset)(), mode="exact", streams=streams)
     # 2e-6: the JAX node's own distance from the oracle on this input
     js, ts = _compare(jn, tn, SIZES[:6] + [640] * 2, atol=2e-6, to_end=False)
@@ -182,7 +182,7 @@ def test_limit_sequential_matches(channels, streams, preset):
     # the oracle, group by group (each stream is its own limiter)
     from rodio_tpu import refimpl as ri
 
-    got = render(Limit(SamplesBuffer(channels, 48000, data),
+    got = render(Limit(SamplesBuffer(channels, 48000, data, device="cpu"),
                        getattr(LimitSettings, preset)(), mode="exact",
                        streams=streams), block_frames=640)
     cg = channels // streams
@@ -202,14 +202,14 @@ def test_unfused_chain_matches_through_drain(S):
     data = _pcm(S * 2, 4410 * 2 + 3, seed=10 + S)
     gains = np.repeat(np.random.default_rng(S).uniform(0.5, 1.5, S) / S, 2)
 
-    def chain(buf, res, blt, amp, mix, lim, settings):
-        n = res(buf(S * 2, 44100, data), 48000)
+    def chain(buf, res, blt, amp, mix, lim, settings, **dev):
+        n = res(buf(S * 2, 44100, data, **dev), 48000)
         n = blt(n, "low_pass", 2000.0, 0.5, mode="exact")
         return lim(mix(amp(n, gains), S), settings(), mode="exact")
 
     jn = chain(JBuffer, JResample, JBlt, JAmplify, JWideMixer, JLimit, JLimitSettings)
     tn = chain(SamplesBuffer, Resample, BltFilter, Amplify, WideMixer, Limit,
-               LimitSettings)
+               LimitSettings, device="cpu")
     assert tn.total_frames() == jn.total_frames()
     _compare(jn, tn, SIZES + [640] * 6)
 
@@ -226,7 +226,7 @@ def test_limit_sequential_closer_to_the_oracle():
         src = ri.Limit(ri.SamplesBuffer(C, 48000, data.T.reshape(-1)),
                        ri.LimitSettings())
         expected = np.array(src.collect(), np.float32)
-        got = render(Limit(SamplesBuffer(C, 48000, data), LimitSettings(),
+        got = render(Limit(SamplesBuffer(C, 48000, data, device="cpu"), LimitSettings(),
                            mode="exact"), block_frames=640)
         np.testing.assert_allclose(got.T.reshape(-1), expected, atol=BOUND, rtol=0)
 
@@ -234,7 +234,7 @@ def test_limit_sequential_closer_to_the_oracle():
 def test_render_and_record_match():
     data = _pcm(2, 5000, seed=4)
     jn = JResample(JBuffer(2, 44100, data), 48000)
-    tn = Resample(SamplesBuffer(2, 44100, data), 48000)
+    tn = Resample(SamplesBuffer(2, 44100, data, device="cpu"), 48000)
     a = render(tn, block_frames=1000)
     b = j_render(jn, block_frames=1000)
     assert a.shape == b.shape
