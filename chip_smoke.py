@@ -8,8 +8,9 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from rodio_tpu_torch/csrc with nvcc;
 3. kernels: the latency of a dependent rounded f32 op, measured on one
-   thread (benches/op_latency.py); then K4, K3, K1, K2, K6, K7, K8, K5, K2g
-   (K2's group branch) and K9 against their plain PyTorch versions on the
+   thread (benches/op_latency.py); then K4, K3, K1, K2, K2r and K2b (K2's
+   serial and blocked rel0 plans), K2g (K2's group branch), K6, K7, K8, K5
+   and K9 against their plain PyTorch versions on the
    card, at the shapes of the paths below, with their times, their
    roofline bounds (bytes over 3.35 TB/s or operations over 67 TFLOP/s
    f32, the larger: ``bound_ms``), the chain floor of a recurrence (its
@@ -35,8 +36,12 @@ Phases (each raises on failure, so the script exits non-zero):
      blocks of 4410 frames (K5) against the CPU;
    - path D, the group-rate fused AGC: path A with agc_group=16 (K2g and
      K3 once per block), its first 2 blocks against path A's;
+   - path E, the JAX package's AGC-on bench leg: path A with
+     agc_plan="rel0b16" and precision="int2" (K2b and K3 once per block,
+     under sync-debug "error"), its first 2 blocks against path A's; path
+     E', the same with agc_plan="rel0f" (K2r), 2 blocks against path A's;
 5. times: ms per block and the aggregate realtime factor of the slice and
-   of paths A, B, C and D.
+   of paths A, B, C, D, E and E'.
 
 It prints one JSON line of per-kernel results (each kernel's launches are
 those of the render whose path runs it; K9's, a tool on no render path,
@@ -68,6 +73,9 @@ BOUND_K5 = BOUND_K9 = 0.0  # same op order (K9: the same sum order)
 BOUND_SLICE = 1e-5  # the JAX package's fused-vs-unfused bound
 BOUND_B = 1e-6     # a path on the card against the CPU
 BOUND_D_REL = 2e-3  # the group AGC against the serial plan, relative
+# the rel0 plans against the serial plan (tests/test_fused.py:757-761)
+BOUND_E = 5e-6     # rel0b16: the blocked composition reassociates
+BOUND_E2 = 1e-6    # rel0f: the packed ring and the folded desired gain
 
 PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
 PATH_B_BLOCKS = -(-10 * PATH_B_RATE // PATH_B_BLOCK)  # 10 s of audio
@@ -75,6 +83,8 @@ PATH_C_CHECK_STREAMS = 16
 #: (att, rel, target, max_gain, floor, 1/8192) of AgcSettings() at 48 kHz,
 #: with a 50 ms release so the peak detector has memory
 AGC_PARAMS = (0.99999480, 0.99958340, 1.0, 7.0, 0.0, 1.0 / 8192)
+#: the rel0 plans' chunks per 320-frame grid step (path E: rel0b16)
+REL0_RPC = 16
 
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
@@ -155,6 +165,8 @@ def main() -> int:
     # Each run's launch counts are its own: every counter is set to 0 just
     # before the run (a render, or K9's probe) and read just after it.
     counters = {"K1": (fused, "launches"), "K2": (fused, "agc_launches"),
+                "K2r": (fused, "agc_rel0_launches"),
+                "K2b": (fused, "agc_blocked_launches"),
                 "K2g": (fused, "agc_group_launches"),
                 "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
                 "K5": (cuda_scan, "limiter_env_launches"),
@@ -270,6 +282,55 @@ def main() -> int:
            "rodio_tpu/ops/fused.py:1957", err2, BOUND_K2, ms2, pms2,
            pcm_bytes + 2 * ring.numel() * 2 + 2 * T * 4, 40 * L * T,
            _chain_ms(2 * T, 5), note=f" 512x2 streams, n={T}, bf16 ring")
+
+    # K2r and K2b: K2's rel0 plans at path E's shape, with AgcSettings()'s
+    # parameters at 48 kHz (release coefficient 0.0), a block starting on
+    # the 320-frame grid step (o0 = 640), the ring warm in the plan's basis
+    # (rel0: one square per lane; else the packed basis, whose hi lane the
+    # window sum follows); bytes as K2's; ~35 ops a sample (K2r), ~45 (K2b)
+    st0 = AutomaticGainControl(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32),
+                                             device="cpu"), AgcSettings())
+    params0 = dev_f32((st0.attack_coeff, st0.release_coeff) + AGC_PARAMS[2:])
+    if st0.release_coeff != 0.0:
+        raise AssertionError(f"AgcSettings() release coefficient {st0.release_coeff}")
+    left0, phase0 = output_positions(4 * to, T, fr, to, dev)
+    wts0 = dev_f32(np.stack(lerp_weights(fr, to), axis=1))[phase0]
+    lo = rng.uniform(0.0, 0.01, (4096, N_STREAMS))
+    packed = np.stack([lo, lo + rng.uniform(0.0, 0.01, (4096, N_STREAMS))], 2)
+    rel0_rings = {"rel0": dev_f32(rng.uniform(0.0, 0.01, (4096, L))).to(torch.bfloat16),
+                  "packed": dev_f32(packed.reshape(4096, L)).to(torch.bfloat16)}
+    rel0_res = {}
+    for plan in ("rel0", "rel0f", "rel0b16", "rel0c16"):
+        ring0 = rel0_rings["rel0" if plan == "rel0" else "packed"]
+        r3 = ring0.float().reshape(4096, N_STREAMS, 2)
+        rs0 = r3.sum((0, 2)) if plan == "rel0" else r3[:, :, 1].sum(0)
+        agc0r = torch.stack([rs0, dev_f32(rng.uniform(0, 0.3, N_STREAMS)),
+                             dev_f32(rng.uniform(1, 3, N_STREAMS))])
+        kwr = dict(kw2, agc=agc0r, agc_params=params0, ring=ring0, ring_row=640,
+                   agc_plan=plan, step_frames=2 * to)
+        outk = fused.fused_resample_biquad_agc_mix(pcm, left0, wts0, **kwr)
+        outp = fused.fused_resample_biquad_agc_mix_plain(pcm, left0, wts0, **kwr)
+        state_err = max(_max_err(a.float(), b.float()) for a, b in zip(outk[1:], outp[1:]))
+        if state_err != 0.0:
+            raise AssertionError(f"{plan}: carries and ring differ from the plain version "
+                                 f"by {state_err}")
+        ms_r = _time_ms(lambda: fused.fused_resample_biquad_agc_mix(pcm, left0, wts0, **kwr), 20)
+        rel0_res[plan] = (_max_err(outk[0], outp[0]), ms_r, kwr)
+    for kid, plan, other, src, ops, chain in (
+            ("K2r", "rel0f", "rel0", "rodio_tpu_torch/csrc/fused_agc.cu", 35,
+             _chain_ms(2 * T, 4)),
+            ("K2b", "rel0b16", "rel0c16", "rodio_tpu_torch/csrc/fused_agc_blocked.cu", 45,
+             _chain_ms(T, 3))):
+        err_r, ms_r, kwr = rel0_res[plan]
+        pms_r = _time_ms(lambda: fused.fused_resample_biquad_agc_mix_plain(
+            pcm, left0, wts0, **kwr), 1)
+        record(kid, f"fused_resample_biquad_agc_mix (agc_plan={plan})", src,
+               "rodio_tpu/ops/fused.py:1957", max(err_r, rel0_res[other][0]), BOUND_K2,
+               ms_r, pms_r, pcm_bytes + 2 * ring.numel() * 2 + 2 * T * 4, ops * L * T,
+               chain, note=f" 512x2 streams, n={T}, bf16 ring; carries and ring "
+                           f"max|d| 0.0; {other}: kernel {rel0_res[other][1]:.4f} ms, "
+                           f"the same checks")
+    del left0, wts0, rel0_rings, rel0_res, kwr, outk, outp
 
     # K2g: K2's group branch at path D's shape, the group ring warm; ~19
     # ops a sample; chains: the biquad's per frame, rs/pk and the smoother
@@ -584,7 +645,37 @@ def main() -> int:
           f"(bound {BOUND_D_REL}); output peak {dpeak:.4f}")
     if not rel_d < BOUND_D_REL:
         raise AssertionError(f"path D vs path A {rel_d} exceeds {BOUND_D_REL}")
-    del dout, aout2
+    del dout
+
+    # path E: the JAX package's AGC-on bench leg (bench.py's agc_on), K2b
+    # then K3 per block; path E': the same with rel0f (K2r)
+    def rel0_master(plan):
+        return rtt.make_flagship(
+            N_STREAMS, seconds=4.0, scan_mode="fused", with_agc=True, agc_plan=plan,
+            precision="int2", device="cuda", max_block=T, seed=SEED)
+
+    rel0_masters, rel0_runs = {}, {}
+    for label, plan, n_blocks, kid, bound in (("path E", "rel0b16", N_BLOCKS, "K2b", BOUND_E),
+                                              ("path E'", "rel0f", 2, "K2r", BOUND_E2)):
+        node, est = rel0_master(plan)
+        reset()
+        torch.cuda.set_sync_debug_mode("error")
+        _, eout, evalids = rtt.render_blocks(node, est, n_blocks, T)
+        torch.cuda.set_sync_debug_mode("default")
+        run = counts()
+        torch.cuda.synchronize()
+        print(f"{label}: fused AGC (agc_plan={plan}, precision=int2) render of {n_blocks} "
+              f"x {T}: launches {run}")
+        expect(run, label, **{kid: n_blocks, "K3": n_blocks})
+        epeak = check_output(eout, evalids, label, n_blocks, T)
+        err_e = _max_err(eout[:, :2 * T], aout2)
+        print(f"{label} vs path A, 2 blocks: max|d| {err_e:.3e} (bound {bound}); output "
+              f"peak {epeak:.4f}")
+        if not err_e <= bound:
+            raise AssertionError(f"{label} vs path A {err_e} exceeds {bound}")
+        rel0_masters[label], rel0_runs[plan] = node, run
+        del eout
+    del aout2
 
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
@@ -600,7 +691,9 @@ def main() -> int:
 
     for label, node in (("slice", master), ("path A (AGC)", agc_master),
                         ("path C (per-stream chain)", path_c_node),
-                        (f"path D (agc_group={AGC_GROUP})", grp_master)):
+                        (f"path D (agc_group={AGC_GROUP})", grp_master),
+                        ("path E (rel0b16)", rel0_masters["path E"]),
+                        ("path E' (rel0f)", rel0_masters["path E'"])):
         sec_per_block = time_render(node, N_BLOCKS, T)
         rt_factor = (N_STREAMS * T / 48000) / sec_per_block
         print(f"{label}: {sec_per_block * 1e3:.3f} ms per block of {T} frames x "
@@ -616,8 +709,10 @@ def main() -> int:
             "agc_unfused": agc_unfused_run, "config2": path_b_runs[0],
             "config2_group8": path_b_runs[8], "per_stream": path_c_run,
             "limit_mono": path_c_limits["mono"], "limit_p2": path_c_limits["P=2"],
-            "agc_group": path_d_run, "dma_probe": dma_run}
+            "agc_group": path_d_run, "agc_rel0b16": rel0_runs["rel0b16"],
+            "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run}
     kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
+                    "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",
                     "K8": "config2", "K5": "per_stream", "K9": "dma_probe"}
     print(json.dumps({"kernels": [

@@ -15,6 +15,11 @@ and its square history as a ring of grid steps [slots, m*to, 8, 128] (slot =
 step mod slots; in group mode [slots, m*to / AG, 8, 128], a group sum per
 stream); the port's lanes are 2s + c, its carries [3, S] and its ring
 [4096, lanes] by frame mod 4096 ([4096 / AG, S] by group in group mode).
+Under the rel0 plans but ``rel0`` both rings hold the packed basis, the
+rounded square of channel 0 where channel 0 sits and the rounded sum of
+both channels' squares where channel 1 sits, so the same lane map carries
+them across; their peak row, which those plans never update, is taken as
+it stands.
 """
 from __future__ import annotations
 

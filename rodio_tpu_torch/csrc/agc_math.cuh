@@ -1,4 +1,4 @@
-// Device-side AGC arithmetic shared by K2, K6 and K7
+// Device-side AGC arithmetic shared by K2 (K2g, K2r, K2b), K6 and K7
 // (src/source/agc.rs:397-496).
 //
 // Each function keeps the JAX kernels' operation order, each op rounded
@@ -72,6 +72,40 @@ __device__ __forceinline__ float smooth_gain(float g, float des, float att,
   const float down = clip_nan(add(mul(g, rel), mul(des, sub(1.0f, rel))),
                               0.1f, max_gain);
   return des > g ? up : down;
+}
+
+// The rel0 plans (release coefficient 0, rodio_tpu/ops/fused.py:810-1158).
+// The smoother: max(0.1, min(des, att*g + (1-att)*des)); catt = 1 - att,
+// rounded. Its chain through g is mul, add, min, max.
+__device__ __forceinline__ float smooth_gain_rel0(float g, float des,
+                                                  float att, float catt) {
+  return max_nan(min_nan(des, add(mul(att, g), mul(catt, des))), 0.1f);
+}
+
+// rel0f's, rel0b's and rel0c's desired gain, the peak term folded into the
+// rsqrt: q = max(rs*(1/W), y*y), q > 0 ? min(target*rsqrt(q), max_gain) :
+// max_gain
+__device__ __forceinline__ float desired_gain_folded(float rs, float y,
+                                                     const AgcParams& p) {
+  const float q = max_nan(mul(rs, p.inv_window), mul(y, y));
+  return q > 0.0f ? min_nan(mul(p.target, rsqrt_rn(q)), p.max_gain)
+                  : p.max_gain;
+}
+
+// x^k by repeated squaring in f32, in the order of the JAX package's _ipow
+// (rodio_tpu/ops/fused.py:86)
+__device__ __forceinline__ float ipow(float x, int k) {
+  float r = 0.f, b = x;
+  bool first = true;
+  while (k) {
+    if (k & 1) {
+      r = first ? b : mul(r, b);
+      first = false;
+    }
+    b = mul(b, b);
+    k >>= 1;
+  }
+  return r;
 }
 
 // the peak detector's select form (src/source/agc.rs:397-407):

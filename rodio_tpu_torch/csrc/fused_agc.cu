@@ -1,4 +1,5 @@
-// K2: resample + biquad + per-stream AGC + gain + stream mix, one pass.
+// K2: resample + biquad + per-stream AGC + gain + stream mix, one pass; and
+// K2r, the same pipeline under the serial rel0 plans.
 //
 // Replaces rodio_tpu/ops/fused.py fused_resample_biquad_agc_mix /
 // _fused_agc_kernel with its serial plan (agc_group = 0, no rel0 plan):
@@ -64,11 +65,36 @@
 // desired gain and 2 of pk, with the staged rows. A second kernel sums the
 // per-block partials in block order, so the mix is deterministic. Every op
 // rounds alone.
+//
+// K2r replaces the rel0 and rel0f branches of the same TPU kernel
+// (rodio_tpu/ops/fused.py:810-919): agc_plan="rel0" | "rel0f", for a
+// release coefficient of exactly 0 (the default AgcSettings). The peak
+// detector is then memoryless (its carry is left as it was) and the
+// smoother a clamp of an affine map, g = max(0.1, min(d, att*g +
+// (1-att)*d)), 4 dependent ops a sample instead of 5. The same pipeline,
+// with these stages changed:
+//
+//   prep:    rel0f's ring holds the packed basis: lane 2s the rounded sq0,
+//            lane 2s+1 the rounded f32 sq0 + sq1 of stream s;
+//   warp 1:  only the window sum: per frame rs_lo = rs + d_lo, then rs =
+//            rs + d_hi, one dependent add; in rel0 d_hi = d_0 + d_1 (the TPU
+//            kernel's repack), in rel0f the ring's packed delta;
+//   desired: rel0 the serial plan's form with the peak |y|; rel0f
+//            min(target*rsqrt(max(rs/W, y*y)), max_gain) (max_gain at q = 0);
+//   warp 2:  the 4-op smoother above.
+//
+// Its chain floor is 25600 x 4 dependent ops at n = 12800. Measured
+// (benches/warp_cycles.py, H100 80GB HBM3 at 700 W, 512 streams, rel0f): the
+// smoother warp ~4080 cycles a 64-frame tile (K2's ~4980), so the four
+// elementwise warps (up to ~4440) now bind it: 0.49 ms against K2's 0.55.
 #include "fused_agc_common.cuh"
 
 namespace {
 
 using namespace rt::fused_agc;
+
+// the AGC plan a kernel instance runs
+enum Plan : int { kSerial = 0, kRel0 = 1, kRel0f = 2 };
 
 constexpr int kYBufs = 7, kDBufs = 4, kPBufs = 2;
 constexpr int kDepth = 6;    // iterations from a tile's fill to its mix
@@ -140,7 +166,7 @@ __device__ __forceinline__ void stream_chunks(const Tile& A, const Tile& B,
   }
 }
 
-template <typename R>
+template <typename R, int kPlan>
 __global__ void __launch_bounds__(kAgcThreads, 1)
 fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
                  const long long* __restrict__ left,
@@ -166,6 +192,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
   const rt::AgcParams p = rt::load_agc_params(params);
   const rt::BiquadCoef cf = rt::load_coef(coef);
   const float crel = rt::sub(1.0f, p.rel);
+  const float catt = rt::sub(1.0f, p.att);
 
   // carries: biquad on warp 0 (per lane), rs/pk on warp 1 and the gain on
   // warp 2 (per stream)
@@ -199,11 +226,20 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
   auto desired = [&](int i, int sub) {
     const int tt = rt::tile_len(n, i);
     Tile& db = D[i % kDBufs];
-    Tile& pb = PK[i % kPBufs];
+    const Tile& pb = PK[i % kPBufs];
+    const Tile& yb = Y[i % kYBufs];
 #pragma unroll 1
     for (int u = 0; u < kPer; ++u) {
       const int e = sub + u * kNWork, t = e / kBL, l = e % kBL;
-      if (t < tt && l < nl) db[t][l] = rt::desired_gain(db[t][l], pb[t][l], p);
+      if (t < tt && l < nl) {
+        // the rel0 plans' peak is the current |y| (the detector is
+        // memoryless at release 0)
+        if (kPlan == kRel0f)
+          db[t][l] = rt::desired_gain_folded(db[t][l], yb[t][l], p);
+        else
+          db[t][l] = rt::desired_gain(
+              db[t][l], kPlan == kRel0 ? fabsf(yb[t][l]) : pb[t][l], p);
+      }
     }
   };
   // this block's streams summed per (channel, frame), in stream order
@@ -239,7 +275,22 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
       }
     } else if (warp == 1) {
       const int j = it - 3;
-      if (live(j) && wl < ns) {
+      if (kPlan != kSerial) {
+        if (live(j) && wl < ns) {
+          // in: the frame's deltas (D); out: the window sum after each of
+          // its sub-steps (D). The second tile is not read.
+          Tile& db = D[j % kDBufs];
+          auto step = [&](float (&d)[2], float (&)[2]) {
+            const float dh = kPlan == kRel0 ? rt::add(d[0], d[1]) : d[1];
+            d[0] = rt::add(rs, d[0]);
+            rs = rt::add(rs, dh);
+            d[1] = rs;
+          };
+          full_or_tail(rt::tile_len(n, j), [&](auto tt) {
+            stream_chunks(db, db, &db, nullptr, 2 * wl, tt, step);
+          });
+        }
+      } else if (live(j) && wl < ns) {
         // in: d (D) and y (Y); out: rs (D) and pk (PK)
         Tile& db = D[j % kDBufs];
         auto step = [&](float (&d)[2], float (&y)[2]) {
@@ -266,7 +317,9 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
         auto step = [&](float (&d)[2], float (&y)[2]) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            g = rt::smooth_gain(g, d[c], p.att, p.rel, p.max_gain);
+            g = kPlan == kSerial
+                    ? rt::smooth_gain(g, d[c], p.att, p.rel, p.max_gain)
+                    : rt::smooth_gain_rel0(g, d[c], p.att, catt);
             y[c] = rt::mul(rt::mul(y[c], g), c ? gain1 : gain0);
           }
         };
@@ -330,7 +383,12 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
           const int e = sub + k * kNWork, t = e / kBL, l = e % kBL;
           if (t < ttp && l < nl) {
             const float y = yb[t][l];
-            const R q = ring_round<R>(rt::mul(y, y));
+            float sq = rt::mul(y, y);
+            if (kPlan == kRel0f && (l & 1)) {  // the packed hi: sq0 + sq1
+              const float y0 = yb[t][l - 1];
+              sq = rt::add(rt::mul(y0, y0), sq);
+            }
+            const R q = ring_round<R>(sq);
             ring[ring_at(it - 2, t, l)] = q;
             db[t][l] = rt::sub(ring_f32(q), ring_f32(old[k]));
           }
@@ -364,18 +422,43 @@ __global__ void agc_mix_partials_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-template <typename R>
+template <typename R, int kPlan>
 cudaError_t launch(const float* pcm, long long F, int L, const long long* left,
                    const float* wts, const float* gains, const float* coef,
                    const float* bq_in, float* bq_out, const float* agc_in,
                    float* agc_out, const float* params, void* ring,
                    int ring_row, float* partial, int n, int nblk,
                    cudaStream_t s) {
-  fused_agc_kernel<R><<<nblk, kAgcThreads, kShmem, s>>>(
+  fused_agc_kernel<R, kPlan><<<nblk, kAgcThreads, kShmem, s>>>(
       pcm, F, L, left, reinterpret_cast<const float2*>(wts), gains, coef,
       bq_in, bq_out, agc_in, agc_out, params, static_cast<R*>(ring),
       ring_row, partial, n);
   return cudaGetLastError();
+}
+
+// checks the shape, launches the plan's kernel for the ring's type, then
+// sums the blocks' partials
+template <int kPlan>
+int launch_plan(const float* pcm, long long F, int L, const long long* left,
+                const float* wts, const float* gains, const float* coef,
+                const float* bq_in, float* bq_out, const float* agc_in,
+                float* agc_out, const float* params, void* ring, int ring_bf16,
+                int ring_row, float* partial, float* out, int n,
+                void* stream) {
+  if (L < 2 || L % 2 || n < 1 || F < 1 || ring_row < 0 || ring_row >= kRing)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (L + kBL - 1) / kBL;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      ring_bf16 ? launch<__nv_bfloat16, kPlan>(pcm, F, L, left, wts, gains,
+                                               coef, bq_in, bq_out, agc_in,
+                                               agc_out, params, ring, ring_row,
+                                               partial, n, nblk, s)
+                : launch<float, kPlan>(pcm, F, L, left, wts, gains, coef,
+                                       bq_in, bq_out, agc_in, agc_out, params,
+                                       ring, ring_row, partial, n, nblk, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_partials(partial, out, nblk, n, s);
 }
 
 }  // namespace
@@ -397,18 +480,21 @@ extern "C" int rt_fused_resample_biquad_agc_mix(
     const float* bq_in, float* bq_out, const float* agc_in, float* agc_out,
     const float* params, void* ring, int ring_bf16, int ring_row,
     float* partial, float* out, int n, void* stream) {
-  if (L < 2 || L % 2 || n < 1 || F < 1 || ring_row < 0 || ring_row >= kRing)
-    return (int)cudaErrorInvalidValue;
-  const int nblk = (L + kBL - 1) / kBL;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      ring_bf16 ? launch<__nv_bfloat16>(pcm, F, L, left, wts, gains, coef,
-                                        bq_in, bq_out, agc_in, agc_out,
-                                        params, ring, ring_row, partial, n,
-                                        nblk, s)
-                : launch<float>(pcm, F, L, left, wts, gains, coef, bq_in,
-                                bq_out, agc_in, agc_out, params, ring,
-                                ring_row, partial, n, nblk, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)sum_partials(partial, out, nblk, n, s);
+  return launch_plan<kSerial>(pcm, F, L, left, wts, gains, coef, bq_in,
+                              bq_out, agc_in, agc_out, params, ring, ring_bf16,
+                              ring_row, partial, out, n, stream);
+}
+
+// K2r: the same with a rel0 plan, rel0 (packed = 0: the ring holds each
+// lane's square) or rel0f (packed = 1: the ring in the packed basis)
+extern "C" int rt_fused_resample_biquad_agc_rel0_mix(
+    const float* pcm, long long F, int L, const long long* left,
+    const float* wts, const float* gains, const float* coef,
+    const float* bq_in, float* bq_out, const float* agc_in, float* agc_out,
+    const float* params, void* ring, int ring_bf16, int ring_row, int packed,
+    float* partial, float* out, int n, void* stream) {
+  auto run = packed ? launch_plan<kRel0f> : launch_plan<kRel0>;
+  return run(pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in,
+             agc_out, params, ring, ring_bf16, ring_row, partial, out, n,
+             stream);
 }

@@ -81,22 +81,6 @@ constexpr size_t shmem_bytes(int ag) {
 }
 static_assert(shmem_bytes(kRing) <= 227 * 1024, "the longest group fits");
 
-// x^k by repeated squaring in f32, in the order of the JAX package's _ipow
-// (rodio_tpu/ops/fused.py:86)
-__device__ __forceinline__ float ipow(float x, int k) {
-  float r = 0.f, b = x;
-  bool first = true;
-  while (k) {
-    if (k & 1) {
-      r = first ? b : rt::mul(r, b);
-      first = false;
-    }
-    b = rt::mul(b, b);
-    k >>= 1;
-  }
-  return r;
-}
-
 // kLong: AG > 64 (E > 0); otherwise E is the constant 0, so that the
 // buffer indices of the common case stay constant divisions
 template <typename R, bool kLong>
@@ -132,7 +116,8 @@ fused_agc_group_kernel(const float* __restrict__ pcm, long long F, int L,
   const int ring_mask = kRing / ag - 1;    // ring rows: a power of two
   const rt::AgcParams p = rt::load_agc_params(params);
   const rt::BiquadCoef cf = rt::load_coef(coef);
-  const float attG = ipow(p.att, 2 * ag), relG = ipow(p.rel, 2 * ag);
+  const float attG = rt::ipow(p.att, 2 * ag);
+  const float relG = rt::ipow(p.rel, 2 * ag);
   const float crelG = rt::sub(1.0f, relG);
 
   // carries: biquad on warp 0 (per lane), rs/pk on warp 1 and the gain on

@@ -15,9 +15,12 @@ and its parity partner, the unfused chain
 
 With the AGC on (``with_agc=True``: BASELINE config 5 with the config-2
 AGC stage per stream), the fused node runs K2 (resample + biquad + AGC +
-gain + mix; K2g, its group branch, with ``agc_group`` > 0), and the
-unfused chain gains an AutomaticGainControl (K6 with
-``scan_mode="pallas"``) after the filter.
+gain + mix; K2g, its group branch, with ``agc_group`` > 0; K2r or K2b
+with a rel0 ``agc_plan``), and the unfused chain gains an
+AutomaticGainControl (K6 with ``scan_mode="pallas"``) after the filter.
+``make_flagship(512, scan_mode="fused", with_agc=True, agc_plan="rel0b16",
+precision="int2")`` is the JAX package's AGC-on bench leg (``bench.py``'s
+``agc_on``).
 
 The JAX package's TPU schedule knobs (``lookahead``, ``subblk``,
 ``firfold``, ``ufir``, ``dma_depth``, ``m``, ``binary_mix``,
@@ -43,7 +46,8 @@ from .effects.basic import Amplify
 from .effects.blt import BltFilter, blt_coefficients
 from .effects.limit import Limit, LimitSettings
 from .ops.fused import (
-    AGC_RING_FRAMES, fused_resample_biquad_agc_mix, fused_resample_biquad_mix)
+    AGC_REL0_PLANS, AGC_RING_FRAMES, fused_resample_biquad_agc_mix,
+    fused_resample_biquad_mix, rel0_chunks)
 from .parallel.batch import WideMixer
 from .sources.generators import SamplesBuffer
 from .utils.device import DeviceLike
@@ -51,9 +55,6 @@ from .utils.device import DeviceLike
 PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
 #: the precisions whose PCM the JAX package splits into integer pieces
 INT_PIECES = ("int3", "int2", "i8", "i24")
-#: the JAX package's fused-AGC plans that are TPU schedules of K2
-AGC_REL0_PLANS = ("rel0", "rel0f", "rel0b", "rel0b16", "rel0b32", "rel0b64",
-                  "rel0c", "rel0c8", "rel0c16", "rel0c32")
 
 
 def _content_probe(input_node) -> tuple:
@@ -107,8 +108,18 @@ class FusedWidePipeline(Node):
     "bf16" rounds each square to bf16 before it enters the window sum, the
     same value leaving it 4096 frames later; "f32" keeps f32), and the
     parameters ``agc_par`` as data, so :meth:`set_agc_params` rebuilds
-    nothing. ``agc_plan`` "auto"/"serial" is the serial plan; the rel0
-    plans are not ported.
+    nothing. ``agc_plan`` "auto"/"serial" is the serial plan (K2), which
+    serves every release time.
+
+    The rel0 plans (``AGC_REL0_PLANS``) are the JAX package's schedules for
+    a release time of 0, the default: built with any other release or with
+    ``agc_group`` they raise, and so does a live nonzero release. ``rel0``
+    and ``rel0f`` step sample by sample (K2r); ``rel0b*`` and ``rel0c*``
+    compose the smoother within RPC chunks of each m*to-frame grid step
+    (K2b), so RPC must divide m*to and every block must hold whole steps.
+    All but ``rel0`` keep the ring in the packed basis: lane 2s holds the
+    rounded square of channel 0, lane 2s+1 that of the sum of both
+    channels' squares. The peak carry stays as it was.
 
     ``agc_group`` = AG > 0 is the JAX package's group-rate AGC (its
     AgcGroup contract, an opt-in that changes results): window sums, peaks
@@ -170,21 +181,16 @@ class FusedWidePipeline(Node):
             raise ValueError("the fused AGC supports stereo streams")
         if ring not in ("bf16", "f32"):
             raise ValueError(f"agc_ring must be 'bf16' or 'f32', got {ring!r}")
-        if group:
-            # the JAX pipeline's frames per grid step under the AGC
-            # (rodio_tpu/flagship.py:242-276): its groups must divide them
-            m = 1 if self.precision in INT_PIECES and self.to > 320 else 2
-            mto = m * self.to
-            if group < 2 or mto % group or AGC_RING_FRAMES % group:
-                raise ValueError(
-                    f"agc_group {group} must be >= 2 and divide both m*to = "
-                    f"{mto} and the RMS lag {AGC_RING_FRAMES}")
+        # the JAX pipeline's frames per grid step under the AGC
+        # (rodio_tpu/flagship.py:242-276): groups and rel0 chunks divide it
+        self._mto = (1 if self.precision in INT_PIECES and self.to > 320
+                     else 2) * self.to
+        if group and (group < 2 or self._mto % group or AGC_RING_FRAMES % group):
+            raise ValueError(
+                f"agc_group {group} must be >= 2 and divide both m*to = "
+                f"{self._mto} and the RMS lag {AGC_RING_FRAMES}")
         self._agc_group = int(group)
-        if plan in AGC_REL0_PLANS:
-            raise NotImplementedError(
-                f"agc_plan={plan!r} is one of K2's rel0 plans (TPU "
-                "schedules), not ported yet (ROADMAP queue 2)")
-        if plan not in ("auto", "serial"):
+        if plan not in ("auto", "serial") + AGC_REL0_PLANS:
             raise ValueError(f"unknown agc_plan {plan!r}")
         st = settings or AgcSettings()
 
@@ -198,6 +204,19 @@ class FusedWidePipeline(Node):
             float(np.float32(st.absolute_max_gain)), 0.0,
             float(np.float32(1.0) / np.float32(RMS_WINDOW_SIZE)))
         self._agc_ring = ring
+        self._agc_plan = "serial" if plan == "auto" else plan
+        if plan in AGC_REL0_PLANS:
+            # the JAX package's refusals (rodio_tpu/flagship.py:407-411, and
+            # its kernel's RPC | m*to)
+            if self._agc_params[1] != 0.0 or group:
+                raise ValueError(
+                    f"agc_plan={plan!r} requires release_time=0 and no "
+                    "agc_group")
+            rpc = rel0_chunks(plan)
+            if rpc and self._mto % rpc:
+                raise ValueError(
+                    f"agc_plan={plan!r} needs its {rpc} chunks to divide "
+                    f"m*to = {self._mto}")
 
     def _resolve_precision(self, precision: str) -> str:
         if precision not in PRECISIONS:
@@ -277,6 +296,11 @@ class FusedWidePipeline(Node):
             att = coeff(attack)
         if release is not None:
             rel = coeff(release)
+            if rel != 0.0 and self._agc_plan != "serial":
+                raise ValueError(
+                    f"this pipeline was built with agc_plan="
+                    f"{self._agc_plan!r} (a rel0 plan, release_time=0); a "
+                    "live nonzero release needs the serial plan")
         if target_level is not None:
             tgt = float(np.float32(target_level))
         if absolute_max_gain is not None:
@@ -316,13 +340,16 @@ class FusedWidePipeline(Node):
         left, wts = self._taps(o0, n)
         extra = {}
         if self.with_agc:
-            ag = self._agc_group
+            # the blocked rel0 plans take blocks of whole m*to-frame steps
+            # (the wrapper checks n against step_frames)
+            ag, plan = self._agc_group, self._agc_plan
             mix, bq, agc, ring = fused_resample_biquad_agc_mix(
                 state["pcm"], left, wts, gains=state["gains"],
                 coeffs=state["coeffs"], bq=state["bq"], agc=state["agc"],
                 agc_params=state["agc_par"], ring=state["ring"],
                 ring_row=(o0 // ag) % (AGC_RING_FRAMES // ag) if ag
-                else o0 % AGC_RING_FRAMES, agc_group=ag)
+                else o0 % AGC_RING_FRAMES, agc_group=ag, agc_plan=plan,
+                step_frames=self._mto)
             extra = {"agc": agc, "ring": ring}
         else:
             mix, bq = fused_resample_biquad_mix(

@@ -72,6 +72,13 @@ SIGNATURES = {
     # the same with agc_group after ring_row
     "rt_fused_resample_biquad_agc_group_mix": (P, LL, I, P, P, P, P, P, P, P,
                                                P, P, P, I, I, I, P, P, I, P),
+    # the same with packed (rel0f) after ring_row
+    "rt_fused_resample_biquad_agc_rel0_mix": (P, LL, I, P, P, P, P, P, P, P,
+                                              P, P, P, I, I, I, P, P, I, P),
+    # the same with chunk and tiled (rel0c) after ring_row
+    "rt_fused_resample_biquad_agc_blocked_mix": (P, LL, I, P, P, P, P, P, P,
+                                                 P, P, P, P, I, I, I, I, P, P,
+                                                 I, P),
     # x, R, L, rows per tile, depth, out, stream
     "rt_dma_ring": (P, LL, I, I, I, P, P),
     # x, float4 count, blocks, out, stream

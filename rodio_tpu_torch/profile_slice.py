@@ -1,7 +1,8 @@
 """Where the time goes in the flagship slice on one CUDA card.
 
     python -m rodio_tpu_torch.profile_slice [--streams 512] [--block 12800]
-        [--blocks 12] [--with-agc | --path C | --path D] [--out FILE]
+        [--blocks 12] [--with-agc | --path C | --path D | --path E]
+        [--out FILE]
 
 For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
 K4 -> Amplify -> WideMixer -> K3; with ``--with-agc``, the AGC slice
@@ -10,7 +11,10 @@ AutomaticGainControl (K6) -> Amplify -> WideMixer -> K3; with ``--path
 C``, ``per_stream``, the per-stream chain of ``make_per_stream_chain``:
 Resample -> K4 -> AGC (K6) -> Amplify -> Limit(streams=S) (K5) ->
 WideMixer -> K3; with ``--path D``, ``agc_group``, the fused AGC slice with
-``agc_group=16``: K2g then K3) it prints, per block of ``--block``
+``agc_group=16``: K2g then K3; with ``--path E``, ``agc_rel0b16``, the JAX
+package's AGC-on bench leg, the fused AGC slice with ``agc_plan="rel0b16"``
+and ``precision="int2"``: K2b then K3, and ``agc_rel0f``, the same with
+``agc_plan="rel0f"``: K2r then K3) it prints, per block of ``--block``
 frames:
 
 - ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
@@ -112,9 +116,11 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=12)
     ap.add_argument("--with-agc", action="store_true",
                     help="profile the AGC slice (K2; unfused: K6)")
-    ap.add_argument("--path", choices=("C", "D"), default=None,
+    ap.add_argument("--path", choices=("C", "D", "E"), default=None,
                     help="profile path C (the per-stream chain: K4, K6, K5, "
-                         "K3) or path D (the group-rate fused AGC: K2g, K3)")
+                         "K3), path D (the group-rate fused AGC: K2g, K3) or "
+                         "path E (the rel0b16 and rel0f AGC plans: K2b or "
+                         "K2r, K3)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -137,6 +143,10 @@ def main(argv=None) -> int:
         cells = {"agc_group": lambda: rtt.make_flagship(
             args.streams, scan_mode="fused", with_agc=True,
             agc_group=16, **kw)}
+    elif args.path == "E":
+        cells = {f"agc_{plan}": (lambda plan=plan: rtt.make_flagship(
+            args.streams, scan_mode="fused", with_agc=True, agc_plan=plan,
+            precision="int2", **kw)) for plan in ("rel0b16", "rel0f")}
     else:
         cells = {("agc_" if args.with_agc else "") + cell: (
             lambda mode=mode: rtt.make_flagship(args.streams, scan_mode=mode,

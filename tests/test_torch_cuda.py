@@ -11,7 +11,8 @@ summation order differs), its biquad carries bit-equal. K6, K7 and K8
 bit-equal (the same op order; K8 the same blocked order and the same power
 table); K2 1e-6 on the mix, its carries and ring bit-equal. K5 bit-equal
 (the same op order); K2g (K2's group branch) as K2; K9 bit-equal (the same
-sum order; the contiguous stream's max is order-free).
+sum order; the contiguous stream's max is order-free). K2r and K2b (K2's
+rel0 plans) as K2, their peak carry untouched.
 """
 import numpy as np
 import pytest
@@ -383,3 +384,71 @@ def test_fused_agc_emit_never_waits_for_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.shape == (2, 1920)
+
+
+#: AGC_PARAMS with a release coefficient of 0, as K2's rel0 plans require
+AGC_PARAMS_REL0 = (AGC_PARAMS[0], 0.0) + AGC_PARAMS[2:]
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("plan", fused.AGC_REL0_PLANS)
+@pytest.mark.parametrize("S,n,o0,F,to", [
+    (3, 640, 0, 5000, 160), (512, 1280, 320, 4000, 160),
+    (4, 5120, 960, 7000, 160),  # n > 4096: the block reads its own squares back
+    (6, 1280, 640, 3000, 320),  # 22.05 -> 48 kHz: m*to = 640
+])
+def test_k2r_k2b_rel0_plans_match_plain(dev, ring_dtype, plan, S, n, o0, F, to):
+    """K2r (rel0, rel0f) and K2b (rel0b*, rel0c*) at 44.1 and 22.05 kHz,
+    from the stream's start and mid-stream (o0 > 0, on the step grid)."""
+    rng = np.random.default_rng(S * 100 + n + to)
+    L, fr = 2 * S, 147
+    pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)
+    left, phase = output_positions(o0, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    agc = _f32(np.stack([rng.uniform(10, 100, S), rng.uniform(0, .5, S),
+                         rng.uniform(.5, 3, S)]), dev)
+    ring = _f32(rng.uniform(0, 0.1, (4096, L)), dev).to(ring_dtype)
+    gains = np.repeat(rng.uniform(0.5, 1.5, S) / S, 2)
+    kw = dict(gains=_f32(gains, dev),
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
+              agc_params=_f32(AGC_PARAMS_REL0, dev), ring=ring, ring_row=o0 % 4096,
+              agc_plan=plan, step_frames=2 * to)
+    blocked = fused.rel0_chunks(plan) > 0
+    before = (fused.agc_rel0_launches, fused.agc_blocked_launches, fused.agc_launches)
+    mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
+    mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
+    torch.cuda.synchronize()
+    after = (fused.agc_rel0_launches, fused.agc_blocked_launches, fused.agc_launches)
+    assert after == (before[0] + (not blocked), before[1] + blocked, before[2])
+    assert (mk - mp).abs().max().item() <= 1e-6
+    assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
+    assert torch.equal(ak[1], agc[1])  # the peak carry untouched
+
+
+@pytest.mark.parametrize("plan", ["rel0f", "rel0b16", "rel0c16"])
+def test_rel0_flagship_on_card_matches_cpu(dev, plan):
+    """make_flagship(agc_plan=plan) on the card against the CPU, 3 blocks of
+    640, the last two with no host synchronisation (the first builds the
+    limiter's tables): K2r or K2b and K3 once per block."""
+    kw = dict(seconds=0.5, scan_mode="fused", with_agc=True, agc_plan=plan,
+              precision="int2")
+    node_g, st_g = make_flagship(12, device=dev, **kw)
+    node_c, st_c = make_flagship(12, device="cpu", **kw)
+    counters = (lambda: (fused.agc_rel0_launches, fused.agc_blocked_launches,
+                         limiter_block.launches))
+    before = counters()
+    st_g, og1, _ = render_blocks(node_g, st_g, 1, 640)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, og2, _ = render_blocks(node_g, st_g, 2, 640)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = counters()
+    og = torch.cat([og1, og2], dim=1)
+    _, oc, _ = render_blocks(node_c, st_c, 3, 640)
+    blocked = plan != "rel0f"
+    assert tuple(a - b for a, b in zip(after, before)) == (3 * (not blocked), 3 * blocked, 3)
+    # the card's master limiter is the blocked order, the CPU's the
+    # sequential one (4e-6)
+    assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 5e-6

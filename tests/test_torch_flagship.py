@@ -26,6 +26,7 @@ import torch
 from rodio_tpu.flagship import make_flagship as j_make_flagship
 from rodio_tpu_torch import make_flagship, render_blocks
 from rodio_tpu_torch.convert import state_from_jax
+from rodio_tpu_torch.effects import AgcSettings
 from rodio_tpu_torch.flagship import FusedWidePipeline
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 
@@ -141,9 +142,22 @@ def test_refused_configurations():
     with pytest.raises(ValueError, match="agc_group"):  # 7 divides no m*to
         FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
                           agc_group=7)
-    with pytest.raises(NotImplementedError, match="rel0"):
-        FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
-                          agc_plan="rel0b16")
+    # the JAX package's refusals of a rel0 plan: a nonzero release, a group,
+    # RPC not dividing m*to (48 -> 44.1 kHz: m*to = 294, 8 does not divide it)
+    for kw in (dict(agc_settings=AgcSettings(release_time=0.05)), dict(agc_group=16)):
+        with pytest.raises(ValueError, match="rel0b16"):
+            FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
+                              agc_plan="rel0b16", **kw)
+    buf48 = SamplesBuffer(4, 48000, np.zeros((4, 100), np.float32), device="cpu")
+    with pytest.raises(ValueError, match="294"):
+        FusedWidePipeline(buf48, 44100, np.ones(2, np.float32), 2, with_agc=True,
+                          agc_plan="rel0b")
+    rel0 = FusedWidePipeline(buf, 48000, np.ones(2, np.float32), 2, with_agc=True,
+                             agc_plan="rel0b16")
+    st = rel0.init_state()
+    with pytest.raises(ValueError, match="rel0"):
+        rel0.set_agc_params(st, release=0.05)
+    rel0.set_agc_params(st, release=0.0, attack=0.1)
     with pytest.raises(ValueError, match="stereo"):
         FusedWidePipeline(buf, 48000, np.ones(4, np.float32), 4, with_agc=True)
     with pytest.raises(ValueError, match="identity"):
