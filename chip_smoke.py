@@ -16,7 +16,8 @@ Phases (each raises on failure, so the script exits non-zero):
    f32, the larger: ``bound_ms``), the chain floor of a recurrence (its
    serial steps times the dependent ops of a step times that latency:
    ``chain_ms``) and, where one PyTorch call computes the same function,
-   its time;
+   its time; K1 once more at gains of unit scale, where its mix is
+   largest against the rounding of its sum over blocks;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -262,6 +263,21 @@ def main() -> int:
            "rodio_tpu/ops/fused.py:1841", err1, BOUND_K1, ms1, pms1,
            pcm_bytes + 2 * T * 4, 14 * L * T, _chain_ms(T, 3),
            note=f" 512x2 streams, n={T}")
+    # the mix where it is largest against its rounding: gains of unit scale
+    # (U(0.1, 1) a lane, no 1/S), so 512 streams sum to a mix of ~0.3 rms;
+    # the sum over blocks is where the kernel's order differs from the plain
+    rng_u = np.random.default_rng(SEED + 1)
+    kw1u = dict(kw1, gains=dev_f32(rng_u.uniform(0.1, 1.0, L)))
+    left_u, phase_u = output_positions(to, 1280, fr, to, dev)
+    wts_u = dev_f32(np.stack(lerp_weights(fr, to), axis=1))[phase_u]
+    mku, bku = fused.fused_resample_biquad_mix(pcm, left_u, wts_u, **kw1u)
+    mpu, bpu = fused.fused_resample_biquad_mix_plain(pcm, left_u, wts_u, **kw1u)
+    err1u = _max_err(mku, mpu)
+    print(f"K1 at gains of unit scale (512x2 streams, n=1280): mix max|d| {err1u:.3e}, "
+          f"peak |mix| {mpu.abs().max().item():.3f} (bound {BOUND_K1}) {tag}")
+    if not (err1u <= BOUND_K1 and torch.equal(bku, bpu)):
+        raise AssertionError(f"K1 at unit-scale gains: mix max|d| {err1u}, carries "
+                             f"equal {torch.equal(bku, bpu)}")
 
     # K2: the same block with the AGC, the ring warm: every row holds a
     # square that leaves the window, and each stream's window sum is theirs;

@@ -1,21 +1,30 @@
-"""Where the cycles of K2's tile pipeline go, warp by warp, on one CUDA card.
+"""Where the cycles of K1's and K2's tile pipelines go, warp by warp, on
+one CUDA card; and K1's and K3's times, for an A/B of two versions.
 
     python -m rodio_tpu_torch.benches.warp_cycles [--csrc DIR] [--out FILE]
 
-K2, K2r, K2b and K2g (``csrc/fused_agc.cu``, ``fused_agc_blocked.cu``,
-``fused_agc_group.cu``) run every warp's share of a tile between two
-barriers, so the slowest warp sets each iteration's length. This copies
-the three sources into ``build/warp_cycles/``, adds a ``clock64()`` read at
-the start of each iteration and another before its barrier, builds them
-with the library's nvcc flags into a shared library of their own, runs each
-plan once at path E's shape (512 stereo streams, one block of 12800 frames
-at 44.1 -> 48 kHz, bf16 ring) and prints, for the card's first block of
-lanes, each warp's busy cycles per iteration (lane 0's view) beside the
-iteration's whole length (kernel cycles over iterations), and the kernel's
-time by CUDA events (the mean of 20 calls after one). The reads cost a few
-cycles an iteration; the library itself is not changed. ``--csrc`` takes
-the sources from another directory (another version of the kernels, for an
-A/B in one process). Without a card it fails.
+K1 (``csrc/fused.cu``), K2, K2r, K2b and K2g (``csrc/fused_agc.cu``,
+``fused_agc_blocked.cu``, ``fused_agc_group.cu``) run every warp's share of
+a tile between two barriers, so the slowest warp sets each iteration's
+length. This copies those sources into ``build/warp_cycles/``, adds a
+``clock64()`` read at the start of each iteration and another before its
+barrier, builds them and ``limiter_block.cu`` (K3, not instrumented) with
+the library's nvcc flags into a shared library of their own, and runs K1 at
+the main path's shape (512 stereo streams, one block of 12800 frames at
+44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16 ring) and K3 at
+the master bus's ([2, 12800], P = 128). For each tile pipeline it prints
+the card's first block's busy cycles per iteration by warp (lane 0's view)
+beside the iteration's whole length (kernel cycles over iterations), and
+for every kernel its time by CUDA events (the mean of 20 calls after one;
+K3 of 50), and for K1 and K3 also the mean of as many calls captured in one
+CUDA graph (the card's time without the host's between launches: K3 runs
+shorter than its call takes on the host), and K1's mix against its plain
+version at gains of unit scale (no 1/S), where the mix is largest against
+the rounding of its sum over blocks. The reads cost a few cycles an iteration; the library itself is
+not changed. ``--csrc`` takes the sources from another directory (another
+version of the kernels, for an A/B in one call): a source whose tile loop
+is not where this expects it is built as it is and timed only. Without a
+card it fails.
 """
 from __future__ import annotations
 
@@ -31,23 +40,30 @@ import numpy as np
 import torch
 
 from ..conversions.resample import lerp_weights, output_positions
+from ..core.math import DB_TO_LOG2, LOG2_TO_DB
 from ..effects.blt import blt_coefficients
-from ..ops import _build, fused
+from ..effects.limit import Limit, LimitSettings
+from ..ops import _build, fused, limiter_block
+from ..sources.generators import SamplesBuffer
 
 OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
-SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu")
-SLOTS = 16  # per-warp totals; slot 14 the iterations, 15 the kernel's cycles
+SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu")
+TIMED = ("limiter_block.cu",)  # built as they are, timed only
+WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
+SLOTS = WARPS + 2  # kernel's cycles
 
 _LOOP = re.compile(r"( *)for \(int it = 0; it < ([^;]+); \+\+it\) \{\n")
 _END = "    __syncthreads();\n  }\n"
 _CARRIES = "  if (warp == 0 && wl < nl) {\n    bq_out[0 * L"
 
 
-def instrument(src: str, tag: str) -> str:
-    """The source with each tile loop's warps timed (block 0, lane 0)."""
+def instrument(src: str, tag: str):
+    """The source with each tile loop's warps timed (block 0, lane 0), or
+    None where its tile loop is not where this expects it."""
+    head = '#include "fused_agc_common.cuh"\n'
     m = _LOOP.search(src)
-    if m is None or src.count(_END) != 1 or src.count(_CARRIES) != 1:
-        raise RuntimeError(f"{tag}: the tile loop is not where it was")
+    if m is None or src.count(_END) != 1 or src.count(_CARRIES) != 1 or head not in src:
+        return None
     iters = m.group(2)
     src = src.replace(
         m.group(0),
@@ -59,9 +75,8 @@ def instrument(src: str, tag: str) -> str:
         "  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)\n"
         "    g_warp_cycles[threadIdx.x >> 5] = busy_;\n"
         "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
-        f"    g_warp_cycles[14] = {iters};\n"
-        "    g_warp_cycles[15] = clock64() - start_;\n  }\n" + _CARRIES)
-    head = '#include "fused_agc_common.cuh"\n'
+        f"    g_warp_cycles[{WARPS}] = {iters};\n"
+        f"    g_warp_cycles[{WARPS + 1}] = clock64() - start_;\n  }}\n" + _CARRIES)
     return src.replace(head, head + (
         f"static __device__ long long g_warp_cycles[{SLOTS}];\n"
         f"extern \"C\" int rt_warp_cycles_{tag}(long long* out) {{\n"
@@ -69,11 +84,13 @@ def instrument(src: str, tag: str) -> str:
         "                                   sizeof(g_warp_cycles));\n}\n"), 1)
 
 
-def build(csrc: Path) -> ctypes.CDLL:
+def build(csrc: Path):
     """The instrumented kernels of ``csrc``, built once per version of
-    their sources."""
-    texts = {name: instrument((csrc / name).read_text(), name[:-3])
-             for name in SOURCES}
+    their sources, and the names of the sources that were instrumented."""
+    texts = {name: (csrc / name).read_text() for name in SOURCES + TIMED}
+    timed = {name: instrument(texts[name], name[:-3]) for name in SOURCES}
+    texts.update({k: v for k, v in timed.items() if v is not None})
+    instrumented = tuple(k for k, v in timed.items() if v is not None)
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for name in sorted(p.name for p in csrc.glob("*.cu*")):
         h.update(texts.get(name, (csrc / name).read_text()).encode())
@@ -85,19 +102,61 @@ def build(csrc: Path) -> ctypes.CDLL:
             (out_dir / name).write_text(text)
         flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
         subprocess.run([_build._nvcc(), *flags, "-I", str(csrc), "-shared",
-                        "-o", str(so), *(str(out_dir / n) for n in SOURCES)],
+                        "-o", str(so), *(str(out_dir / n) for n in texts)],
                        check=True)
     lib = ctypes.CDLL(str(so))
+    main_lib = _build.load_library()
     for name, argtypes in _build.SIGNATURES.items():
-        if name.startswith("rt_fused_resample_biquad_agc") or name == "rt_fused_agc_block_lanes":
-            getattr(lib, name).argtypes = list(argtypes)
-            getattr(lib, name).restype = ctypes.c_int
-    for name in SOURCES:
+        if not name.startswith(("rt_fused", "rt_limiter_master")):
+            continue
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:  # an older version: the library's own rule
+            setattr(lib, name, getattr(main_lib, name))
+            continue
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    for name in instrumented:
         fn = getattr(lib, f"rt_warp_cycles_{name[:-3]}")
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.rt_error_string = _build.load_library().rt_error_string
-    return lib
+    lib.rt_error_string = main_lib.rt_error_string
+    return lib, instrumented
+
+
+def _time_ms(call, reps: int) -> float:
+    """Mean ms per call by CUDA events, after one call."""
+    call()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(reps):
+        call()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def _graph_ms(call, reps: int) -> float:
+    """Mean ms per call of ``reps`` calls captured in one CUDA graph: the
+    card's time alone, where a call's host time exceeds its kernel's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            call()
+    g.replay()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def main(argv=None) -> int:
@@ -109,7 +168,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("warp_cycles: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    lib = build(Path(args.csrc))
+    lib, instrumented = build(Path(args.csrc))
     S, T, fr, to = 512, 12800, 147, 160
     L = 2 * S
     rng = np.random.default_rng(0)
@@ -123,46 +182,83 @@ def main(argv=None) -> int:
     params = (0.9999948, 0.0, 1.0, 7.0, 0.0, 1.0 / 8192)
     kw = dict(gains=f32(np.repeat(rng.uniform(0.5, 1.5, S) / S, 2)),
               coeffs=f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple()),
-              bq=f32(np.zeros((4, L))), ring_row=640, step_frames=2 * to)
+              bq=f32(np.zeros((4, L))))
     ring = f32(rng.uniform(0.0, 0.01, (4096, L))).to(torch.bfloat16)
     agc = torch.stack([ring.float().reshape(4096, S, 2)[:, :, 1].sum(0),
                        torch.zeros(S, device=dev), torch.ones(S, device=dev)])
-    cases = (("K2", "serial", 0, "fused_agc"), ("K2r", "rel0f", 0, "fused_agc"),
-             ("K2b", "rel0b16", 0, "fused_agc_blocked"),
-             ("K2b", "rel0c16", 0, "fused_agc_blocked"),
-             ("K2g", "serial", 16, "fused_agc_group"))
+
+    def agc_call(plan, ag):
+        ring_c = ring if not ag else f32(rng.uniform(0, 0.16, (4096 // ag, S))).to(
+            torch.bfloat16)
+        p = f32(params if plan != "serial" else (params[0], 0.9995834) + params[2:])
+        return lambda: fused.fused_resample_biquad_agc_mix(
+            pcm, left, wts, agc=agc, agc_params=p, ring=ring_c, agc_plan=plan,
+            agc_group=ag, ring_row=640 // ag if ag else 640, step_frames=2 * to, **kw)
+
+    # K3 at the master bus's shape (LimitSettings() at 48 kHz), through the
+    # library's entry point with a scratch that any version's layout fits
+    # (3 rows of Lc x 2P floats)
+    P3, Lc = 128, T // 128
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
+                LimitSettings())
+    att, rel = lim.attack, lim.release
+    xm = f32(rng.standard_normal((2, T)) * 0.7)
+    y3, c3 = torch.empty_like(xm), torch.empty((2, 2), device=dev)
+    i0, p0 = f32([0.5, 1.0]), f32([0.8, 0.3])
+    relpow, attpow = limiter_block._power_tables(att, rel, Lc, dev)
+    scratch = torch.empty(3 * Lc * 2 * P3, device=dev)
+
+    def k3_call():
+        _build.check(lib.rt_limiter_master(
+            xm.data_ptr(), y3.data_ptr(), i0.data_ptr(), p0.data_ptr(), c3[0].data_ptr(),
+            c3[1].data_ptr(), relpow.data_ptr(), attpow.data_ptr(), scratch.data_ptr(),
+            T, P3, att, rel, 1.0 - att, 1.0 - rel, att ** Lc, rel ** Lc, lim.threshold,
+            lim.knee_width, lim.inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
+            _build.stream_handle(dev)), "rt_limiter_master")
+
+    # (kernel, label, call, instrumented source or None, reps)
+    cases = [("K1", "C=2", lambda: fused.fused_resample_biquad_mix(
+                  pcm, left, wts, channels=2, **kw), "fused", 20),
+             ("K2", "serial", agc_call("serial", 0), "fused_agc", 20),
+             ("K2r", "rel0f", agc_call("rel0f", 0), "fused_agc", 20),
+             ("K2b", "rel0b16", agc_call("rel0b16", 0), "fused_agc_blocked", 20),
+             ("K2b", "rel0c16", agc_call("rel0c16", 0), "fused_agc_blocked", 20),
+             ("K2g", "agc_group=16", agc_call("serial", 16), "fused_agc_group", 20),
+             ("K3", f"[2, {T}] P={P3}", k3_call, None, 50)]
+    # K1 at gains of unit scale, n = 1280
+    kw_unit = dict(kw, gains=f32(rng.uniform(0.1, 1.0, L)), channels=2)
+    left_u, phase_u = output_positions(4 * to, 1280, fr, to, dev)
+    wts_u = f32(np.stack(lerp_weights(fr, to), axis=1))[phase_u]
     main_lib = _build.load_library()
     res = {"device": torch.cuda.get_device_name(0), "csrc": args.csrc, "cases": []}
     try:
         _build._lib = lib  # the wrappers launch the instrumented copies
-        for kid, plan, ag, src in cases:
-            ring_c = ring if not ag else f32(rng.uniform(0, 0.16, (4096 // ag, S))).to(
-                torch.bfloat16)
-            p = f32(params if plan != "serial" else (params[0], 0.9995834) + params[2:])
-            call = lambda: fused.fused_resample_biquad_agc_mix(  # noqa: E731
-                pcm, left, wts, agc=agc, agc_params=p, ring=ring_c, agc_plan=plan,
-                agc_group=ag, **{**kw, "ring_row": 640 // ag if ag else 640})
-            call()
-            torch.cuda.synchronize()
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            for _ in range(20):
-                call()
-            e.record()
-            torch.cuda.synchronize()
-            cyc = np.zeros(SLOTS, np.int64)
-            _build.check(getattr(lib, f"rt_warp_cycles_{src}")(cyc.ctypes.data),
-                         "cudaMemcpyFromSymbol")
-            iters = int(cyc[14])
-            row = {"kernel": kid, "plan": plan, "agc_group": ag, "ms": s.elapsed_time(e) / 20,
-                   "iterations": iters, "cycles_per_iteration": cyc[15] / iters,
-                   "warp_busy_per_iteration": {w: cyc[w] / iters for w in range(12)
-                                               if cyc[w]}}
+        for kid, label, call, src, reps in cases:
+            row = {"kernel": kid, "case": label, "ms": _time_ms(call, reps)}
+            line = f"{kid} ({label}): {row['ms']:.4f} ms"
+            if src is not None and f"{src}.cu" in instrumented:
+                cyc = np.zeros(SLOTS, np.int64)
+                _build.check(getattr(lib, f"rt_warp_cycles_{src}")(cyc.ctypes.data),
+                             "cudaMemcpyFromSymbol")
+                iters = int(cyc[WARPS])
+                row.update(iterations=iters, cycles_per_iteration=cyc[WARPS + 1] / iters,
+                           warp_busy_per_iteration={w: cyc[w] / iters for w in range(WARPS)
+                                                    if cyc[w]})
+                line += (f", {iters} iterations of {row['cycles_per_iteration']:.0f} "
+                         "cycles; busy cycles per iteration by warp: " + ", ".join(
+                             f"{w}: {v:.0f}"
+                             for w, v in row["warp_busy_per_iteration"].items()))
+            if kid in ("K1", "K3"):
+                row["graph_ms"] = _graph_ms(call, reps)
+                line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
             res["cases"].append(row)
-            print(f"{kid} ({plan}{f', agc_group={ag}' if ag else ''}): {row['ms']:.4f} ms, "
-                  f"{iters} iterations of {row['cycles_per_iteration']:.0f} cycles; busy "
-                  "cycles per iteration by warp: " + ", ".join(
-                      f"{w}: {v:.0f}" for w, v in row["warp_busy_per_iteration"].items()))
+            print(line, flush=True)
+        mk, _ = fused.fused_resample_biquad_mix(pcm, left_u, wts_u, **kw_unit)
+        mp, _ = fused.fused_resample_biquad_mix_plain(pcm, left_u, wts_u, **kw_unit)
+        res["k1_unit_gain_max_abs_err"] = (mk - mp).abs().max().item()
+        print(f"K1 at gains of unit scale (n=1280): mix max|d| "
+              f"{res['k1_unit_gain_max_abs_err']:.3e} from the plain version, "
+              f"peak |mix| {mp.abs().max().item():.3f}", flush=True)
     finally:
         _build._lib = main_lib
     if args.out:

@@ -5,8 +5,9 @@
 // with no compute and sums one landed row per chunk, so that each wait sits
 // on the value path. Here the stream is what the port's K1 (fused.cu) reads
 // for a block: the time-major PCM rows x [R, L] f32, one block of 32 lanes
-// per CUDA block (K1's layout), rows in tiles of `tr` (K1 reads ~60 input
-// rows per 64-frame tile at 44.1 -> 48 kHz), in time order:
+// per CUDA block (K1's first layout; it now stages 8 lanes per block), rows
+// in tiles of `tr` (~60 input rows per 64 frames at 44.1 -> 48 kHz), in
+// time order:
 //
 //   dma_ring:   each tile copied by cp.async into a ring of D tiles of
 //               shared memory, D - 1 tiles ahead; once tile i has landed,
@@ -17,15 +18,15 @@
 //               of its chunk (order-free, so exact)
 //
 // What bounds it on the H100: the bytes, 3.35 TB/s. dma_ring keeps D - 1
-// tiles of its 32 lanes in flight on each of L / 32 blocks: K1's layout,
-// so its rate is the ceiling of K1's reads as K1 is laid out. stream_max is
+// tiles of its 32 lanes in flight on each of L / 32 blocks: K1's first
+// layout, so its rate is the ceiling of K1's reads as K1 was laid out. stream_max is
 // the upper bound of a read on this card. Both report GB/s.
 #include "agc_math.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 32;   // lanes per block, as K1
+constexpr int kLanes = 32;   // lanes per block, as K1's first layout
 constexpr int kPieces = kLanes / 4;  // 16-byte pieces per tile row
 constexpr int kStreamLoads = 4;  // 16-byte loads in flight per thread
 

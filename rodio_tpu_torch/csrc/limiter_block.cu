@@ -17,11 +17,30 @@
 // (ch0 takes ch1's PREVIOUS sample's peak, ch1 both fresh) and applies the
 // gain. The carries are taken at the true last sample, t = T-1.
 //
-// What bounds it on the H100: the serial depth, Lc + log2 P steps per
-// pass, and the precise log2/exp2 per sample; the block is 2 x 12800
-// samples, so bytes do not matter. One block of 2P <= 256 threads runs it
-// on one SM; the prefix rows (3 x Lc x 2P floats) live in a global scratch
-// that the rows of a step read side by side, and stay in L2.
+// What bounds it on the H100: the elementwise work, ~60-80 instructions a
+// sample (the precise log2 with its IEEE divide, the exp2), and the serial
+// depth, Lc + log2 P steps per pass; the block is 2 x 12800 samples at the
+// main path's shape, so bytes do not matter (100 KB in, 100 KB out).
+//
+// Design: a cluster of G = min(8, P) blocks of 512 threads, block b owning
+// the chunks b*P/G .. (b+1)*P/G - 1 of both channels, so the elementwise
+// stages spread over G SMs. Each block runs the dB gain computer over its
+// samples, every thread a sample in 512, so the reads are coalesced, a
+// batch of loads in flight at a time; it writes d into a per-chunk array
+// D[2P/G][Lc | 1] (an odd row stride, so the chunk threads of a scan step
+// read distinct banks), in shared memory when it fits (~13 KB at [2, 12800],
+// P = 128) and otherwise in a global scratch that the caller allocates
+// (rt_limiter_master_scratch_floats). Passes 1 and 2 run on its 2P/G chunk
+// threads and read D; pass 2 rebuilds the integrator's local maps from d
+// (the same ops, so the same values) instead of keeping them, and writes
+// the peak's local prefix over d. After each pass every chunk's map is
+// written into every block of the cluster (distributed shared memory), and
+// each block composes all 2P of them in the same Hillis-Steele order, so
+// every block holds the same carries. Pass 3 is elementwise again, over
+// the block's samples: each sample's peaks from its chunk's carry-in and D,
+// the coupling, the exp2 and the gain.
+#include <cooperative_groups.h>
+
 #include "precise_math.cuh"
 
 namespace {
@@ -33,6 +52,22 @@ struct LimParams {
 };
 
 constexpr float kBig = 3.0e38f;
+constexpr int kThreads3 = 512;
+constexpr int kMaxW = 256;          // 2P chunks at most
+constexpr int kMaxCluster = 8;      // blocks of a cluster (the portable most)
+constexpr int kBatch3 = 4;          // loads in flight per thread
+constexpr size_t kStageMax = 200 * 1024;  // a block's D in shared memory up to this
+
+// D's row stride for chunks of Lc samples: odd
+__host__ __device__ inline int chunk_ld(int Lc) { return Lc | 1; }
+
+inline int cluster_blocks(int P) { return P < kMaxCluster ? P : kMaxCluster; }
+
+// floats of one block's D; it lives in shared memory when they fit in
+// kStageMax bytes
+inline size_t d_floats(int T, int P) {
+  return (size_t)2 * (P / cluster_blocks(P)) * chunk_ld(T / P);
+}
 
 // soft-knee gain computer (rodio_tpu/effects/limit.py limiter_gain_db)
 __device__ __forceinline__ float gain_db(float x, const LimParams& pr) {
@@ -46,117 +81,164 @@ __device__ __forceinline__ float gain_db(float x, const LimParams& pr) {
                              : (fabsf(kb) <= pr.knee_width ? quad : bias);
 }
 
-__global__ void limiter_master_kernel(
-    const float* __restrict__ x, float* __restrict__ y,
-    const float* __restrict__ integ0, const float* __restrict__ peak0,
-    float* __restrict__ integ_out, float* __restrict__ peak_out,
-    const float* __restrict__ relpow, const float* __restrict__ attpow,
-    float* __restrict__ scratch, int T, int P, LimParams pr) {
-  using namespace rt;
-  extern __shared__ float sh[];
-  const int W = 2 * P;
-  float* sA = sh;
-  float* sB = sh + W;
-  float* sC = sh + 2 * W;
-  float* sV = sh + 3 * W;
-  const int tid = threadIdx.x;
-  const int c = tid / P, p = tid % P;
-  const int Lc = T / P;
-  float* b_scr = scratch;
-  float* c_scr = scratch + (size_t)Lc * W;
-  float* cp_scr = scratch + (size_t)2 * Lc * W;
-  const float* xc = x + (size_t)c * T + (size_t)p * Lc;
-
-  // pass 1: local prefix maps of the integrator (max-affine)
-  float B = -kBig, Cv = 0.0f;
-  for (int t = 0; t < Lc; ++t) {
-    const float d = gain_db(xc[t], pr);
-    B = maxn(d, add(mul(pr.rel, B), mul(pr.cr, d)));
-    Cv = add(mul(pr.rel, Cv), mul(pr.cr, d));
-    b_scr[(size_t)t * W + tid] = B;
-    c_scr[(size_t)t * W + tid] = Cv;
+// f(ql, t, xi) for sample t of every local chunk ql < nq of the block
+// (x at index(ql, t)), kBatch3 loads of x issued before any is used
+template <class Index, class F>
+__device__ __forceinline__ void each_sample(const float* __restrict__ x,
+                                            int nq, int Lc, Index index, F f) {
+  const int nb = nq * Lc;
+  for (int base = threadIdx.x; base < nb; base += kThreads3 * kBatch3) {
+    int ql[kBatch3], t[kBatch3];
+    float v[kBatch3];
+#pragma unroll
+    for (int u = 0; u < kBatch3; ++u) {
+      const int i = min(base + u * kThreads3, nb - 1);
+      ql[u] = i / Lc;
+      t[u] = i - ql[u] * Lc;
+      v[u] = x[index(ql[u], t[u])];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch3; ++u)
+      if (base + u * kThreads3 < nb) f(ql[u], t[u], v[u]);
   }
+}
 
-  // chunk combine (integ): inclusive Hillis-Steele within the channel
-  float A = pr.rel_lc;
-  sA[tid] = A;
-  sB[tid] = B;
-  sC[tid] = Cv;
-  __syncthreads();
+// the inclusive Hillis-Steele combine of every chunk's map within its
+// channel, by threads tid < W = 2P, in place in a, b (max-affine; null for
+// the linear maps) and cc
+__device__ __forceinline__ void combine(float* a, float* b, float* cc, int P) {
+  using namespace rt;
+  const int tid = threadIdx.x, p = tid % P;
+  const bool on = tid < 2 * P;
+  float A = on ? a[tid] : 0.f, B = on && b ? b[tid] : 0.f, Cv = on ? cc[tid] : 0.f;
   for (int k = 1; k < P; k <<= 1) {
     float nA = A, nB = B, nC = Cv;
-    if (p >= k) {
-      const float As = sA[tid - k], Bs = sB[tid - k], Cs = sC[tid - k];
-      nB = maxn(B, add(mul(A, Bs), Cv));
-      nC = add(mul(A, Cs), Cv);
-      nA = mul(A, As);
+    if (on && p >= k) {
+      if (b) nB = maxn(B, add(mul(A, b[tid - k]), Cv));
+      nC = add(mul(A, cc[tid - k]), Cv);
+      nA = mul(A, a[tid - k]);
     }
     __syncthreads();
     A = nA;
     B = nB;
     Cv = nC;
-    sA[tid] = A;
-    sB[tid] = B;
-    sC[tid] = Cv;
-    __syncthreads();
-  }
-  const float i0 = integ0[c];
-  const float v_integ =
-      p == 0 ? i0 : maxn(sB[tid - 1], add(mul(sA[tid - 1], i0), sC[tid - 1]));
-  __syncthreads();
-
-  // pass 2: integ carry applied; local maps of the peak envelope (linear)
-  float Cp = 0.0f;
-  for (int t = 0; t < Lc; ++t) {
-    const size_t r = (size_t)t * W + tid;
-    const float integ = maxn(b_scr[r], add(mul(relpow[t], v_integ), c_scr[r]));
-    Cp = add(mul(pr.att, Cp), mul(pr.ca, integ));
-    cp_scr[r] = Cp;
-  }
-
-  // chunk combine (peak)
-  float A2 = pr.att_lc, C2 = Cp;
-  sA[tid] = A2;
-  sC[tid] = C2;
-  __syncthreads();
-  for (int k = 1; k < P; k <<= 1) {
-    float nA = A2, nC = C2;
-    if (p >= k) {
-      nC = add(mul(A2, sC[tid - k]), C2);
-      nA = mul(A2, sA[tid - k]);
+    if (on) {
+      a[tid] = A;
+      if (b) b[tid] = B;
+      cc[tid] = Cv;
     }
     __syncthreads();
-    A2 = nA;
-    C2 = nC;
-    sA[tid] = A2;
-    sC[tid] = C2;
-    __syncthreads();
-  }
-  const float p0 = peak0[c];
-  sV[tid] = p == 0 ? p0 : add(mul(sA[tid - 1], p0), sC[tid - 1]);
-  __syncthreads();
-
-  // pass 3: peaks of both channels, stereo coupling, gain
-  const float vp0 = sV[p], vp1 = sV[P + p];
-  float prev1 = vp1, pk0 = 0.0f, pk1 = 0.0f;
-  float* yc = y + (size_t)c * T + (size_t)p * Lc;
-  for (int t = 0; t < Lc; ++t) {
-    const size_t r = (size_t)t * W;
-    pk0 = add(mul(attpow[t], vp0), cp_scr[r + p]);
-    pk1 = add(mul(attpow[t], vp1), cp_scr[r + P + p]);
-    const float mp = c == 0 ? maxn(pk0, prev1) : maxn(pk0, pk1);
-    yc[t] = mul(xc[t], exp2_precise(mul(mp, -pr.db_to_log2)));
-    prev1 = pk1;
-  }
-  if (p == P - 1) {  // carries at t = T - 1
-    const size_t r = (size_t)(Lc - 1) * W + tid;
-    integ_out[c] =
-        maxn(b_scr[r], add(mul(relpow[Lc - 1], v_integ), c_scr[r]));
-    peak_out[c] = c == 0 ? pk0 : pk1;
   }
 }
 
+__global__ void __launch_bounds__(kThreads3, 1) limiter_master_kernel(
+    const float* __restrict__ x, float* __restrict__ y,
+    const float* __restrict__ integ0, const float* __restrict__ peak0,
+    float* __restrict__ integ_out, float* __restrict__ peak_out,
+    const float* __restrict__ relpow, const float* __restrict__ attpow,
+    float* scratch, int T, int P, LimParams pr) {
+  using namespace rt;
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 sh4[];
+  __shared__ float sA[kMaxW], sB[kMaxW], sC[kMaxW], tA[kMaxW], tC[kMaxW], sV[kMaxW];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int Pb = P / G, Wb = 2 * Pb;  // chunks of a channel, of the block
+  const int Lc = T / P, ldc = chunk_ld(Lc);
+  float* D = scratch ? scratch + (size_t)rank * Wb * ldc : reinterpret_cast<float*>(sh4);
+  const int tid = threadIdx.x;
+  // chain thread tid < Wb: channel c, chunk p of it, q of all 2P
+  const bool chain = tid < Wb;
+  const int c = tid / Pb, p = rank * Pb + tid % Pb, q = c * P + p;
+  float* dq = D + (size_t)tid * ldc;
+  // local chunk ql (channel ql / Pb, chunk rank*Pb + ql % Pb) at sample t
+  auto x_index = [&](int ql, int t) {
+    return (ql / Pb) * T + (rank * Pb + ql % Pb) * Lc + t;
+  };
+  cluster.sync();  // every block of the cluster runs before any remote write
+
+  // the dB gain computer over the block's samples
+  each_sample(x, Wb, Lc, x_index, [&](int ql, int t, float xi) {
+    D[(size_t)ql * ldc + t] = gain_db(xi, pr);
+  });
+  __syncthreads();
+
+  // pass 1: local prefix maps of the integrator (max-affine), written into
+  // every block of the cluster
+  if (chain) {
+    float B = -kBig, Cv = 0.0f;
+    for (int t = 0; t < Lc; ++t) {
+      const float d = dq[t], crd = mul(pr.cr, d);
+      B = maxn(d, add(mul(pr.rel, B), crd));
+      Cv = add(mul(pr.rel, Cv), crd);
+    }
+    for (int r = 0; r < G; ++r) {
+      cluster.map_shared_rank(sA, r)[q] = pr.rel_lc;
+      cluster.map_shared_rank(sB, r)[q] = B;
+      cluster.map_shared_rank(sC, r)[q] = Cv;
+    }
+  }
+  cluster.sync();
+  combine(sA, sB, sC, P);  // integ
+  float v_integ = 0.0f;
+  if (chain) {
+    const float i0 = integ0[c];
+    v_integ = p == 0 ? i0 : maxn(sB[q - 1], add(mul(sA[q - 1], i0), sC[q - 1]));
+  }
+
+  // pass 2: the integrator again from d with its carry applied; local maps
+  // of the peak envelope (linear), written over d and into every block
+  if (chain) {
+    float Bt = -kBig, Ct = 0.0f, integ = 0.0f, Cp = 0.0f;
+    for (int t = 0; t < Lc; ++t) {
+      const float d = dq[t], crd = mul(pr.cr, d);
+      Bt = maxn(d, add(mul(pr.rel, Bt), crd));
+      Ct = add(mul(pr.rel, Ct), crd);
+      integ = maxn(Bt, add(mul(relpow[t], v_integ), Ct));
+      Cp = add(mul(pr.att, Cp), mul(pr.ca, integ));
+      dq[t] = Cp;
+    }
+    if (p == P - 1) integ_out[c] = integ;  // the carry at t = T - 1
+    for (int r = 0; r < G; ++r) {
+      cluster.map_shared_rank(tA, r)[q] = pr.att_lc;
+      cluster.map_shared_rank(tC, r)[q] = Cp;
+    }
+  }
+  cluster.sync();  // the last remote access
+  combine(tA, nullptr, tC, P);  // peak
+  if (tid < 2 * P) {
+    const float p0 = peak0[tid / P];
+    sV[tid] = tid % P == 0 ? p0 : add(mul(tA[tid - 1], p0), tC[tid - 1]);
+  }
+  __syncthreads();
+
+  // pass 3: every sample's peaks of both channels, the stereo coupling (ch0
+  // takes ch1's PREVIOUS sample's peak, ch1 both fresh) and the gain
+  auto peak_at = [&](int ch, int pl, int t) {  // channel ch, local chunk pl
+    return add(mul(attpow[t], sV[ch * P + rank * Pb + pl]),
+               D[(size_t)(ch * Pb + pl) * ldc + t]);
+  };
+  each_sample(x, Wb, Lc, x_index, [&](int ql, int t, float xi) {
+    const int pl = ql % Pb;
+    const float pk0 = peak_at(0, pl, t);
+    const float other = ql >= Pb ? peak_at(1, pl, t)
+                                 : t > 0 ? peak_at(1, pl, t - 1)
+                                         : sV[P + rank * Pb + pl];
+    y[x_index(ql, t)] = mul(xi, exp2_precise(mul(maxn(pk0, other), -pr.db_to_log2)));
+  });
+  if (rank == G - 1 && tid < 2)  // the carries at t = T - 1
+    peak_out[tid] = peak_at(tid, Pb - 1, Lc - 1);
+}
+
 }  // namespace
+
+// floats of global scratch that rt_limiter_master needs for [2, T] in
+// chunks of T / P, or 0 where its blocks stage them in shared memory
+extern "C" int rt_limiter_master_scratch_floats(int T, int P) {
+  if (P < 1 || T < P) return 0;
+  const size_t f = d_floats(T, P);
+  return f * sizeof(float) <= kStageMax ? 0 : (int)(f * cluster_blocks(P));
+}
 
 extern "C" int rt_limiter_master(
     const float* x, float* y, const float* integ0, const float* peak0,
@@ -165,13 +247,37 @@ extern "C" int rt_limiter_master(
     float ca, float cr, float att_lc, float rel_lc, float threshold,
     float knee_width, float inv_knee_8, float log2_to_db, float db_to_log2,
     void* stream) {
+  if (P < 1 || 2 * P > kMaxW || (P & (P - 1)) || T < P || T % P)
+    return (int)cudaErrorInvalidValue;
+  const bool staged = rt_limiter_master_scratch_floats(T, P) == 0;
+  if (!staged && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const LimParams pr{att,       rel,        ca,         cr,
                      att_lc,    rel_lc,     threshold,  knee_width,
                      inv_knee_8, log2_to_db, db_to_log2};
-  const int threads = 2 * P;
-  const size_t shmem = 4 * threads * sizeof(float);
-  limiter_master_kernel<<<1, threads, shmem, (cudaStream_t)stream>>>(
-      x, y, integ0, peak0, integ_out, peak_out, relpow, attpow, scratch, T, P,
-      pr);
+  const size_t shmem = staged ? d_floats(T, P) * sizeof(float) : 0;
+  if (shmem > 48 * 1024) {  // more than the default needs opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        limiter_master_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int G = cluster_blocks(P);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(kThreads3);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  float* scr = staged ? nullptr : scratch;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, limiter_master_kernel, x, y, integ0, peak0, integ_out, peak_out,
+      relpow, attpow, scr, T, P, pr);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,8 @@ F = ctypes.c_float
 SIGNATURES = {
     # x, y, coef, x1, x2, y1, y2 (in), x1, x2, y1, y2 (out), L, T, stream
     "rt_biquad_df1": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
-    # x, y, integ0, peak0, integ_out, peak_out, relpow, attpow, scratch,
-    # T, P, att, rel, ca, cr, att^Lc, rel^Lc, threshold, knee_width,
+    # x, y, integ0, peak0, integ_out, peak_out, relpow, attpow, scratch
+    # (or null), T, P, att, rel, ca, cr, att^Lc, rel^Lc, threshold, knee_width,
     # inv_knee_8, log2->dB scale, dB->log2 scale, stream
     "rt_limiter_master": (P, P, P, P, P, P, P, P, P, I, I,
                           F, F, F, F, F, F, F, F, F, F, F, P),
@@ -88,6 +88,12 @@ SIGNATURES = {
     # no arguments; returns K2's lanes per block (its partials' row count
     # is ceil(L / that)), not an error code
     "rt_fused_agc_block_lanes": (),
+    # C; returns K1's lanes per block for C channels (its partials' row
+    # count is ceil(L / that)), not an error code
+    "rt_fused_block_lanes": (I,),
+    # T, P; returns the floats of global scratch K3 needs (0: none, it
+    # stages [2, T] in shared memory), not an error code
+    "rt_limiter_master_scratch_floats": (I, I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -36,6 +36,7 @@ chunk totals only (K2b, ``csrc/fused_agc_blocked.cu``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -103,6 +104,13 @@ def fused_resample_biquad_mix_plain(pcm, left, wts, *, gains, coeffs, bq,
     return mix, torch.stack(st)
 
 
+@functools.lru_cache(maxsize=None)
+def _block_lanes(C: int) -> int:
+    """K1's lanes per block for C channels, the kernel's own rule: its
+    partials hold ceil(L / this) rows."""
+    return _build.load_library().rt_fused_block_lanes(C)
+
+
 def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
                               wts: torch.Tensor, *, gains: torch.Tensor,
                               coeffs: torch.Tensor, bq: torch.Tensor,
@@ -135,13 +143,11 @@ def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
     gains = _build.f32_arg("gains", gains, dev, (L,))
     coeffs = _build.f32_arg("coeffs", coeffs, dev, (5,))
     bq = _build.f32_arg("bq", bq, dev, (4, L))
-    lanes_per_block = 32 // C * C
-    nblk = -(-L // lanes_per_block)
+    nblk = -(-L // _block_lanes(C))
     partial = torch.empty((nblk, C, n), dtype=torch.float32, device=dev)
     mix = torch.empty((C, n), dtype=torch.float32, device=dev)
     bq_out = torch.empty_like(bq)
-    lib = _build.load_library()
-    err = lib.rt_fused_resample_biquad_mix(
+    err = _build.load_library().rt_fused_resample_biquad_mix(
         pcm.data_ptr(), F, L, left.data_ptr(), wts.data_ptr(),
         gains.data_ptr(), coeffs.data_ptr(), bq.data_ptr(), bq_out.data_ptr(),
         partial.data_ptr(), mix.data_ptr(), n, C, _build.stream_handle(dev),

@@ -141,6 +141,14 @@ def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
     return y.reshape(2, T), (integ[:, P - 1, Lc - 1], peak[:, P - 1, Lc - 1])
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(T: int, P: int) -> int:
+    """The floats of global scratch K3 needs at (T, P), the kernel's own
+    rule: 0 where it stages the block in shared memory, more for a block
+    too long for that, whose per-chunk rows then live in global memory."""
+    return _build.load_library().rt_limiter_master_scratch_floats(T, P)
+
+
 def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
                    *, att: float, rel: float, threshold: float,
                    knee_width: float, inv_knee_8: float, P: int):
@@ -162,12 +170,13 @@ def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     relpow, attpow = _power_tables(att, rel, Lc, x.device)
     y = torch.empty_like(x)
     carries = torch.empty((2, 2), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((3, Lc, 2 * P), dtype=torch.float32, device=x.device)
-    lib = _build.load_library()
-    err = lib.rt_limiter_master(
+    nscratch = _scratch_floats(T, P)
+    scratch = (torch.empty(nscratch, dtype=torch.float32, device=x.device)
+               if nscratch else None)
+    err = _build.load_library().rt_limiter_master(
         x.data_ptr(), y.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
         carries[0].data_ptr(), carries[1].data_ptr(), relpow.data_ptr(),
-        attpow.data_ptr(), scratch.data_ptr(), T, P,
+        attpow.data_ptr(), None if scratch is None else scratch.data_ptr(), T, P,
         att, rel, 1.0 - att, 1.0 - rel, att ** Lc, rel ** Lc,
         threshold, knee_width, inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
         _build.stream_handle(x.device),

@@ -7,7 +7,8 @@ False (decided inside the fixture, never at import). On a GPU host:
 
 Bounds: K4 bit-equal (same op order, every op rounded alone); K3 bit-equal
 to the same blocked order (1e-6 allowed); K1 1e-6 (only the mix's
-summation order differs), its biquad carries bit-equal. K6, K7 and K8
+summation order differs), its biquad carries bit-equal (the FIR/IIR split
+keeps the scan's op order). K6, K7 and K8
 bit-equal (the same op order; K8 the same blocked order and the same power
 table); K2 1e-6 on the mix, its carries and ring bit-equal. K5 bit-equal
 (the same op order); K2g (K2's group branch) as K2; K9 bit-equal (the same
@@ -57,44 +58,96 @@ def test_k4_biquad_matches_plain(dev, L, T):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (12800, 128)])
-def test_k3_limiter_matches_plain(dev, T, P):
+@pytest.mark.parametrize("scale", [0.8, 4.0, 0.02])  # mixed, loud, quiet
+@pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (12800, 128), (4096, 128),
+                                 (12800, 8), (65536, 128), (262144, 128), (64, 2)])
+def test_k3_limiter_matches_plain(dev, T, P, scale):
+    """Every knee branch (below, inside and above the knee) runs across the
+    scales; at T = 262144 a block's chunks are too long to stage in shared
+    memory, so the kernel keeps them in a global scratch."""
     rng = np.random.default_rng(T + P)
     lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
                 LimitSettings.mastering())
     kw = dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
               knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
-    x = _f32(rng.standard_normal((2, T)) * 0.8, dev)
+    x = _f32(rng.standard_normal((2, T)) * scale, dev)
     i0, p0 = _f32([0.3, 1.2], dev), _f32([0.6, 0.1], dev)
+    before = limiter_block.launches
     yk, ck = limiter_block.limiter_master(x, i0, p0, **kw)
     yp, cp = limiter_block.limiter_master_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
+    assert limiter_block.launches == before + 1
     assert (yk - yp).abs().max().item() <= 1e-6
     for a, b in zip(ck, cp):
         assert (a - b).abs().max().item() <= 1e-6
 
 
+def test_k3_stages_in_shared_memory_up_to_its_limit(dev):
+    """K3 asks for a global scratch only where a block's chunks do not fit in
+    shared memory: not at the main path's T = 12800, path B's 4096 or 65536;
+    at 262144 for all 2P chunks of 2049 floats (the odd row stride)."""
+    for T in (12800, 4096, 65536):
+        assert limiter_block._scratch_floats(T, 128) == 0
+    assert limiter_block._scratch_floats(262144, 128) == 2 * 128 * 2049
+
+
+def test_k1_blocks_hold_whole_streams(dev):
+    """K1's lanes per block for every C the wrapper takes: whole streams of
+    C lanes, 8 lanes where C divides 8, one stream for C > 8."""
+    for C in range(1, 33):
+        lb = fused._block_lanes(C)
+        assert lb % C == 0 and lb <= 32
+        assert lb == (8 // C * C if C <= 8 else C)
+
+
 @pytest.mark.parametrize("S,C,n,o0,F", [
     (3, 2, 640, 0, 5000), (8, 2, 320, 480, 5000), (5, 1, 640, 160, 700),
     (512, 2, 1280, 160, 4000),
+    # a single frame, two, a part of a 128-frame tile (half of one: the IIR
+    # warp's register run), one tile and past it, two whole tiles
+    (4, 2, 1, 7, 100), (4, 1, 2, 0, 100), (6, 1, 63, 3, 200), (6, 2, 64, 160, 200),
+    (6, 1, 127, 9, 300), (6, 2, 128, 0, 300), (4, 1, 129, 21, 300),
+    (4, 2, 256, 11, 600),
+    (5, 3, 65, 37, 200),                     # C = 3: blocks of 6 lanes
+    (3, 12, 130, 320, 800), (1, 32, 100, 5, 300),  # C > 8: one stream a block
+    (2, 2, 200, 0, 150),                     # the reads run past the PCM
+    (512, 2, 12800, 480, 13000),             # the main path's block
 ])
 def test_k1_fused_matches_plain(dev, S, C, n, o0, F):
-    """F small enough in one case that the reads run past the PCM (zero)."""
+    """F small enough in some cases that the reads run past the PCM (zero);
+    two blocks in a row, the second from the first's carries."""
+    _k1_two_blocks(dev, S, C, n, o0, F, 147, 160)
+
+
+@pytest.mark.parametrize("fr,to,S,C", [(320, 147, 4, 2), (320, 147, 3, 3),
+                                       (160, 147, 4, 2), (160, 147, 2, 12)])
+def test_k1_rows_outside_the_staged_range(dev, fr, to, S, C):
+    """48 -> 22.05 kHz: a 128-frame tile reads ~280 PCM rows, more than the
+    192 a tile stages, so its later frames load their rows from global
+    memory; 48 -> 44.1 kHz downsamples within the staged range. Several
+    tiles and a tail, the second block's last frames past the PCM."""
+    n, o0 = 300, 5
+    _k1_two_blocks(dev, S, C, n, o0, (o0 + 2 * n) * fr // to - 4, fr, to)
+
+
+def _k1_two_blocks(dev, S, C, n, o0, F, fr, to):
     rng = np.random.default_rng(S * 100 + n)
     L = S * C
-    fr, to = 147, 160
     pcm = _f32(rng.standard_normal((F, L)) * 0.1, dev)
-    left, phase = output_positions(o0, n, fr, to, dev)
-    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
-    kw = dict(
-              gains=_f32(rng.uniform(0.1, 1.0, L), dev),
+    kw = dict(gains=_f32(rng.uniform(0.1, 1.0, L), dev),
               coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
-              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), channels=C)
-    mk, bk = fused.fused_resample_biquad_mix(pcm, left, wts, **kw)
-    mp, bp = fused.fused_resample_biquad_mix_plain(pcm, left, wts, **kw)
-    torch.cuda.synchronize()
-    assert (mk - mp).abs().max().item() <= 1e-6
-    assert torch.equal(bk, bp)
+              channels=C)
+    bk = bp = _f32(rng.standard_normal((4, L)) * 0.01, dev)
+    for block in range(2):
+        left, phase = output_positions(o0 + block * n, n, fr, to, dev)
+        wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+        before = fused.launches
+        mk, bk = fused.fused_resample_biquad_mix(pcm, left, wts, bq=bk, **kw)
+        mp, bp = fused.fused_resample_biquad_mix_plain(pcm, left, wts, bq=bp, **kw)
+        torch.cuda.synchronize()
+        assert fused.launches == before + 1
+        assert (mk - mp).abs().max().item() <= 1e-6, block
+        assert torch.equal(bk, bp), block
 
 
 def test_flagship_on_card_matches_cpu(dev):

@@ -146,6 +146,36 @@ def test_k1_plain_matches_jax_fused_interpret(S, frames, blocks):
         np.testing.assert_allclose(a.numpy(), np.asarray(b)[: S * 2], atol=1e-6)
 
 
+@pytest.mark.parametrize("C", [1, 2, 3, 12])
+@pytest.mark.parametrize("cuts", [(1, 1, 1), (2, 1, 70), (64, 64, 5), (65, 1, 130)])
+def test_k1_plain_carries_cross_calls(C, cuts):
+    """K1's plain version over calls of 1, 2 and more frames in a row, each
+    from the last one's carries, equals one call over the whole run bit for
+    bit, mix and carries; F is short enough that the last calls read past
+    the PCM."""
+    rng = np.random.default_rng(C * 1000 + sum(cuts))
+    L, o0, fr, to = 3 * C, 11, 147, 160
+    pcm = _t(rng.standard_normal((sum(cuts) * fr // to + 8, L)) * 0.1)
+    kw = dict(gains=_t(rng.uniform(0.1, 1.0, L)),
+              coeffs=_t(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple()),
+              channels=C)
+    bq0 = _t(rng.standard_normal((4, L)) * 0.01)
+
+    def call(o, n, bq):
+        left, phase = output_positions(o, n, fr, to, "cpu")
+        wts = _t(np.stack(lerp_weights(fr, to), axis=1))[phase]
+        return fused.fused_resample_biquad_mix(pcm, left, wts, bq=bq, **kw)
+
+    whole, whole_bq = call(o0, sum(cuts), bq0)
+    bq, mixes, t0 = bq0, [], 0
+    for n in cuts:
+        mix, bq = call(o0 + t0, n, bq)
+        mixes.append(mix)
+        t0 += n
+    assert torch.equal(torch.cat(mixes, dim=1), whole)
+    assert torch.equal(bq, whole_bq)
+
+
 def test_k2_plain_matches_jax_fused_agc_interpret():
     """S = 4, 4 blocks of 640 against the JAX fused AGC kernel (interpret):
     the mix, and the per-stream carries."""
