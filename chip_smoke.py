@@ -7,17 +7,17 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the kernels compiled from rodio_tpu_torch/csrc with nvcc;
-3. kernels: the latency of a dependent rounded f32 op, measured on one
-   thread (benches/op_latency.py); then K4, K3, K1, K2, K2r and K2b (K2's
-   serial and blocked rel0 plans), K2g (K2's group branch), K6, K7, K8, K5
-   and K9 against their plain PyTorch versions on the
-   card, at the shapes of the paths below, with their times, their
-   roofline bounds (bytes over 3.35 TB/s or operations over 67 TFLOP/s
-   f32, the larger: ``bound_ms``), the chain floor of a recurrence (its
-   serial steps times the dependent ops of a step times that latency:
-   ``chain_ms``) and, where one PyTorch call computes the same function,
-   its time; K1 once more at gains of unit scale, where its mix is
-   largest against the rounding of its sum over blocks;
+3. kernels: the latency of a dependent rounded f32 op and of one step of
+   the AGC's gain smoother, measured on one thread (benches/op_latency.py);
+   then K4, K3, K1, K2, K2r and K2b (K2's serial and blocked rel0 plans),
+   K2g (K2's group branch), K6, K7, K8, K5 and K9 against their plain
+   PyTorch versions on the card, at the shapes of the paths below, with
+   their times, their roofline bounds (bytes over 3.35 TB/s or operations
+   over 67 TFLOP/s f32, the larger: ``bound_ms``), the chain floor of a
+   recurrence (its serial steps times the dependent ops of a step times
+   that latency: ``chain_ms``) and, where one PyTorch call computes the
+   same function, its time; K1 once more at gains of unit scale, where its
+   mix is largest against the rounding of its sum over blocks;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -133,6 +133,7 @@ def main() -> int:
     from rodio_tpu_torch.effects.blt import blt_coefficients
     from rodio_tpu_torch.effects.limit import Limit, LimitSettings
     from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block
+    from rodio_tpu_torch.profile_slice import config2
     from rodio_tpu_torch.sources.generators import SamplesBuffer
 
     # -- 1. device ---------------------------------------------------------
@@ -157,6 +158,9 @@ def main() -> int:
     op_s = op_latency.seconds_per_op(dev)
     print(f"chain: a dependent rounded f32 op (FMUL, FADD) takes {op_s * 1e9:.4f} ns "
           f"on one thread {tag}")
+    smooth_s, smooth_cyc = op_latency.smooth_step(dev)
+    print(f"chain: a step of the AGC's gain smoother (5 dependent ops) takes "
+          f"{smooth_s * 1e9:.4f} ns, {smooth_cyc:.2f} SM cycles, on one thread {tag}")
 
     def _chain_ms(steps: int, ops: int) -> float:
         """The dependency-chain floor: serial steps times the dependent
@@ -402,16 +406,20 @@ def main() -> int:
     pms6 = _time_ms(lambda: cuda_scan.agc_plain(xs, d6, *c6, params), 1)
     record("K6", "agc", "rodio_tpu_torch/csrc/agc.cu", "rodio_tpu/ops/pallas_scan.py:330",
            err6, BOUND_K6, ms6, pms6, 3 * N_STREAMS * M6 * 4, 24 * N_STREAMS * M6,
-           _chain_ms(M6, 5), note=f" [{N_STREAMS}, {M6}]")
+           _chain_ms(M6, 5), note=f" [{N_STREAMS}, {M6}]; the smoother's own chain "
+                                   f"{M6 * smooth_s * 1e3:.4f} ms")
     del xs, sq, d6, gk, gp
 
-    # K7: the smoother over [1, 8192] (path B's block), and the linear and
-    # max-affine ops at a small shape; ~10 ops a step, 5 on the chain
+    # K7: the smoother over [1, 8192] (path B's block) and [1, 512] (path B
+    # with group=8), and the linear and max-affine ops at a small shape; ~10
+    # ops a step, 5 on the chain
     des = dev_f32(rng.uniform(0.5, 7.0, (1, 8192)))
+    des_g = dev_f32(np.random.default_rng(SEED + 5).uniform(0.5, 7.0, (1, 512)))
     g0 = dev_f32([1.0])
     p7 = params[[0, 1, 3]]
-    err7 = _max_err(cuda_scan.first_order(des, des, g0, op="agc_gain", params=p7),
-                    cuda_scan.first_order_plain(des, des, g0, op="agc_gain", params=p7))
+    err7 = max(_max_err(cuda_scan.first_order(d, d, g0, op="agc_gain", params=p7),
+                        cuda_scan.first_order_plain(d, d, g0, op="agc_gain", params=p7))
+               for d in (des, des_g))
     a7 = dev_f32(rng.uniform(0.9, 1.0, (8, 512)))
     b7 = dev_f32(rng.standard_normal((8, 512)))
     i7 = dev_f32(rng.standard_normal(8))
@@ -419,12 +427,16 @@ def main() -> int:
         err7 = max(err7, _max_err(cuda_scan.first_order(a7, b7, i7, a7, op=op),
                                   cuda_scan.first_order_plain(a7, b7, i7, a7, op=op)))
     ms7 = _time_ms(lambda: cuda_scan.first_order(des, des, g0, op="agc_gain", params=p7), 50)
+    ms7g = _time_ms(lambda: cuda_scan.first_order(des_g, des_g, g0, op="agc_gain",
+                                                  params=p7), 50)
     pms7 = _time_ms(lambda: cuda_scan.first_order_plain(des, des, g0, op="agc_gain",
                                                         params=p7), 1)
     record("K7", "first_order", "rodio_tpu_torch/csrc/first_order.cu",
            "rodio_tpu/ops/pallas_scan.py:433", err7, BOUND_K7, ms7, pms7,
            2 * 8192 * 4, 10 * 8192, _chain_ms(8192, 5),
-           note=" agc_gain [1, 8192] (+ linear, max_affine [8, 512])")
+           note=f" agc_gain [1, 8192] (+ linear, max_affine [8, 512]), the smoother's own "
+                f"chain {8192 * smooth_s * 1e3:.4f} ms; agc_gain [1, 512] (group=8): "
+                f"{ms7g:.4f} ms, chain floor {_chain_ms(512, 5):.4f} ms")
 
     # K8: the peak detector over [1, 8192], P = 128, release as data; chain:
     # n/P + log2 P steps of 3 ops
@@ -562,15 +574,7 @@ def main() -> int:
     del auout, agc_unfused, austate, aout
 
     # path B: BASELINE config 2 on 10 s of seeded stereo PCM at 44.1 kHz,
-    # per-sample and group-rate smoother
-    pcm_b = np.random.default_rng(SEED + 2).standard_normal(
-        (2, 10 * PATH_B_RATE)).astype(np.float32) * 0.3
-
-    def config2(device, group):
-        node = SamplesBuffer(2, PATH_B_RATE, pcm_b, device=device).low_pass(2000.0)
-        node = AutomaticGainControl(node, AgcSettings(), mode="pallas", group=group)
-        return Limit(node, LimitSettings(), mode="pallas")
-
+    # per-sample and group-rate smoother (profile_slice.config2)
     path_b_runs = {}
     for group in (0, 8):
         node = config2("cuda", group)

@@ -1,30 +1,35 @@
-"""Where the cycles of K1's and K2's tile pipelines go, warp by warp, on
-one CUDA card; and K1's and K3's times, for an A/B of two versions.
+"""Where the cycles of the port's tile pipelines go, warp by warp, on one
+CUDA card; and the kernels' times, for an A/B of two versions.
 
     python -m rodio_tpu_torch.benches.warp_cycles [--csrc DIR] [--out FILE]
 
 K1 (``csrc/fused.cu``), K2, K2r, K2b and K2g (``csrc/fused_agc.cu``,
-``fused_agc_blocked.cu``, ``fused_agc_group.cu``) run every warp's share of
-a tile between two barriers, so the slowest warp sets each iteration's
-length. This copies those sources into ``build/warp_cycles/``, adds a
-``clock64()`` read at the start of each iteration and another before its
-barrier, builds them and ``limiter_block.cu`` (K3, not instrumented) with
-the library's nvcc flags into a shared library of their own, and runs K1 at
-the main path's shape (512 stereo streams, one block of 12800 frames at
-44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16 ring) and K3 at
-the master bus's ([2, 12800], P = 128). For each tile pipeline it prints
-the card's first block's busy cycles per iteration by warp (lane 0's view)
-beside the iteration's whole length (kernel cycles over iterations), and
-for every kernel its time by CUDA events (the mean of 20 calls after one;
-K3 of 50), and for K1 and K3 also the mean of as many calls captured in one
-CUDA graph (the card's time without the host's between launches: K3 runs
-shorter than its call takes on the host), and K1's mix against its plain
-version at gains of unit scale (no 1/S), where the mix is largest against
-the rounding of its sum over blocks. The reads cost a few cycles an iteration; the library itself is
-not changed. ``--csrc`` takes the sources from another directory (another
-version of the kernels, for an A/B in one call): a source whose tile loop
-is not where this expects it is built as it is and timed only. Without a
-card it fails.
+``fused_agc_blocked.cu``, ``fused_agc_group.cu``), K6 (``csrc/agc.cu``) and
+K7 (``csrc/first_order.cu``) run every warp's share of a tile between two
+barriers, so the slowest warp sets each iteration's length. This copies
+those sources into ``build/warp_cycles/``, adds a ``clock64()`` read at the
+start of each iteration and another before its barrier, builds them and
+``limiter_block.cu`` (K3, not instrumented) with the library's nvcc flags
+into a shared library of their own, and runs K1 at the main path's shape
+(512 stereo streams, one block of 12800 frames at 44.1 -> 48 kHz), each K2
+plan at path E's (the same, bf16 ring), K3 at the master bus's ([2, 12800],
+P = 128), K6 at path C's ([512, 25600]) and K7's ``agc_gain`` at path B's
+([1, 8192], and [1, 512] with ``group=8``). It first prints the card's
+one-thread latencies of a dependent FMUL/FADD and of a smoother step
+(``benches/op_latency.py``), the floors of K6's and K7's chains. For each
+tile pipeline it prints the card's first block's busy cycles per iteration
+by warp (lane 0's view) beside the iteration's whole length (kernel cycles
+over iterations) and every block's (the least, the median and the most: the
+slowest block sets the kernel's time), and for every kernel its time by CUDA events (the mean of 20 calls after
+one; K3 and K7 of 50), and for K1, K3, K6 and K7 also the mean of as many
+calls captured in one CUDA graph (the card's time without the host's
+between launches: K3 runs shorter than its call takes on the host), and
+K1's mix against its plain version at gains of unit scale (no 1/S), where
+the mix is largest against the rounding of its sum over blocks. The reads
+cost a few cycles an iteration; the library itself is not changed.
+``--csrc`` takes the sources from another directory (another version of the
+kernels, for an A/B in one call): a source whose tile loop is not where
+this expects it is built as it is and timed only. Without a card it fails.
 """
 from __future__ import annotations
 
@@ -43,45 +48,55 @@ from ..conversions.resample import lerp_weights, output_positions
 from ..core.math import DB_TO_LOG2, LOG2_TO_DB
 from ..effects.blt import blt_coefficients
 from ..effects.limit import Limit, LimitSettings
-from ..ops import _build, fused, limiter_block
+from ..ops import _build, cuda_scan, fused, limiter_block
+from . import op_latency
 from ..sources.generators import SamplesBuffer
 
 OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
-SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu")
+SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu",
+           "agc.cu", "first_order.cu")
 TIMED = ("limiter_block.cu",)  # built as they are, timed only
 WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
 SLOTS = WARPS + 2  # kernel's cycles
+BLOCKS = 1024  # each block's own cycles, for the first 1024 blocks
 
 _LOOP = re.compile(r"( *)for \(int it = 0; it < ([^;]+); \+\+it\) \{\n")
-_END = "    __syncthreads();\n  }\n"
-_CARRIES = "  if (warp == 0 && wl < nl) {\n    bq_out[0 * L"
+# the tile loop's barrier and closing brace
+_END = re.compile(r"    (?:__syncthreads|pair_sync)\(\);\n  \}\n")
+_INCLUDE = re.compile(r'#include "[^"]+"\n')
 
 
 def instrument(src: str, tag: str):
     """The source with each tile loop's warps timed (block 0, lane 0), or
     None where its tile loop is not where this expects it."""
-    head = '#include "fused_agc_common.cuh"\n'
     m = _LOOP.search(src)
-    if m is None or src.count(_END) != 1 or src.count(_CARRIES) != 1 or head not in src:
+    ends = _END.findall(src)
+    includes = list(_INCLUDE.finditer(src))
+    if m is None or len(ends) != 1 or not includes:
         return None
-    iters = m.group(2)
+    iters, end = m.group(2), ends[0]
     src = src.replace(
         m.group(0),
         f"{m.group(1)}long long busy_ = 0;\n{m.group(1)}const long long start_ = clock64();\n"
         f"{m.group(0)}    const long long t0_ = clock64();\n", 1)
-    src = src.replace(_END, "    busy_ += clock64() - t0_;\n" + _END)
-    src = src.replace(
-        _CARRIES,
+    src = src.replace(end, "    busy_ += clock64() - t0_;\n" + end + (
         "  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)\n"
         "    g_warp_cycles[threadIdx.x >> 5] = busy_;\n"
         "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
         f"    g_warp_cycles[{WARPS}] = {iters};\n"
-        f"    g_warp_cycles[{WARPS + 1}] = clock64() - start_;\n  }}\n" + _CARRIES)
-    return src.replace(head, head + (
+        f"    g_warp_cycles[{WARPS + 1}] = clock64() - start_;\n  }}\n"
+        f"  if (threadIdx.x == 0 && blockIdx.x < {BLOCKS})\n"
+        "    g_block_cycles[blockIdx.x] = clock64() - start_;\n"))
+    at = includes[-1].end()  # after the last include
+    return src[:at] + (
         f"static __device__ long long g_warp_cycles[{SLOTS}];\n"
+        f"static __device__ long long g_block_cycles[{BLOCKS}];\n"
         f"extern \"C\" int rt_warp_cycles_{tag}(long long* out) {{\n"
         "  return (int)cudaMemcpyFromSymbol(out, g_warp_cycles,\n"
-        "                                   sizeof(g_warp_cycles));\n}\n"), 1)
+        "                                   sizeof(g_warp_cycles));\n}\n"
+        f"extern \"C\" int rt_block_cycles_{tag}(long long* out) {{\n"
+        "  return (int)cudaMemcpyFromSymbol(out, g_block_cycles,\n"
+        "                                   sizeof(g_block_cycles));\n}\n") + src[at:]
 
 
 def build(csrc: Path):
@@ -107,7 +122,8 @@ def build(csrc: Path):
     lib = ctypes.CDLL(str(so))
     main_lib = _build.load_library()
     for name, argtypes in _build.SIGNATURES.items():
-        if not name.startswith(("rt_fused", "rt_limiter_master")):
+        if not name.startswith(("rt_fused", "rt_limiter_master", "rt_agc",
+                                "rt_first_order")):
             continue
         try:
             fn = getattr(lib, name)
@@ -117,9 +133,10 @@ def build(csrc: Path):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     for name in instrumented:
-        fn = getattr(lib, f"rt_warp_cycles_{name[:-3]}")
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for what in ("warp", "block"):
+            fn = getattr(lib, f"rt_{what}_cycles_{name[:-3]}")
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     lib.rt_error_string = main_lib.rt_error_string
     return lib, instrumented
 
@@ -216,6 +233,19 @@ def main(argv=None) -> int:
             lim.knee_width, lim.inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
             _build.stream_handle(dev)), "rt_limiter_master")
 
+    # K6 at path C's shape: |x| of 512 streams' 25600 interleaved samples,
+    # d = sq - old with the window's squares 4096 samples back; K7's
+    # agc_gain at path B's ([1, 8192]; [1, 512] with group=8)
+    xs6 = f32(np.abs(rng.standard_normal((S, 2 * T)) * 0.05))
+    d6 = xs6 * xs6 - (xs6 * xs6).roll(4096, 1)
+    c6 = tuple(f32(rng.uniform(lo, hi, S)) for lo, hi in ((0, 0.2), (1, 50), (1, 3)))
+    p6 = f32((0.9999948, 0.9995834) + params[2:])
+    p7, g7 = p6[[0, 1, 3]], c6[2][:1]
+
+    def k7_call(n):
+        des = f32(rng.uniform(0.5, 7.0, (1, n)))
+        return lambda: cuda_scan.first_order(des, des, g7, op="agc_gain", params=p7)
+
     # (kernel, label, call, instrumented source or None, reps)
     cases = [("K1", "C=2", lambda: fused.fused_resample_biquad_mix(
                   pcm, left, wts, channels=2, **kw), "fused", 20),
@@ -224,13 +254,22 @@ def main(argv=None) -> int:
              ("K2b", "rel0b16", agc_call("rel0b16", 0), "fused_agc_blocked", 20),
              ("K2b", "rel0c16", agc_call("rel0c16", 0), "fused_agc_blocked", 20),
              ("K2g", "agc_group=16", agc_call("serial", 16), "fused_agc_group", 20),
-             ("K3", f"[2, {T}] P={P3}", k3_call, None, 50)]
+             ("K3", f"[2, {T}] P={P3}", k3_call, None, 50),
+             ("K6", f"[{S}, {2 * T}]", lambda: cuda_scan.agc(xs6, d6, *c6, p6), "agc", 20),
+             ("K7", "agc_gain [1, 8192]", k7_call(8192), "first_order", 50),
+             ("K7", "agc_gain [1, 512]", k7_call(512), "first_order", 50)]
     # K1 at gains of unit scale, n = 1280
     kw_unit = dict(kw, gains=f32(rng.uniform(0.1, 1.0, L)), channels=2)
     left_u, phase_u = output_positions(4 * to, 1280, fr, to, dev)
     wts_u = f32(np.stack(lerp_weights(fr, to), axis=1))[phase_u]
     main_lib = _build.load_library()
     res = {"device": torch.cuda.get_device_name(0), "csrc": args.csrc, "cases": []}
+    # the chains' own latencies on one thread (the card's, whatever --csrc)
+    sec_op = op_latency.seconds_per_op(dev)
+    sec_sm, cyc_sm = op_latency.smooth_step(dev)
+    res.update(op_ns=sec_op * 1e9, smooth_step_ns=sec_sm * 1e9, smooth_step_cycles=cyc_sm)
+    print(f"one thread: a dependent FMUL/FADD {sec_op * 1e9:.4f} ns; a smoother step "
+          f"(smooth_gain) {sec_sm * 1e9:.4f} ns, {cyc_sm:.2f} SM cycles", flush=True)
     try:
         _build._lib = lib  # the wrappers launch the instrumented copies
         for kid, label, call, src, reps in cases:
@@ -240,15 +279,24 @@ def main(argv=None) -> int:
                 cyc = np.zeros(SLOTS, np.int64)
                 _build.check(getattr(lib, f"rt_warp_cycles_{src}")(cyc.ctypes.data),
                              "cudaMemcpyFromSymbol")
+                blk = np.zeros(BLOCKS, np.int64)
+                _build.check(getattr(lib, f"rt_block_cycles_{src}")(blk.ctypes.data),
+                             "cudaMemcpyFromSymbol")
+                blk = blk[blk > 0]
                 iters = int(cyc[WARPS])
                 row.update(iterations=iters, cycles_per_iteration=cyc[WARPS + 1] / iters,
                            warp_busy_per_iteration={w: cyc[w] / iters for w in range(WARPS)
-                                                    if cyc[w]})
+                                                    if cyc[w]},
+                           block_cycles_per_iteration={
+                               "min": blk.min() / iters, "median": np.median(blk) / iters,
+                               "max": blk.max() / iters})
                 line += (f", {iters} iterations of {row['cycles_per_iteration']:.0f} "
-                         "cycles; busy cycles per iteration by warp: " + ", ".join(
+                         "cycles (blocks: min {min:.0f}, median {median:.0f}, max {max:.0f}); "
+                         "busy cycles per iteration by warp: ".format(
+                             **row["block_cycles_per_iteration"]) + ", ".join(
                              f"{w}: {v:.0f}"
                              for w, v in row["warp_busy_per_iteration"].items()))
-            if kid in ("K1", "K3"):
+            if kid in ("K1", "K3", "K6", "K7"):
                 row["graph_ms"] = _graph_ms(call, reps)
                 line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
             res["cases"].append(row)

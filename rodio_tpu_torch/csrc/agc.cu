@@ -8,62 +8,171 @@
 //   des   = desired_gain(rsum, peak)              (agc_math.cuh)
 //   gain  = smooth_gain(gain, des)                -> the output
 //
-// What bounds it on the H100: one thread per lane runs every step, the
-// desired gain (an IEEE sqrt and two divides, each with a slow-path branch
-// that keeps neighbouring steps from overlapping) included: ~310 cycles a
-// step, 4.0 ms at [512, 25600] on an H100 80GB HBM3 at 700 W, with 16
-// blocks on 16 SMs. Splitting the loop into passes (the chains, then the
-// desired gains, then the smoother) measured slower. A faster design moves
-// the desired gains onto other warps, as K2 does (fused_agc.cu).
+// What bounds it on the H100: the gain smoother's chain, 5 dependent
+// rounded ops a step (mul, add, max, min, select), which one thread runs at
+// 24.3 SM cycles (12.2 ns) a step (benches/op_latency.py smooth_step): 0.31
+// ms for the 25600 steps of [512, 25600]. The peak and window-sum chains
+// are shorter (~3 ops and 1), and the desired gain (an IEEE sqrt and two
+// divides, each with a slow-path branch) depends only on rsum and peak, not
+// on the gain, so it leaves the chains: run on the chains' thread it made a
+// step ~310 cycles (4.0 ms, one thread per lane, 16 blocks of 32 lanes).
+// This design: ~0.39 ms on an H100 80GB HBM3 at 700 W, the smoother warp at
+// ~28 cycles a step (benches/warp_cycles.py).
 //
-// Design: lane_pipeline.cuh. Warps 1-7 keep the |x| and d tiles of the
-// next 32 steps loading and the gains of the previous ones storing while
-// warp 0 runs the loop on registers. The parameters (att, rel, target,
-// max_gain, floor, 1/window) are data, so a live knob rebuilds nothing.
-// Every op rounds alone, so the kernel equals its plain PyTorch version bit
-// for bit.
+// Design (K2's shape, fused_agc.cu, without its resampler and biquad; the
+// tiles of chain_pipeline.cuh): a block owns kBL = 4 lanes (128 blocks for
+// 512) and walks time in tiles of 128 steps through a five-stage pipeline,
+// one __syncthreads a tile. At iteration i:
+//
+//   warp 0 (copy):        |x| and d of tile i+1 into shared memory with
+//                         cp.async, then waits for tile i's
+//   warp 1:               peak and rsum chains of tile i-1, one thread per
+//                         lane, 32 steps at a time in registers: peak over
+//                         |x|, rsum over d, in place
+//   elementwise warps     desired_gain(rsum, peak) of tile i-2 (over rsum),
+//   (3, 4, 7, 8):         and tile i-4's gains stored coalesced
+//   warp 2:               the smoother over tile i-3 (gains over the desired
+//                         gains), one thread per lane, 32 steps at a time
+//
+// A tile's two rows of each lane sit in a ring of six (from its copy to its
+// store); 25 KB of static shared memory. No elementwise warp shares an SMSP
+// (warp % 4) with warp 1 or 2 (warps 5 and 6 idle), and each elementwise
+// thread reads all of its elements before it computes any: the lessons of
+// K2. The parameters (att, rel, target, max_gain, floor, 1/window) are
+// data, so a live knob rebuilds nothing. Every op is agc_math.cuh's, each
+// rounding alone in the same order, so the gains and the carries (peak,
+// rsum, gain at the last step) equal the plain PyTorch version bit for bit.
 #include "agc_math.cuh"
-#include "lane_pipeline.cuh"
+#include "chain_pipeline.cuh"
 
 namespace {
 
-using rt::kLanes;
-using rt::kThreads;
+using namespace rt::chain;
 
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kThreads6 = 9 * 32;  // warps 5 and 6 idle
+constexpr int kNWork = 4 * 32;     // elementwise threads
+constexpr int kRing = 6;           // tiles staged: i+1 .. i-4
+constexpr int kDepth = 4;          // iterations from a tile's chains to its store
+// steps warps 1 and 2 hold in registers at once: with 64, the blocks'
+// times spread 10 % apart (block 0 the fastest); with 32 they match
+constexpr int kHalf6 = 32;
+static_assert(kNWork == kTile, "an elementwise thread takes one step of each lane");
+
+// the elementwise slot of a warp (SMSPs 3, 0, 3, 0), or -1
+__device__ __forceinline__ int work_slot(int warp) {
+  return warp == 3 || warp == 4 ? warp - 3 : warp == 7 || warp == 8 ? warp - 5
+                                                                    : -1;
+}
+
+// warp 1's step: the peak detector over |x| (row 0) and the window sum over
+// d (row 1), each value replaced by the carry after it
+struct PeakSum {
+  float peak, rsum, rel;
+  template <int H>
+  __device__ __forceinline__ void operator()(float (&v)[2][H], int u) {
+    peak = rt::peak_select(peak, v[0][u], rel);
+    rsum = rt::add(rsum, v[1][u]);
+    v[0][u] = peak;
+    v[1][u] = rsum;
+  }
+};
+
+// warp 2's step: the smoother toward the desired gain, replaced by the gain
+struct Smooth {
+  float g, att, rel, max_gain;
+  template <int H>
+  __device__ __forceinline__ void operator()(float (&v)[1][H], int u) {
+    g = rt::smooth_gain(g, v[0][u], att, rel, max_gain);
+    v[0][u] = g;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads6, 1)
 agc_kernel(const float* __restrict__ xs, const float* __restrict__ d,
            const float* __restrict__ params, const float* __restrict__ peak0,
            const float* __restrict__ sum0, const float* __restrict__ gain0,
            float* __restrict__ gain_out, float* __restrict__ carry_out, int L,
-           long long T) {
-  __shared__ rt::STile bufs[rt::kBufs][2];
+           long long T, int vec) {
+  // X: |x|, then the peaks; D: d, then the window sums, the desired gains
+  // and the gains
+  __shared__ __align__(16) Rows X[kRing], D[kRing];
   const rt::AgcParams p = rt::load_agc_params(params);
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  const bool mine = threadIdx.x < 32 && lane < L;
-  float peak = 0.f, rsum = 0.f, g = 0.f;
-  if (mine) {
-    peak = peak0[lane];
-    rsum = sum0[lane];
-    g = gain0[lane];
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const long long lane0 = (long long)blockIdx.x * kBL;
+  const int nl = (int)min((long long)kBL, L - lane0);
+  const int n_tiles = (int)((T + kTile - 1) / kTile);
+  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
+  auto copy = [&](int j) {
+    const int s = j % kRing, tt = tile_len(T, j);
+    const long long t0 = (long long)j * kTile;
+    copy_rows(X[s], xs, lane0, nl, T, t0, tt, vec, wl, 32);
+    copy_rows(D[s], d, lane0, nl, T, t0, tt, vec, wl, 32);
+  };
+
+  PeakSum ps{0.f, 0.f, p.rel};
+  Smooth sm{0.f, p.att, p.rel, p.max_gain};
+  if (warp == 1 && wl < nl) {
+    ps.peak = peak0[lane0 + wl];
+    ps.rsum = sum0[lane0 + wl];
+  } else if (warp == 2 && wl < nl) {
+    sm.g = gain0[lane0 + wl];
   }
-  auto run = [&](float (&v)[rt::kSteps][2], auto tt) {
-    using namespace rt;
+  const int slot = work_slot(warp);
+  if (warp == 0) {
+    if (live(0)) copy(0);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < n_tiles + kDepth; ++it) {
+    if (warp == 0) {
+      if (live(it + 1)) copy(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile it has landed
+    } else if (warp == 1) {
+      const int j = it - 1;
+      if (live(j) && wl < nl) {
+        const int s = j % kRing;
+        float* const rows[2] = {X[s][wl], D[s][wl]};
+        full_or_tail(tile_len(T, j),
+                     [&](auto tt) { chain_row<2, 2, kHalf6>(rows, tt, ps); });
+      }
+    } else if (warp == 2) {
+      const int j = it - 3;
+      if (live(j) && wl < nl) {
+        float* const rows[1] = {D[j % kRing][wl]};
+        full_or_tail(tile_len(T, j),
+                     [&](auto tt) { chain_row<1, 1, kHalf6>(rows, tt, sm); });
+      }
+    } else if (slot >= 0) {
+      const int sub = slot * 32 + wl;
+      if (live(it - kDepth)) {
+        const int j = it - kDepth;
+        store_rows(gain_out, D[j % kRing], lane0, nl, T, (long long)j * kTile,
+                   tile_len(T, j), vec, sub, kNWork);
+      }
+      if (live(it - 2)) {
+        // step sub of each lane: every read first, then the desired gains
+        const int s = (it - 2) % kRing, tt = tile_len(T, it - 2);
+        float rs[kBL], pk[kBL];
 #pragma unroll
-    for (int t = 0; t < kSteps; ++t) {
-      if (t < tt) {
-        peak = peak_select(peak, v[t][0], p.rel);
-        rsum = add(rsum, v[t][1]);
-        g = smooth_gain(g, desired_gain(rsum, peak, p), p.att, p.rel,
-                        p.max_gain);
-        v[t][0] = g;
+        for (int l = 0; l < kBL; ++l) {
+          rs[l] = D[s][l][sub];
+          pk[l] = X[s][l][sub];
+        }
+#pragma unroll
+        for (int l = 0; l < kBL; ++l)
+          if (l < nl && sub < tt) D[s][l][sub] = rt::desired_gain(rs[l], pk[l], p);
       }
     }
-  };
-  rt::lane_tiles<2>(bufs, rt::LaneInputs<2>{{xs, d}}, gain_out, L, T, run);
-  if (mine) {
-    carry_out[0 * L + lane] = peak;
-    carry_out[1 * L + lane] = rsum;
-    carry_out[2 * L + lane] = g;
+    __syncthreads();
+  }
+
+  // the carries of the last step
+  if (warp == 1 && wl < nl) {
+    carry_out[0 * L + lane0 + wl] = ps.peak;
+    carry_out[1 * L + lane0 + wl] = ps.rsum;
+  } else if (warp == 2 && wl < nl) {
+    carry_out[2 * L + lane0 + wl] = sm.g;
   }
 }
 
@@ -73,9 +182,12 @@ extern "C" int rt_agc(const float* xs, const float* d, const float* params,
                       const float* peak0, const float* sum0,
                       const float* gain0, float* gain_out, float* carry_out,
                       int L, long long T, void* stream) {
-  const int blocks = (L + kLanes - 1) / kLanes;
+  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (L + kBL - 1) / kBL;
   if (blocks == 0) return 0;
-  agc_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T);
+  const int vec = T % 4 == 0 && aligned16(xs) && aligned16(d) &&
+                  aligned16(gain_out);
+  agc_kernel<<<blocks, kThreads6, 0, (cudaStream_t)stream>>>(
+      xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, vec);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,166 @@
+// The tiled chain pipeline shared by K6 (agc.cu) and K7 (first_order.cu).
+//
+// A block owns kBL = 4 lanes of row-major [L, T] arrays (a ragged L ends on
+// a block of fewer) and walks time in tiles of kTile = 128 steps. A tile of
+// one input sits in shared memory as Rows: a row of steps per lane, the
+// rows kLd floats apart, so that they are 16-byte aligned and the four
+// lanes' rows start on different banks. Around the serial chains:
+//
+// - copy warps stage a tile's rows with cp.async (copy_rows), tiles ahead
+//   of their use: 16 bytes a copy where T % 4 == 0 and the array is 16-byte
+//   aligned, 4 bytes otherwise, so the chains never wait on global memory;
+// - a chain thread runs its lane's recurrence on H (kHalf = 64 by default)
+//   steps of its rows at a time in registers, loaded and stored 16 bytes at a time (chain_row),
+//   so the chain's steps are all the loop issues; a whole tile runs with a
+//   compile-time length (full_or_tail: rt::Steps<kTile>), with no per-step
+//   test, and only a tail tile tests each step;
+// - a tile's outputs leave from its staged rows, stored coalesced
+//   (store_rows).
+//
+// lane_pipeline.cuh (32 lanes a block, 32-step tiles filled one tile ahead
+// by plain loads, one thread running every step) stays K5's.
+#pragma once
+
+#include <type_traits>
+
+#include "lane_pipeline.cuh"  // rt::Steps
+
+namespace rt::chain {
+
+constexpr int kBL = 4;          // lanes a block
+constexpr int kTile = 128;      // steps a tile
+constexpr int kHalf = 64;       // steps a chain thread holds in registers, by default
+constexpr int kLd = kTile + 4;  // a staged row's stride: 16-byte rows, 4 banks apart
+
+typedef float Rows[kBL][kLd];  // one input's tile: lane l's steps in row l
+
+__device__ __forceinline__ int tile_len(long long T, int i) {
+  return (int)min((long long)kTile, T - (long long)i * kTile);
+}
+
+// a whole tile's tt is rt::Steps<kTile>, a tail tile's an int
+template <class TT>
+constexpr bool kWhole = !std::is_same<TT, int>::value;
+
+// run(tt) for a tile of tt steps: a whole tile runs with tt a compile-time
+// kTile, so its copy of run has no per-step test
+template <class Run>
+__device__ __forceinline__ void full_or_tail(int tt, Run run) {
+  if (tt == kTile)
+    run(rt::Steps<kTile>{});
+  else
+    run(tt);
+}
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stages steps t0 .. t0 + tt - 1 of rows lane0 .. lane0 + nl - 1 of src
+// ([L, T]) into dst[l][0 .. tt - 1], as thread sub of nsub copy threads.
+// vec: T % 4 == 0 and src 16-byte aligned (t0 is a multiple of kTile, so
+// every 16-byte piece of a row lies inside it).
+__device__ __forceinline__ void copy_rows(Rows& dst,
+                                          const float* __restrict__ src,
+                                          long long lane0, int nl,
+                                          long long T, long long t0, int tt,
+                                          bool vec, int sub, int nsub) {
+  const float* s = src + lane0 * T + t0;
+  if (vec) {
+    for (int e = sub; e < kBL * (kTile / 4); e += nsub) {
+      const int l = e / (kTile / 4), q = e % (kTile / 4);
+      if (l < nl && 4 * q < tt) cp_async16(&dst[l][4 * q], s + l * T + 4 * q);
+    }
+  } else {
+    for (int e = sub; e < kBL * kTile; e += nsub) {
+      const int l = e / kTile, t = e % kTile;
+      if (l < nl && t < tt) cp_async4(&dst[l][t], s + l * T + t);
+    }
+  }
+}
+
+// Stores src[l][0 .. tt - 1] to steps t0 .. t0 + tt - 1 of rows lane0 + l
+// (l < nl) of dst ([L, T]), as thread sub of nsub; neighbouring threads
+// store neighbouring steps. vec as copy_rows's, for dst.
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const Rows& src, long long lane0,
+                                           int nl, long long T, long long t0,
+                                           int tt, bool vec, int sub,
+                                           int nsub) {
+  float* d = dst + lane0 * T + t0;
+  if (vec) {
+    for (int e = sub; e < kBL * (kTile / 4); e += nsub) {
+      const int l = e / (kTile / 4), q = e % (kTile / 4);
+      if (l < nl && 4 * q < tt)
+        *reinterpret_cast<float4*>(d + l * T + 4 * q) =
+            *reinterpret_cast<const float4*>(&src[l][4 * q]);
+    }
+  } else {
+    for (int e = sub; e < kBL * kTile; e += nsub) {
+      const int l = e / kTile, t = e % kTile;
+      if (l < nl && t < tt) d[l * T + t] = src[l][t];
+    }
+  }
+}
+
+// A lane's recurrence over a tile of tt steps: H steps at a time, v[k][u]
+// holds rows[k][h + u] (k < NIN) in registers and step(v, u) runs step h + u,
+// rewriting its outputs in place; rows 0 .. NOUT - 1 are stored back. The
+// step keeps its carries itself.
+template <int NIN, int NOUT, int H = kHalf, class TT, class Step>
+__device__ __forceinline__ void chain_row(float* const (&rows)[NIN], TT tt,
+                                          Step& step) {
+  static_assert(NOUT <= NIN, "outputs overwrite inputs");
+  static_assert(kTile % H == 0 && H % 4 == 0, "whole 16-byte pieces of a tile");
+  // not unrolled: one copy of the H-step body (code size)
+#pragma unroll 1
+  for (int h = 0; h < kTile; h += H) {
+    if (!kWhole<TT> && h >= tt) break;
+    float v[NIN][H];
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) {
+      const float4* r4 = reinterpret_cast<const float4*>(rows[k] + h);
+#pragma unroll
+      for (int q = 0; q < H / 4; ++q) {
+        const float4 f = r4[q];
+        v[k][4 * q] = f.x;
+        v[k][4 * q + 1] = f.y;
+        v[k][4 * q + 2] = f.z;
+        v[k][4 * q + 3] = f.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < H; ++u)
+      if (kWhole<TT> || h + u < tt) step(v, u);
+#pragma unroll
+    for (int k = 0; k < NOUT; ++k) {
+      float4* r4 = reinterpret_cast<float4*>(rows[k] + h);
+#pragma unroll
+      for (int q = 0; q < H / 4; ++q)
+        r4[q] = make_float4(v[k][4 * q], v[k][4 * q + 1], v[k][4 * q + 2],
+                            v[k][4 * q + 3]);
+    }
+  }
+}
+
+}  // namespace rt::chain

@@ -8,74 +8,132 @@
 //   agc_gain:    y = smooth_gain(y', a) with (att, rel, max_gain) as data
 //                (the AGC's dual-rate smoother, src/source/agc.rs:486-496)
 //
-// What bounds it on the H100: the serial chain, ~2 (linear) to ~6
-// (agc_gain) dependent rounded ops per step on one thread per lane. The
-// AGC's decomposed path calls it with one lane (a mono or stereo stream)
-// over 2T interleaved samples: one thread, latency bound. Measured on an
-// H100 80GB HBM3 at 700 W: 0.225 ms at [1, 8192] (agc_gain), ~54 cycles a
-// step, of which the smoother's chain alone is 27; the rest is each
-// 32-step tile's wait for its load (a deeper ring of tiles would hide it).
+// What bounds it on the H100: the serial chain, ~2 (linear) to 5
+// (agc_gain: mul, add, max, min, select) dependent rounded ops a step on
+// one thread per lane. The AGC's decomposed path calls it with one lane (a
+// stereo stream's 2T interleaved samples: [1, 8192] at blocks of 4096
+// frames; [1, 512] with group = 8): one thread, latency bound; a smoother
+// step takes 24.3 SM cycles (12.2 ns) on one thread (benches/op_latency.py
+// smooth_step), 0.10 ms for 8192. On 32-step tiles filled by plain loads
+// one tile ahead (lane_pipeline.cuh) each tile waited for its load: ~54
+// cycles a step, 0.225 ms. This design: ~0.119 ms on an H100 80GB HBM3 at
+// 700 W, the chain warp at 27.2 cycles a step (benches/warp_cycles.py).
 //
-// Design: lane_pipeline.cuh, with only the inputs the op reads loaded
-// (agc_gain: a alone). Every op rounds alone, so the kernel equals its
-// plain PyTorch version bit for bit.
+// Design (chain_pipeline.cuh): a block of two warps owns kBL = 4 lanes and
+// walks time in tiles of 128 steps. Warp 0 is the chain, one thread per
+// lane, on 64-step register halves of its rows, the output y over input a
+// in place. Warp 1 keeps the tiles coming: with cp.async it stages tile i+3
+// of each input the op reads at iteration i (so tiles i+1 .. i+3 are in
+// flight or landed while the chain runs tile i) and waits for tile i+1's;
+// it stores tile i-1's outputs from their staged rows, coalesced. The two
+// warps meet once a tile on a named barrier of their 64 threads, in a ring
+// of five tiles (from a tile's copy to its store; at most 31 KB of static
+// shared memory). Every op rounds alone, so the kernel equals its plain
+// PyTorch version bit for bit.
 #include "agc_math.cuh"
-#include "lane_pipeline.cuh"
+#include "chain_pipeline.cuh"
 
 namespace {
 
-using rt::kLanes;
-using rt::kThreads;
+using namespace rt::chain;
 
 constexpr int kLinear = 0, kMaxAffine = 1, kAgcGain = 2;
+constexpr int kThreads7 = 2 * 32;  // warp 0 the chain, warp 1 the copies
+constexpr int kAhead = 3;          // tiles staged ahead of the chain's
+constexpr int kRing7 = kAhead + 2;  // tiles i-1 .. i+3
 
-// one tile of a lane's recurrence, in registers (rt::lane_tiles's run)
+// the two warps' barrier, once a tile
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads7) : "memory");
+}
+
+// the chain's step over its inputs' registers (a, b, c), y over a
 template <int OP, int NIN>
-struct FirstOrderTile {
+struct FirstOrderStep {
   float yc, att, rel, max_gain;
 
-  template <class TT>
-  __device__ __forceinline__ void operator()(float (&v)[rt::kSteps][NIN],
-                                             TT tt) {
-    using namespace rt;
-#pragma unroll
-    for (int t = 0; t < kSteps; ++t) {
-      if (t < tt) {
-        if constexpr (OP == kLinear) {
-          yc = add(mul(v[t][0], yc), v[t][1]);
-        } else if constexpr (OP == kMaxAffine) {
-          yc = maxn(v[t][0], add(v[t][1], mul(v[t][2], yc)));
-        } else {
-          yc = smooth_gain(yc, v[t][0], att, rel, max_gain);
-        }
-        v[t][0] = yc;
-      }
+  template <int H>
+  __device__ __forceinline__ void operator()(float (&v)[NIN][H], int u) {
+    if constexpr (OP == kLinear) {
+      yc = rt::add(rt::mul(v[0][u], yc), v[1][u]);
+    } else if constexpr (OP == kMaxAffine) {
+      yc = rt::maxn(v[0][u], rt::add(v[1][u], rt::mul(v[2][u], yc)));
+    } else {
+      yc = rt::smooth_gain(yc, v[0][u], att, rel, max_gain);
     }
+    v[0][u] = yc;
   }
 };
 
 template <int OP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads7, 1)
 first_order_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ c,
                    const float* __restrict__ init,
                    const float* __restrict__ params, float* __restrict__ y,
-                   int L, long long T) {
+                   int L, long long T, int vec) {
   constexpr int NIN = OP == kLinear ? 2 : OP == kMaxAffine ? 3 : 1;
-  __shared__ rt::STile bufs[rt::kBufs][NIN];
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  FirstOrderTile<OP, NIN> run{0.f, 0.f, 0.f, 0.f};
+  __shared__ __align__(16) Rows bufs[kRing7][NIN];
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const long long lane0 = (long long)blockIdx.x * kBL;
+  const int nl = (int)min((long long)kBL, L - lane0);
+  const int n_tiles = (int)((T + kTile - 1) / kTile);
+  const float* const in[3] = {a, b, c};
+  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
+  auto copy = [&](int j) {
+    if (!live(j)) return;
+    const int tt = tile_len(T, j);
+#pragma unroll
+    for (int k = 0; k < NIN; ++k)
+      copy_rows(bufs[j % kRing7][k], in[k], lane0, nl, T, (long long)j * kTile,
+                tt, vec, wl, 32);
+  };
+
+  FirstOrderStep<OP, NIN> step{0.f, 0.f, 0.f, 0.f};
   if (OP == kAgcGain) {
-    run.att = params[0];
-    run.rel = params[1];
-    run.max_gain = params[2];
+    step.att = params[0];
+    step.rel = params[1];
+    step.max_gain = params[2];
   }
-  if (threadIdx.x < 32 && lane < L) run.yc = init[lane];
-  rt::LaneInputs<NIN> in;
-  in.p[0] = a;
-  if constexpr (NIN > 1) in.p[1] = b;
-  if constexpr (NIN > 2) in.p[2] = c;
-  rt::lane_tiles<NIN>(bufs, in, y, L, T, run);
+  if (warp == 0 && wl < nl) step.yc = init[lane0 + wl];
+  if (warp == 1) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      copy(j);
+      cp_async_commit();
+    }
+    cp_async_wait<kAhead - 1>();  // tile 0 has landed
+  }
+  pair_sync();
+
+  for (int it = 0; it < n_tiles + 1; ++it) {
+    if (warp == 0) {
+      if (live(it) && wl < nl) {
+        float* rows[NIN];
+#pragma unroll
+        for (int k = 0; k < NIN; ++k) rows[k] = bufs[it % kRing7][k][wl];
+        full_or_tail(tile_len(T, it),
+                     [&](auto tt) { chain_row<NIN, 1>(rows, tt, step); });
+      }
+    } else {
+      const int j = it - 1;
+      if (live(j))
+        store_rows(y, bufs[j % kRing7][0], lane0, nl, T, (long long)j * kTile,
+                   tile_len(T, j), vec, wl, 32);
+      copy(it + kAhead);
+      cp_async_commit();
+      cp_async_wait<kAhead - 1>();  // tile it+1 has landed
+    }
+    pair_sync();
+  }
+}
+
+template <int OP>
+void launch(const float* a, const float* b, const float* c, const float* init,
+            const float* params, float* y, int L, long long T, int vec,
+            int blocks, cudaStream_t s) {
+  first_order_kernel<OP><<<blocks, kThreads7, 0, s>>>(a, b, c, init, params,
+                                                      y, L, T, vec);
 }
 
 }  // namespace
@@ -84,21 +142,23 @@ extern "C" int rt_first_order(const float* a, const float* b, const float* c,
                               const float* init, const float* params,
                               float* y, int L, long long T, int op,
                               void* stream) {
-  const int blocks = (L + kLanes - 1) / kLanes;
+  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (L + kBL - 1) / kBL;
   if (blocks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  // the 16-byte path needs every array the op touches aligned
+  int vec = T % 4 == 0 && aligned16(a) && aligned16(y);
+  if (op != kAgcGain) vec = vec && aligned16(b);
+  if (op == kMaxAffine) vec = vec && aligned16(c);
   switch (op) {
     case kLinear:
-      first_order_kernel<kLinear><<<blocks, kThreads, 0, s>>>(
-          a, b, c, init, params, y, L, T);
+      launch<kLinear>(a, b, c, init, params, y, L, T, vec, blocks, s);
       break;
     case kMaxAffine:
-      first_order_kernel<kMaxAffine><<<blocks, kThreads, 0, s>>>(
-          a, b, c, init, params, y, L, T);
+      launch<kMaxAffine>(a, b, c, init, params, y, L, T, vec, blocks, s);
       break;
     case kAgcGain:
-      first_order_kernel<kAgcGain><<<blocks, kThreads, 0, s>>>(
-          a, b, c, init, params, y, L, T);
+      launch<kAgcGain>(a, b, c, init, params, y, L, T, vec, blocks, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -85,6 +85,8 @@ SIGNATURES = {
     "rt_stream_max": (P, LL, I, P, P),
     # (x0, a, b), out, iterations, stream
     "rt_op_chain": (P, P, LL, P),
+    # (g0, att, rel, max_gain, lo, hi), out (g, cycles), iterations, stream
+    "rt_smooth_chain": (P, P, LL, P),
     # no arguments; returns K2's lanes per block (its partials' row count
     # is ceil(L / that)), not an error code
     "rt_fused_agc_block_lanes": (),

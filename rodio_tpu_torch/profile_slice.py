@@ -1,21 +1,25 @@
 """Where the time goes in the flagship slice on one CUDA card.
 
-    python -m rodio_tpu_torch.profile_slice [--streams 512] [--block 12800]
-        [--blocks 12] [--with-agc | --path C | --path D | --path E]
-        [--out FILE]
+    python -m rodio_tpu_torch.profile_slice [--streams 512] [--block N]
+        [--blocks 12] [--with-agc | --path B | --path C | --path D |
+        --path E] [--out FILE]
 
 For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
 K4 -> Amplify -> WideMixer -> K3; with ``--with-agc``, the AGC slice
 instead: ``agc_fused``, K2 then K3, and ``agc_unfused``, Resample -> K4 ->
 AutomaticGainControl (K6) -> Amplify -> WideMixer -> K3; with ``--path
-C``, ``per_stream``, the per-stream chain of ``make_per_stream_chain``:
+B``, BASELINE config 2 on 10 s of seeded stereo PCM at 44.1 kHz:
+``config2``, low_pass (K4) -> AutomaticGainControl(mode="pallas") (K8,
+the cumulative sum, K7) -> Limit(mode="pallas") (K3), and
+``config2_group8``, the same with ``group=8``; with ``--path C``,
+``per_stream``, the per-stream chain of ``make_per_stream_chain``:
 Resample -> K4 -> AGC (K6) -> Amplify -> Limit(streams=S) (K5) ->
 WideMixer -> K3; with ``--path D``, ``agc_group``, the fused AGC slice with
 ``agc_group=16``: K2g then K3; with ``--path E``, ``agc_rel0b16``, the JAX
 package's AGC-on bench leg, the fused AGC slice with ``agc_plan="rel0b16"``
 and ``precision="int2"``: K2b then K3, and ``agc_rel0f``, the same with
 ``agc_plan="rel0f"``: K2r then K3) it prints, per block of ``--block``
-frames:
+frames (default 12800; path B 4096, config 2's block):
 
 - ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
   no profiler;
@@ -58,6 +62,27 @@ def _union_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def config2(device, group: int = 0, seconds: int = 10, rate: int = 44100):
+    """BASELINE config 2 (``BASELINE.json`` ``configs[1]``) on ``seconds``
+    of seeded stereo PCM: low_pass(2 kHz) -> AutomaticGainControl(mode=
+    "pallas", group) -> Limit(mode="pallas")."""
+    import numpy as np
+
+    from .effects import AgcSettings, AutomaticGainControl
+    from .effects.limit import Limit, LimitSettings
+    from .sources.generators import SamplesBuffer
+
+    pcm = np.random.default_rng(2).standard_normal(
+        (2, seconds * rate)).astype(np.float32) * 0.3
+    node = SamplesBuffer(2, rate, pcm, device=device).low_pass(2000.0)
+    node = AutomaticGainControl(node, AgcSettings(), mode="pallas", group=group)
+    return Limit(node, LimitSettings(), mode="pallas")
+
+
+def _with_state(node):
+    return node, node.init_state()
 
 
 def profile_cell(build, block: int, blocks: int) -> dict:
@@ -112,12 +137,14 @@ def profile_cell(build, block: int, blocks: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=512)
-    ap.add_argument("--block", type=int, default=12800)
+    ap.add_argument("--block", type=int, default=None,
+                    help="frames a block (default 12800; path B 4096)")
     ap.add_argument("--blocks", type=int, default=12)
     ap.add_argument("--with-agc", action="store_true",
                     help="profile the AGC slice (K2; unfused: K6)")
-    ap.add_argument("--path", choices=("C", "D", "E"), default=None,
-                    help="profile path C (the per-stream chain: K4, K6, K5, "
+    ap.add_argument("--path", choices=("B", "C", "D", "E"), default=None,
+                    help="profile path B (BASELINE config 2: K4, K8, K7, K3), "
+                         "path C (the per-stream chain: K4, K6, K5, "
                          "K3), path D (the group-rate fused AGC: K2g, K3) or "
                          "path E (the rel0b16 and rel0f AGC plans: K2b or "
                          "K2r, K3)")
@@ -135,8 +162,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     res = {"device": smi, "streams": args.streams, "block": args.block,
            "blocks": args.blocks, "with_agc": args.with_agc, "path": args.path}
+    if args.block is None:
+        args.block = 4096 if args.path == "B" else 12800
+    res["block"] = args.block
     kw = dict(seconds=4.0, device="cuda", max_block=args.block)
-    if args.path == "C":
+    if args.path == "B":
+        cells = {name: (lambda group=group: _with_state(config2("cuda", group)))
+                 for name, group in (("config2", 0), ("config2_group8", 8))}
+    elif args.path == "C":
         cells = {"per_stream": lambda: rtt.make_per_stream_chain(
             args.streams, seconds=4.0, device="cuda")}
     elif args.path == "D":

@@ -8,12 +8,13 @@ False (decided inside the fixture, never at import). On a GPU host:
 Bounds: K4 bit-equal (same op order, every op rounded alone); K3 bit-equal
 to the same blocked order (1e-6 allowed); K1 1e-6 (only the mix's
 summation order differs), its biquad carries bit-equal (the FIR/IIR split
-keeps the scan's op order). K6, K7 and K8
-bit-equal (the same op order; K8 the same blocked order and the same power
-table); K2 1e-6 on the mix, its carries and ring bit-equal. K5 bit-equal
-(the same op order); K2g (K2's group branch) as K2; K9 bit-equal (the same
-sum order; the contiguous stream's max is order-free). K2r and K2b (K2's
-rel0 plans) as K2, their peak carry untouched.
+keeps the scan's op order). K6, K7 and K8 bit-equal, outputs and carries
+(the same op order; K8 the same blocked order and the same power table;
+NaN where the plain version has NaN); K2 1e-6 on the mix, its carries and
+ring bit-equal. K5 bit-equal (the same op order); K2g (K2's group
+branch) as K2; K9 bit-equal (the same sum order; the contiguous stream's
+max is order-free). K2r and K2b (K2's rel0 plans) as K2, their peak carry
+untouched.
 """
 import numpy as np
 import pytest
@@ -279,6 +280,15 @@ def test_op_chain_matches_plain(dev):
     assert 0.0 < op_latency.seconds_per_op(dev) < 1e-8
 
 
+def test_smooth_chain_matches_plain(dev):
+    p = torch.tensor(op_latency.SMOOTH_PARAMS, device=dev)
+    out = op_latency.smooth_chain(p, 5)
+    assert torch.equal(out[:1], op_latency.smooth_chain_plain(p, 5))
+    assert out[1].item() > 0.0
+    seconds, cycles = op_latency.smooth_step(dev)
+    assert 0.0 < seconds < 1e-7 and 0.0 < cycles < 200.0
+
+
 def test_emit_never_waits_for_the_card(dev):
     """A render of the fused slice and of the unfused chain makes no
     host-device synchronisation (set_sync_debug_mode raises on one)."""
@@ -307,7 +317,12 @@ def _agc_inputs(S, M, dev, seed):
     return (_f32(xs, dev), _f32(delta, dev), *[_f32(c, dev) for c in carries])
 
 
-@pytest.mark.parametrize("S,M", [(3, 1), (5, 70), (64, 1000), (512, 25600)])
+#: K6's lanes (4 a block: 1, a whole block, ragged tails, 128 blocks) and
+#: steps (1, around its 128-step tile, path C's 25600)
+K6_SHAPES = [(S, M) for S in (1, 3, 4, 5, 9, 512) for M in (1, 127, 128, 129, 383, 25600)]
+
+
+@pytest.mark.parametrize("S,M", K6_SHAPES + [(5, 70), (64, 1000)])
 def test_k6_agc_matches_plain(dev, S, M):
     xs, delta, p0, s0, g0 = _agc_inputs(S, M, dev, S + M)
     params = _f32(AGC_PARAMS, dev)
@@ -321,15 +336,81 @@ def test_k6_agc_matches_plain(dev, S, M):
         assert torch.equal(a, b)
 
 
+def _equal_nan(a, b):
+    torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+def test_k6_zeros_and_nans_take_the_plain_branches(dev):
+    """Stretches of zero |x| and d from zero carries (rsum = 0 and peak = 0:
+    both max_gain branches of the desired gain), a negative window sum, and
+    a NaN in |x| (peak NaN: pk > 0 false) and in d (rsum NaN) of one lane
+    each: gains and carries equal the plain version's, NaN where it has
+    NaN."""
+    S, M = 6, 700
+    xs, delta, p0, s0, g0 = _agc_inputs(S, M, dev, 11)
+    xs[:, :200] = 0.0
+    delta[:, :200] = 0.0
+    xs[1:3, 300:450] = 0.0
+    delta[2, 320:330] = -1.0
+    xs[3, 400] = float("nan")
+    delta[4, 500] = float("nan")
+    p0[:] = 0.0
+    s0[:] = 0.0
+    params = _f32(AGC_PARAMS, dev)
+    gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, params)
+    gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(gp).all())
+    assert bool(ck[0][3].isnan()) and bool(ck[1][4].isnan())
+    _equal_nan(gk, gp)
+    for a, b in zip(ck, cp):
+        _equal_nan(a, b)
+
+
+def test_k6_k7_misaligned_inputs(dev):
+    """Inputs 4 bytes off a 16-byte boundary (a contiguous view at an odd
+    offset) take the kernels' 4-byte copies: still equal to the plain
+    versions."""
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        v = flat[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        return v
+
+    xs, delta, p0, s0, g0 = _agc_inputs(5, 384, dev, 3)
+    params = _f32(AGC_PARAMS, dev)
+    gk, ck = cuda_scan.agc(offset(xs), offset(delta), p0, s0, g0, params)
+    gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
+    assert torch.equal(gk, gp)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+    a = offset(xs + 0.5)
+    p7 = params[[0, 1, 3]]
+    yk = cuda_scan.first_order(a, a, g0, op="agc_gain", params=p7)
+    yp = cuda_scan.first_order_plain(xs + 0.5, xs + 0.5, g0, op="agc_gain", params=p7)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp)
+
+
+def _k7_inputs(op, L, T, seed):
+    rng = np.random.default_rng(seed)
+    a = (rng.uniform(0.2, 6.0, (L, T)) if op == "agc_gain"
+         else rng.uniform(0.9, 1.0, (L, T)))
+    return (a, rng.standard_normal((L, T)) * 0.1, rng.uniform(0.5, 1.0, (L, T)),
+            rng.uniform(0.5, 2.0, L))
+
+
+#: K7's lanes (4 a block) and steps (around its 64-step register halves and
+#: 128-step tiles, path B's [1, 512] and [1, 8192], and a long row)
+K7_SHAPES = [(L, T) for L in (1, 2, 9, 37)
+             for T in (1, 63, 64, 127, 128, 129, 512, 8192, 65536)]
+
+
 @pytest.mark.parametrize("op", ["linear", "max_affine", "agc_gain"])
-@pytest.mark.parametrize("L,T", [(1, 8192), (37, 300), (3, 1)])
+@pytest.mark.parametrize("L,T", K7_SHAPES + [(37, 300), (3, 1)])
 def test_k7_first_order_matches_plain(dev, op, L, T):
-    rng = np.random.default_rng(L * T)
-    a = _f32(rng.uniform(0.2, 6.0, (L, T)) if op == "agc_gain"
-             else rng.uniform(0.9, 1.0, (L, T)), dev)
-    b = _f32(rng.standard_normal((L, T)) * 0.1, dev)
-    c = _f32(rng.uniform(0.5, 1.0, (L, T)), dev)
-    init = _f32(rng.uniform(0.5, 2.0, L), dev)
+    a, b, c, init = (_f32(v, dev) for v in _k7_inputs(op, L, T, L * T))
     params = _f32([AGC_PARAMS[0], AGC_PARAMS[1], AGC_PARAMS[3]], dev)
     kw = dict(op=op, params=params)
     before = cuda_scan.first_order_launches
@@ -338,6 +419,32 @@ def test_k7_first_order_matches_plain(dev, op, L, T):
     torch.cuda.synchronize()
     assert cuda_scan.first_order_launches == before + 1
     assert torch.equal(yk, yp)
+
+
+@pytest.mark.parametrize("cut", [1, 128, 383])
+def test_k6_k7_carries_cross_calls(dev, cut):
+    """Two calls in a row, the second from the first's carries, give the
+    one call's result bit for bit (K6: gains and carries; K7, each op: y,
+    whose last column is its carry)."""
+    S, M = 5, 1000
+    xs, delta, p0, s0, g0 = _agc_inputs(S, M, dev, cut)
+    params = _f32(AGC_PARAMS, dev)
+    g, c = cuda_scan.agc(xs, delta, p0, s0, g0, params)
+    g1, c1 = cuda_scan.agc(xs[:, :cut], delta[:, :cut], p0, s0, g0, params)
+    g2, c2 = cuda_scan.agc(xs[:, cut:], delta[:, cut:], *c1, params)
+    assert torch.equal(torch.cat([g1, g2], 1), g)
+    for a, b in zip(c2, c):
+        assert torch.equal(a, b)
+    p7 = params[[0, 1, 3]]
+    for op in ("linear", "max_affine", "agc_gain"):
+        a, b, c, init = (_f32(v, dev) for v in _k7_inputs(op, S, M, cut))
+        y = cuda_scan.first_order(a, b, init, c, op=op, params=p7)
+        y1 = cuda_scan.first_order(a[:, :cut], b[:, :cut], init, c[:, :cut], op=op,
+                                   params=p7)
+        y2 = cuda_scan.first_order(a[:, cut:], b[:, cut:], y1[:, -1], c[:, cut:], op=op,
+                                   params=p7)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([y1, y2], 1), y), op
 
 
 @pytest.mark.parametrize("L,P,M", [(1, 128, 8192), (3, 8, 64), (8, 32, 3200)])

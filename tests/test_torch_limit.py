@@ -197,6 +197,15 @@ def test_op_chain_plain_is_the_rounded_chain():
     np.testing.assert_array_equal(got.numpy(), [x])
 
 
+def test_smooth_chain_plain_is_the_smoother_run():
+    """The smoother probe's plain version: 32 steps an iteration of the
+    AGC's smoother toward lo, hi in turn, as smooth_gains runs it."""
+    p = torch.tensor(op_latency.SMOOTH_PARAMS)
+    des = torch.tensor([[p[4].item(), p[5].item()] * 48])
+    want = cuda_scan.smooth_gains(des, p[0:1], p[1], p[2], p[3])[:, -1]
+    assert torch.equal(op_latency.smooth_chain(p, 3), want)
+
+
 def test_entry_points_default_to_the_card():
     """With no device the port runs on the card; on a host without one it
     raises instead of running on the CPU."""

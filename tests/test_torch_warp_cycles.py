@@ -1,0 +1,47 @@
+"""``benches/warp_cycles.py`` finds the tile loop of every pipelined kernel.
+
+The instrumented copies are built and run only on the card; what this
+checks, on the CPU, is the source rewrite: each of the port's tile-pipeline
+sources (K1, K2's plans, K6, K7) gets one timed tile loop, the per-warp
+write right after it and the read-back entry point after its includes, and a
+source without such a loop is left to be built as it is and timed only.
+"""
+import re
+
+import pytest
+
+from rodio_tpu_torch.benches import warp_cycles
+from rodio_tpu_torch.ops import _build
+
+
+@pytest.mark.parametrize("name", warp_cycles.SOURCES)
+def test_instrument_times_each_tile_loop(name):
+    src = (_build.CSRC / name).read_text()
+    tag = name[:-3]
+    out = warp_cycles.instrument(src, tag)
+    assert out is not None, name
+    assert out.count("const long long t0_ = clock64();") == 1
+    assert out.count("busy_ += clock64() - t0_;") == 1
+    assert out.count(f'extern "C" int rt_warp_cycles_{tag}(long long* out)') == 1
+    assert out.count(f'extern "C" int rt_block_cycles_{tag}(long long* out)') == 1
+    # the timer wraps the loop body, the per-warp write follows the loop, and
+    # the entry point sits after the last include
+    loop = out.index("for (int it = 0;")
+    assert out.index("const long long start_") < loop < out.index("t0_ = clock64()")
+    end = out.index("busy_ += clock64() - t0_;")
+    assert end < out.index("g_warp_cycles[threadIdx.x >> 5] = busy_;")
+    last_include = max(m.end() for m in re.finditer(r'#include "[^"]+"\n', out))
+    assert out.index("static __device__ long long g_warp_cycles") >= last_include
+    # nothing else changes: the source's lines, in order, and 22 more (the
+    # timer's 4, the writes' 8, the entry points' 10)
+    lines, rest = src.splitlines(), iter(out.splitlines())
+    assert all(any(line == o for o in rest) for line in lines)
+    assert len(out.splitlines()) == len(lines) + 22
+
+
+def test_instrument_leaves_a_source_without_a_tile_loop():
+    # a per-lane loop without the pipeline's barrier-ended tile loop (as
+    # lane_pipeline.cuh's kernels are written) is timed only
+    src = ('#include "lane_pipeline.cuh"\n__global__ void k(float* y, int n) {\n'
+           "  for (int i = 0; i < n; ++i) y[i] = 0.f;\n}\n")
+    assert warp_cycles.instrument(src, "k") is None
