@@ -10,8 +10,10 @@ Phases (each raises on failure, so the script exits non-zero):
 3. kernels: the latency of a dependent rounded f32 op and of one step of
    the AGC's gain smoother, measured on one thread (benches/op_latency.py);
    then K4, K3, K1, K2, K2r and K2b (K2's serial and blocked rel0 plans),
-   K2g (K2's group branch), K6, K7, K8, K5 and K9 against their plain
-   PyTorch versions on the card, at the shapes of the paths below, with
+   K2g (K2's group branch), K6, K7, K8, K5 (limiter_stream, the Limit
+   node's whole per-stream pass, and limiter_env, its envelopes alone) and
+   K9 against their plain PyTorch versions on the card, at the shapes of
+   the paths below, with
    their times, their roofline bounds (bytes over 3.35 TB/s or operations
    over 67 TFLOP/s f32, the larger: ``bound_ms``), the chain floor of a
    recurrence (its serial steps times the dependent ops of a step times
@@ -31,10 +33,10 @@ Phases (each raises on failure, so the script exits non-zero):
      sample and with group=8, its first 2 blocks against the CPU;
    - path C, the per-stream chain of BASELINE config 5's 512 streams:
      Resample -> BltFilter (K4) -> AutomaticGainControl(streams=512) (K6)
-     -> Amplify -> Limit(streams=512) (K5) -> WideMixer -> master Limit
-     (K3), 12 blocks of 12800, each node with mode="pallas"; its first 2
-     blocks at 16 streams against the CPU; Limit on a mono input and on
-     blocks of 4410 frames (K5) against the CPU;
+     -> Amplify -> Limit(streams=512) (K5's limiter_stream) -> WideMixer
+     -> master Limit (K3), 12 blocks of 12800, each node with
+     mode="pallas"; its first 2 blocks at 16 streams against the CPU; Limit
+     on a mono input and on blocks of 4410 frames (K5) against the CPU;
    - path D, the group-rate fused AGC: path A with agc_group=16 (K2g and
      K3 once per block), its first 2 blocks against path A's;
    - path E, the JAX package's AGC-on bench leg: path A with
@@ -70,7 +72,8 @@ BOUND_K3 = 1e-6    # same blocked order; aim 0
 BOUND_K1 = 1e-6    # same order except the mix's summation order
 BOUND_K2 = 1e-6    # as K1; its carries and ring the same order
 BOUND_K6 = BOUND_K7 = BOUND_K8 = 0.0  # same op order (K8: same blocked order)
-BOUND_K5 = BOUND_K9 = 0.0  # same op order (K9: the same sum order)
+BOUND_K5 = BOUND_K9 = 0.0  # same op order (K9: the same sum order; K5's
+# limiter_stream: its gain computer, coupling and gain too)
 BOUND_SLICE = 1e-5  # the JAX package's fused-vs-unfused bound
 BOUND_B = 1e-6     # a path on the card against the CPU
 BOUND_D_REL = 2e-3  # the group AGC against the serial plan, relative
@@ -174,7 +177,7 @@ def main() -> int:
                 "K2b": (fused, "agc_blocked_launches"),
                 "K2g": (fused, "agc_group_launches"),
                 "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
-                "K5": (cuda_scan, "limiter_env_launches"),
+                "K5": (cuda_scan, "limiter_stream_launches"),
                 "K6": (cuda_scan, "agc_launches"),
                 "K7": (cuda_scan, "first_order_launches"),
                 "K8": (limiter_block, "bma_launches"),
@@ -451,23 +454,40 @@ def main() -> int:
            2 * 8192 * 4, 4 * 8192, _chain_ms(8192 // 128 + 7, 3),
            note=" [1, 8192] P=128")
 
-    # K5: the limiter envelopes at path C's shape [1024, 12800] and at a
-    # ragged [6, 700]; 7 ops a step, the integrator's chain mul, add, max
+    # K5: the Limit node's per-stream pass (limiter_stream) at path C's
+    # shape [1024, 12800] in stereo groups, and at ragged shapes in groups
+    # of 1, 2 and 6 (lanes at quiet, limited and loud levels, carries in
+    # dB); ~65 ops a sample (the gain computer's log2, the envelopes, the
+    # coupling, the exp2), the integrator's chain mul, add, max. Beside it
+    # limiter_env, the envelopes alone (7 ops a sample), at the same shapes
     lkw = dict(att=lim.attack, rel=lim.release)
-    err5 = 0.0
-    for shape in ((6, 700), (L, T)):
-        db = dev_f32(rng.uniform(0.0, 12.0, shape) * (rng.uniform(size=shape) < 0.3))
+    skw = dict(lkw, threshold=lim.threshold, knee_width=lim.knee_width,
+               inv_knee_8=lim.inv_knee_8)
+    err5 = err5e = 0.0
+    for shape, cg in (((6, 700), 1), ((12, 129), 6), ((L, T), 2)):
+        level = rng.choice([0.05, 0.6, 2.5], (shape[0], 1))
+        x5 = dev_f32(rng.uniform(-1, 1, shape) * level)
         e0, q0 = dev_f32(rng.uniform(0, 6, shape[0])), dev_f32(rng.uniform(0, 6, shape[0]))
+        yk5, ck5 = cuda_scan.limiter_stream(x5, e0, q0, group_channels=cg, **skw)
+        yp5, cp5 = cuda_scan.limiter_stream_plain(x5, e0, q0, group_channels=cg, **skw)
+        err5 = max(err5, _max_err(yk5, yp5), *(_max_err(a, b) for a, b in zip(ck5, cp5)))
+        db = limiter_block.limiter_gain_db(x5, lim.threshold, lim.knee_width, lim.inv_knee_8)
         pk5, ck5 = cuda_scan.limiter_env(db, e0, q0, **lkw)
         pp5, cp5 = cuda_scan.limiter_env_plain(db, e0, q0, **lkw)
-        err5 = max(err5, _max_err(pk5, pp5), *(_max_err(a, b) for a, b in zip(ck5, cp5)))
-    ms5 = _time_ms(lambda: cuda_scan.limiter_env(db, e0, q0, **lkw), 20)
-    pms5 = _time_ms(lambda: cuda_scan.limiter_env_plain(db, e0, q0, **lkw), 1)
-    record("K5", "limiter_env", "rodio_tpu_torch/csrc/limiter_env.cu",
+        err5e = max(err5e, _max_err(pk5, pp5), *(_max_err(a, b) for a, b in zip(ck5, cp5)))
+    if not err5e <= BOUND_K5:
+        raise AssertionError(f"K5 limiter_env: max|d| {err5e} exceeds {BOUND_K5}")
+    ms5 = _time_ms(lambda: cuda_scan.limiter_stream(x5, e0, q0, group_channels=2, **skw), 20)
+    ms5e = _time_ms(lambda: cuda_scan.limiter_env(db, e0, q0, **lkw), 20)
+    pms5 = _time_ms(lambda: cuda_scan.limiter_stream_plain(x5, e0, q0, group_channels=2,
+                                                           **skw), 1)
+    record("K5", "limiter_stream", "rodio_tpu_torch/csrc/limiter_env.cu",
            "rodio_tpu/ops/pallas_scan.py:389", err5, BOUND_K5, ms5, pms5,
-           2 * L * T * 4, 7 * L * T, _chain_ms(T, 3),
-           note=f" [{L}, {T}] (+ [6, 700])")
-    del db, pk5, pp5
+           2 * L * T * 4, 65 * L * T, _chain_ms(T, 3),
+           note=f" [{L}, {T}] stereo groups (+ [6, 700] mono, [12, 129] groups of 6); "
+                f"limiter_env (the envelopes alone) {ms5e:.4f} ms, max|d| {err5e:.3e}, "
+                f"roofline {_bound(2 * L * T * 4, 7 * L * T)[0]:.4f} ms")
+    del x5, db, yk5, yp5, pk5, pp5
 
     # K9: K1's chunk stream, the ring 4 tiles deep, each call reading its
     # buffer from memory (calls rotate through copies); against clone() of

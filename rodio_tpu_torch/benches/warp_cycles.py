@@ -1,35 +1,43 @@
 """Where the cycles of the port's tile pipelines go, warp by warp, on one
 CUDA card; and the kernels' times, for an A/B of two versions.
 
-    python -m rodio_tpu_torch.benches.warp_cycles [--csrc DIR] [--out FILE]
+    python -m rodio_tpu_torch.benches.warp_cycles [--csrc DIR] [--kernels K2g,K5]
+        [--out FILE]
 
 K1 (``csrc/fused.cu``), K2, K2r, K2b and K2g (``csrc/fused_agc.cu``,
-``fused_agc_blocked.cu``, ``fused_agc_group.cu``), K6 (``csrc/agc.cu``) and
-K7 (``csrc/first_order.cu``) run every warp's share of a tile between two
-barriers, so the slowest warp sets each iteration's length. This copies
-those sources into ``build/warp_cycles/``, adds a ``clock64()`` read at the
-start of each iteration and another before its barrier, builds them and
-``limiter_block.cu`` (K3, not instrumented) with the library's nvcc flags
-into a shared library of their own, and runs K1 at the main path's shape
-(512 stereo streams, one block of 12800 frames at 44.1 -> 48 kHz), each K2
-plan at path E's (the same, bf16 ring), K3 at the master bus's ([2, 12800],
-P = 128), K6 at path C's ([512, 25600]) and K7's ``agc_gain`` at path B's
-([1, 8192], and [1, 512] with ``group=8``). It first prints the card's
-one-thread latencies of a dependent FMUL/FADD and of a smoother step
-(``benches/op_latency.py``), the floors of K6's and K7's chains. For each
-tile pipeline it prints the card's first block's busy cycles per iteration
-by warp (lane 0's view) beside the iteration's whole length (kernel cycles
-over iterations) and every block's (the least, the median and the most: the
-slowest block sets the kernel's time), and for every kernel its time by CUDA events (the mean of 20 calls after
-one; K3 and K7 of 50), and for K1, K3, K6 and K7 also the mean of as many
-calls captured in one CUDA graph (the card's time without the host's
-between launches: K3 runs shorter than its call takes on the host), and
+``fused_agc_blocked.cu``, ``fused_agc_group.cu``), K5 (``csrc/limiter_env.cu``),
+K6 (``csrc/agc.cu``) and K7 (``csrc/first_order.cu``) run every warp's share
+of a tile between two barriers, so the slowest warp sets each iteration's
+length. This copies those sources into ``build/warp_cycles/``, adds a
+``clock64()`` read at the start of each iteration and another before its
+barrier, builds them, ``limiter_block.cu`` (K3) and ``bma.cu`` (K8), neither
+instrumented, with the library's nvcc flags into a shared library of their
+own, and runs K1 at the main path's shape (512 stereo streams, one block of
+12800 frames at 44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16
+ring; K2g at AG = 16, path D's, and 128), K3 at the master bus's ([2,
+12800], P = 128), K5 at path C's (``limiter_stream``, the Limit node's
+per-stream pass, on [1024, 12800] in stereo groups, and ``limiter_env``),
+K6 at path C's ([512, 25600]), K7's ``agc_gain`` at path B's ([1, 8192],
+and [1, 512] with ``group=8``) and K8 at path B's ([1, 8192], P = 128). It
+first prints the card's one-thread latencies of a dependent FMUL/FADD and of
+a smoother step (``benches/op_latency.py``), the floors of the chains. For
+each tile pipeline it prints the card's first block's busy cycles per
+iteration by warp (lane 0's view) beside the iteration's whole length
+(kernel cycles over iterations) and every block's (the least, the median and
+the most: the slowest block sets the kernel's time), and for every kernel
+its time by CUDA events (the mean of 20 calls after one; K3, K7 and K8 of
+50), and for K1, K2g, K3, K5, K6, K7 and K8 also the mean of as many calls
+captured in one CUDA graph (the card's time without the host's between
+launches: K3 and K8 run shorter than their calls take on the host), and
 K1's mix against its plain version at gains of unit scale (no 1/S), where
 the mix is largest against the rounding of its sum over blocks. The reads
 cost a few cycles an iteration; the library itself is not changed.
 ``--csrc`` takes the sources from another directory (another version of the
 kernels, for an A/B in one call): a source whose tile loop is not where
-this expects it is built as it is and timed only. Without a card it fails.
+this expects it is built as it is and timed only, and an entry point it
+lacks is taken from the library; a version without ``rt_limiter_stream``
+times the Limit node's pass as that version ran it (the gain computer and
+the coupling in torch around ``limiter_env``). Without a card it fails.
 """
 from __future__ import annotations
 
@@ -54,8 +62,8 @@ from ..sources.generators import SamplesBuffer
 
 OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
 SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu",
-           "agc.cu", "first_order.cu")
-TIMED = ("limiter_block.cu",)  # built as they are, timed only
+           "agc.cu", "first_order.cu", "limiter_env.cu")
+TIMED = ("limiter_block.cu", "bma.cu")  # built as they are, timed only
 WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
 SLOTS = WARPS + 2  # kernel's cycles
 BLOCKS = 1024  # each block's own cycles, for the first 1024 blocks
@@ -101,7 +109,8 @@ def instrument(src: str, tag: str):
 
 def build(csrc: Path):
     """The instrumented kernels of ``csrc``, built once per version of
-    their sources, and the names of the sources that were instrumented."""
+    their sources, the names of the sources that were instrumented, and
+    the entry points taken from the library (the version lacks them)."""
     texts = {name: (csrc / name).read_text() for name in SOURCES + TIMED}
     timed = {name: instrument(texts[name], name[:-3]) for name in SOURCES}
     texts.update({k: v for k, v in timed.items() if v is not None})
@@ -121,14 +130,16 @@ def build(csrc: Path):
                        check=True)
     lib = ctypes.CDLL(str(so))
     main_lib = _build.load_library()
+    borrowed = set()
     for name, argtypes in _build.SIGNATURES.items():
-        if not name.startswith(("rt_fused", "rt_limiter_master", "rt_agc",
-                                "rt_first_order")):
+        if not name.startswith(("rt_fused", "rt_limiter", "rt_agc",
+                                "rt_first_order", "rt_blocked_max_affine")):
             continue
         try:
             fn = getattr(lib, name)
         except AttributeError:  # an older version: the library's own rule
             setattr(lib, name, getattr(main_lib, name))
+            borrowed.add(name)
             continue
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -138,7 +149,7 @@ def build(csrc: Path):
             fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     lib.rt_error_string = main_lib.rt_error_string
-    return lib, instrumented
+    return lib, instrumented, borrowed
 
 
 def _time_ms(call, reps: int) -> float:
@@ -180,12 +191,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", default=str(_build.CSRC),
                     help="the kernels' sources (default: the package's)")
+    ap.add_argument("--kernels", default=None,
+                    help="run only these kernels' cases, e.g. K2g,K5 (default: all)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("warp_cycles: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    lib, instrumented = build(Path(args.csrc))
+    lib, instrumented, borrowed = build(Path(args.csrc))
     S, T, fr, to = 512, 12800, 147, 160
     L = 2 * S
     rng = np.random.default_rng(0)
@@ -246,6 +259,28 @@ def main(argv=None) -> int:
         des = f32(rng.uniform(0.5, 7.0, (1, n)))
         return lambda: cuda_scan.first_order(des, des, g7, op="agc_gain", params=p7)
 
+    # K5 at path C's shape: Limit(streams=512)'s pass over [1024, 12800]
+    # (a version without limiter_stream: its gain computer and coupling in
+    # torch around limiter_env, as the node ran it then), and limiter_env
+    x5 = f32(rng.uniform(-1, 1, (L, T)) * rng.choice([0.05, 0.6, 2.5], (L, 1)))
+    i5, q5 = f32(rng.uniform(0, 6, L)), f32(rng.uniform(0, 6, L))
+    db5 = limiter_block.limiter_gain_db(x5, lim.threshold, lim.knee_width, lim.inv_knee_8)
+    kw5 = dict(att=att, rel=rel, threshold=lim.threshold, knee_width=lim.knee_width,
+               inv_knee_8=lim.inv_knee_8, group_channels=2)
+
+    def k5_stream():
+        if "rt_limiter_stream" not in borrowed:
+            return cuda_scan.limiter_stream(x5, i5, q5, **kw5)
+        db = limiter_block.limiter_gain_db(x5, lim.threshold, lim.knee_width,
+                                           lim.inv_knee_8)
+        peak, _ = cuda_scan.limiter_env(db, i5, q5, att=att, rel=rel)
+        return cuda_scan.limiter_couple_gain(x5, peak, q5, 2)
+
+    # K8, the AGC's peak detector, at path B's shape, its coefficient on the
+    # card (as the node passes it)
+    x8 = f32(np.abs(rng.standard_normal((1, 8192)) * 0.3))
+    v8, a8 = f32([0.4]), p6[1]
+
     # (kernel, label, call, instrumented source or None, reps)
     cases = [("K1", "C=2", lambda: fused.fused_resample_biquad_mix(
                   pcm, left, wts, channels=2, **kw), "fused", 20),
@@ -257,7 +292,16 @@ def main(argv=None) -> int:
              ("K3", f"[2, {T}] P={P3}", k3_call, None, 50),
              ("K6", f"[{S}, {2 * T}]", lambda: cuda_scan.agc(xs6, d6, *c6, p6), "agc", 20),
              ("K7", "agc_gain [1, 8192]", k7_call(8192), "first_order", 50),
-             ("K7", "agc_gain [1, 512]", k7_call(512), "first_order", 50)]
+             ("K7", "agc_gain [1, 512]", k7_call(512), "first_order", 50),
+             ("K5", f"limiter_stream [{L}, {T}] stereo groups", k5_stream, "limiter_env",
+              20),
+             ("K5", f"limiter_env [{L}, {T}]",
+              lambda: cuda_scan.limiter_env(db5, i5, q5, att=att, rel=rel), "limiter_env", 20),
+             ("K2g", "agc_group=128", agc_call("serial", 128), "fused_agc_group", 20),
+             ("K8", "[1, 8192] P=128", lambda: limiter_block.blocked_max_affine_const(
+                 x8, v8, a8, P=128), None, 50)]
+    if args.kernels:
+        cases = [c for c in cases if c[0] in args.kernels.split(",")]
     # K1 at gains of unit scale, n = 1280
     kw_unit = dict(kw, gains=f32(rng.uniform(0.1, 1.0, L)), channels=2)
     left_u, phase_u = output_positions(4 * to, 1280, fr, to, dev)
@@ -296,7 +340,7 @@ def main(argv=None) -> int:
                              **row["block_cycles_per_iteration"]) + ", ".join(
                              f"{w}: {v:.0f}"
                              for w, v in row["warp_busy_per_iteration"].items()))
-            if kid in ("K1", "K3", "K6", "K7"):
+            if kid in ("K1", "K2g", "K3", "K5", "K6", "K7", "K8"):
                 row["graph_ms"] = _graph_ms(call, reps)
                 line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
             res["cases"].append(row)

@@ -1,10 +1,12 @@
-// The tiled chain pipeline shared by K6 (agc.cu) and K7 (first_order.cu).
+// The tiled chain pipeline shared by K5 (limiter_env.cu), K6 (agc.cu) and
+// K7 (first_order.cu).
 //
-// A block owns kBL = 4 lanes of row-major [L, T] arrays (a ragged L ends on
-// a block of fewer) and walks time in tiles of kTile = 128 steps. A tile of
-// one input sits in shared memory as Rows: a row of steps per lane, the
-// rows kLd floats apart, so that they are 16-byte aligned and the four
-// lanes' rows start on different banks. Around the serial chains:
+// A block owns a few lanes of row-major [L, T] arrays (K6 and K7 kBL = 4,
+// K5 whole channel groups; a ragged L ends on a block of fewer) and walks
+// time in tiles of kTile = 128 steps. A tile of one input sits in shared
+// memory as a row of steps per lane, the rows kLd floats apart, so that
+// they are 16-byte aligned and neighbouring lanes' rows start on different
+// banks (Rows: kBL of them). Around the serial chains:
 //
 // - copy warps stage a tile's rows with cp.async (copy_rows), tiles ahead
 //   of their use: 16 bytes a copy where T % 4 == 0 and the array is 16-byte
@@ -15,10 +17,7 @@
 //   compile-time length (full_or_tail: rt::Steps<kTile>), with no per-step
 //   test, and only a tail tile tests each step;
 // - a tile's outputs leave from its staged rows, stored coalesced
-//   (store_rows).
-//
-// lane_pipeline.cuh (32 lanes a block, 32-step tiles filled one tile ahead
-// by plain loads, one thread running every step) stays K5's.
+//   (store_rows), or are computed from them and stored coalesced.
 #pragma once
 
 #include <type_traits>
@@ -27,7 +26,7 @@
 
 namespace rt::chain {
 
-constexpr int kBL = 4;          // lanes a block
+constexpr int kBL = 4;          // lanes a block of K6 and K7
 constexpr int kTile = 128;      // steps a tile
 constexpr int kHalf = 64;       // steps a chain thread holds in registers, by default
 constexpr int kLd = kTile + 4;  // a staged row's stride: 16-byte rows, 4 banks apart
@@ -77,50 +76,70 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stages steps t0 .. t0 + tt - 1 of rows lane0 .. lane0 + nl - 1 of src
-// ([L, T]) into dst[l][0 .. tt - 1], as thread sub of nsub copy threads.
-// vec: T % 4 == 0 and src 16-byte aligned (t0 is a multiple of kTile, so
-// every 16-byte piece of a row lies inside it).
+// ([L, T]) into row l (dst + l * kLd) of a tile of nb >= nl lanes, as
+// thread sub of nsub copy threads. vec: T % 4 == 0 and src 16-byte aligned
+// (t0 is a multiple of kTile, so every 16-byte piece of a row lies inside
+// it).
+__device__ __forceinline__ void copy_lanes(float* dst,
+                                           const float* __restrict__ src,
+                                           long long lane0, int nb, int nl,
+                                           long long T, long long t0, int tt,
+                                           bool vec, int sub, int nsub) {
+  const float* s = src + lane0 * T + t0;
+  if (vec) {
+    for (int e = sub; e < nb * (kTile / 4); e += nsub) {
+      const int l = e / (kTile / 4), q = e % (kTile / 4);
+      if (l < nl && 4 * q < tt) cp_async16(dst + l * kLd + 4 * q, s + l * T + 4 * q);
+    }
+  } else {
+    for (int e = sub; e < nb * kTile; e += nsub) {
+      const int l = e / kTile, t = e % kTile;
+      if (l < nl && t < tt) cp_async4(dst + l * kLd + t, s + l * T + t);
+    }
+  }
+}
+
+// copy_lanes into one input's Rows of kBL lanes
 __device__ __forceinline__ void copy_rows(Rows& dst,
                                           const float* __restrict__ src,
                                           long long lane0, int nl,
                                           long long T, long long t0, int tt,
                                           bool vec, int sub, int nsub) {
-  const float* s = src + lane0 * T + t0;
+  copy_lanes(dst[0], src, lane0, kBL, nl, T, t0, tt, vec, sub, nsub);
+}
+
+// Stores row l (src + l * kLd) of a tile of nb >= nl lanes, steps
+// 0 .. tt - 1, to steps t0 .. t0 + tt - 1 of row lane0 + l (l < nl) of dst
+// ([L, T]), as thread sub of nsub; neighbouring threads store neighbouring
+// steps. vec as copy_lanes's, for dst.
+__device__ __forceinline__ void store_lanes(float* __restrict__ dst,
+                                            const float* src, long long lane0,
+                                            int nb, int nl, long long T,
+                                            long long t0, int tt, bool vec,
+                                            int sub, int nsub) {
+  float* d = dst + lane0 * T + t0;
   if (vec) {
-    for (int e = sub; e < kBL * (kTile / 4); e += nsub) {
+    for (int e = sub; e < nb * (kTile / 4); e += nsub) {
       const int l = e / (kTile / 4), q = e % (kTile / 4);
-      if (l < nl && 4 * q < tt) cp_async16(&dst[l][4 * q], s + l * T + 4 * q);
+      if (l < nl && 4 * q < tt)
+        *reinterpret_cast<float4*>(d + l * T + 4 * q) =
+            *reinterpret_cast<const float4*>(src + l * kLd + 4 * q);
     }
   } else {
-    for (int e = sub; e < kBL * kTile; e += nsub) {
+    for (int e = sub; e < nb * kTile; e += nsub) {
       const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) cp_async4(&dst[l][t], s + l * T + t);
+      if (l < nl && t < tt) d[l * T + t] = src[l * kLd + t];
     }
   }
 }
 
-// Stores src[l][0 .. tt - 1] to steps t0 .. t0 + tt - 1 of rows lane0 + l
-// (l < nl) of dst ([L, T]), as thread sub of nsub; neighbouring threads
-// store neighbouring steps. vec as copy_rows's, for dst.
+// store_lanes from one input's Rows of kBL lanes
 __device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const Rows& src, long long lane0,
                                            int nl, long long T, long long t0,
                                            int tt, bool vec, int sub,
                                            int nsub) {
-  float* d = dst + lane0 * T + t0;
-  if (vec) {
-    for (int e = sub; e < kBL * (kTile / 4); e += nsub) {
-      const int l = e / (kTile / 4), q = e % (kTile / 4);
-      if (l < nl && 4 * q < tt)
-        *reinterpret_cast<float4*>(d + l * T + 4 * q) =
-            *reinterpret_cast<const float4*>(&src[l][4 * q]);
-    }
-  } else {
-    for (int e = sub; e < kBL * kTile; e += nsub) {
-      const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) d[l * T + t] = src[l][t];
-    }
-  }
+  store_lanes(dst, src[0], lane0, kBL, nl, T, t0, tt, vec, sub, nsub);
 }
 
 // A lane's recurrence over a tile of tt steps: H steps at a time, v[k][u]

@@ -27,174 +27,25 @@
 // read, 4 B per input frame per lane (~48 MB a block at 1024 lanes), takes
 // ~15 us at full bandwidth.
 //
-// Design (K2's block shape and warp roles, fused_agc_common.cuh): a block
-// owns kBL = 8 lanes of whole streams (kBL / C * C lanes; one stream of C
-// lanes for C > 8), so 128 blocks for 1024 lanes, and walks time in tiles
-// of 128 frames through a three-stage pipeline, one __syncthreads a tile.
-// Warp 0 runs the IIR half alone on SMSP 0 (warps 4, 8 and 12 idle); the
-// other 12 warps are elementwise, four on each of SMSPs 1-3. At iteration
-// i:
-//
-//   fill warps (1-3, 5-7, 9, 10): tile i's gained lerp and FIR half u, a
-//                           run of 4 frames of one lane per thread (and the
-//                           run's two frames before it), stored 16 bytes at
-//                           a time
-//   copy warps (11, 13):    the asynchronous copy (cp.async, 16 bytes at a
-//                           time where the rows allow) of the range of PCM
-//                           rows that tile i+2 reads into shared memory;
-//                           the row indices and weights of tile i+3 into
-//                           shared memory, and of tile i+4 into registers
-//   mix warps (14, 15):     tile i-2's streams summed per (channel, frame)
-//                           into per-block partials
-//   warp 0:                 the IIR half y of tile i-1, one thread per lane
-//
-// A tile's frames read a short run of consecutive PCM rows (the 44.1 ->
-// 48 kHz ratio moves left by 0 or 1 a frame), so a tile's rows are copied
-// once, as a range, two iterations ahead, and the fill reads its two taps
-// from shared memory; a frame whose rows lie outside the staged range (a
-// ratio that moves further, or rows out of order) loads them from global
-// memory itself. Warp 0 keeps half a tile of its lane in registers at a
-// time, loaded and stored 16 bytes at a time (its tile rows are
-// lane-major), so its chain runs with no per-step test and no load inside. The x history
-// (v1, v2) crosses tiles through a small array and comes from bq[0:2] at
-// the block's start. A second kernel sums the partials over blocks in
-// block order, in f64, a batch of loads in flight at a time: the mix is
+// Design (fused_front.cuh, K2's block shape and warp roles): a block owns
+// kBL = 8 lanes of whole streams and walks time in tiles of 128 frames
+// through a three-stage pipeline, one __syncthreads a tile. The front end's
+// fill warps run the gained lerp and the FIR half of tile i, its copy warps
+// stage PCM rows two tiles ahead, warp 0 runs the IIR half of tile i-1,
+// and the mix warps (14, 15) sum tile i-2's streams per (channel, frame)
+// into per-block partials. A second kernel sums the partials over blocks
+// in block order, in f64, a batch of loads in flight at a time: the mix is
 // deterministic, with no float atomics. Every op rounds alone.
-#include "fused_agc_common.cuh"
+#include "fused_front.cuh"
 
 namespace {
 
-using rt::fused_agc::kBL;
-using rt::fused_agc::kWhole;
-using rt::fused_agc::Row;
-using U64 = unsigned long long;
+using namespace rt::front;
 
-constexpr int kMaxLB = 32;          // lanes of one block at most
-constexpr int kThreads1 = 16 * 32;  // warp 0 IIR; warps 4, 8, 12 idle
-// the elementwise warps' groups: threads of each
-constexpr int kFill = 8 * 32, kCopy = 2 * 32, kMix = 2 * 32;
-constexpr int kTile = 128;          // frames of a tile
-constexpr int kHalf = 64;           // frames warp 0 holds in registers at once
-constexpr int kRun = 4;             // frames of a fill thread's run
-constexpr int kRuns = kTile / kRun;
-constexpr int kRowBufs = 4;    // staged row indices: tiles i .. i+3
-constexpr int kPcmBufs = 3;    // staged PCM rows: tiles i .. i+2
 constexpr int kYBufs = 3;      // y tiles: i, i-1, i-2
 constexpr int kDepth = 2;      // iterations from a tile's fill to its mix
-constexpr int kMaxRows = 192;  // PCM rows a tile stages (44.1 -> 48 kHz: <= 120)
-constexpr int kStageRows = kTile / kCopy;  // row indices a copy thread stages
-constexpr int kYLd = kTile + 4;  // a y tile's row stride: 16-byte rows, 4 banks apart
 
-// lanes per block for C channels: whole streams, kBL lanes where C <= kBL
-__host__ __device__ constexpr int block_lanes(int C) {
-  return C <= kBL ? kBL / C * C : C;
-}
-
-// the elementwise group (0 fill, 1 copy, 2 mix) of a warp and its thread
-// index in the group; warp 0 and the idle warps give -1. Each of SMSPs 1-3
-// gets four: fill warps 1-3, 5-7, 9 and 10, copy warps 11 and 13, mix
-// warps 14 and 15.
-__device__ __forceinline__ int work_group(int warp, int wl, int& gsub) {
-  const int slot = warp - warp / 4 - 1;
-  if (warp % 4 == 0) return -1;
-  if (slot < kFill / 32) {
-    gsub = slot * 32 + wl;
-    return 0;
-  }
-  if (slot < (kFill + kCopy) / 32) {
-    gsub = slot * 32 + wl - kFill;
-    return 1;
-  }
-  gsub = slot * 32 + wl - kFill - kCopy;
-  return 2;
-}
-
-// Dynamic shared memory for LB lanes: the staged rows, kYBufs y tiles of
-// [LB][kYLd] (one row of frames per lane), kPcmBufs PCM row ranges of
-// [kMaxRows][LB], and the x history and last values ([2][kMaxLB] each).
-struct Layout {
-  size_t y, pcm, hist, last, bytes;  // float offsets; total bytes
-};
-
-__host__ __device__ inline Layout layout(int LB) {
-  Layout s;
-  s.y = sizeof(Row) * kRowBufs * kTile / sizeof(float);
-  s.pcm = s.y + (size_t)kYBufs * LB * kYLd;
-  s.hist = s.pcm + (size_t)kPcmBufs * kMaxRows * LB;
-  s.last = s.hist + 2 * 2 * kMaxLB;
-  s.bytes = (s.last + 2 * kMaxLB) * sizeof(float);
-  return s;
-}
-
-// cp.async of N bytes; src-size 0 fills them with zeros (a row past the PCM)
-template <int N>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int tile_len(int n, int i) {
-  return min(kTile, n - i * kTile);
-}
-
-// run(tt) for a tile of tt frames: a whole tile runs with tt a
-// compile-time kTile, so its copy of run has no per-step test
-template <class Run>
-__device__ __forceinline__ void full_or_tail(int tt, Run run) {
-  if (tt == kTile)
-    run(rt::Steps<kTile>{});
-  else
-    run(tt);
-}
-
-// The IIR half along a lane's row of a tile, y over u in place: kHalf
-// frames at a time in registers, loaded and stored 16 bytes at a time, so
-// that the chain's steps are all the loop issues.
-template <class TT>
-__device__ __forceinline__ void iir_row(float* b, TT tt, float a1, float a2,
-                                        float& y1, float& y2) {
-#pragma unroll 1
-  for (int h = 0; h < kTile; h += kHalf) {
-    float4* b4 = reinterpret_cast<float4*>(b + h);
-    float v[kHalf];
-#pragma unroll
-    for (int q = 0; q < kHalf / 4; ++q) {
-      const float4 f = b4[q];
-      v[4 * q] = f.x;
-      v[4 * q + 1] = f.y;
-      v[4 * q + 2] = f.z;
-      v[4 * q + 3] = f.w;
-    }
-#pragma unroll
-    for (int u = 0; u < kHalf; ++u) {
-      if (kWhole<TT> || h + u < tt) {
-        const float yt = rt::sub(rt::sub(v[u], rt::mul(a1, y1)), rt::mul(a2, y2));
-        y2 = y1;
-        y1 = yt;
-        v[u] = yt;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kHalf / 4; ++q)
-      b4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads1, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_kernel(const float* __restrict__ pcm, long long F, int L,
              const long long* __restrict__ left,
              const float2* __restrict__ wts, const float* __restrict__ gains,
@@ -202,192 +53,37 @@ fused_kernel(const float* __restrict__ pcm, long long F, int L,
              float* __restrict__ bq_out, float* __restrict__ partial, int n,
              int C) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int LB = block_lanes(C);
-  const Layout lay = layout(LB);
-  Row* rows = reinterpret_cast<Row*>(smem);
-  float* Y = smem + lay.y;
-  float* PR = smem + lay.pcm;
-  float* hist = smem + lay.hist;  // [buffer][x2, x1][lane]
-  float* last = smem + lay.last;  // [x1, x2][lane] of the latest tile
+  const Front fe(reinterpret_cast<float*>(smem4), pcm, F, L, left, wts, n,
+                 block_lanes(C), kYBufs);
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int lane0 = blockIdx.x * LB;
-  const int nl = min(LB, L - lane0);  // whole streams: C divides L and LB
-  const int ns = nl / C;
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int ns = fe.nl / C;
   const rt::BiquadCoef cf = rt::load_coef(coef);
-  auto y_tile = [&](int j) { return Y + (j % kYBufs) * LB * kYLd; };
-  auto rows_of = [&](int j) { return rows + (j % kRowBufs) * kTile; };
-  auto pcm_of = [&](int j) { return PR + (j % kPcmBufs) * kMaxRows * LB; };
-  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
-  auto stage_rows = [&](int i, int t, Row& r) {  // tile i's frame t
-    const int tc = i * kTile + min(t, tile_len(n, i) - 1);
-    r.left = left[tc];
-    r.w = wts[tc];
-  };
-  // the first PCM row tile i stages and how many (rows left[0] .. left[tt
-  // - 1] + 1, at most kMaxRows; none if they run backwards)
-  auto row_range = [&](int i, long long& r0) {
-    const Row* r = rows_of(i);
-    r0 = r[0].left;
-    const long long span = r[tile_len(n, i) - 1].left + 2 - r0;
-    return (int)max(0LL, min(span, (long long)kMaxRows));
-  };
 
   float y1 = 0.f, y2 = 0.f;
-  if (warp == 0 && wl < nl) {
-    y1 = bq_in[2 * L + lane0 + wl];
-    y2 = bq_in[3 * L + lane0 + wl];
+  if (warp == 0 && wl < fe.nl) {
+    y1 = bq_in[2 * L + fe.lane0 + wl];
+    y2 = bq_in[3 * L + fe.lane0 + wl];
   }
-  if (tid < nl) {  // tile 0's history: x2 (frame -2), x1 (frame -1)
-    hist[tid] = bq_in[1 * L + lane0 + tid];
-    hist[kMaxLB + tid] = bq_in[0 * L + lane0 + tid];
-  }
-  for (int e = tid; e < 3 * kTile; e += kThreads1) {
-    const int i = e / kTile;
-    if (live(i)) {
-      Row r;
-      stage_rows(i, e % kTile, r);
-      rows_of(i)[e % kTile] = r;
-    }
-  }
-
   int gsub = 0;  // the thread's index in its group
   const int group = work_group(warp, wl, gsub);
-  const float gain0 = group == 0 ? gains[lane0 + min(gsub % LB, nl - 1)] : 0.f;
-  // the copies of tile i's PCM row range into shared memory, 16 bytes at a
-  // time where the block's rows are 16-byte aligned
-  const bool vec = nl == LB && LB % 4 == 0 && L % 4 == 0 && ((U64)pcm & 15) == 0;
-  auto copy_tile = [&](int i) {
-    long long r0;
-    const int span = row_range(i, r0);
-    float* dst = pcm_of(i);
-    if (vec) {
-      const int per = LB / 4;
-      for (int e = gsub; e < span * per; e += kCopy) {
-        const int k = e / per, q = e - k * per;
-        const U64 r = (U64)(r0 + k);
-        cp_async<16>(dst + k * LB + 4 * q,
-                     pcm + min(r, (U64)F - 1) * L + lane0 + 4 * q, r < (U64)F);
-      }
-    } else {
-      for (int e = gsub; e < span * LB; e += kCopy) {
-        const int k = e / LB, l = e - k * LB;
-        const U64 r = (U64)(r0 + k);
-        cp_async<4>(dst + e, pcm + min(r, (U64)F - 1) * L + lane0 + min(l, nl - 1),
-                    r < (U64)F && l < nl);
-      }
-    }
-  };
+  const float gain0 =
+      group == 0 ? gains[fe.lane0 + min(gsub % fe.LB, fe.nl - 1)] : 0.f;
   Row next[kStageRows];  // a copy thread's rows of the tile staged next
-  if (group == 1 && live(3))
-    for (int k = 0; k < kStageRows; ++k) stage_rows(3, gsub + k * kCopy, next[k]);
-  __syncthreads();
-  if (group == 1) {
-    if (live(0)) copy_tile(0);
-    cp_async_commit();
-    if (live(1)) copy_tile(1);
-    cp_async_commit();
-    cp_async_wait_prior();
-  }
-  __syncthreads();
+  fe.start(bq_in, group, gsub, next);
 
-  for (int it = 0; it < n_tiles + kDepth; ++it) {
+  for (int it = 0; it < fe.n_tiles + kDepth; ++it) {
     if (warp == 0) {
-      const int j = it - 1;
-      if (live(j) && wl < nl) {
-        float* b = y_tile(j) + wl * kYLd;
-        full_or_tail(tile_len(n, j), [&](auto tt) {
-          iir_row(b, tt, cf.a1, cf.a2, y1, y2);
-        });
-      }
+      fe.iir(it, wl, cf, y1, y2);
     } else if (group == 0) {
-      // tile it's lerp and FIR half, a run of kRun frames of one lane
-      if (live(it)) {
-        const int tt = tile_len(n, it);
-        const Row* r = rows_of(it);
-        long long r0;
-        const int span = row_range(it, r0);
-        const float* xs = pcm_of(it);
-        const float* hin = hist + (it & 1) * 2 * kMaxLB;
-        float* hout = hist + ((it + 1) & 1) * 2 * kMaxLB;
-        float* y = y_tile(it);
-        for (int pr = gsub; pr < kRuns * LB; pr += kFill) {
-          const int l = pr % LB, t0 = pr / LB * kRun;
-          if (l >= nl) continue;
-          const float g = pr == gsub ? gain0 : gains[lane0 + l];
-          // frames t0 - 2 .. t0 + kRun - 1: first every row index, then
-          // every tap (all from the staged rows unless one lies outside),
-          // then the lerps; a frame before the tile takes the history
-          Row rw[kRun + 2];
-#pragma unroll
-          for (int k = 0; k < kRun + 2; ++k) rw[k] = r[min(max(t0 - 2 + k, 0), tt - 1)];
-          int kr[kRun + 2];
-          bool staged = true;
-#pragma unroll
-          for (int k = 0; k < kRun + 2; ++k) {
-            const long long d = rw[k].left - r0;
-            staged = staged && d >= 0 && d + 1 < span;
-            kr[k] = (int)d;
-          }
-          float xl[kRun + 2], xr[kRun + 2];
-          if (staged) {
-#pragma unroll
-            for (int k = 0; k < kRun + 2; ++k) {
-              xl[k] = xs[kr[k] * LB + l];
-              xr[k] = xs[(kr[k] + 1) * LB + l];
-            }
-          } else {  // a row outside the staged range: from global memory
-#pragma unroll
-            for (int k = 0; k < kRun + 2; ++k) {
-              const U64 r1 = (U64)rw[k].left, lane = lane0 + l;
-              xl[k] = r1 < (U64)F ? pcm[r1 * L + lane] : 0.f;
-              xr[k] = r1 + 1 < (U64)F ? pcm[(r1 + 1) * L + lane] : 0.f;
-            }
-          }
-          float v[kRun + 2];
-#pragma unroll
-          for (int k = 0; k < kRun + 2; ++k) {
-            const float vk = rt::mul(
-                rt::add(rt::mul(xl[k], rw[k].w.x), rt::mul(xr[k], rw[k].w.y)), g);
-            v[k] = k < 2 && t0 == 0 ? hin[(k & 1) * kMaxLB + l] : vk;
-          }
-          float u[kRun];
-#pragma unroll
-          for (int k = 0; k < kRun; ++k)
-            u[k] = rt::add(rt::add(rt::mul(cf.b0, v[k + 2]), rt::mul(cf.b1, v[k + 1])),
-                           rt::mul(cf.b2, v[k]));
-          *reinterpret_cast<float4*>(y + l * kYLd + t0) = make_float4(u[0], u[1], u[2], u[3]);
-          if (t0 + kRun == kTile) {  // the next tile's history
-            hout[l] = v[kRun];
-            hout[kMaxLB + l] = v[kRun + 1];
-          }
-#pragma unroll
-          for (int k = 0; k < kRun + 2; ++k) {  // the tile's last two v
-            const int t = t0 - 2 + k;
-            if (t >= t0 || t0 == 0) {
-              if (t == tt - 1) last[l] = v[k];
-              if (t == tt - 2) last[kMaxLB + l] = v[k];
-            }
-          }
-        }
-      }
+      fe.fill<true>(it, gsub, gains, gain0, cf);
     } else if (group == 1) {
-      // the row indices of tile it+3 (loaded an iteration ago) and of tile
-      // it+4 (into registers), and the PCM rows of tile it+2
-      if (live(it + 3))
-        for (int k = 0; k < kStageRows; ++k) rows_of(it + 3)[gsub + k * kCopy] = next[k];
-      if (live(it + 4))
-        for (int k = 0; k < kStageRows; ++k) stage_rows(it + 4, gsub + k * kCopy, next[k]);
-      if (live(it + 2)) copy_tile(it + 2);
-      cp_async_commit();
-      cp_async_wait_prior();  // tile it+1's copies have landed
-    } else if (group == 2 && live(it - 2)) {
+      fe.copy_step(it, gsub, next, [] {});
+    } else if (group == 2 && fe.live(it - 2)) {
       // this block's streams of tile it-2 summed per (channel, frame), in
       // stream order, four frames a thread (16-byte loads, and stores
       // where the partials' rows allow)
       const int j = it - 2, tt = tile_len(n, j);
-      const float* y = y_tile(j);
+      const float* y = fe.y_tile(j);
       for (int e = gsub; e < C * (kTile / 4); e += kMix) {
         const int c = e / (kTile / 4), t = e % (kTile / 4) * 4;
         if (t < tt) {
@@ -410,12 +106,7 @@ fused_kernel(const float* __restrict__ pcm, long long F, int L,
     __syncthreads();
   }
 
-  if (warp == 0 && wl < nl) {
-    bq_out[0 * L + lane0 + wl] = last[wl];
-    bq_out[1 * L + lane0 + wl] = last[kMaxLB + wl];
-    bq_out[2 * L + lane0 + wl] = y1;
-    bq_out[3 * L + lane0 + wl] = y2;
-  }
+  if (warp == 0) fe.finish(bq_out, wl, y1, y2);
 }
 
 // out[i] = sum over blocks b (in order) of partial[b * cn + i], kSumBatch
@@ -445,6 +136,13 @@ __global__ void mix_partials_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
+cudaError_t rt::front::sum_partials(const float* partial, float* out, int nblk,
+                                    long long cn, cudaStream_t s) {
+  mix_partials_kernel<<<(unsigned)((cn + 255) / 256), 256, 0, s>>>(
+      partial, out, nblk, cn);
+  return cudaGetLastError();
+}
+
 // lanes per block for C channels: partial holds [ceil(L / this), C, n]
 extern "C" int rt_fused_block_lanes(int C) { return block_lanes(C); }
 
@@ -459,19 +157,16 @@ extern "C" int rt_fused_resample_biquad_mix(
   const int nblk = (L + LB - 1) / LB;
   if (nblk == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t shmem = layout(LB).bytes;
+  const size_t shmem = layout(LB, kYBufs).bytes;
   if (shmem > 48 * 1024) {  // more than the default needs opting in
     const cudaError_t err = cudaFuncSetAttribute(
         fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_kernel<<<nblk, kThreads1, shmem, s>>>(
+  fused_kernel<<<nblk, kThreads, shmem, s>>>(
       pcm, F, L, left, reinterpret_cast<const float2*>(wts), gains, coef,
       bq_in, bq_out, partial, n, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long cn = (long long)C * n;
-  mix_partials_kernel<<<(unsigned)((cn + 255) / 256), 256, 0, s>>>(
-      partial, out, nblk, cn);
-  return (int)cudaGetLastError();
+  return (int)rt::front::sum_partials(partial, out, nblk, (long long)C * n, s);
 }

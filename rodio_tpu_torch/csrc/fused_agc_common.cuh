@@ -1,7 +1,7 @@
-// What K2's serial plan (fused_agc.cu) and its group branch
-// (fused_agc_group.cu) share: the block's shape, the warps' roles, the
-// staged lerp rows, the ring's rounding, the biquad warp's column walk and
-// the sum of the blocks' mix partials in order.
+// What K2's plans (fused_agc.cu, fused_agc_blocked.cu) share: the block's
+// shape, the warps' roles, the staged lerp rows, the ring's rounding (K2g's
+// too, fused_agc_group.cu, which runs on K1's front end), the biquad warp's
+// column walk and the sum of the blocks' mix partials in order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,7 +9,8 @@
 #include <type_traits>
 
 #include "agc_math.cuh"
-#include "lane_pipeline.cuh"
+#include "biquad_pipeline.cuh"  // rt::kTile, rt::tile_len
+#include "lane_pipeline.cuh"    // rt::Steps
 
 namespace rt::fused_agc {
 

@@ -69,16 +69,10 @@ inline size_t d_floats(int T, int P) {
   return (size_t)2 * (P / cluster_blocks(P)) * chunk_ld(T / P);
 }
 
-// soft-knee gain computer (rodio_tpu/effects/limit.py limiter_gain_db)
+// soft-knee gain computer (precise_math.cuh)
 __device__ __forceinline__ float gain_db(float x, const LimParams& pr) {
-  using namespace rt;
-  const float bias = sub(mul(log2_precise(add(fabsf(x), TINY)), pr.log2_to_db),
-                         pr.threshold);
-  const float kb = mul(bias, 2.0f);
-  const float xk = add(kb, pr.knee_width);
-  const float quad = mul(mul(xk, xk), pr.inv_knee_8);
-  return kb < -pr.knee_width ? 0.0f
-                             : (fabsf(kb) <= pr.knee_width ? quad : bias);
+  return rt::soft_knee_db(x, pr.threshold, pr.knee_width, pr.inv_knee_8,
+                          pr.log2_to_db);
 }
 
 // f(ql, t, xi) for sample t of every local chunk ql < nq of the block

@@ -75,6 +75,20 @@ __device__ __forceinline__ float log2_precise(float x) {
   return x > 0.0f ? res : __int_as_float(0xff800000);  // -inf
 }
 
+// the limiter's soft-knee gain computer in dB (src/source/limit.rs:854-873;
+// ops/limiter_block.py limiter_gain_db's op order), for K3 and K5
+__device__ __forceinline__ float soft_knee_db(float x, float threshold,
+                                              float knee_width,
+                                              float inv_knee_8,
+                                              float log2_to_db) {
+  const float bias =
+      sub(mul(log2_precise(add(fabsf(x), TINY)), log2_to_db), threshold);
+  const float kb = mul(bias, 2.0f);
+  const float xk = add(kb, knee_width);
+  const float quad = mul(mul(xk, xk), inv_knee_8);
+  return kb < -knee_width ? 0.0f : (fabsf(kb) <= knee_width ? quad : bias);
+}
+
 struct BiquadCoef {
   float b0, b1, b2, a1, a2;
 };

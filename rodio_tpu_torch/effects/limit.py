@@ -13,12 +13,15 @@ limiter, on a CUDA tensor; on a CPU tensor ``"pallas"`` runs K3's plain
 version (the blocked order), as the JAX node's interpret run does, and
 ``"auto"`` the sequential envelopes, as the JAX package does off the TPU.
 Every other case (``streams`` > 1, mono or multichannel input, a block
-with P < 8, and ``mode="exact"`` on any input) runs the sequential
-envelopes through :func:`ops.cuda_scan.limiter_env`: kernel K5 on a CUDA
-tensor, which is the same recurrence in the same op order, so ``"exact"``
-runs it too, as ``BltFilter`` runs K4; its plain version, the sequential
-scans, on a CPU tensor. The coupling within each group of channels and the
-gain stay torch ops, as in the JAX node.
+with P < 8, and ``mode="exact"`` on any input) runs the whole limiter
+through :func:`ops.cuda_scan.limiter_stream`: on a CUDA tensor kernel K5,
+which computes the gain in dB, runs the sequential envelopes in the same
+recurrence and op order as the scans of ``"exact"`` (so ``"exact"`` runs
+it too, as ``BltFilter`` runs K4), couples the gain within each group of
+channels and applies it, in one pass; on a CPU tensor its plain version,
+the JAX node's torch ops and sequential scans. On the card a group wider
+than 32 channels runs its envelopes alone on K5 (``limiter_env``), the
+rest in torch.
 """
 from __future__ import annotations
 
@@ -28,11 +31,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.math import db_to_linear, duration_to_coefficient
+from ..core.math import duration_to_coefficient
 from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
-from ..ops.cuda_scan import limiter_env
-from ..ops.limiter_block import limiter_gain_db, limiter_master
+from ..ops.cuda_scan import limiter_stream
+from ..ops.limiter_block import limiter_master
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,28 +131,9 @@ class Limit(Node):
                 att=self.attack, rel=self.release, threshold=self.threshold,
                 knee_width=self.knee_width, inv_knee_8=self.inv_knee_8, P=P)
             return {"in": s, "integ": integ, "peak": peak}, mask_block(y, valid), valid
-        db = limiter_gain_db(x, self.threshold, self.knee_width, self.inv_knee_8)
-        peak, (integ_c, peak_c) = limiter_env(
-            db, state["integ"], state["peak"], att=self.attack, rel=self.release)
-
-        c = self.spec.channels
-        cg = c // self.streams
-        if cg == 1:
-            max_peak = peak  # per-channel groups: no coupling
-        else:
-            # within each group: fresh peaks for channels <= c, previous-
-            # frame peaks for channels > c
-            peak_prev = torch.cat([state["peak"][:, None], peak[:, :-1]], dim=1)
-            pg = peak.reshape(self.streams, cg, n)
-            sg = peak_prev.reshape(self.streams, cg, n)
-            fresh_cummax = torch.cummax(pg, dim=1).values
-            stale_sufmax = torch.flip(
-                torch.cummax(torch.flip(sg, [1]), dim=1).values, [1])
-            stale_above = torch.cat(
-                [stale_sufmax[:, 1:],
-                 torch.full((self.streams, 1, n), -float("inf"),
-                            dtype=x.dtype, device=x.device)], dim=1)
-            max_peak = torch.maximum(fresh_cummax, stale_above).reshape(c, n)
-
-        y = mask_block(x * db_to_linear(-max_peak), valid)
-        return {"in": s, "integ": integ_c, "peak": peak_c}, y, valid
+        y, (integ_c, peak_c) = limiter_stream(
+            x, state["integ"], state["peak"], att=self.attack, rel=self.release,
+            threshold=self.threshold, knee_width=self.knee_width,
+            inv_knee_8=self.inv_knee_8,
+            group_channels=self.spec.channels // self.streams)
+        return {"in": s, "integ": integ_c, "peak": peak_c}, mask_block(y, valid), valid

@@ -59,6 +59,11 @@ SIGNATURES = {
     # db, integ0, peak0, peak_out, carry_out, L, T, att, rel, 1-att, 1-rel,
     # stream
     "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),
+    # x, integ0, peak0, y, carry_out, L, T, channels per group, att, rel,
+    # 1-att, 1-rel, threshold, knee_width, inv_knee_8, log2->dB scale,
+    # dB->log2 scale, stream
+    "rt_limiter_stream": (P, P, P, P, P, I, LL, I, F, F, F, F, F, F, F, F, F,
+                          P),
     # xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, stream
     "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
     # a, b, c, init, params, y, L, T, op, stream
@@ -93,6 +98,9 @@ SIGNATURES = {
     # C; returns K1's lanes per block for C channels (its partials' row
     # count is ceil(L / that)), not an error code
     "rt_fused_block_lanes": (I,),
+    # no arguments; returns the most channels a group of rt_limiter_stream
+    # may have, not an error code
+    "rt_limiter_stream_max_group": (),
     # T, P; returns the floats of global scratch K3 needs (0: none, it
     # stages [2, T] in shared memory), not an error code
     "rt_limiter_master_scratch_floats": (I, I),

@@ -2,7 +2,9 @@
 
 - :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad.
 - :func:`limiter_env` (K5, ``csrc/limiter_env.cu``): the limiter's two
-  envelope recurrences.
+  envelope recurrences; :func:`limiter_stream`, the same kernel with the
+  ``Limit`` node's gain computer before them and its coupling and gain
+  after them: the node's whole non-K3 path in one pass.
 - :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop.
 - :func:`first_order` (K7, ``csrc/first_order.cu``): a first-order
   recurrence, ``linear``, ``max_affine`` or ``agc_gain`` (the AGC's gain
@@ -11,8 +13,9 @@
 Each wrapper runs its kernel on a CUDA tensor and its plain version, a
 sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
-``launches``, ``limiter_env_launches``, ``agc_launches`` and
-``first_order_launches`` count each kernel's launches.
+``launches``, ``limiter_env_launches``, ``limiter_stream_launches``,
+``agc_launches`` and ``first_order_launches`` count each wrapper's
+launches.
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -25,7 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.math import DB_TO_LOG2, LOG2_TO_DB, db_to_linear
 from . import _build
+from .limiter_block import limiter_gain_db
 from .scan import biquad_df1 as _biquad_scan
 from .scan import linear_scan, max_affine_scan
 
@@ -33,6 +38,8 @@ from .scan import linear_scan, max_affine_scan
 launches = 0
 #: kernel launches made by :func:`limiter_env` (K5)
 limiter_env_launches = 0
+#: kernel launches made by :func:`limiter_stream` (K5, the Limit node's pass)
+limiter_stream_launches = 0
 #: kernel launches made by :func:`agc` (K6)
 agc_launches = 0
 #: kernel launches made by :func:`first_order` (K7)
@@ -120,6 +127,89 @@ def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     global limiter_env_launches
     limiter_env_launches += 1
     return peak, (out[0], out[1])
+
+
+def limiter_couple_gain(x, peak, peak0, group_channels: int):
+    """The Limit node's gain from the peak envelopes peak [L, T] (carry-in
+    peak0 [L]): within each group of ``group_channels`` lanes, channel c at
+    frame t takes the max of the fresh peaks of channels <= c and the
+    previous frame's of channels > c (the reference's interleaved order);
+    then ``x * db_to_linear(-max_peak)``."""
+    c, n = x.shape
+    cg = group_channels
+    if cg == 1:
+        max_peak = peak  # per-channel groups: no coupling
+    else:
+        streams = c // cg
+        peak_prev = torch.cat([peak0[:, None], peak[:, :-1]], dim=1)
+        pg = peak.reshape(streams, cg, n)
+        sg = peak_prev.reshape(streams, cg, n)
+        fresh_cummax = torch.cummax(pg, dim=1).values
+        stale_sufmax = torch.flip(
+            torch.cummax(torch.flip(sg, [1]), dim=1).values, [1])
+        stale_above = torch.cat(
+            [stale_sufmax[:, 1:],
+             torch.full((streams, 1, n), -float("inf"), dtype=x.dtype,
+                        device=x.device)], dim=1)
+        max_peak = torch.maximum(fresh_cummax, stale_above).reshape(c, n)
+    return x * db_to_linear(-max_peak)
+
+
+def limiter_stream_plain(x, integ0, peak0, *, att: float, rel: float,
+                         threshold: float, knee_width: float,
+                         inv_knee_8: float, group_channels: int):
+    """The plain PyTorch version of :func:`limiter_stream`, on any device:
+    the JAX ``Limit`` node's sequential path (rodio_tpu/effects/limit.py
+    :166-212), one op at a time."""
+    db = limiter_gain_db(x, threshold, knee_width, inv_knee_8)
+    peak, carries = limiter_env_plain(db, integ0, peak0, att=att, rel=rel)
+    return limiter_couple_gain(x, peak, peak0, group_channels), carries
+
+
+def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
+                   *, att: float, rel: float, threshold: float,
+                   knee_width: float, inv_knee_8: float, group_channels: int):
+    """The per-stream limiter over x [L, T] (lanes by time) in groups of
+    ``group_channels`` consecutive lanes, from the envelope carries integ0,
+    peak0 [L]: each sample's soft-knee gain in dB, the envelopes of
+    :func:`limiter_env`, the gain coupled within each group (at frame t
+    channel c takes the fresh peaks of channels <= c and the previous
+    frame's of channels > c) and applied. Returns (y [L, T], (integ',
+    peak')), the carries of the last step. T >= 1. On the card a group of
+    at most 32 channels runs the whole pass in one kernel; a wider one runs
+    its envelopes on :func:`limiter_env` and the gain computer, coupling
+    and gain in torch around them."""
+    cg = int(group_channels)
+    if x.dim() != 2 or x.shape[1] < 1 or cg < 1 or x.shape[0] % cg:
+        raise ValueError(f"limiter_stream: x must be [L, T >= 1] in groups of "
+                         f"{cg} lanes, got {tuple(x.shape)}")
+    kw = dict(att=att, rel=rel, threshold=threshold, knee_width=knee_width,
+              inv_knee_8=inv_knee_8)
+    if x.device.type == "cpu":
+        return limiter_stream_plain(x, integ0, peak0, group_channels=cg, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"limiter_stream: unsupported device {x.device}")
+    lib = _build.load_library()
+    if cg > lib.rt_limiter_stream_max_group():  # wider than a chain warp
+        db = limiter_gain_db(x, threshold, knee_width, inv_knee_8)
+        peak, carries = limiter_env(db, integ0, peak0, att=att, rel=rel)
+        return limiter_couple_gain(x, peak, peak0, cg), carries
+    L, T = x.shape
+    dev = x.device
+    x = _build.f32_arg("x", x, dev, (L, T))
+    integ0 = _build.f32_arg("integ0", integ0, dev, (L,))
+    peak0 = _build.f32_arg("peak0", peak0, dev, (L,))
+    y = torch.empty_like(x)
+    out = torch.empty((2, L), dtype=torch.float32, device=dev)
+    err = lib.rt_limiter_stream(x.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+                                y.data_ptr(), out.data_ptr(), L, T, cg, att, rel,
+                                _one_minus(att), _one_minus(rel), threshold,
+                                knee_width, inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
+                                _build.stream_handle(dev))
+    _build.check(err, "rt_limiter_stream")
+    global limiter_stream_launches
+    limiter_stream_launches += 1
+    return y, (out[0], out[1])
 
 
 def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:

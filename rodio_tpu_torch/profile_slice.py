@@ -26,7 +26,8 @@ frames (default 12800; path B 4096, config 2's block):
 - ``host_enqueue_ms``: host time of the same calls up to the return of
   ``render_blocks``, before the synchronize;
 - from one ``torch.profiler`` run: ``kernels`` (device ms per kernel name,
-  kernel rows only, so no op is counted twice), ``device_busy_ms`` (the
+  kernel rows only, so no op is counted twice), ``launches_per_block``
+  (device events, kernels and copies, per block), ``device_busy_ms`` (the
   union of the kernels' intervals) and ``idle_share`` (1 - busy / the
   render's host span, synchronize included).
 
@@ -128,6 +129,7 @@ def profile_cell(build, block: int, blocks: int) -> dict:
         "wall_ms": walls,
         "host_enqueue_ms": hosts,
         "kernels": dict(sorted(per_name.items(), key=lambda kv: -kv[1])),
+        "launches_per_block": len(kern) / blocks,
         "device_busy_ms": busy_us / 1e3 / blocks,
         "span_ms": span_us / 1e3 / blocks,
         "idle_share": 1.0 - busy_us / span_us,

@@ -11,8 +11,10 @@ summation order differs), its biquad carries bit-equal (the FIR/IIR split
 keeps the scan's op order). K6, K7 and K8 bit-equal, outputs and carries
 (the same op order; K8 the same blocked order and the same power table;
 NaN where the plain version has NaN); K2 1e-6 on the mix, its carries and
-ring bit-equal. K5 bit-equal (the same op order); K2g (K2's group
-branch) as K2; K9 bit-equal (the same sum order; the contiguous stream's
+ring bit-equal. K5 bit-equal (the same op order), ``limiter_env`` and
+``limiter_stream`` (the Limit node's gain computer, envelopes, coupling and
+gain), NaN where the plain version has NaN; K2g (K2's group branch, on
+K1's front end) as K2; K9 bit-equal (the same sum order; the contiguous stream's
 max is order-free). K2r and K2b (K2's rel0 plans) as K2, their peak carry
 untouched.
 """
@@ -168,7 +170,8 @@ def test_flagship_on_card_matches_cpu(dev):
         assert after == (before[0] + k1, before[1] + 3, before[2] + 3 - k1)
 
 
-@pytest.mark.parametrize("L,T", [(6, 700), (1024, 12800), (3, 1), (40, 33)])
+@pytest.mark.parametrize("L,T", [(6, 700), (1024, 12800), (3, 1), (40, 33), (1, 127),
+                                 (8, 128), (9, 129), (17, 4410)])
 def test_k5_limiter_env_matches_plain(dev, L, T):
     rng = np.random.default_rng(L + T)
     db = rng.uniform(0.0, 12.0, (L, T)) * (rng.uniform(size=(L, T)) < 0.3)
@@ -190,7 +193,7 @@ def test_k5_limiter_env_matches_plain(dev, L, T):
 def test_limit_off_k3_on_card_matches_cpu(dev):
     """Limit's K5 cases on the card (streams=4, mono, P = 2, and "exact")
     against the CPU: the envelopes bit-equal, the output 1e-6 (path B's
-    bound: db_to_linear's polynomial through torch's elementwise ops)."""
+    bound: the CPU's torch ops against the kernel's)."""
     rng = np.random.default_rng(3)
     for channels, streams, n, mode in ((8, 4, 640, "pallas"), (1, 1, 640, "pallas"),
                                        (2, 1, 4410, "pallas"), (2, 1, 640, "exact")):
@@ -199,14 +202,143 @@ def test_limit_off_k3_on_card_matches_cpu(dev):
         for device in (dev, "cpu"):
             node = Limit(SamplesBuffer(channels, 48000, data, device=device),
                          LimitSettings(), mode=mode, streams=streams)
-            before = cuda_scan.limiter_env_launches
+            before = cuda_scan.limiter_stream_launches
             st, out, _ = render_blocks(node, node.init_state(), 3, n)
             if device != "cpu":
-                assert cuda_scan.limiter_env_launches == before + 3
+                assert cuda_scan.limiter_stream_launches == before + 3
             outs.append(out.cpu())
             states.append((st["integ"].cpu(), st["peak"].cpu()))
         assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
         assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+def _limit_kw(cg):
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
+                LimitSettings())
+    return dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
+                knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8,
+                group_channels=cg)
+
+
+def _limit_inputs(L, T, seed, dev):
+    """x [L, T] at quiet, limited and loud levels per lane, and envelope
+    carries in dB."""
+    rng = np.random.default_rng(seed)
+    level = rng.choice([0.05, 0.6, 2.5], (L, 1))
+    x = rng.uniform(-1, 1, (L, T)) * level
+    return (_f32(x, dev), _f32(rng.uniform(0, 6, L), dev),
+            _f32(rng.uniform(0, 6, L), dev))
+
+
+def _k5_stream_check(dev, x, i0, p0, cg, xp=None):
+    """limiter_stream on the card against its plain version (on xp, the
+    same values, if x is a view the plain version should not see): y and
+    the carries bit-equal, NaN where the plain version has NaN; one
+    launch."""
+    kw = _limit_kw(cg)
+    before = cuda_scan.limiter_stream_launches
+    yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
+    yp, cp = cuda_scan.limiter_stream_plain(x if xp is None else xp, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert cuda_scan.limiter_stream_launches == before + 1
+    _equal_nan(yk, yp)
+    for a, b in zip(ck, cp):
+        _equal_nan(a, b)
+    return yk, ck
+
+
+@pytest.mark.parametrize("T", [1, 127, 128, 129, 4410])
+@pytest.mark.parametrize("streams", [1, 3, 85])
+@pytest.mark.parametrize("cg", [1, 2, 4, 6, 8, 12])
+def test_k5_limiter_stream_matches_plain(dev, cg, streams, T):
+    """Groups of 1-12 channels (a block holds 8 lanes of whole groups, or
+    one group of 12), 1 to 1020 lanes, T around the 128-step tile (T % 4 !=
+    0 at 1, 127, 129 and 4410: the 4-byte copies)."""
+    x, i0, p0 = _limit_inputs(cg * streams, T, cg * 1000 + streams + T, dev)
+    _k5_stream_check(dev, x, i0, p0, cg)
+
+
+@pytest.mark.parametrize("cg", [1, 2])
+def test_k5_limiter_stream_at_path_c_shape(dev, cg):
+    """[1024, 12800]: path C's Limit(streams=512), and 1024 mono groups."""
+    x, i0, p0 = _limit_inputs(1024, 12800, cg, dev)
+    _k5_stream_check(dev, x, i0, p0, cg)
+
+
+def test_k5_limiter_stream_wider_groups(dev):
+    """A group wider than a block's 32 chain threads (40 channels) runs its
+    envelopes on limiter_env and the rest in torch, the plain version's
+    ops: bit-equal to it, one limiter_env launch."""
+    x, i0, p0 = _limit_inputs(80, 300, 7, dev)
+    kw = _limit_kw(40)
+    before = (cuda_scan.limiter_stream_launches, cuda_scan.limiter_env_launches)
+    yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
+    yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_scan.limiter_stream_launches, cuda_scan.limiter_env_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(yk, yp)
+    assert all(torch.equal(a, b) for a, b in zip(ck, cp))
+
+
+def test_k5_limiter_stream_special_values(dev):
+    """Zeros (the knee's zero branch), NaN and +-inf samples, and a NaN
+    carry: NaN where the plain version has NaN, else bit-equal."""
+    L, T = 12, 700
+    x, i0, p0 = _limit_inputs(L, T, 5, dev)
+    x[:, :150] = 0.0
+    x[1, 200] = float("nan")
+    x[2, 300] = float("inf")
+    x[5, 310] = -float("inf")
+    x[7, 400:410] = float("nan")
+    i0[9] = float("nan")
+    for cg in (1, 2, 4, 6):
+        yk, _ = _k5_stream_check(dev, x, i0, p0, cg)
+        assert bool(yk[1, 200].isnan()) and bool(torch.isfinite(yk[0]).all())
+
+
+def test_k5_misaligned_inputs(dev):
+    """An input and an output off a 16-byte boundary take the 4-byte copies
+    and stores: both K5 entry points still equal their plain versions."""
+    L, T = 10, 640
+    x, i0, p0 = _limit_inputs(L, T, 6, dev)
+    flat = torch.empty(x.numel() + 1, device=dev)
+    xo = flat[1:].view(L, T)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0
+    _k5_stream_check(dev, xo, i0, p0, 2, xp=x)
+    db = x.abs() * 6.0
+    flat.zero_()
+    dbo = flat[1:].view(L, T)
+    dbo.copy_(db)
+    kw = dict(att=_limit_kw(1)["att"], rel=_limit_kw(1)["rel"])
+    pk, ck = cuda_scan.limiter_env(dbo, i0, p0, **kw)
+    pp, cp = cuda_scan.limiter_env_plain(db, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and all(torch.equal(a, b) for a, b in zip(ck, cp))
+
+
+@pytest.mark.parametrize("cut", [1, 128, 383])
+def test_k5_carries_cross_calls(dev, cut):
+    """Two calls in a row, the second from the first's carries, give the one
+    call's result bit for bit: limiter_stream's y (the coupling at the
+    second call's first frame reads the peak carry) and limiter_env's
+    peaks, and both carries."""
+    L, T = 12, 1000
+    x, i0, p0 = _limit_inputs(L, T, cut, dev)
+    kw = _limit_kw(4)
+    y, c = cuda_scan.limiter_stream(x, i0, p0, **kw)
+    y1, c1 = cuda_scan.limiter_stream(x[:, :cut], i0, p0, **kw)
+    y2, c2 = cuda_scan.limiter_stream(x[:, cut:], *c1, **kw)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert all(torch.equal(a, b) for a, b in zip(c2, c))
+    db, ekw = x.abs() * 6.0, dict(att=kw["att"], rel=kw["rel"])
+    pk, c = cuda_scan.limiter_env(db, i0, p0, **ekw)
+    pk1, c1 = cuda_scan.limiter_env(db[:, :cut], i0, p0, **ekw)
+    pk2, c2 = cuda_scan.limiter_env(db[:, cut:], *c1, **ekw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([pk1, pk2], 1), pk)
+    assert all(torch.equal(a, b) for a, b in zip(c2, c))
 
 
 @pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])

@@ -11,7 +11,9 @@ Inputs are numpy arrays from fixed seeds fed to both packages. Bounds:
 - ``Limit(mode="pallas")`` against the JAX node (which runs K5 in interpret
   mode there) over 4 blocks: 2e-6, the JAX node's own distance from the
   scalar oracle on loud input (tests/test_torch_nodes.py); the carries in
-  dB at 2e-6 relative.
+  dB at 2e-6 relative. The same bounds hold ``limiter_stream_plain`` (K5's
+  whole per-stream limiter, the node's non-K3 path) against the JAX node
+  over two calls, the second from the first's carries.
 - The per-stream chain of tests/test_parallel.py (Resample -> BltFilter ->
   AGC -> Amplify -> Limit(streams=S) -> WideMixer) with the TPU dispatch of
   each node (``mode="pallas"``), then the master Limit: 2e-5 against the
@@ -84,6 +86,41 @@ def test_k5_plain_matches_pallas_interpret(L, T, preset):
     assert torch.equal(it, integ) and torch.equal(qt, peak)
 
 
+@pytest.mark.parametrize("T", [1, 127, 129, 4410])
+@pytest.mark.parametrize("cg,streams", [(1, 1), (1, 3), (2, 1), (2, 3), (4, 1),
+                                        (4, 2), (6, 1), (6, 2)])
+def test_limiter_stream_plain_matches_jax_node(cg, streams, T):
+    """Groups of 1, 2, 4 and 6 channels, one stream and several, blocks
+    around K5's 128-step tile; every T has P = T & -T < 8, so the JAX node
+    (mode="pallas", interpret) takes K5's path, not K3's."""
+    channels = cg * streams
+    rng = np.random.default_rng(cg * 1000 + streams * 100 + T)
+    data = (rng.uniform(-1, 1, (channels, 2 * T)) * 2.0).astype(np.float32)
+    jn = JLimit(JBuffer(channels, 48000, data), JLimitSettings(), mode="pallas",
+                streams=streams)
+    tn = Limit(SamplesBuffer(channels, 48000, data, device="cpu"), LimitSettings())
+    kw = dict(att=tn.attack, rel=tn.release, threshold=tn.threshold,
+              knee_width=tn.knee_width, inv_knee_8=tn.inv_knee_8, group_channels=cg)
+    js = jn.init_state()
+    jemit = jax.jit(lambda s: jn.emit(s, T))
+    integ = peak = torch.zeros(channels)
+    for b in range(2):
+        js, oj, vj = jemit(js)
+        assert int(vj) == T
+        x = torch.from_numpy(data[:, b * T:(b + 1) * T])
+        y, (integ, peak) = cuda_scan.limiter_stream_plain(x, integ, peak, **kw)
+        np.testing.assert_allclose(y.numpy(), np.asarray(oj), atol=2e-6, rtol=0,
+                                   err_msg=f"block {b}")
+        np.testing.assert_allclose(integ.numpy(), np.asarray(js["integ"]), rtol=2e-6)
+        np.testing.assert_allclose(peak.numpy(), np.asarray(js["peak"]), rtol=2e-6)
+    assert np.abs(data).max() > 1.0  # loud enough that the limiter acts
+    # the wrapper on a CPU tensor is the plain version
+    before = cuda_scan.limiter_stream_launches
+    y2, _ = cuda_scan.limiter_stream(x, integ, peak, **kw)
+    assert cuda_scan.limiter_stream_launches == before
+    assert torch.equal(y2, cuda_scan.limiter_stream_plain(x, integ, peak, **kw)[0])
+
+
 def _limit_pair(channels, streams, frames, seed, mode="pallas"):
     rng = np.random.default_rng(seed)
     data = (rng.uniform(-1, 1, (channels, frames)) * 2.0).astype(np.float32)
@@ -103,14 +140,14 @@ def test_limit_pallas_matches_jax(channels, streams, n):
     jn, tn = _limit_pair(channels, streams, 4 * n + 100, channels * n)
     js, ts = jn.init_state(), tn.init_state()
     jemit = jax.jit(lambda s: jn.emit(s, n))
-    k3, k5 = limiter_block.launches, cuda_scan.limiter_env_launches
+    k3, k5 = limiter_block.launches, cuda_scan.limiter_stream_launches
     for b in range(4):
         js, oj, vj = jemit(js)
         ts, ot, vt = tn.emit(ts, n)
         assert int(vt) == int(vj) == n
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-6, rtol=0,
                                    err_msg=f"block {b}")
-    assert (limiter_block.launches, cuda_scan.limiter_env_launches) == (k3, k5)
+    assert (limiter_block.launches, cuda_scan.limiter_stream_launches) == (k3, k5)
     np.testing.assert_allclose(ts["integ"].numpy(), np.asarray(js["integ"]), rtol=2e-6)
     np.testing.assert_allclose(ts["peak"].numpy(), np.asarray(js["peak"]), rtol=2e-6)
 

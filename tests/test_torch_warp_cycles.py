@@ -2,7 +2,7 @@
 
 The instrumented copies are built and run only on the card; what this
 checks, on the CPU, is the source rewrite: each of the port's tile-pipeline
-sources (K1, K2's plans, K6, K7) gets one timed tile loop, the per-warp
+sources (K1, K2's plans, K5, K6, K7) gets one timed tile loop, the per-warp
 write right after it and the read-back entry point after its includes, and a
 source without such a loop is left to be built as it is and timed only.
 """
@@ -41,7 +41,7 @@ def test_instrument_times_each_tile_loop(name):
 
 def test_instrument_leaves_a_source_without_a_tile_loop():
     # a per-lane loop without the pipeline's barrier-ended tile loop (as
-    # lane_pipeline.cuh's kernels are written) is timed only
-    src = ('#include "lane_pipeline.cuh"\n__global__ void k(float* y, int n) {\n'
+    # biquad.cu's kernel is written) is timed only
+    src = ('#include "biquad_pipeline.cuh"\n__global__ void k(float* y, int n) {\n'
            "  for (int i = 0; i < n; ++i) y[i] = 0.f;\n}\n")
     assert warp_cycles.instrument(src, "k") is None
