@@ -9,7 +9,8 @@ Phases (each raises on failure, so the script exits non-zero):
 2. build: the kernels compiled from rodio_tpu_torch/csrc with nvcc;
 3. kernels: the latency of a dependent rounded f32 op and of one step of
    the AGC's gain smoother, measured on one thread (benches/op_latency.py);
-   then K4, K3, K1, K2, K2r and K2b (K2's serial and blocked rel0 plans),
+   then K4 (at [1024, 12800] and at path B's [2, 4096]), K3, K1, K2, K2r
+   and K2b (K2's serial and blocked rel0 plans),
    K2g (K2's group branch), K6, K7, K8, K5 (limiter_stream, the Limit
    node's whole per-stream pass, and limiter_env, its envelopes alone) and
    K9 against their plain PyTorch versions on the card, at the shapes of
@@ -205,7 +206,7 @@ def main() -> int:
     results = []
 
     def record(kid, name, src, rep, err, bound_err, ms, pms, nbytes, flops,
-               chain_ms, library_ms=None, note=""):
+               chain_ms, library_ms=None, note="", path=None):
         bound_ms, bound_by = _bound(nbytes, flops)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{kid} {name}{note}: max|d| {err:.3e} (bound {bound_err}); kernel "
@@ -214,7 +215,7 @@ def main() -> int:
         results.append(dict(kid=kid, name=name, source=src, replaces=rep,
                             max_abs_err=err, bound_err=bound_err, ms=ms,
                             plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
-                            chain_ms=chain_ms, library_ms=library_ms))
+                            chain_ms=chain_ms, library_ms=library_ms, path=path))
 
     # K4: biquad over [1024, 12800]; per sample 5 mul + 4 add, and its
     # chain y1 -> mul, sub, sub
@@ -228,6 +229,20 @@ def main() -> int:
     record("K4", "biquad_df1", "rodio_tpu_torch/csrc/biquad.cu",
            "rodio_tpu/ops/pallas_scan.py:82", err4, BOUND_K4, ms4, pms4,
            2 * L * T * 4, 9 * L * T, _chain_ms(T, 3), note=f" [{L}, {T}]")
+    # ... and at path B's shape, [2, 4096]: one block of 2 lanes, where the
+    # chain and the pipeline's fill and drain are all there is
+    xb = dev_f32(rng.standard_normal((2, PATH_B_BLOCK)) * 0.1)
+    stb = tuple(dev_f32(rng.standard_normal(2) * 0.01) for _ in range(4))
+    yk, sk = cuda_scan.biquad_df1(xb, coef, stb)
+    yp, sp = cuda_scan.biquad_df1_plain(xb, coef, stb)
+    err4b = max(_max_err(yk, yp), *(_max_err(a, b) for a, b in zip(sk, sp)))
+    ms4b = _time_ms(lambda: cuda_scan.biquad_df1(xb, coef, stb), 50)
+    pms4b = _time_ms(lambda: cuda_scan.biquad_df1_plain(xb, coef, stb), 2)
+    record("K4", "biquad_df1", "rodio_tpu_torch/csrc/biquad.cu",
+           "rodio_tpu/ops/pallas_scan.py:82", err4b, BOUND_K4, ms4b, pms4b,
+           2 * 2 * PATH_B_BLOCK * 4, 9 * 2 * PATH_B_BLOCK, _chain_ms(PATH_B_BLOCK, 3),
+           note=f" [2, {PATH_B_BLOCK}] (path B)", path="config2")
+    del xb, stb
 
     # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
     # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its
@@ -757,8 +772,9 @@ def main() -> int:
                     "K8": "config2", "K5": "per_stream", "K9": "dma_probe"}
     print(json.dumps({"kernels": [
         {"name": r["name"], "id": r["kid"], "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": runs[kernel_paths[r["kid"]]][r["kid"]],
-         "path": kernel_paths[r["kid"]],
+         "replaces": r["replaces"],
+         "launches": runs[r["path"] or kernel_paths[r["kid"]]][r["kid"]],
+         "path": r["path"] or kernel_paths[r["kid"]],
          "launches_by_run": {k: c[r["kid"]] for k, c in runs.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "chain_ms": r["chain_ms"],

@@ -5,30 +5,33 @@ CUDA card; and the kernels' times, for an A/B of two versions.
         [--out FILE]
 
 K1 (``csrc/fused.cu``), K2, K2r, K2b and K2g (``csrc/fused_agc.cu``,
-``fused_agc_blocked.cu``, ``fused_agc_group.cu``), K5 (``csrc/limiter_env.cu``),
-K6 (``csrc/agc.cu``) and K7 (``csrc/first_order.cu``) run every warp's share
-of a tile between two barriers, so the slowest warp sets each iteration's
-length. This copies those sources into ``build/warp_cycles/``, adds a
-``clock64()`` read at the start of each iteration and another before its
-barrier, builds them, ``limiter_block.cu`` (K3) and ``bma.cu`` (K8), neither
-instrumented, with the library's nvcc flags into a shared library of their
-own, and runs K1 at the main path's shape (512 stereo streams, one block of
-12800 frames at 44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16
-ring; K2g at AG = 16, path D's, and 128), K3 at the master bus's ([2,
-12800], P = 128), K5 at path C's (``limiter_stream``, the Limit node's
-per-stream pass, on [1024, 12800] in stereo groups, and ``limiter_env``),
-K6 at path C's ([512, 25600]), K7's ``agc_gain`` at path B's ([1, 8192],
-and [1, 512] with ``group=8``) and K8 at path B's ([1, 8192], P = 128). It
-first prints the card's one-thread latencies of a dependent FMUL/FADD and of
-a smoother step (``benches/op_latency.py``), the floors of the chains. For
-each tile pipeline it prints the card's first block's busy cycles per
-iteration by warp (lane 0's view) beside the iteration's whole length
-(kernel cycles over iterations) and every block's (the least, the median and
-the most: the slowest block sets the kernel's time), and for every kernel
-its time by CUDA events (the mean of 20 calls after one; K3, K7 and K8 of
-50), and for K1, K2g, K3, K5, K6, K7 and K8 also the mean of as many calls
-captured in one CUDA graph (the card's time without the host's between
-launches: K3 and K8 run shorter than their calls take on the host), and
+``fused_agc_blocked.cu``, ``fused_agc_group.cu``), K4 (``csrc/biquad.cu``),
+K5 (``csrc/limiter_env.cu``), K6 (``csrc/agc.cu``) and K7
+(``csrc/first_order.cu``) run every warp's share of a tile between two
+barriers, so the slowest warp sets each iteration's length. This copies
+those sources into ``build/warp_cycles/``, adds a ``clock64()`` read at the
+start of each iteration and another before its barrier, builds them,
+``limiter_block.cu`` (K3) and ``bma.cu`` (K8), neither instrumented, with
+the library's nvcc flags into a shared library of their own, and runs K1 at
+the main path's shape (512 stereo streams, one block of 12800 frames at
+44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16 ring; K2g at AG =
+16, path D's, and 128), K3 at the master bus's ([2, 12800], P = 128), K4 at
+the unfused chain's and path C's ([1024, 12800]) and path B's ([2, 4096]),
+K5 at path C's (``limiter_stream``, the Limit node's per-stream pass, on
+[1024, 12800] in stereo groups, and ``limiter_env``), K6 at path C's ([512,
+25600]), K7's ``agc_gain`` at path B's ([1, 8192], and [1, 512] with
+``group=8``) and K8 at path B's ([1, 8192], P = 128). It first prints the
+card's one-thread latencies of a dependent FMUL/FADD and of a smoother step
+(``benches/op_latency.py``), the floors of the chains. For each tile
+pipeline it prints the card's first block's busy cycles per iteration by
+warp (lane 0's view) beside the iteration's whole length (kernel cycles
+over iterations) and every block's (the least, the median and the most:
+the slowest block sets the kernel's time), and for every kernel its time by
+CUDA events (the mean of 20 calls after one; K3, K7 and K8 of 50; K4 at [2,
+4096] of 50), and for K1, K2b, K2g, K3, K4, K5, K6, K7 and K8 also the mean
+of as many calls captured in one CUDA graph (the card's time without the
+host's between launches: K3, K8 and K4 at [2, 4096] run shorter than their
+calls take on the host), and
 K1's mix against its plain version at gains of unit scale (no 1/S), where
 the mix is largest against the rounding of its sum over blocks. The reads
 cost a few cycles an iteration; the library itself is not changed.
@@ -62,7 +65,7 @@ from ..sources.generators import SamplesBuffer
 
 OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
 SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu",
-           "agc.cu", "first_order.cu", "limiter_env.cu")
+           "agc.cu", "first_order.cu", "limiter_env.cu", "biquad.cu")
 TIMED = ("limiter_block.cu", "bma.cu")  # built as they are, timed only
 WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
 SLOTS = WARPS + 2  # kernel's cycles
@@ -104,7 +107,12 @@ def instrument(src: str, tag: str):
         "                                   sizeof(g_warp_cycles));\n}\n"
         f"extern \"C\" int rt_block_cycles_{tag}(long long* out) {{\n"
         "  return (int)cudaMemcpyFromSymbol(out, g_block_cycles,\n"
-        "                                   sizeof(g_block_cycles));\n}\n") + src[at:]
+        "                                   sizeof(g_block_cycles));\n}\n"
+        f"extern \"C\" int rt_block_cycles_clear_{tag}() {{\n"
+        "  void* p = nullptr;\n"
+        "  const cudaError_t e = cudaGetSymbolAddress(&p, g_block_cycles);\n"
+        "  return (int)(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_block_cycles)));\n"
+        "}\n") + src[at:]
 
 
 def build(csrc: Path):
@@ -132,7 +140,7 @@ def build(csrc: Path):
     main_lib = _build.load_library()
     borrowed = set()
     for name, argtypes in _build.SIGNATURES.items():
-        if not name.startswith(("rt_fused", "rt_limiter", "rt_agc",
+        if not name.startswith(("rt_fused", "rt_limiter", "rt_agc", "rt_biquad",
                                 "rt_first_order", "rt_blocked_max_affine")):
             continue
         try:
@@ -148,6 +156,9 @@ def build(csrc: Path):
             fn = getattr(lib, f"rt_{what}_cycles_{name[:-3]}")
             fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"rt_block_cycles_clear_{name[:-3]}")
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.rt_error_string = main_lib.rt_error_string
     return lib, instrumented, borrowed
 
@@ -281,6 +292,15 @@ def main(argv=None) -> int:
     x8 = f32(np.abs(rng.standard_normal((1, 8192)) * 0.3))
     v8, a8 = f32([0.4]), p6[1]
 
+    # K4 at the unfused chain's and path C's shape, [1024, 12800], and at
+    # path B's, [2, 4096] (one block of 2 lanes)
+    coef4 = kw["coeffs"]
+
+    def k4_call(lanes, steps):
+        x4 = f32(rng.standard_normal((lanes, steps)) * 0.1)
+        st4 = tuple(f32(rng.standard_normal(lanes) * 0.01) for _ in range(4))
+        return lambda: cuda_scan.biquad_df1(x4, coef4, st4)
+
     # (kernel, label, call, instrumented source or None, reps)
     cases = [("K1", "C=2", lambda: fused.fused_resample_biquad_mix(
                   pcm, left, wts, channels=2, **kw), "fused", 20),
@@ -299,7 +319,9 @@ def main(argv=None) -> int:
               lambda: cuda_scan.limiter_env(db5, i5, q5, att=att, rel=rel), "limiter_env", 20),
              ("K2g", "agc_group=128", agc_call("serial", 128), "fused_agc_group", 20),
              ("K8", "[1, 8192] P=128", lambda: limiter_block.blocked_max_affine_const(
-                 x8, v8, a8, P=128), None, 50)]
+                 x8, v8, a8, P=128), None, 50),
+             ("K4", f"[{L}, {T}]", k4_call(L, T), "biquad", 20),
+             ("K4", "[2, 4096]", k4_call(2, 4096), "biquad", 50)]
     if args.kernels:
         cases = [c for c in cases if c[0] in args.kernels.split(",")]
     # K1 at gains of unit scale, n = 1280
@@ -317,6 +339,8 @@ def main(argv=None) -> int:
     try:
         _build._lib = lib  # the wrappers launch the instrumented copies
         for kid, label, call, src, reps in cases:
+            if src is not None and f"{src}.cu" in instrumented:  # this case's blocks only
+                _build.check(getattr(lib, f"rt_block_cycles_clear_{src}")(), "cudaMemset")
             row = {"kernel": kid, "case": label, "ms": _time_ms(call, reps)}
             line = f"{kid} ({label}): {row['ms']:.4f} ms"
             if src is not None and f"{src}.cu" in instrumented:
@@ -340,7 +364,7 @@ def main(argv=None) -> int:
                              **row["block_cycles_per_iteration"]) + ", ".join(
                              f"{w}: {v:.0f}"
                              for w, v in row["warp_busy_per_iteration"].items()))
-            if kid in ("K1", "K2g", "K3", "K5", "K6", "K7", "K8"):
+            if kid in ("K1", "K2b", "K2g", "K3", "K4", "K5", "K6", "K7", "K8"):
                 row["graph_ms"] = _graph_ms(call, reps)
                 line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
             res["cases"].append(row)

@@ -1,78 +1,181 @@
 // K4: direct-form-I biquad over lanes, one serial recurrence per lane.
 //
 // Replaces rodio_tpu/ops/pallas_scan.py biquad_df1_pallas / _biquad_kernel.
+// Per step, the reference's DF-I step (src/source/blt.rs:556-561) split
+// where the chain begins, every op rounded alone:
 //
-// What bounds it on the H100: the recurrence y_t <- (y_{t-1}, y_{t-2}) is a
-// chain of dependent rounded ops per sample, so a lane is latency bound;
-// with 1024 lanes only 32 warps run it, one block per SM on 32 of the 132
-// SMs. The data, 2 x 4 B per sample, is small beside that, if its latency
-// is hidden.
+//   u = (b0*x + b1*x1) + b2*x2      the FIR half: no y in it
+//   y = (u - a1*y1) - a2*y2         the IIR half: the chain
 //
-// Design: a block owns 32 lanes (biquad_pipeline.cuh). Warps 1-7 load the
-// next [64 t x 32 lane] tile of x into shared memory, each warp reading a
-// run of one lane's row, and store the previous tile of y the same way,
-// while warp 0 runs the recurrence on the current tile, one thread per
-// lane. Every mul and add rounds alone (biquad_step), in the order of the
-// sequential scan, so the kernel equals its plain PyTorch version bit for
-// bit.
-#include "biquad_pipeline.cuh"
+// biquad_step (precise_math.cuh) and the plain scan (ops/scan.py) round
+// ((b0x + b1x1) + b2x2 - a1y1) - a2y2 one op at a time, left to right, so
+// u is exactly their first three ops: y and the carries (x1, x2, y1, y2)
+// equal biquad_df1_plain's bit for bit (K1 makes the same split,
+// fused_front.cuh).
+//
+// What bounds it on the H100: the IIR half, mul a1*y1, sub, sub a step
+// through y1 (a2*y2 is ready a step early), one thread per lane: 12800 x 3
+// x ~2.04 ns = 0.078 ms at [1024, 12800]. The 105 MB it reads and writes
+// take 31 us at 3.35 TB/s. This design: ~0.101 ms in a CUDA graph at
+// [1024, 12800], the chain warp at ~14.4 cycles a step, and 0.034 ms at
+// path B's [2, 4096] (the earlier 32-lane design: 0.34 and 0.075 ms;
+// benches/warp_cycles.py, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// Design (chain_pipeline.cuh, K5's block shape): a block owns kLB = 8
+// lanes, so 128 blocks for 1024 lanes, one wave on 132 SMs, and walks time
+// in tiles of 128 steps, one __syncthreads a tile. At iteration i:
+//
+//   warp 0 (copy):          tile i+3's rows of x into shared memory with
+//                           cp.async (16 bytes a copy where T % 4 == 0 and
+//                           x is aligned, else 4), then waits for tile
+//                           i+2's
+//   elementwise warps       tile i+1's FIR half, 4 steps of one lane a
+//   (2, 3, 6, 7):           thread (x1, x2 of the tile's first steps from
+//                           the previous thread by a shuffle, from tile
+//                           i's staged rows, or the carry-in), u stored 16
+//                           bytes at a time; tile i-1's y stored coalesced
+//                           from its rows
+//   warp 1 (the chain):     tile i's IIR half, one thread per lane, 64
+//                           steps at a time in registers, y over u in place
+//
+// Warp 1 has SMSP 1 (warp % 4) to itself (warp 5 idles, as warp 4 does
+// beside the copy warp). Tile 0's FIR half runs before the loop, so the
+// chain starts at the first iteration and the loop has one iteration more
+// than the tiles: path B's single block of 2 lanes is the chain and little
+// else. 30 KB of static shared memory. The x carries out are read from x
+// itself (its last two steps, or the carry-in where T < 2), so they are the
+// sequential scan's.
+#include "chain_pipeline.cuh"
+#include "precise_math.cuh"
 
 namespace {
 
-using rt::kLanes;
-using rt::kThreads;
-using rt::kTile;
+using namespace rt::chain;
 
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kLB = 8;              // lanes a block
+constexpr int kThreads4 = 8 * 32;   // warps 4 and 5 idle
+constexpr int kNWork = 4 * 32;      // elementwise threads
+constexpr int kXBufs = 4;           // x tiles staged: i+3 .. i
+constexpr int kYBufs = 3;           // u, then y, tiles: i+1 .. i-1
+constexpr int kQuads = kTile / 4;   // 4-step pieces of a lane's tile
+static_assert(kQuads == 32, "a warp takes one lane's tile, a quad a thread");
+
+// the elementwise slot of a warp, or -1: warps 2, 3, 6 and 7 (SMSPs 2, 3,
+// 2, 3), none beside the chain warp on SMSP 1
+__device__ __forceinline__ int work_slot(int warp) {
+  return warp == 2 || warp == 3 ? warp - 2 : warp == 6 || warp == 7 ? warp - 4 : -1;
+}
+
+// the chain's step: u in, y out in its place
+struct Iir {
+  float y1, y2, a1, a2;
+  template <int H>
+  __device__ __forceinline__ void operator()(float (&v)[1][H], int u) {
+    const float yt = rt::sub(rt::sub(v[0][u], rt::mul(a1, y1)), rt::mul(a2, y2));
+    y2 = y1;
+    y1 = yt;
+    v[0][u] = yt;
+  }
+};
+
+// the FIR half of one step: (b0*x + b1*x1) + b2*x2
+__device__ __forceinline__ float fir(const rt::BiquadCoef& k, float x,
+                                     float x1, float x2) {
+  return rt::add(rt::add(rt::mul(k.b0, x), rt::mul(k.b1, x1)), rt::mul(k.b2, x2));
+}
+
+__global__ void __launch_bounds__(kThreads4, 1)
 biquad_df1_kernel(const float* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ coef,
                   const float* __restrict__ x1i, const float* __restrict__ x2i,
                   const float* __restrict__ y1i, const float* __restrict__ y2i,
                   float* __restrict__ x1o, float* __restrict__ x2o,
                   float* __restrict__ y1o, float* __restrict__ y2o,
-                  int L, long long T) {
-  __shared__ rt::Tile bufs[rt::kBufs];
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * kLanes;
-  const int nl = min(kLanes, L - lane0);
+                  int L, long long T, int vec) {
+  __shared__ __align__(16) float X[kXBufs][kLB][kLd];
+  __shared__ __align__(16) float Y[kYBufs][kLB][kLd];
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const long long lane0 = (long long)blockIdx.x * kLB;
+  const int nl = (int)min((long long)kLB, L - lane0);
+  const int n_tiles = (int)((T + kTile - 1) / kTile);
   const rt::BiquadCoef k = rt::load_coef(coef);
-  float carry[4] = {0.f, 0.f, 0.f, 0.f};
-  if (tid < nl) {
-    carry[0] = x1i[lane0 + tid];
-    carry[1] = x2i[lane0 + tid];
-    carry[2] = y1i[lane0 + tid];
-    carry[3] = y2i[lane0 + tid];
+  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
+
+  Iir iir{0.f, 0.f, k.a1, k.a2};
+  if (warp == 1 && wl < nl) {
+    iir.y1 = y1i[lane0 + wl];
+    iir.y2 = y2i[lane0 + wl];
   }
-  // element e of a tile: lane e / kTile, step e % kTile (runs along time)
-  auto fill = [&](rt::Tile& b, int i, int sub, int nsub) {
-    const long long t0 = (long long)i * kTile;
-    const int tt = rt::tile_len(T, i);
-    rt::batched(
-        sub, nsub, kLanes * kTile,
-        [&](int e) {
-          const int l = min(e / kTile, nl - 1), t = min(e % kTile, tt - 1);
-          return x[(long long)(lane0 + l) * T + t0 + t];
-        },
-        [&](int e, float v) {
-          const int l = e / kTile, t = e % kTile;
-          const bool ok = e < kLanes * kTile && l < nl && t < tt;
-          b[ok ? t : 0][ok ? l : kLanes] = v;
-        });
-  };
-  auto drain = [&](rt::Tile& b, int i, int sub, int nsub) {
-    const long long t0 = (long long)i * kTile;
-    const int tt = rt::tile_len(T, i);
-    for (int e = sub; e < kLanes * kTile; e += nsub) {
-      const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) y[(long long)(lane0 + l) * T + t0 + t] = b[t][l];
+  const int slot = work_slot(warp);
+  // the FIR half of tile j as elementwise thread sub: one lane's tile a warp
+  // (so the shuffles are whole warps), 4 steps a thread, steps past a tail
+  // tile's end computed and never read
+  auto fir_tile = [&](int j, int sub) {
+    for (int q = sub; q < nl * kQuads; q += kNWork) {
+      const int l = q / kQuads, t0 = q % kQuads * 4;
+      const float4 v = *reinterpret_cast<const float4*>(X[j % kXBufs][l] + t0);
+      float h1 = __shfl_up_sync(0xffffffffu, v.w, 1);  // x at t0 - 1
+      float h2 = __shfl_up_sync(0xffffffffu, v.z, 1);  // x at t0 - 2
+      if (t0 == 0) {
+        if (j) {
+          const float* p = X[(j - 1) % kXBufs][l];
+          h2 = p[kTile - 2];
+          h1 = p[kTile - 1];
+        } else {
+          h2 = x2i[lane0 + l];
+          h1 = x1i[lane0 + l];
+        }
+      }
+      *reinterpret_cast<float4*>(Y[j % kYBufs][l] + t0) =
+          make_float4(fir(k, v.x, h1, h2), fir(k, v.y, v.x, h1), fir(k, v.z, v.y, v.x),
+                      fir(k, v.w, v.z, v.y));
     }
   };
-  rt::biquad_tiles(bufs, T, nl, k, carry, fill, drain);
-  if (tid < nl) {
-    x1o[lane0 + tid] = carry[0];
-    x2o[lane0 + tid] = carry[1];
-    y1o[lane0 + tid] = carry[2];
-    y2o[lane0 + tid] = carry[3];
+  auto copy_tile = [&](int j) {
+    if (live(j))
+      copy_lanes(X[j % kXBufs][0], x, lane0, kLB, nl, T, (long long)j * kTile,
+                 tile_len(T, j), vec, wl, 32);
+    cp_async_commit();
+  };
+  // tiles 0-2 in flight, tile 0's FIR half before the loop, so that the
+  // chain starts at iteration 0
+  if (warp == 0) {
+    copy_tile(0);
+    copy_tile(1);
+    copy_tile(2);
+    cp_async_wait<1>();  // tiles 0 and 1 have landed
+  }
+  __syncthreads();
+  if (slot >= 0 && live(0)) fir_tile(0, slot * 32 + wl);
+  __syncthreads();
+
+  for (int it = 0; it < n_tiles + 1; ++it) {
+    if (warp == 0) {
+      copy_tile(it + 3);
+      cp_async_wait<1>();  // tile it+2 has landed
+    } else if (warp == 1) {
+      if (live(it) && wl < nl) {
+        float* const rows[1] = {Y[it % kYBufs][wl]};
+        full_or_tail(tile_len(T, it), [&](auto tt) { chain_row<1, 1>(rows, tt, iir); });
+      }
+    } else if (slot >= 0) {
+      const int sub = slot * 32 + wl;
+      if (live(it + 1)) fir_tile(it + 1, sub);
+      if (live(it - 1))
+        store_lanes(y, Y[(it - 1) % kYBufs][0], lane0, kLB, nl, T,
+                    (long long)(it - 1) * kTile, tile_len(T, it - 1), vec, sub, kNWork);
+    }
+    __syncthreads();
+  }
+
+  // the carries: the last two inputs (the carry-in where T < 2) and outputs
+  if (warp == 1 && wl < nl) {
+    const long long l = lane0 + wl;
+    const float* xl = x + l * T;
+    x1o[l] = T >= 1 ? xl[T - 1] : x1i[l];
+    x2o[l] = T >= 2 ? xl[T - 2] : T == 1 ? x1i[l] : x2i[l];
+    y1o[l] = iir.y1;
+    y2o[l] = iir.y2;
   }
 }
 
@@ -83,10 +186,12 @@ extern "C" int rt_biquad_df1(const float* x, float* y, const float* coef,
                              const float* y1i, const float* y2i, float* x1o,
                              float* x2o, float* y1o, float* y2o, int L,
                              long long T, void* stream) {
-  const int blocks = (L + kLanes - 1) / kLanes;
+  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (L + kLB - 1) / kLB;
   if (blocks == 0) return 0;
-  biquad_df1_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T);
+  const int vec = T % 4 == 0 && aligned16(x) && aligned16(y);
+  biquad_df1_kernel<<<blocks, kThreads4, 0, (cudaStream_t)stream>>>(
+      x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, vec);
   return (int)cudaGetLastError();
 }
 

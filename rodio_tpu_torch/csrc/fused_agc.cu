@@ -215,7 +215,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
   // element e of a tile: frame e / kBL, lane e % kBL (along a row); an
   // elementwise thread takes e = sub + k * kNWork, k < kPer
   auto stage_rows = [&](int i, int sub, Row& r) {  // tile i's frame `sub`
-    const int tc = i * kTile + min(sub, rt::tile_len(n, i) - 1);
+    const int tc = i * kTile + min(sub, tile_len(n, i) - 1);
     r.left = left[tc];
     r.w = wts[tc];
   };
@@ -224,7 +224,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
     return (long long)row * L + lane0 + l;
   };
   auto desired = [&](int i, int sub) {
-    const int tt = rt::tile_len(n, i);
+    const int tt = tile_len(n, i);
     Tile& db = D[i % kDBufs];
     const Tile& pb = PK[i % kPBufs];
     const Tile& yb = Y[i % kYBufs];
@@ -244,7 +244,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
   };
   // this block's streams summed per (channel, frame), in stream order
   auto mix = [&](int i, int sub) {
-    const int t0 = i * kTile, tt = rt::tile_len(n, i);
+    const int t0 = i * kTile, tt = tile_len(n, i);
     Tile& yb = Y[i % kYBufs];
     for (int e = sub; e < 2 * kTile; e += kNWork) {
       const int c = e / kTile, t = e % kTile;
@@ -271,7 +271,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
         auto run = [&](auto tt) {
           biquad_column(b, wl, tt, cf, x1, x2, y1, y2);
         };
-        full_or_tail(rt::tile_len(n, j), run);
+        full_or_tail(tile_len(n, j), run);
       }
     } else if (warp == 1) {
       const int j = it - 3;
@@ -286,7 +286,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
             rs = rt::add(rs, dh);
             d[1] = rs;
           };
-          full_or_tail(rt::tile_len(n, j), [&](auto tt) {
+          full_or_tail(tile_len(n, j), [&](auto tt) {
             stream_chunks(db, db, &db, nullptr, 2 * wl, tt, step);
           });
         }
@@ -304,7 +304,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
             y[c] = pk;
           }
         };
-        full_or_tail(rt::tile_len(n, j), [&](auto tt) {
+        full_or_tail(tile_len(n, j), [&](auto tt) {
           stream_chunks(db, Y[j % kYBufs], &db, &PK[j % kPBufs], 2 * wl, tt,
                         step);
         });
@@ -323,7 +323,7 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
             y[c] = rt::mul(rt::mul(y[c], g), c ? gain1 : gain0);
           }
         };
-        full_or_tail(rt::tile_len(n, j), [&](auto tt) {
+        full_or_tail(tile_len(n, j), [&](auto tt) {
           stream_chunks(D[j % kDBufs], yb, nullptr, &yb, 2 * wl, tt, step);
         });
       }
@@ -334,8 +334,8 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
       // 1. every global load of the iteration, from clamped, always-valid
       //    addresses (unsigned, so that a negative row clamps too)
       const Row* rf = rows + (it & 1) * kTile;  // tile it's staged rows
-      const int ttf = fill ? rt::tile_len(n, it) : 1;
-      const int ttp = prep ? rt::tile_len(n, it - 2) : 1;
+      const int ttf = fill ? tile_len(n, it) : 1;
+      const int ttp = prep ? tile_len(n, it - 2) : 1;
       float xl[kPer], xr[kPer];
       R old[kPer];
       Row next;

@@ -1,11 +1,13 @@
-// K2b: K2 under its blocked rel0 plans, rel0b* and rel0c*.
+// K2b: K2 under its blocked rel0 plans, rel0b* and rel0c*, on K1's
+// front end.
 //
 // Replaces the rel0b/rel0c branches of rodio_tpu/ops/fused.py
 // fused_resample_biquad_agc_mix / _fused_agc_kernel (:920-1158):
 // FusedWidePipeline(with_agc=True, agc_plan="rel0b16") is the JAX package's
-// AGC-on bench leg. Stereo streams, lane l = 2s + c; the lerp and the biquad
-// are K2's (fused_agc.cu). At a release coefficient of exactly 0 the AGC's
-// smoother step is a clamp of an affine map of constant slope att,
+// AGC-on bench leg. Stereo streams, lane l = 2s + c. The lerp and the
+// biquad are K1's (fused_front.cuh) without the gain, which K2 applies
+// after the AGC. At a release coefficient of exactly 0 the AGC's smoother
+// step is a clamp of an affine map of constant slope att,
 //
 //   f(g) = min(H, max(0.1, att*g + B)),  B = (1-att)*des, H = max(0.1, des),
 //
@@ -31,190 +33,234 @@
 //            att^(2j+2) (ch1) at the chunk's frame j, by serial products
 //   mix:     sum over streams of (y*gain)*gain_lane
 //
-// What bounds it on the H100: the elementwise stages (the lerp's loads,
-// the ring, an IEEE sqrt and divide per sample, pass 4 in the mix), spread
-// over eight warps; the serial chains are short. The only chain through g is
-// pass 3, one step per chunk; the window sum is one dependent add a frame;
-// pass 2 runs on one thread per (stream, chunk) of a tile, ~4 dependent ops
-// per sub-step (the H chain) over a chunk only; the biquad ~3 a frame.
-// Measured (benches/warp_cycles.py, H100 80GB HBM3 at 700 W, 512 streams,
-// rel0b16): 0.40 ms, iterations of ~3200 cycles with the mix warps the
-// busiest (~3100) and the biquad warp at ~2150.
+// What bounds it on the H100: the biquad's IIR half, as in K1, is a chain
+// of 3 dependent rounded ops a frame on one thread per lane (~0.078 ms at
+// 12800 frames); around it the AGC's stages are elementwise (the ring, an
+// IEEE sqrt and divide a sample, pass 4 and the mix) or short chains (the
+// window sum, one dependent add a frame per stream; pass 2, ~4 dependent
+// ops a sub-step within a chunk; pass 3, one step a chunk). Shared memory
+// traffic binds them: stages whose stores went 4 ways to one bank (pass 2
+// on lane-major tiles) slowed every warp's loads. On K2's 64-frame
+// pipeline (the earlier design) eight elementwise warps bound it at ~3240
+// cycles an iteration (0.39 ms, NVIDIA H100 80GB HBM3, 700 W); this design
+// runs iterations of ~3450 cycles for twice the frames, pass 2's warp and
+// the mix warps binding at ~3050, the IIR warp at ~2800 (0.21-0.23 ms at
+// path E's shape, chip_smoke.py and benches/warp_cycles.py, the same card).
 //
-// Design: K2's tile pipeline (fused_agc_common.cuh: 8 lanes, 4 streams, a
-// block), with tiles of whole chunks (as many as fit 64 frames, or one
-// longer chunk up to 256 frames), so that no chunk straddles a tile, and 12
-// warps. At iteration i:
+// Chunks and tiles: a path E chunk is 320 / 16 = 20 frames, and the front
+// end's tile is 128 frames at compile time, no multiple of 20. This cuts
+// each tile into pieces at the chunk boundaries, and pass 2 carries a
+// chunk's partial (B, L, H) from a tile's last piece to the next tile's
+// first (as K2g carries a group longer than a tile), so any chunk length
+// runs on K1's tile unchanged: a front-end tile of whole chunks would need
+// a tile length per chunk length (20, 40, 80, 160, ... up to 256), each
+// its own instance of K1's staging, fill and IIR register runs. Pass 3
+// writes g0 for every piece of a tile; pass 4 finds a frame's piece and
+// its row in the chunk from its position.
 //
-//   elementwise warps (3, 4, 6-11): fill tile i (the lerp), prep tile i-2
-//            (ring read and write, d), desired gains and maps of tile i-4
-//            (rel0c: the chunk's base added here), pass 4 and the mix of
-//            tile i-7 into per-block partials (on warps 8-11; warps 3 and 4
-//            stage the next tile's lerp rows)
-//   warp 0:  biquad of tile i-1, one thread per lane
-//   warp 1:  window sums of tile i-3, one thread per stream
-//   warp 5:  pass 2 of tile i-5, one thread per (stream, chunk), a few
-//            frames at a time in registers
-//   warp 2:  pass 3 of tile i-6, one thread per stream
+// Design (fused_front.cuh: K1's block of 8 lanes, 4 stereo streams, so 128
+// blocks for 1024 lanes; 128-frame tiles; K1's fill, copy and IIR warps):
+// the AGC's elementwise stages where K1's warps wait or idle on SMSPs 1-3,
+// its three serial chains on the idle warps beside the IIR warp on SMSP 0
+// (chains issue little; K2g's elementwise work there slowed the IIR half by
+// a quarter). At iteration i:
 //
-// Four elementwise warps, K2's layout, bound the first version at 0.55 ms
-// (iterations of ~4700 cycles against ~2100 for the biquad warp). The power
-// table ap is built once per launch. Tiles and the table live in dynamic
-// shared memory; a second kernel sums the partials in block order.
-#include "fused_agc_common.cuh"
+//   fill warps:  tile i's lerp and FIR half; then tile i-4's desired gains
+//                over its window sums, 4 frames of one lane a thread
+//   copy warps:  the ring's words of tile i-1 (a frame's 8 lanes in one
+//                16-byte load where the rows allow, 2 frames a thread),
+//                used an iteration later; the PCM rows of tile i+2 and the
+//                row indices of tiles i+3, i+4; while those copies fly,
+//                tile i-2's squares, the ring's rounding and write, and d
+//   warp 0:      the IIR half of tile i-1
+//   warp 4:      the window sums of tile i-3, one thread per stream
+//   warp 8:      pass 2 of tile i-5, one (stream, piece) a thread, its maps
+//                stored frame-major (kMLd), so its stores and the mix's
+//                loads meet no bank twice
+//   warp 12:     pass 3 over tile i-6, one thread per stream
+//   mix warps:   the gains (pass 4) and the mix of tile i-7, one frame of
+//                one channel an item
+//
+// 120 KB of shared memory. The mix partials are summed over blocks in
+// block order, in f64, as K1's. Every op rounds alone in the plain
+// version's order, so the biquad carries, the AGC carries and the ring
+// equal the plain version's bit for bit, and the mix differs only by the
+// order of its sum over streams and blocks.
+#include "fused_agc_common.cuh"  // the ring's rounding
+#include "fused_front.cuh"
 
 namespace {
 
-using namespace rt::fused_agc;
+using namespace rt::front;
+using rt::fused_agc::kRing;
+using rt::fused_agc::ring_f32;
+using rt::fused_agc::ring_round;
 
-constexpr int kTileTarget = 64;   // frames a tile of short chunks fills
-constexpr int kMaxChunk = 256;    // the longest chunk (one a tile)
-constexpr int kSB = kBL / 2;      // streams per block
-constexpr int kStride = kBL + 1;  // floats per tile row (+1: no bank conflicts)
-// tile buffers, and iterations from a tile's fill to its mix
-constexpr int kYB = 8, kDB = 6, kHB = 4, kLB = 3, kGB = 2, kBB = 2;
+constexpr int kSB = kBL / 2;       // streams a block
+constexpr int kMaxChunk = 256;     // the longest chunk the wrapper passes
+constexpr int kMaxPieces = kTile;  // pieces of a tile at most (chunks of 1)
+constexpr int kWinWarp = 4;        // the window sums (SMSP 0)
+constexpr int kComposeWarp = 8;    // pass 2 (SMSP 0)
+constexpr int kGainWarp = 12;      // pass 3 (SMSP 0)
+// y tiles, d tiles (then the window sums, then the desired gains), the
+// composed maps' tiles, and iterations from a tile's fill to its mix
+constexpr int kYBufs = 8, kDBufs = 4, kMBufs = 3;
+// A maps tile is frame-major, [frame][B, L, H][channel][stream] with a pad
+// float a frame: pass 2's threads, one a (stream, piece), store to 32
+// different banks (the pieces of a 20-frame chunk start 20 frames apart,
+// 20 * 25 = 500 = 20 mod 32 banks), and the mix's, one a frame, load from
+// 32 different banks (25 is odd)
+constexpr int kMLd = 3 * kBL + 1;
 constexpr int kDepth = 7;
-constexpr int kCh = 8;            // frames per register chunk of a serial walk
-constexpr int kCc = 4;            // ... of pass 2
-// warps: 0 the biquad, 1 the window sums, 2 pass 3, 5 pass 2; the other
-// eight the elementwise stages (they bound K2's layout, which has four)
-constexpr int kWarps = 12, kThreads = kWarps * 32, kNElem = 8 * 32;
+constexpr int kCc = 4;             // frames a pass 2 thread holds at once
+constexpr int kFrames = kTile / kCopy;  // frames of a tile a copy thread takes
+static_assert(kFill == kBL * (kTile / 4), "4 frames of one lane a fill thread");
+static_assert(kMix == 2 * (kTile / 4), "the mix: 4 frames of one channel a thread");
+static_assert(block_lanes(2) == kBL, "blocks of kSB stereo streams");
 
-// the elementwise slot of a warp, or -1
-__device__ __forceinline__ int elem_slot(int warp) {
-  return warp == 3 || warp == 4 ? warp - 3 : warp >= 6 ? warp - 4 : -1;
+// after the front end's buffers (float offsets): the d tiles ([lane][kYLd]
+// each), the maps tiles ([kTile][kMLd]), pass 3's g0 a piece
+// ([2][kMaxPieces][kSB]), pass 2's carried (B, L, H) ([2][3][kSB]), the
+// power table ([2 * kMaxChunk]) and the lanes' gains; the total bytes
+struct BLayout {
+  size_t d, m, g0, pc, ap, gain, bytes;
+};
+
+__host__ __device__ inline BLayout blayout() {
+  BLayout b;
+  b.d = layout(kBL, kYBufs).bytes / sizeof(float);
+  b.m = b.d + (size_t)kDBufs * kBL * kYLd;
+  b.g0 = b.m + (size_t)kMBufs * kTile * kMLd;
+  b.pc = b.g0 + 2 * kMaxPieces * kSB;
+  b.ap = b.pc + 2 * 3 * kSB;
+  b.gain = b.ap + 2 * kMaxChunk;
+  b.bytes = (b.gain + kBL) * sizeof(float);
+  return b;
 }
 
-// frames of a tile: whole chunks
-__host__ __device__ constexpr int tile_frames(int chunk) {
-  return chunk >= kTileTarget ? chunk : kTileTarget / chunk * chunk;
-}
+// A tile's pieces: the frames between its chunk boundaries. Piece 0 starts
+// at the tile's start, `off` frames into its chunk; piece p >= 1 at frame
+// first + (p-1)*chunk, a chunk's first frame.
+struct Pieces {
+  int off, first, np, chunk, tt;
+  __device__ Pieces(int j, int tt_, int chunk_) : chunk(chunk_), tt(tt_) {
+    off = j * kTile % chunk;
+    first = chunk - off;
+    np = first >= tt ? 1 : 1 + (tt - first + chunk - 1) / chunk;
+  }
+  __device__ int begin(int p) const { return p ? first + (p - 1) * chunk : 0; }
+  // the piece's end, a chunk boundary unless the tile ends first
+  __device__ int end(int p) const { return min(first + p * chunk, tt); }
+  __device__ bool ends_chunk(int p) const { return first + p * chunk <= tt; }
+};
 
-size_t shmem_bytes(int chunk) {
-  const size_t tl = tile_frames(chunk);
-  return sizeof(Row) * 2 * tl +
-         sizeof(float) * ((kYB + kDB + kHB + kLB) * tl * kStride +
-                          (kGB + kBB) * kTileTarget * kSB + 2 * chunk);
-}
+// A frame's 8 ring values (the block's lanes) as raw 32-bit words, and as
+// f32, and the rounded ones back. vec: one 16-byte piece for bf16, two for
+// f32 (nl == 8 and the rows aligned); else lane by lane, the block's nl
+// lanes (nl is even).
+template <typename R>
+constexpr int kWords = kBL * (int)sizeof(R) / 4;
 
-// Frames t0 .. t0+len-1 of lanes l0, l0+1 of a tile, in register chunks of
-// kCh: loaded, step(v) on each frame's pair, stored back.
-template <class Step>
-__device__ __forceinline__ void walk_pairs(float* tile, int l0, int t0,
-                                           int len, Step step) {
-#pragma unroll 1
-  for (int a = 0; a < len; a += kCh) {
-    float* p = tile + (t0 + a) * kStride + l0;
-    float v[kCh][2];
-    if (a + kCh <= len) {
+__device__ __forceinline__ void ring_load(const __nv_bfloat16* p, bool vec, int nl,
+                                          unsigned (&w)[4]) {
+  if (vec) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
-      for (int u = 0; u < kCh; ++u) {
-        v[u][0] = p[u * kStride];
-        v[u][1] = p[u * kStride + 1];
-      }
-#pragma unroll
-      for (int u = 0; u < kCh; ++u) step(v[u]);
-#pragma unroll
-      for (int u = 0; u < kCh; ++u) {
-        p[u * kStride] = v[u][0];
-        p[u * kStride + 1] = v[u][1];
-      }
-    } else {
-      for (int u = 0; u < len - a; ++u) {
-        v[0][0] = p[u * kStride];
-        v[0][1] = p[u * kStride + 1];
-        step(v[0]);
-        p[u * kStride] = v[0][0];
-        p[u * kStride + 1] = v[0][1];
-      }
-    }
+    for (int k = 0; k < 4; ++k)
+      w[k] = 2 * k < nl ? h[2 * k] | (unsigned)h[2 * k + 1] << 16 : 0u;
   }
 }
-
-// one biquad step on v in place, carries this thread's lane's
-__device__ __forceinline__ void bq_step(const rt::BiquadCoef& cf, float& v,
-                                        float& x1, float& x2, float& y1,
-                                        float& y2) {
-  const float yt = rt::biquad_step(cf, v, x1, x2, y1, y2);
-  x2 = x1;
-  x1 = v;
-  y2 = y1;
-  y1 = yt;
-  v = yt;
+__device__ __forceinline__ void ring_load(const float* p, bool vec, int nl,
+                                          unsigned (&w)[8]) {
+  if (vec) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+  } else {
+    const unsigned* u = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+    for (int l = 0; l < kBL; ++l) w[l] = l < nl ? u[l] : 0u;
+  }
 }
-
-// the biquad down lane wl's column of a tile's tt frames, 16 at a time in
-// registers
-__device__ __forceinline__ void biquad_walk(float* b, int wl, int tt,
-                                            const rt::BiquadCoef& cf,
-                                            float& x1, float& x2, float& y1,
-                                            float& y2) {
-#pragma unroll 1
-  for (int t0 = 0; t0 < tt; t0 += kBqCh) {
-    float* p = b + t0 * kStride + wl;
-    if (t0 + kBqCh <= tt) {
-      float v[kBqCh];
+__device__ __forceinline__ void ring_unpack(const unsigned (&w)[4], float (&o)[kBL]) {
 #pragma unroll
-      for (int u = 0; u < kBqCh; ++u) v[u] = p[u * kStride];
+  for (int k = 0; k < 4; ++k) {
+    o[2 * k] = __uint_as_float(w[k] << 16);
+    o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void ring_unpack(const unsigned (&w)[8], float (&o)[kBL]) {
 #pragma unroll
-      for (int u = 0; u < kBqCh; ++u) bq_step(cf, v[u], x1, x2, y1, y2);
+  for (int l = 0; l < kBL; ++l) o[l] = __uint_as_float(w[l]);
+}
+// q: values the ring's type holds exactly
+__device__ __forceinline__ void ring_store(__nv_bfloat16* p, bool vec, int nl,
+                                           const float (&q)[kBL]) {
+  if (vec) {
+    unsigned u[4];
 #pragma unroll
-      for (int u = 0; u < kBqCh; ++u) p[u * kStride] = v[u];
-    } else {
-      for (int u = 0; u < tt - t0; ++u) {
-        float v = p[u * kStride];
-        bq_step(cf, v, x1, x2, y1, y2);
-        p[u * kStride] = v;
-      }
-    }
+    for (int k = 0; k < 4; ++k)
+      u[k] = (__float_as_uint(q[2 * k]) >> 16) | (__float_as_uint(q[2 * k + 1]) & 0xffff0000u);
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBL; ++l)
+      if (l < nl) p[l] = __float2bfloat16_rn(q[l]);
+  }
+}
+__device__ __forceinline__ void ring_store(float* p, bool vec, int nl,
+                                           const float (&q)[kBL]) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(q[0], q[1], q[2], q[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(q[4], q[5], q[6], q[7]);
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBL; ++l)
+      if (l < nl) p[l] = q[l];
   }
 }
 
 // one sub-step of pass 2: the composed map (B, L, H) after the step map of
 // b = (1-att)*des, h = max(0.1, des) (rodio_tpu/ops/fused.py:1070-1077)
-__device__ __forceinline__ void compose(float att, float b, float h, float& B,
+__device__ __forceinline__ void compose(float att, float catt, float des, float& B,
                                         float& Lm, float& H) {
+  const float b = rt::mul(catt, des), h = rt::max_nan(des, 0.1f);
   B = rt::add(rt::mul(att, B), b);
   Lm = rt::max_nan(rt::add(rt::mul(att, Lm), b), 0.1f);
   H = rt::min_nan(h, rt::max_nan(rt::add(rt::mul(att, H), b), 0.1f));
 }
 
-// pass 2 over N frames of a stream's (B, H, L) columns from row 0 of db,
-// hb, lb: loaded into registers first, so the chain waits on no load
+// pass 2 over N frames of a stream: d points at frame 0 of its lane 2s row
+// of desired gains (lane 2s+1's kYLd further), m at frame 0 of its maps
+// (stream s of channel 0); the desired gains loaded into registers first,
+// so the chain waits on no load
 template <int N>
-__device__ __forceinline__ void compose_frames(float* db, float* hb, float* lb,
-                                               float att, float& B, float& Lm,
+__device__ __forceinline__ void compose_frames(const float* d, float* m, float att,
+                                               float catt, float& B, float& Lm,
                                                float& H) {
-  float b[N][2], h[N][2], l[N][2];
+  float dv[N][2];
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) dv[u][c] = d[c * kYLd + u];
 #pragma unroll
   for (int u = 0; u < N; ++u)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      b[u][c] = db[u * kStride + c];
-      h[u][c] = hb[u * kStride + c];
-    }
-#pragma unroll
-  for (int u = 0; u < N; ++u)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      compose(att, b[u][c], h[u][c], B, Lm, H);
-      b[u][c] = B;
-      l[u][c] = Lm;
-      h[u][c] = H;
-    }
-#pragma unroll
-  for (int u = 0; u < N; ++u)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      db[u * kStride + c] = b[u][c];
-      lb[u * kStride + c] = l[u][c];
-      hb[u * kStride + c] = h[u][c];
+      compose(att, catt, dv[u][c], B, Lm, H);
+      float* const mc = m + u * kMLd + c * kSB;
+      mc[0] = B;
+      mc[kBL] = Lm;
+      mc[2 * kBL] = H;
     }
 }
 
-// kTiled: rel0c's chunked window sum; kPer: tile elements per elementwise
-// thread (a tile of up to 32 * kPer frames)
-template <typename R, bool kTiled, int kPer>
+// kTiled: rel0c's chunked window sum
+template <typename R, bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_agc_blocked_kernel(const float* __restrict__ pcm, long long F, int L,
                          const long long* __restrict__ left,
@@ -228,43 +274,41 @@ fused_agc_blocked_kernel(const float* __restrict__ pcm, long long F, int L,
                          const float* __restrict__ params, R* ring,
                          int ring_row, int chunk, float* __restrict__ partial,
                          int n) {
-  extern __shared__ float4 smem[];
-  __shared__ float gain_sh[kBL];
-  const int TL = tile_frames(chunk), tsz = TL * kStride;
-  Row* rows = reinterpret_cast<Row*>(smem);
-  float* Y = reinterpret_cast<float*>(rows + 2 * TL);  // y (and the lerp)
-  float* D = Y + kYB * tsz;     // d, window sums, then the maps' B
-  float* H = D + kDB * tsz;     // the maps' H
-  float* Lt = H + kHB * tsz;    // the maps' L
-  float* G0 = Lt + kLB * tsz;   // [kGB][chunk of a tile][stream]: pass 3's g
-  float* BS = G0 + kGB * kTileTarget * kSB;  // [kBB][chunk][stream]: rel0c's bases
-  float* AP = BS + kBB * kTileTarget * kSB;  // [j][c]: att^(2j+1+c)
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const Front fe(smem, pcm, F, L, left, wts, n, kBL, kYBufs);
+  const BLayout bl = blayout();
+  constexpr int tsz = kBL * kYLd;
+  auto dt = [&](int j) { return smem + bl.d + (j % kDBufs) * tsz; };
+  auto mt = [&](int j) { return smem + bl.m + (j % kMBufs) * (kTile * kMLd); };
+  auto g0t = [&](int j) { return smem + bl.g0 + (j & 1) * kMaxPieces * kSB; };
+  float* const PC = smem + bl.pc;  // [tile parity][B, L, H][stream]
+  float* const AP = smem + bl.ap;  // [j][c]: att^(2j+1+c)
+  float* const gain_sh = smem + bl.gain;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int lane0 = blockIdx.x * kBL;
-  const int nl = min(kBL, L - lane0);  // even: L is, and lane0 too
-  const int ns = nl / 2;
-  const int S = L / 2, s0 = lane0 / 2;
-  const int n_tiles = (n + TL - 1) / TL;
+  const int nl = fe.nl, ns = nl / 2;
+  const int S = L / 2, s0 = fe.lane0 / 2;
   const rt::AgcParams p = rt::load_agc_params(params);
   const rt::BiquadCoef cf = rt::load_coef(coef);
   const float catt = rt::sub(1.0f, p.att);
+  // 16-byte ring pieces: whole blocks of lanes on aligned rows
+  const bool rvec = nl == kBL && (L * sizeof(R)) % 16 == 0 && ((U64)ring & 15) == 0;
 
-  // carries: biquad on warp 0 (per lane), the window sum (and the untouched
-  // peak) on warp 1 and the gain on warp 2 (per stream)
-  float x1 = 0.f, x2 = 0.f, y1 = 0.f, y2 = 0.f;
-  float rs = 0.f, pk = 0.f, g = 0.f;
+  // carries: the IIR half on warp 0 (per lane); the window sum, the
+  // untouched peak and the gain on warp 14 (per stream)
+  float y1 = 0.f, y2 = 0.f;
+  float rs = 0.f, pk = 0.f, g = 0.f, acc = 0.f;
+  int left_in_chunk = 0;  // rel0c: frames left in the window sum's chunk
   if (warp == 0 && wl < nl) {
-    x1 = bq_in[0 * L + lane0 + wl];
-    x2 = bq_in[1 * L + lane0 + wl];
-    y1 = bq_in[2 * L + lane0 + wl];
-    y2 = bq_in[3 * L + lane0 + wl];
-  } else if (warp == 1 && wl < ns) {
+    y1 = bq_in[2 * L + fe.lane0 + wl];
+    y2 = bq_in[3 * L + fe.lane0 + wl];
+  } else if (warp == kWinWarp && wl < ns) {
     rs = agc_in[0 * S + s0 + wl];
     pk = agc_in[1 * S + s0 + wl];
-  } else if (warp == 2 && wl < ns) {
+  } else if (warp == kGainWarp && wl < ns) {
     g = agc_in[2 * S + s0 + wl];
   }
-  if (tid < kBL) gain_sh[tid] = tid < nl ? gains[lane0 + tid] : 0.f;
+  if (tid < kBL) gain_sh[tid] = tid < nl ? gains[fe.lane0 + tid] : 0.f;
   if (tid == kThreads - 1) {  // the power table, in the serial order
     float ap = p.att;
     for (int j = 0; j < chunk; ++j) {
@@ -276,229 +320,232 @@ fused_agc_blocked_kernel(const float* __restrict__ pcm, long long F, int L,
   }
   const float att_r = rt::ipow(p.att, 2 * chunk);
 
-  auto tlen = [&](int i) { return min(TL, n - i * TL); };
-  auto at = [&](float* base, int nbuf, int i, int t, int l) -> float& {
-    return base[(i % nbuf) * tsz + t * kStride + l];
+  auto ring_at = [&](int j, int t) {
+    return ring + (long long)((ring_row + j * kTile + t) & (kRing - 1)) * L + fe.lane0;
   };
-  auto stage_rows = [&](int i, int sub, Row& r) {  // tile i's frame `sub`
-    const int tc = i * TL + min(sub, tlen(i) - 1);
-    r.left = left[tc];
-    r.w = wts[tc];
-  };
-  auto ring_at = [&](int i, int t, int l) {
-    const int row = (ring_row + i * TL + t) & (kRing - 1);
-    return (long long)row * L + lane0 + l;
-  };
-  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
 
-  for (int k = tid; k < TL; k += kThreads) {
-    Row r;
-    stage_rows(0, k, r);
-    rows[k] = r;
-  }
-  __syncthreads();
-  for (int it = 0; it < n_tiles + kDepth; ++it) {
+  int gsub = 0;  // the thread's index in its group
+  const int group = work_group(warp, wl, gsub);
+  Row next[kStageRows];  // a copy thread's rows of the tile staged next
+  unsigned cur[kFrames][kWords<R>];  // a copy thread's ring words of tile it-2
+  fe.start(bq_in, group, gsub, next);
+
+  for (int it = 0; it < fe.n_tiles + kDepth; ++it) {
     if (warp == 0) {
-      const int j = it - 1;
-      if (live(j) && wl < nl)
-        biquad_walk(Y + (j % kYB) * tsz, wl, tlen(j), cf, x1, x2, y1, y2);
-    } else if (warp == 1) {
-      const int j = it - 3;
-      if (live(j) && wl < ns) {
-        // in: the packed deltas (D); out: the window sums (D)
-        float* db = D + (j % kDB) * tsz;
-        if (!kTiled) {
-          walk_pairs(db, 2 * wl, 0, tlen(j), [&](float (&v)[2]) {
-            v[0] = rt::add(rs, v[0]);
-            rs = rt::add(rs, v[1]);
-            v[1] = rs;
-          });
-        } else {
-          // the sums from 0 within each chunk; the chunk's base goes to BS
-          // and is added in the desired-gain stage
-          float* bs = BS + (j % kBB) * kTileTarget * kSB;
-          for (int c0 = 0; c0 < tlen(j); c0 += chunk) {
-            float acc = 0.f;
-            walk_pairs(db, 2 * wl, c0, chunk, [&](float (&v)[2]) {
-              v[0] = rt::add(acc, v[0]);
-              acc = rt::add(acc, v[1]);
-              v[1] = acc;
-            });
-            bs[c0 / chunk * kSB + wl] = rs;
-            rs = rt::add(rs, acc);
+      fe.iir(it, wl, cf, y1, y2);
+    } else if (warp == kWinWarp) {
+      if (wl < ns && fe.live(it - 3)) {
+        // the window sums over d of tile it-3, in place: lane 2s the lo
+        // sub-step's, lane 2s+1 the hi's
+        const int j = it - 3;
+        float* const lo = dt(j) + 2 * wl * kYLd;
+        float* const hi = lo + kYLd;
+        full_or_tail(tile_len(n, j), [&](auto tt) {
+#pragma unroll 1
+          for (int t0 = 0; t0 < kTile; t0 += 16) {
+            if (!kWhole<decltype(tt)> && t0 >= tt) break;
+            float a[16], b[16];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float4 va = reinterpret_cast<const float4*>(lo + t0)[q];
+              const float4 vb = reinterpret_cast<const float4*>(hi + t0)[q];
+              a[4 * q] = va.x, a[4 * q + 1] = va.y, a[4 * q + 2] = va.z, a[4 * q + 3] = va.w;
+              b[4 * q] = vb.x, b[4 * q + 1] = vb.y, b[4 * q + 2] = vb.z, b[4 * q + 3] = vb.w;
+            }
+#pragma unroll
+            for (int u = 0; u < 16; ++u) {
+              if (kWhole<decltype(tt)> || t0 + u < tt) {
+                if (!kTiled) {
+                  a[u] = rt::add(rs, a[u]);
+                  rs = rt::add(rs, b[u]);
+                  b[u] = rs;
+                } else {
+                  if (left_in_chunk == 0) {
+                    acc = 0.f;
+                    left_in_chunk = chunk;
+                  }
+                  a[u] = rt::add(rt::add(acc, a[u]), rs);
+                  acc = rt::add(acc, b[u]);
+                  b[u] = rt::add(acc, rs);
+                  if (--left_in_chunk == 0) rs = rt::add(rs, acc);
+                }
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              reinterpret_cast<float4*>(lo + t0)[q] =
+                  make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+              reinterpret_cast<float4*>(hi + t0)[q] =
+                  make_float4(b[4 * q], b[4 * q + 1], b[4 * q + 2], b[4 * q + 3]);
+            }
+          }
+        });
+      }
+    } else if (warp == kGainWarp) {
+      if (wl < ns && fe.live(it - 6)) {
+        // pass 3: g0 of each piece of tile it-6, g through the chunks that
+        // end in it (their last sub-step's maps)
+        const int j = it - 6;
+        const Pieces pc(j, tile_len(n, j), chunk);
+        float* const g0 = g0t(j);
+        const float* const m = mt(j) + kSB + wl;  // channel 1's maps of stream wl
+        for (int q = 0; q < pc.np; ++q) {
+          g0[q * kSB + wl] = g;
+          if (pc.ends_chunk(q)) {
+            const float* const mq = m + (pc.end(q) - 1) * kMLd;
+            g = rt::min_nan(mq[2 * kBL], rt::max_nan(mq[kBL], rt::add(rt::mul(att_r, g), mq[0])));
           }
         }
       }
-    } else if (warp == 2) {
-      const int j = it - 6;
-      if (live(j) && wl < ns) {
-        // pass 3: g through the chunks' total maps (their last sub-step)
-        const int l = 2 * wl + 1;
-        float* g0 = G0 + (j % kGB) * kTileTarget * kSB;
-        for (int c = 0; c < tlen(j) / chunk; ++c) {
-          const int t = c * chunk + chunk - 1;
-          g0[c * kSB + wl] = g;
-          g = rt::min_nan(at(H, kHB, j, t, l),
-                          rt::max_nan(at(Lt, kLB, j, t, l),
-                                      rt::add(rt::mul(att_r, g),
-                                              at(D, kDB, j, t, l))));
-        }
-      }
-    } else if (warp == 5) {
-      const int j = it - 5;
-      if (live(j)) {
-        // pass 2: one (stream, chunk) per thread, sub-steps in order
-        const int items = tlen(j) / chunk * kSB;
-        for (int k = wl; k < items; k += 32) {
-          const int s = k % kSB, c0 = k / kSB * chunk;
-          if (s >= ns) continue;
-          const int o = c0 * kStride + 2 * s;
-          float* db = D + (j % kDB) * tsz + o;
-          float* hb = H + (j % kHB) * tsz + o;
-          float* lb = Lt + (j % kLB) * tsz + o;
+    } else if (warp == kComposeWarp) {
+      if (fe.live(it - 5)) {
+        // pass 2: one (stream, piece) a thread, sub-steps in order; a
+        // piece that continues a chunk starts from the (B, L, H) the
+        // previous tile's last piece left
+        const int j = it - 5;
+        const Pieces pc(j, tile_len(n, j), chunk);
+        for (int k = wl; k < pc.np * ns; k += 32) {
+          const int q = k / ns, s = k - q * ns;
+          const int a = pc.begin(q), b = pc.end(q);
           float B = 0.f, Lm = 0.f, Hm = p.max_gain;
-          int r = 0;
+          if (q == 0 && pc.off) {
+            const float* c = PC + ((j - 1) & 1) * 3 * kSB;
+            B = c[s];
+            Lm = c[kSB + s];
+            Hm = c[2 * kSB + s];
+          }
+          const float* const d = dt(j) + 2 * s * kYLd;
+          float* const m = mt(j) + s;
+          int t = a;
 #pragma unroll 1
-          for (; r + kCc <= chunk; r += kCc)
-            compose_frames<kCc>(db + r * kStride, hb + r * kStride,
-                                lb + r * kStride, p.att, B, Lm, Hm);
+          for (; t + kCc <= b; t += kCc)
+            compose_frames<kCc>(d + t, m + t * kMLd, p.att, catt, B, Lm, Hm);
 #pragma unroll 1
-          for (; r < chunk; ++r)
-            compose_frames<1>(db + r * kStride, hb + r * kStride,
-                              lb + r * kStride, p.att, B, Lm, Hm);
-        }
-      }
-    } else if (elem_slot(warp) >= 0) {
-      const int sub = elem_slot(warp) * 32 + wl;
-      const bool fill = live(it), prep = live(it - 2);
-      // 1. every global load of the iteration, from clamped, always-valid
-      //    addresses (unsigned, so that a negative row clamps too)
-      const Row* rf = rows + (it & 1) * TL;  // tile it's staged rows
-      const int ttf = fill ? tlen(it) : 1;
-      const int ttp = prep ? tlen(it - 2) : 1;
-      float xl[kPer], xr[kPer];
-      R old[kPer];
-      Row next;
-      if (fill) {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNElem;
-          const U64 r0 = (U64)rf[min(e / kBL, ttf - 1)].left;
-          const long long lane = lane0 + min(e % kBL, nl - 1);
-          xl[k] = pcm[min(r0, (U64)F - 1) * L + lane];
-          xr[k] = pcm[min(r0 + 1, (U64)F - 1) * L + lane];
-        }
-      }
-      if (prep) {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNElem;
-          old[k] = ring[ring_at(it - 2, min(e / kBL, ttp - 1),
-                                min(e % kBL, nl - 1))];
-        }
-      }
-      const bool stage = live(it + 1) && sub < TL;
-      if (stage) stage_rows(it + 1, sub, next);
-      // 2. shared-memory work while the loads are in flight: the desired
-      //    gains and step maps of tile it-4, the gains and mix of tile it-7
-      if (live(it - 4)) {
-        const int i = it - 4, tt = tlen(i);
-        const float* bs = BS + (i % kBB) * kTileTarget * kSB;
-        for (int e = sub; e < tt * kBL; e += kNElem) {
-          const int t = e / kBL, l = e % kBL;
-          if (l < nl) {
-            float rsv = at(D, kDB, i, t, l);
-            if (kTiled) rsv = rt::add(rsv, bs[t / chunk * kSB + l / 2]);
-            const float des =
-                rt::desired_gain_folded(rsv, at(Y, kYB, i, t, l), p);
-            at(D, kDB, i, t, l) = rt::mul(catt, des);
-            at(H, kHB, i, t, l) = rt::max_nan(des, 0.1f);
+          for (; t < b; ++t) compose_frames<1>(d + t, m + t * kMLd, p.att, catt, B, Lm, Hm);
+          if (q == pc.np - 1 && !pc.ends_chunk(q)) {  // the chunk goes on
+            float* c = PC + (j & 1) * 3 * kSB;
+            c[s] = B;
+            c[kSB + s] = Lm;
+            c[2 * kSB + s] = Hm;
           }
         }
       }
-      if (live(it - kDepth)) {
-        const int i = it - kDepth, tt = tlen(i);
-        const float* g0 = G0 + (i % kGB) * kTileTarget * kSB;
-        // from the last slot down: the first ones stage the rows
-        for (int e = kNElem - 1 - sub; e < 2 * TL; e += kNElem) {
-          const int c = e / TL, t = e % TL;
-          if (t < tt) {
-            const int ck = t / chunk, r = t % chunk;
-            const float ap = AP[2 * r + c];
-            float acc = 0.f;
-            for (int s = 0; s < ns; ++s) {
-              const int l = 2 * s + c;
+    } else if (group == 2) {
+      if (fe.live(it - kDepth)) {
+        // pass 4 and the mix of tile it-7: this block's streams per
+        // (channel, frame), in stream order, one frame of one channel an
+        // item, neighbouring threads on neighbouring frames; each y times
+        // its gain and its lane's
+        const int j = it - kDepth, tt = tile_len(n, j);
+        const Pieces pc(j, tt, chunk);
+        const float* const y = fe.y_tile(j);
+        const float* const g0 = g0t(j);
+        const float* const m = mt(j);
+#pragma unroll 1
+        for (int e = gsub; e < 2 * kTile; e += kMix) {
+          const int c = e / kTile, t = e % kTile;
+          if (t >= tt) continue;
+          // the frame's piece and its row in the chunk
+          const int pos = pc.off + t, pi = pos / chunk;
+          const float ap = AP[2 * (pos - pi * chunk) + c];
+          const float4 gv = *reinterpret_cast<const float4*>(g0 + pi * kSB);
+          const float gs[kSB] = {gv.x, gv.y, gv.z, gv.w};
+          const float* const mc = m + t * kMLd + c * kSB;
+          float acc = 0.f;
+#pragma unroll
+          for (int s = 0; s < kSB; ++s) {
+            if (s < ns) {
               const float gain = rt::min_nan(
-                  at(H, kHB, i, t, l),
-                  rt::max_nan(at(Lt, kLB, i, t, l),
-                              rt::add(rt::mul(ap, g0[ck * kSB + s]),
-                                      at(D, kDB, i, t, l))));
-              const float v =
-                  rt::mul(rt::mul(at(Y, kYB, i, t, l), gain), gain_sh[l]);
-              acc = s ? rt::add(acc, v) : v;
+                  mc[2 * kBL + s], rt::max_nan(mc[kBL + s], rt::add(rt::mul(ap, gs[s]),
+                                                                     mc[s])));
+              const float v = rt::mul(rt::mul(y[(2 * s + c) * kYLd + t], gain), gain_sh[2 * s + c]);
+              acc = s ? rt::add(acc, v) : v;  // the first term alone
             }
-            partial[((long long)blockIdx.x * 2 + c) * n + i * TL + t] = acc;
           }
+          partial[((long long)blockIdx.x * 2 + c) * n + (long long)j * kTile + t] = acc;
         }
       }
-      // 3. the loaded values used
-      if (fill) {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNElem, t = e / kBL, l = e % kBL;
-          if (t < ttf && l < nl) {
-            const Row& r = rf[t];
-            const float vl = (U64)r.left < (U64)F ? xl[k] : 0.f;
-            const float vr = (U64)r.left + 1 < (U64)F ? xr[k] : 0.f;
-            at(Y, kYB, it, t, l) = rt::add(rt::mul(vl, r.w.x), rt::mul(vr, r.w.y));
-          }
+    } else if (group == 0) {
+      fe.fill<false>(it, gsub, nullptr, 0.f, cf);
+      if (fe.live(it - 4)) {
+        // tile it-4's desired gains over its window sums (d's tile) and y
+        const int j = it - 4, l = gsub / (kTile / 4), t0 = gsub % (kTile / 4) * 4;
+        if (l < nl && t0 < tile_len(n, j)) {
+          const int o = l * kYLd + t0;
+          float4* const b4 = reinterpret_cast<float4*>(dt(j) + o);
+          const float4 rv = *b4;
+          const float4 yv = *reinterpret_cast<const float4*>(fe.y_tile(j) + o);
+          const float d0 = rt::desired_gain_folded(rv.x, yv.x, p);
+          const float d1 = rt::desired_gain_folded(rv.y, yv.y, p);
+          const float d2 = rt::desired_gain_folded(rv.z, yv.z, p);
+          const float d3 = rt::desired_gain_folded(rv.w, yv.w, p);
+          *b4 = make_float4(d0, d1, d2, d3);
         }
       }
-      if (prep) {
-        const int i = it - 2;
+    } else if (group == 1) {
+      // the ring's values leaving the window for tile it-1's frames, loaded
+      // an iteration before their use (cur holds tile it-2's)
+      const int jr = it - 2;
+      const int ttr = fe.live(jr) ? tile_len(n, jr) : 0;
+      const int ttn = fe.live(it - 1) ? tile_len(n, it - 1) : 0;
+      unsigned nxt[kFrames][kWords<R>];
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNElem, t = e / kBL, l = e % kBL;
-          if (t < ttp && l < nl) {
-            const float y0 = at(Y, kYB, i, t, l & ~1);
-            float sq = rt::mul(y0, y0);
-            if (l & 1) {  // the packed hi: sq0 + sq1
-              const float y = at(Y, kYB, i, t, l);
-              sq = rt::add(sq, rt::mul(y, y));
+      for (int k = 0; k < kFrames; ++k) {
+        const int t = gsub + k * kCopy;
+        if (t < ttn) ring_load(ring_at(it - 1, t), rvec, nl, nxt[k]);
+      }
+      // the front end's copies; while they fly, tile it-2's squares, the
+      // ring's rounding and write, and d = q - old
+      fe.copy_step(it, gsub, next, [&] {
+        const float* const yb = fe.y_tile(jr);
+#pragma unroll
+        for (int k = 0; k < kFrames; ++k) {
+          const int t = gsub + k * kCopy;
+          if (t < ttr) {
+            float q[kBL], old[kBL];
+            ring_unpack(cur[k], old);
+#pragma unroll
+            for (int s = 0; s < kSB; ++s) {
+              const float y0 = yb[2 * s * kYLd + t], yh = yb[(2 * s + 1) * kYLd + t];
+              const float sq0 = rt::mul(y0, y0);
+              q[2 * s] = ring_f32(ring_round<R>(sq0));
+              q[2 * s + 1] = ring_f32(ring_round<R>(rt::add(sq0, rt::mul(yh, yh))));
             }
-            const R q = ring_round<R>(sq);
-            ring[ring_at(i, t, l)] = q;
-            at(D, kDB, i, t, l) = rt::sub(ring_f32(q), ring_f32(old[k]));
+            ring_store(ring_at(jr, t), rvec, nl, q);
+            float* const d = dt(jr) + t;
+#pragma unroll
+            for (int l = 0; l < kBL; ++l)
+              if (l < nl) d[l * kYLd] = rt::sub(q[l], old[l]);
           }
         }
-      }
-      if (stage) rows[((it + 1) & 1) * TL + sub] = next;
+      });
+#pragma unroll
+      for (int k = 0; k < kFrames; ++k)
+#pragma unroll
+        for (int w = 0; w < kWords<R>; ++w) cur[k][w] = nxt[k][w];
     }
     __syncthreads();
   }
 
-  if (warp == 0 && wl < nl) {
-    bq_out[0 * L + lane0 + wl] = x1;
-    bq_out[1 * L + lane0 + wl] = x2;
-    bq_out[2 * L + lane0 + wl] = y1;
-    bq_out[3 * L + lane0 + wl] = y2;
-  } else if (warp == 1 && wl < ns) {
+  if (warp == 0) {
+    fe.finish(bq_out, wl, y1, y2);
+  } else if (warp == kWinWarp && wl < ns) {
     agc_out[0 * S + s0 + wl] = rs;
     agc_out[1 * S + s0 + wl] = pk;  // the peak: memoryless at release 0
-  } else if (warp == 2 && wl < ns) {
+  } else if (warp == kGainWarp && wl < ns) {
     agc_out[2 * S + s0 + wl] = g;
   }
 }
 
-template <typename R, bool kTiled, int kPer>
+template <typename R, bool kTiled>
 cudaError_t launch(const float* pcm, long long F, int L, const long long* left,
                    const float* wts, const float* gains, const float* coef,
                    const float* bq_in, float* bq_out, const float* agc_in,
                    float* agc_out, const float* params, void* ring,
                    int ring_row, int chunk, float* partial, int n, int nblk,
                    cudaStream_t s) {
-  const size_t shmem = shmem_bytes(chunk);
-  auto kernel = fused_agc_blocked_kernel<R, kTiled, kPer>;
+  const size_t shmem = blayout().bytes;
+  auto kernel = fused_agc_blocked_kernel<R, kTiled>;
   if (shmem > 48 * 1024) {  // more than the default needs opting in
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -509,25 +556,6 @@ cudaError_t launch(const float* pcm, long long F, int L, const long long* left,
       bq_in, bq_out, agc_in, agc_out, params, static_cast<R*>(ring), ring_row,
       chunk, partial, n);
   return cudaGetLastError();
-}
-
-// the instance for the ring's type, the window sum's form and the tile's
-// length (kPer elements a thread: tiles up to 64, 128 or 256 frames)
-template <typename R, bool kTiled>
-cudaError_t launch_tiles(const float* pcm, long long F, int L,
-                         const long long* left, const float* wts,
-                         const float* gains, const float* coef,
-                         const float* bq_in, float* bq_out,
-                         const float* agc_in, float* agc_out,
-                         const float* params, void* ring, int ring_row,
-                         int chunk, float* partial, int n, int nblk,
-                         cudaStream_t s) {
-  const int tl = tile_frames(chunk);
-  auto run = tl <= 64    ? launch<R, kTiled, 64 * kBL / kNElem>
-             : tl <= 128 ? launch<R, kTiled, 128 * kBL / kNElem>
-                         : launch<R, kTiled, 256 * kBL / kNElem>;
-  return run(pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in,
-             agc_out, params, ring, ring_row, chunk, partial, n, nblk, s);
 }
 
 }  // namespace
@@ -546,13 +574,11 @@ extern "C" int rt_fused_resample_biquad_agc_blocked_mix(
     return (int)cudaErrorInvalidValue;
   const int nblk = (L + kBL - 1) / kBL;
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = ring_bf16 ? (tiled ? launch_tiles<__nv_bfloat16, true>
-                                : launch_tiles<__nv_bfloat16, false>)
-                       : (tiled ? launch_tiles<float, true>
-                                : launch_tiles<float, false>);
+  auto run = ring_bf16 ? (tiled ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)
+                       : (tiled ? launch<float, true> : launch<float, false>);
   const cudaError_t err =
       run(pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in, agc_out,
           params, ring, ring_row, chunk, partial, n, nblk, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)sum_partials(partial, out, nblk, n, s);
+  return (int)rt::front::sum_partials(partial, out, nblk, 2LL * n, s);
 }

@@ -1,6 +1,7 @@
-// What K2's plans (fused_agc.cu, fused_agc_blocked.cu) share: the block's
-// shape, the warps' roles, the staged lerp rows, the ring's rounding (K2g's
-// too, fused_agc_group.cu, which runs on K1's front end), the biquad warp's
+// What K2's serial and rel0 plans (fused_agc.cu: K2, K2r) use: the block's
+// shape, its 64-frame tiles, the warps' roles, the staged lerp rows, the
+// ring's rounding (K2g's and K2b's too, fused_agc_group.cu and
+// fused_agc_blocked.cu, which run on K1's front end), the biquad warp's
 // column walk and the sum of the blocks' mix partials in order.
 #pragma once
 
@@ -9,14 +10,13 @@
 #include <type_traits>
 
 #include "agc_math.cuh"
-#include "biquad_pipeline.cuh"  // rt::kTile, rt::tile_len
-#include "lane_pipeline.cuh"    // rt::Steps
+#include "lane_pipeline.cuh"  // rt::Steps
 
 namespace rt::fused_agc {
 
-using rt::kTile;
 using U64 = unsigned long long;
 
+constexpr int kTile = 64;    // frames a tile
 constexpr int kBL = 8;       // lanes per block (whole stereo streams)
 constexpr int kRing = 4096;  // frames of the RMS window: 8192 samples / 2 ch
 constexpr int kBqCh = 16;    // frames per register chunk of warp 0
@@ -27,6 +27,10 @@ constexpr int kAgcThreads = 9 * 32;
 static_assert(kBL % 2 == 0 && kBL <= 32, "whole streams, one warp of lanes");
 
 typedef float Tile[kTile][kBL + 1];  // +1: no bank conflicts on columns
+
+__device__ __forceinline__ int tile_len(long long T, int i) {
+  return (int)min((long long)kTile, T - (long long)i * kTile);
+}
 
 // the elementwise slot of a warp, or -1
 __device__ __forceinline__ int work_slot(int warp) {

@@ -63,7 +63,7 @@ AGC_RING_FRAMES = 4096
 #: ``agc_plan`` values, rodio_tpu/flagship.py:403-406)
 AGC_REL0_PLANS = ("rel0", "rel0f", "rel0b", "rel0b16", "rel0b32", "rel0b64",
                   "rel0c", "rel0c8", "rel0c16", "rel0c32")
-#: the longest chunk K2b takes on the card (its tiles are whole chunks)
+#: the longest chunk K2b takes on the card (its power table's length)
 AGC_BLOCKED_MAX_CHUNK = 256
 
 

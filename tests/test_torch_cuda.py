@@ -45,20 +45,63 @@ def _f32(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("L,T", [(5, 1), (5, 2), (64, 300), (1024, 1000)])
+@pytest.mark.parametrize("L,T", [
+    (5, 1), (5, 2), (64, 300), (1024, 1000),
+    (2, 4096),                       # path B's block: one block of 2 lanes
+    (1024, 12800),                   # the unfused chain's and path C's
+    (8, 127), (8, 129), (8, 130),    # a tail tile of 127, 1 and 2 steps
+    (13, 128), (3, 4097), (6, 258),  # ragged L; T % 4 != 0: 4-byte copies
+    (16, 3),
+])
 def test_k4_biquad_matches_plain(dev, L, T):
     rng = np.random.default_rng(L * 7 + T)
     x = _f32(rng.standard_normal((L, T)) * 0.3, dev)
+    _k4_check(dev, x, tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4)))
+
+
+def _k4_check(dev, x, st):
+    """K4 against its plain version: y and the four carries bit-equal (NaN
+    where the plain version has NaN), one launch."""
     coef = _f32(blt_coefficients("high_pass", 48000, 300.0, 0.8).as_tuple(), dev)
-    st = tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
     before = cuda_scan.launches
     yk, sk = cuda_scan.biquad_df1(x, coef, st)
     yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
     torch.cuda.synchronize()
     assert cuda_scan.launches == before + 1
-    assert torch.equal(yk, yp)
+    assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
+    assert torch.equal(yk.isnan(), yp.isnan())
     for a, b in zip(sk, sp):
-        assert torch.equal(a, b)
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), b.isnan())
+
+
+@pytest.mark.parametrize("T", [128, 300])
+def test_k4_special_values(dev, T):
+    """NaN, +inf and -inf in x, one lane of each and a few samples in
+    others: the FIR half carries them across a tile edge as the scan does."""
+    rng = np.random.default_rng(T)
+    x = rng.standard_normal((12, T)) * 0.3
+    x[1, :] = np.nan
+    x[2, :] = np.inf
+    x[3, :] = -np.inf
+    x[4, [0, 1, T - 1]] = [np.nan, np.inf, -np.inf]
+    x[5, [126, 127, 128 % T]] = [np.inf, np.nan, -np.inf]
+    x[6, :] = 0.0
+    st = [rng.standard_normal(12) * 0.1 for _ in range(4)]
+    st[0][7], st[3][8] = np.nan, np.inf
+    _k4_check(dev, _f32(x, dev), tuple(_f32(s, dev) for s in st))
+
+
+@pytest.mark.parametrize("T", [4096, 1000])
+def test_k4_misaligned_inputs(dev, T):
+    """x and y off 16-byte alignment (views one float into a buffer): the
+    kernel takes its 4-byte copies and stores."""
+    rng = np.random.default_rng(T + 1)
+    L = 9
+    buf = _f32(rng.standard_normal(L * T + 1) * 0.3, dev)
+    x = buf[1:].view(L, T)
+    assert x.data_ptr() % 16 != 0
+    _k4_check(dev, x, tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4)))
 
 
 @pytest.mark.parametrize("scale", [0.8, 4.0, 0.02])  # mixed, loud, quiet
@@ -716,6 +759,43 @@ def test_k2r_k2b_rel0_plans_match_plain(dev, ring_dtype, plan, S, n, o0, F, to):
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
     assert torch.equal(ak[1], agc[1])  # the peak carry untouched
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("plan", [p for p in fused.AGC_REL0_PLANS if fused.rel0_chunks(p)])
+@pytest.mark.parametrize("to,m,S,n", [
+    (160, 2, 5, 1280),   # 44.1 kHz, grid steps of 320: chunks of 5 to 40
+    (160, 8, 4, 2560),   # ... steps of 1280: chunks of 20 to 160
+    (320, 2, 6, 1280),   # 22.05 kHz, steps of 640: chunks of 10 to 80
+    (320, 4, 4, 2560),   # ... steps of 1280: chunks of 20 to 160
+])
+def test_k2b_chunks_across_tiles(dev, ring_dtype, plan, to, m, S, n):
+    """K2b's chunks against its 128-frame tiles: chunks of 20 and 40 cross
+    tile edges, chunks of 160 span two tiles (pass 2 carries a chunk's
+    partial maps from tile to tile); a block mid-stream, on the step grid,
+    its ring warm. Carries and ring bit-equal, the mix within 1e-6."""
+    step = m * to
+    rng = np.random.default_rng(S * 10 + n + to + m)
+    L, fr, o0 = 2 * S, 147, 2 * step
+    F = (o0 + n) * fr // to + 8
+    pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)
+    left, phase = output_positions(o0, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    ring = _f32(rng.uniform(0, 0.1, (4096, L)), dev).to(ring_dtype)
+    agc = _f32(np.stack([ring.float().cpu().numpy().reshape(4096, S, 2)[:, :, 1].sum(0),
+                         rng.uniform(0, .5, S), rng.uniform(.5, 3, S)]), dev)
+    kw = dict(gains=_f32(np.repeat(rng.uniform(0.5, 1.5, S) / S, 2), dev),
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
+              agc_params=_f32(AGC_PARAMS_REL0, dev), ring=ring, ring_row=o0 % 4096,
+              agc_plan=plan, step_frames=step)
+    before = fused.agc_blocked_launches
+    mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
+    mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
+    torch.cuda.synchronize()
+    assert fused.agc_blocked_launches == before + 1
+    assert (mk - mp).abs().max().item() <= 1e-6
+    assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
 
 
 @pytest.mark.parametrize("plan", ["rel0f", "rel0b16", "rel0c16"])

@@ -55,7 +55,8 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
 
-@pytest.mark.parametrize("L,T", [(16, 640), (7, 1), (7, 2), (1024, 96)])
+@pytest.mark.parametrize("L,T", [(16, 640), (7, 1), (7, 2), (1024, 96),
+                                 (2, 4096), (13, 300)])  # path B's block; a ragged L
 def test_k4_plain_matches_pallas_interpret(L, T):
     rng = np.random.default_rng(L + T)
     x = (rng.standard_normal((L, T)) * 0.3).astype(np.float32)

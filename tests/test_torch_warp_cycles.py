@@ -2,7 +2,7 @@
 
 The instrumented copies are built and run only on the card; what this
 checks, on the CPU, is the source rewrite: each of the port's tile-pipeline
-sources (K1, K2's plans, K5, K6, K7) gets one timed tile loop, the per-warp
+sources (K1, K2's plans, K4, K5, K6, K7) gets one timed tile loop, the per-warp
 write right after it and the read-back entry point after its includes, and a
 source without such a loop is left to be built as it is and timed only.
 """
@@ -24,6 +24,7 @@ def test_instrument_times_each_tile_loop(name):
     assert out.count("busy_ += clock64() - t0_;") == 1
     assert out.count(f'extern "C" int rt_warp_cycles_{tag}(long long* out)') == 1
     assert out.count(f'extern "C" int rt_block_cycles_{tag}(long long* out)') == 1
+    assert out.count(f'extern "C" int rt_block_cycles_clear_{tag}()') == 1
     # the timer wraps the loop body, the per-warp write follows the loop, and
     # the entry point sits after the last include
     loop = out.index("for (int it = 0;")
@@ -32,16 +33,16 @@ def test_instrument_times_each_tile_loop(name):
     assert end < out.index("g_warp_cycles[threadIdx.x >> 5] = busy_;")
     last_include = max(m.end() for m in re.finditer(r'#include "[^"]+"\n', out))
     assert out.index("static __device__ long long g_warp_cycles") >= last_include
-    # nothing else changes: the source's lines, in order, and 22 more (the
-    # timer's 4, the writes' 8, the entry points' 10)
+    # nothing else changes: the source's lines, in order, and 27 more (the
+    # timer's 4, the writes' 8, the entry points' 15)
     lines, rest = src.splitlines(), iter(out.splitlines())
     assert all(any(line == o for o in rest) for line in lines)
-    assert len(out.splitlines()) == len(lines) + 22
+    assert len(out.splitlines()) == len(lines) + 27
 
 
 def test_instrument_leaves_a_source_without_a_tile_loop():
     # a per-lane loop without the pipeline's barrier-ended tile loop (as
-    # biquad.cu's kernel is written) is timed only
-    src = ('#include "biquad_pipeline.cuh"\n__global__ void k(float* y, int n) {\n'
+    # K4's was before it ran on chain_pipeline.cuh) is timed only
+    src = ('#include "precise_math.cuh"\n__global__ void k(float* y, int n) {\n'
            "  for (int i = 0; i < n; ++i) y[i] = 0.f;\n}\n")
     assert warp_cycles.instrument(src, "k") is None
