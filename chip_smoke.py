@@ -131,7 +131,7 @@ def main() -> int:
     import numpy as np
 
     import rodio_tpu_torch as rtt
-    from rodio_tpu_torch.benches import dma_roofline, op_latency
+    from rodio_tpu_torch.benches import dma_roofline, op_latency, warp_cycles
     from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
     from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
     from rodio_tpu_torch.effects.blt import blt_coefficients
@@ -463,11 +463,14 @@ def main() -> int:
     err8 = _max_err(limiter_block.blocked_max_affine_const(x8, v8, a8, P=128),
                     limiter_block.blocked_max_affine_const_plain(x8, v8, a8, P=128))
     ms8 = _time_ms(lambda: limiter_block.blocked_max_affine_const(x8, v8, a8, P=128), 50)
+    gms8 = warp_cycles.graph_ms(
+        lambda: limiter_block.blocked_max_affine_const(x8, v8, a8, P=128), 50)
     pms8 = _time_ms(lambda: limiter_block.blocked_max_affine_const_plain(x8, v8, a8, P=128), 5)
     record("K8", "blocked_max_affine_const", "rodio_tpu_torch/csrc/bma.cu",
            "rodio_tpu/ops/limiter_block.py:293", err8, BOUND_K8, ms8, pms8,
            2 * 8192 * 4, 4 * 8192, _chain_ms(8192 // 128 + 7, 3),
-           note=" [1, 8192] P=128")
+           note=f" [1, 8192] P=128; in a CUDA graph {gms8:.4f} ms (eager: the "
+                f"wrapper's host time)")
 
     # K5: the Limit node's per-stream pass (limiter_stream) at path C's
     # shape [1024, 12800] in stereo groups, and at ragged shapes in groups

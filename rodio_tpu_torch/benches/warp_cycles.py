@@ -11,8 +11,9 @@ K5 (``csrc/limiter_env.cu``), K6 (``csrc/agc.cu``) and K7
 barriers, so the slowest warp sets each iteration's length. This copies
 those sources into ``build/warp_cycles/``, adds a ``clock64()`` read at the
 start of each iteration and another before its barrier, builds them,
-``limiter_block.cu`` (K3) and ``bma.cu`` (K8), neither instrumented, with
-the library's nvcc flags into a shared library of their own, and runs K1 at
+``limiter_block.cu`` (K3, not instrumented) and ``bma.cu`` (K8, its phases
+timed where it marks them with ``RT_PHASE``) with the library's nvcc flags
+into a shared library of their own, and runs K1 at
 the main path's shape (512 stereo streams, one block of 12800 frames at
 44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16 ring; K2g at AG =
 16, path D's, and 128), K3 at the master bus's ([2, 12800], P = 128), K4 at
@@ -26,12 +27,13 @@ card's one-thread latencies of a dependent FMUL/FADD and of a smoother step
 pipeline it prints the card's first block's busy cycles per iteration by
 warp (lane 0's view) beside the iteration's whole length (kernel cycles
 over iterations) and every block's (the least, the median and the most:
-the slowest block sets the kernel's time), and for every kernel its time by
-CUDA events (the mean of 20 calls after one; K3, K7 and K8 of 50; K4 at [2,
-4096] of 50), and for K1, K2b, K2g, K3, K4, K5, K6, K7 and K8 also the mean
-of as many calls captured in one CUDA graph (the card's time without the
-host's between launches: K3, K8 and K4 at [2, 4096] run shorter than their
-calls take on the host), and
+the slowest block sets the kernel's time), K8's block 0 cycles in each of
+its phases (the loads, pass 1, the combine, pass 2, the stores), and for
+every kernel its time by CUDA events (the mean of 20 calls after one; K3, K7
+and K8 of 50; K4 at [2, 4096] of 50) and the mean of as many calls
+captured in one CUDA graph (the card's time without the host's between
+launches: K3, K8 and K4 at [2, 4096] run shorter than their calls take on
+the host), and
 K1's mix against its plain version at gains of unit scale (no 1/S), where
 the mix is largest against the rounding of its sum over blocks. The reads
 cost a few cycles an iteration; the library itself is not changed.
@@ -67,6 +69,8 @@ OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
 SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu",
            "agc.cu", "first_order.cu", "limiter_env.cu", "biquad.cu")
 TIMED = ("limiter_block.cu", "bma.cu")  # built as they are, timed only
+PHASED = ("bma.cu",)  # ... but for the phases marked with RT_PHASE(k)
+PHASES = ("loads", "pass 1", "combine", "pass 2", "stores")
 WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
 SLOTS = WARPS + 2  # kernel's cycles
 BLOCKS = 1024  # each block's own cycles, for the first 1024 blocks
@@ -115,12 +119,29 @@ def instrument(src: str, tag: str):
         "}\n") + src[at:]
 
 
+def instrument_phases(src: str, tag: str):
+    """The source with its RT_PHASE(k) marks reading ``clock64()`` (block
+    0, thread 0) into an array of its own, and the read-back entry point;
+    None where it marks no phase."""
+    if "RT_PHASE(" not in src:
+        return None
+    n = len(PHASES) + 1
+    return (f"static __device__ long long g_phase_cycles[{n}];\n"
+            "#define RT_PHASE(k) \\\n"
+            "  if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_cycles[k] = clock64()\n"
+            + src +
+            f"extern \"C\" int rt_phase_cycles_{tag}(long long* out) {{\n"
+            "  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles,\n"
+            "                                   sizeof(g_phase_cycles));\n}\n")
+
+
 def build(csrc: Path):
     """The instrumented kernels of ``csrc``, built once per version of
     their sources, the names of the sources that were instrumented, and
     the entry points taken from the library (the version lacks them)."""
     texts = {name: (csrc / name).read_text() for name in SOURCES + TIMED}
     timed = {name: instrument(texts[name], name[:-3]) for name in SOURCES}
+    timed.update({name: instrument_phases(texts[name], name[:-3]) for name in PHASED})
     texts.update({k: v for k, v in timed.items() if v is not None})
     instrumented = tuple(k for k, v in timed.items() if v is not None)
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
@@ -152,6 +173,11 @@ def build(csrc: Path):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     for name in instrumented:
+        if name in PHASED:
+            fn = getattr(lib, f"rt_phase_cycles_{name[:-3]}")
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            continue
         for what in ("warp", "block"):
             fn = getattr(lib, f"rt_{what}_cycles_{name[:-3]}")
             fn.argtypes = [ctypes.c_void_p]
@@ -176,7 +202,7 @@ def _time_ms(call, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
-def _graph_ms(call, reps: int) -> float:
+def graph_ms(call, reps: int) -> float:
     """Mean ms per call of ``reps`` calls captured in one CUDA graph: the
     card's time alone, where a call's host time exceeds its kernel's."""
     side = torch.cuda.Stream()
@@ -288,9 +314,19 @@ def main(argv=None) -> int:
         return cuda_scan.limiter_couple_gain(x5, peak, q5, 2)
 
     # K8, the AGC's peak detector, at path B's shape, its coefficient on the
-    # card (as the node passes it)
-    x8 = f32(np.abs(rng.standard_normal((1, 8192)) * 0.3))
-    v8, a8 = f32([0.4]), p6[1]
+    # card (as the node passes it), through the library's entry point with a
+    # scratch that any version's layout fits (2 rows of Lc x P floats)
+    P8, M8 = 128, 8192
+    x8 = f32(np.abs(rng.standard_normal((1, M8)) * 0.3))
+    v8, y8 = f32([0.4]), torch.empty_like(x8)
+    pw8 = limiter_block.bma_power_table(p6[1], M8 // P8, dev)
+    scratch8 = torch.empty(2 * M8, device=dev)
+
+    def k8_call():
+        _build.check(lib.rt_blocked_max_affine(
+            x8.data_ptr(), v8.data_ptr(), pw8.data_ptr(), y8.data_ptr(),
+            scratch8.data_ptr(), 1, M8, P8, _build.stream_handle(dev)),
+            "rt_blocked_max_affine")
 
     # K4 at the unfused chain's and path C's shape, [1024, 12800], and at
     # path B's, [2, 4096] (one block of 2 lanes)
@@ -306,6 +342,7 @@ def main(argv=None) -> int:
                   pcm, left, wts, channels=2, **kw), "fused", 20),
              ("K2", "serial", agc_call("serial", 0), "fused_agc", 20),
              ("K2r", "rel0f", agc_call("rel0f", 0), "fused_agc", 20),
+             ("K2r", "rel0", agc_call("rel0", 0), "fused_agc", 20),
              ("K2b", "rel0b16", agc_call("rel0b16", 0), "fused_agc_blocked", 20),
              ("K2b", "rel0c16", agc_call("rel0c16", 0), "fused_agc_blocked", 20),
              ("K2g", "agc_group=16", agc_call("serial", 16), "fused_agc_group", 20),
@@ -318,8 +355,7 @@ def main(argv=None) -> int:
              ("K5", f"limiter_env [{L}, {T}]",
               lambda: cuda_scan.limiter_env(db5, i5, q5, att=att, rel=rel), "limiter_env", 20),
              ("K2g", "agc_group=128", agc_call("serial", 128), "fused_agc_group", 20),
-             ("K8", "[1, 8192] P=128", lambda: limiter_block.blocked_max_affine_const(
-                 x8, v8, a8, P=128), None, 50),
+             ("K8", f"[1, {M8}] P={P8}", k8_call, "bma", 50),
              ("K4", f"[{L}, {T}]", k4_call(L, T), "biquad", 20),
              ("K4", "[2, 4096]", k4_call(2, 4096), "biquad", 50)]
     if args.kernels:
@@ -339,11 +375,19 @@ def main(argv=None) -> int:
     try:
         _build._lib = lib  # the wrappers launch the instrumented copies
         for kid, label, call, src, reps in cases:
-            if src is not None and f"{src}.cu" in instrumented:  # this case's blocks only
+            if (src is not None and f"{src}.cu" in instrumented
+                    and f"{src}.cu" not in PHASED):  # this case's blocks only
                 _build.check(getattr(lib, f"rt_block_cycles_clear_{src}")(), "cudaMemset")
             row = {"kernel": kid, "case": label, "ms": _time_ms(call, reps)}
             line = f"{kid} ({label}): {row['ms']:.4f} ms"
-            if src is not None and f"{src}.cu" in instrumented:
+            if src is not None and f"{src}.cu" in instrumented and f"{src}.cu" in PHASED:
+                cyc = np.zeros(len(PHASES) + 1, np.int64)
+                _build.check(getattr(lib, f"rt_phase_cycles_{src}")(cyc.ctypes.data),
+                             "cudaMemcpyFromSymbol")
+                row["phase_cycles"] = dict(zip(PHASES, np.diff(cyc).tolist()))
+                line += ", block 0's cycles by phase: " + ", ".join(
+                    f"{k} {v}" for k, v in row["phase_cycles"].items())
+            elif src is not None and f"{src}.cu" in instrumented:
                 cyc = np.zeros(SLOTS, np.int64)
                 _build.check(getattr(lib, f"rt_warp_cycles_{src}")(cyc.ctypes.data),
                              "cudaMemcpyFromSymbol")
@@ -364,9 +408,8 @@ def main(argv=None) -> int:
                              **row["block_cycles_per_iteration"]) + ", ".join(
                              f"{w}: {v:.0f}"
                              for w, v in row["warp_busy_per_iteration"].items()))
-            if kid in ("K1", "K2b", "K2g", "K3", "K4", "K5", "K6", "K7", "K8"):
-                row["graph_ms"] = _graph_ms(call, reps)
-                line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
+            row["graph_ms"] = graph_ms(call, reps)
+            line += f"; in a CUDA graph {row['graph_ms']:.4f} ms"
             res["cases"].append(row)
             print(line, flush=True)
         mk, _ = fused.fused_resample_biquad_mix(pcm, left_u, wts_u, **kw_unit)

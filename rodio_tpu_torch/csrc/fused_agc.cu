@@ -1,173 +1,177 @@
 // K2: resample + biquad + per-stream AGC + gain + stream mix, one pass; and
-// K2r, the same pipeline under the serial rel0 plans.
+// K2r, the same under the serial rel0 plans; on K1's front end.
 //
 // Replaces rodio_tpu/ops/fused.py fused_resample_biquad_agc_mix /
 // _fused_agc_kernel with its serial plan (agc_group = 0, no rel0 plan):
-// FusedWidePipeline(with_agc=True). Stereo streams, lane l = 2s + c. For
-// each output frame o of each lane, as K1 (fused.cu) but with no gain
-// before the biquad:
+// FusedWidePipeline(with_agc=True); and (K2r) its rel0 and rel0f branches
+// (:810-919), agc_plan="rel0" | "rel0f", for a release coefficient of
+// exactly 0 (the default AgcSettings). Stereo streams, lane l = 2s + c. The
+// lerp and the biquad are K1's (fused_front.cuh) without the gain, which K2
+// applies after the AGC (the JAX package's order under AGC: gain_post is
+// off). Then one AGC per stream over its interleaved samples (frame t:
+// channel 0, then channel 1; src/source/agc.rs:397-496), in the TPU
+// kernel's order (rodio_tpu/ops/fused.py:793-919), every op rounded alone:
 //
-//   v = w0[j]*x[left] + w1[j]*x[left+1];  y = DF-I biquad of v
-//
-// then one AGC per stream over its interleaved samples (frame t: channel 0,
-// then channel 1; src/source/agc.rs:397-496), in the TPU kernel's order
-// (rodio_tpu/ops/fused.py:793-808 and :1160-1214):
-//
-//   q   = round(y*y) to the ring's type (bf16 RNE or f32)
+//   q   = round(y*y) to the ring's type (bf16 RNE or f32); rel0f: the packed
+//         basis, lane 2s round(sq0), lane 2s+1 round(sq0 + sq1) (f32 sum)
 //   d   = q - old, old = q of the same lane 4096 frames earlier (the
 //         8192-sample RMS window), read from the ring, zero at the start
-//   rs  = rs + d;  pk = max(|y|, rel*pk + (1-rel)*|y|)
-//   g   = smooth_gain(g, desired_gain(rs, pk))          (agc_math.cuh)
+//   serial: rs = rs + d;  pk = max(|y|, rel*pk + (1-rel)*|y|)   per sample
+//           des = desired_gain(rs, pk);  g = smooth_gain(g, des)
+//   rel0:   rs_lo = rs + d_lo, rs = rs + (d_lo + d_hi)           per frame
+//           des = desired_gain(rs_c, |y_c|)  (the peak detector memoryless)
+//   rel0f:  rs_lo = rs + d_lo, rs = rs + d_hi (the ring's packed delta)
+//           des = desired_gain_folded(rs_c, y_c)
+//   rel0*:  g = max(0.1, min(des, att*g + (1-att)*des))   (4 dependent ops)
 //   mix[c, o] = sum over streams s of (y*g)*gain[2s + c]
 //
-// The gain is applied after the AGC, in the mix: the JAX package's order
-// under AGC (gain_post is off). The ring holds 4096 frames x L lanes, row
-// f % 4096 for global frame f; each element is read, then overwritten, by
-// one thread, so it needs no slot arithmetic.
+// The ring holds 4096 frames x L lanes, row f % 4096 for global frame f; a
+// block's tile reads its rows one iteration before it rewrites them, and a
+// block longer than 4096 frames reads back rows it wrote 32 tiles earlier.
 //
-// What bounds it on the H100: four serial chains per stream, of which the
-// gain smoother (~5 dependent rounded ops per interleaved sample, 2n per
-// block) is the longest; the biquad (~3 per frame) and the rs/pk chains
-// (~3 per sample) are shorter. The desired gain (an IEEE sqrt and two
-// divides, three slow-path branches) depends only on rs and pk, so it is
-// taken off the serial warps. Measured on an H100 80GB HBM3 at 700 W
-// (512 streams, n = 12800): 0.55 ms, the smoother warp taking ~40 cycles
-// per sample against 27 for its chain alone.
+// What bounds it on the H100: the gain smoother, a chain of 5 dependent
+// rounded ops a sample (4 under rel0*), 2n steps per stream: 24.3 SM cycles
+// a step on one thread (benches/op_latency.py smooth_step), ~6200 cycles a
+// 128-frame tile. Every other stage is elementwise or a shorter chain (the
+// biquad's IIR half 3 ops a frame; the window sum 1 add a sample; the
+// serial plan's peak 3 ops a sample) and has to fit under it.
 //
-// Design: a block owns kBL = 8 lanes (4 streams; 128 blocks for 512
-// streams) and walks time in tiles of 64 frames through a seven-stage
-// pipeline, one __syncthreads per tile. At iteration i:
+// Design (fused_front.cuh: K1's block of 8 lanes, 4 stereo streams, so 128
+// blocks for 1024 lanes; 128-frame tiles, one __syncthreads a tile; K1's
+// fill, copy and IIR warps), as K2b's (fused_agc_blocked.cu): the AGC's
+// elementwise stages where K1's warps wait or idle, its two serial chains
+// one thread per stream on register pieces of a tile loaded at each
+// piece's start, a whole tile's loop with a compile-time length and no
+// per-step test. At iteration i:
 //
-//   elementwise warps: fill tile i (the lerp), prep tile i-2 (q, the ring
-//                      read and write, d), desired gain of tile i-4, mix of
-//                      tile i-6 into per-block partials
-//   warp 0: biquad of tile i-1, one thread per lane
-//   warp 1: rs and pk chains of tile i-3, one thread per stream
-//   warp 2: gain smoother of tile i-5 and y*g*gain, one thread per stream
+//   fill warps:  tile i's lerp and FIR half; then tile i-4's desired gains
+//                (an IEEE sqrt and divides a sample), 4 frames of one lane a
+//                thread
+//   copy warps:  the ring's words of tile i-1 (a frame's 8 lanes in one or
+//                two 16-byte loads, 2 frames a thread), used an iteration
+//                later; the PCM rows of tile i+2 and the row indices of
+//                tiles i+3, i+4; while those copies fly, tile i-2's
+//                squares, the ring's rounding and write, and d
+//   warp 0:      the IIR half of tile i-1
+//   warp 15:     the window sums (and the serial plan's peaks) of tile i-3
+//   warp 8:      the gain smoother of tile i-5
+//   warp 14:     y*g*gain and the mix of tile i-6, 4 frames of one channel
+//                an item, into per-block partials
 //
-// What keeps the serial warps fast, each found by measurement:
-// - a warp issues on SMSP (warp % 4), and the scheduler does not favour a
-//   serial warp, so no elementwise warp shares warp 1's or warp 2's SMSP
-//   (warps 5 and 6 idle);
-// - a serial warp runs its chain on registers, a chunk of its tile loaded
-//   ahead and stored after, and a whole tile's copy of the chunk loop has
-//   no per-step test (tt is the compile-time rt::Steps<kTile>): a branch
-//   per step cost more than the step;
-// - the chunk loops are not unrolled: unrolled, the serial warps' code
-//   (~128 KB) cost more in instruction fetch than it saved.
-// The elementwise warps keep the serial ones fed only if their global
-// loads do not wait one after another: each thread issues all of an
-// iteration's loads first (its elements' two PCM rows and ring value, and
-// the next tile's row indices and weights, staged in shared memory one
-// iteration ahead so that no load waits on another), then computes the
-// desired gains and the mix out of shared memory, and only then uses the
-// loaded values. Tiles live in dynamic shared memory: 7 of y, 4 of d / rs /
-// desired gain and 2 of pk, with the staged rows. A second kernel sums the
-// per-block partials in block order, so the mix is deterministic. Every op
-// rounds alone.
+// Where the chains sit, measured (benches/warp_cycles.py, NVIDIA H100 80GB
+// HBM3 at 700 W, 512 streams, n = 12800): with the window and the smoother
+// both beside the IIR warp on SMSP 0 the smoother ran ~31.5 cycles a sample
+// (serial plan); with the window on warp 15 (SMSP 3, where the elementwise
+// warps finish in the first ~2800 cycles of an iteration) it runs ~27.5
+// (rel0* ~20), and the window ~24. Both chains on one thread ran slower
+// (53 cycles a sample): the warp issues in order and spilled registers. The
+// pieces are loaded at their start, not one piece ahead: loads run ahead
+// spilled registers at the 128 a thread that 512 threads leave, and lost
+// more than the load latency they hid; the serial plan's smoother takes
+// pieces of 16 frames (32 spilled), rel0*'s of 32. K2 takes ~7380 cycles a
+// tile (0.42 ms in a CUDA graph with the ring's copy and the partials'
+// sum), K2r ~5400 (0.315 ms).
 //
-// K2r replaces the rel0 and rel0f branches of the same TPU kernel
-// (rodio_tpu/ops/fused.py:810-919): agc_plan="rel0" | "rel0f", for a
-// release coefficient of exactly 0 (the default AgcSettings). The peak
-// detector is then memoryless (its carry is left as it was) and the
-// smoother a clamp of an affine map, g = max(0.1, min(d, att*g +
-// (1-att)*d)), 4 dependent ops a sample instead of 5. The same pipeline,
-// with these stages changed:
-//
-//   prep:    rel0f's ring holds the packed basis: lane 2s the rounded sq0,
-//            lane 2s+1 the rounded f32 sq0 + sq1 of stream s;
-//   warp 1:  only the window sum: per frame rs_lo = rs + d_lo, then rs =
-//            rs + d_hi, one dependent add; in rel0 d_hi = d_0 + d_1 (the TPU
-//            kernel's repack), in rel0f the ring's packed delta;
-//   desired: rel0 the serial plan's form with the peak |y|; rel0f
-//            min(target*rsqrt(max(rs/W, y*y)), max_gain) (max_gain at q = 0);
-//   warp 2:  the 4-op smoother above.
-//
-// Its chain floor is 25600 x 4 dependent ops at n = 12800. Measured
-// (benches/warp_cycles.py, H100 80GB HBM3 at 700 W, 512 streams, rel0f): the
-// smoother warp ~4080 cycles a 64-frame tile (K2's ~4980), so the four
-// elementwise warps (up to ~4440) now bind it: 0.49 ms against K2's 0.55.
-#include "fused_agc_common.cuh"
+// The partials are summed over blocks in block order, in f64, as K1's. The
+// biquad carries, the AGC carries and the ring equal the plain version's
+// bit for bit, and the mix differs only by the order of its sum over
+// streams and blocks.
+#include "fused_agc_common.cuh"  // the ring
+#include "fused_front.cuh"
 
 namespace {
 
-using namespace rt::fused_agc;
+using namespace rt::front;
+using rt::fused_agc::kRing;
+using rt::fused_agc::kWords;
+using rt::fused_agc::ring_frame;
+using rt::fused_agc::ring_load;
 
 // the AGC plan a kernel instance runs
 enum Plan : int { kSerial = 0, kRel0 = 1, kRel0f = 2 };
 
-constexpr int kYBufs = 7, kDBufs = 4, kPBufs = 2;
-constexpr int kDepth = 6;    // iterations from a tile's fill to its mix
-constexpr int kCh = 8;       // frames per register chunk of warps 1 and 2
-constexpr int kPer = kTile * kBL / kNWork;  // tile elements per thread
-static_assert(kPer * kNWork == kTile * kBL, "whole tiles per thread");
+constexpr int kSB = kBL / 2;     // streams a block
+// the window sums and peaks on a mix warp of the front end (SMSP 3), the
+// gain smoother beside the IIR warp (SMSP 0), the mix on the other mix warp
+// (14) alone
+constexpr int kWinWarp = 15;
+constexpr int kSmoothWarp = 8;
+constexpr int kMixThreads = 32;
+// y tiles; d tiles (d, then the window sums, the desired gains, the
+// gains); the serial plan's peak tiles; iterations from a tile's fill to
+// its mix
+constexpr int kYBufs = 7, kDBufs = 5, kPBufs = 2;
+constexpr int kDepth = 6;
+// frames a serial thread holds at once: the window's, and the smoother's
+// (the serial plan's smoother at 32 spills registers)
+constexpr int kWinCh = 8;
+template <int kPlan>
+constexpr int kSmoothCh = kPlan == kSerial ? 16 : 32;
+constexpr int kFrames = kTile / kCopy;  // frames of a tile a copy thread takes
+static_assert(kFill == kBL * (kTile / 4), "4 frames of one lane a fill thread");
+static_assert(block_lanes(2) == kBL, "blocks of kSB stereo streams");
 
-constexpr size_t kTiles = sizeof(Tile) * (kYBufs + kDBufs + kPBufs);
-constexpr size_t kShmem = kTiles + sizeof(Row) * 2 * kTile;
-static_assert(kTiles % alignof(Row) == 0, "staged rows aligned");
-static_assert(kShmem <= 48 * 1024, "more shared memory needs opting in");
+// after the front end's buffers (float offsets): the d tiles and the peak
+// tiles ([lane][kYLd] each) and the lanes' gains; the total bytes
+struct ALayout {
+  size_t d, pk, gain, bytes;
+};
 
-// frames t0 .. t0+kCh-1 of a stream's two lanes (l0, l0 + 1) of a tile
-__device__ __forceinline__ void load_chunk(const Tile& b, int t0, int l0,
-                                           float (&v)[kCh][2]) {
-#pragma unroll
-  for (int u = 0; u < kCh; ++u) {
-    v[u][0] = b[t0 + u][l0];
-    v[u][1] = b[t0 + u][l0 + 1];
-  }
+__host__ __device__ inline ALayout alayout() {
+  ALayout a;
+  a.d = layout(kBL, kYBufs).bytes / sizeof(float);
+  a.pk = a.d + (size_t)kDBufs * kBL * kYLd;
+  a.gain = a.pk + (size_t)kPBufs * kBL * kYLd;
+  a.bytes = (a.gain + kBL) * sizeof(float);
+  return a;
 }
 
-template <class TT>
-__device__ __forceinline__ void store_chunk(Tile& b, int t0, int l0, TT tt,
-                                            const float (&v)[kCh][2]) {
+// frames t0 .. t0+N-1 of a stream's two lanes, rows r (lane 2s) and r +
+// kYLd (lane 2s+1) of a tile, 16 bytes at a time: v[u][c]
+template <int N>
+__device__ __forceinline__ void load_chunk(const float* r, int t0, float (&v)[N][2]) {
 #pragma unroll
-  for (int u = 0; u < kCh; ++u) {
-    if (kWhole<TT> || t0 + u < tt) {
-      b[t0 + u][l0] = v[u][0];
-      b[t0 + u][l0 + 1] = v[u][1];
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 f = *reinterpret_cast<const float4*>(r + c * kYLd + t0 + 4 * q);
+      v[4 * q][c] = f.x, v[4 * q + 1][c] = f.y, v[4 * q + 2][c] = f.z, v[4 * q + 3][c] = f.w;
     }
-  }
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(float* r, int t0, const float (&v)[N][2]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      *reinterpret_cast<float4*>(r + c * kYLd + t0 + 4 * q) =
+          make_float4(v[4 * q][c], v[4 * q + 1][c], v[4 * q + 2][c], v[4 * q + 3][c]);
 }
 
-// Runs step(a, b) over a stream's frames of a tile, kCh frames at a time:
-// a and b are a frame's two samples of tiles A and B, in registers, loaded
-// one chunk ahead; step rewrites them in place, and they are stored to
-// tiles A2 and B2 (frames t < tt only; a null tile is not stored).
-template <class TT, class Step>
-__device__ __forceinline__ void stream_chunks(const Tile& A, const Tile& B,
-                                              Tile* A2, Tile* B2, int l0,
+// A serial thread's walk over its stream's frames of a tile, N frames at a
+// time in registers (loaded at the piece's start, as K6's chain_row): step(a,
+// b) on each frame of the first tt, a and b the frame's two samples of rows
+// A and B (B null: not read); step rewrites them in place, and a is stored
+// back to A, b to B2 (null: not stored).
+template <int N, class TT, class Step>
+__device__ __forceinline__ void stream_chunks(float* A, const float* B, float* B2,
                                               TT tt, Step step) {
-  float a[kCh][2], b[kCh][2];
-  load_chunk(A, 0, l0, a);
-  load_chunk(B, 0, l0, b);
-  // not unrolled: the serial warps' code stays small (unrolled, K2 spent
-  // more time fetching instructions than it saved)
 #pragma unroll 1
-  for (int t0 = 0; t0 < kTile; t0 += kCh) {
-    float an[kCh][2], bn[kCh][2];
-    if (t0 + kCh < kTile) {
-      load_chunk(A, t0 + kCh, l0, an);
-      load_chunk(B, t0 + kCh, l0, bn);
-    }
+  for (int t0 = 0; t0 < kTile; t0 += N) {
+    if (!kWhole<TT> && t0 >= tt) break;
+    float a[N][2], b[N][2];
+    load_chunk(A, t0, a);
+    if (B) load_chunk(B, t0, b);
 #pragma unroll
-    for (int u = 0; u < kCh; ++u)
+    for (int u = 0; u < N; ++u)
       if (kWhole<TT> || t0 + u < tt) step(a[u], b[u]);
-    if (A2) store_chunk(*A2, t0, l0, tt, a);
-    if (B2) store_chunk(*B2, t0, l0, tt, b);
-    if (t0 + kCh < kTile) {
-#pragma unroll
-      for (int u = 0; u < kCh; ++u) {
-        a[u][0] = an[u][0];
-        a[u][1] = an[u][1];
-        b[u][0] = bn[u][0];
-        b[u][1] = bn[u][1];
-      }
-    }
+    store_chunk(A, t0, a);
+    if (B2) store_chunk(B2, t0, b);
   }
 }
 
 template <typename R, int kPlan>
-__global__ void __launch_bounds__(kAgcThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
                  const long long* __restrict__ left,
                  const float2* __restrict__ wts,
@@ -178,248 +182,198 @@ fused_agc_kernel(const float* __restrict__ pcm, long long F, int L,
                  float* __restrict__ agc_out,
                  const float* __restrict__ params, R* ring, int ring_row,
                  float* __restrict__ partial, int n) {
-  extern __shared__ float smem[];
-  Tile* Y = reinterpret_cast<Tile*>(smem);
-  Tile* D = Y + kYBufs;
-  Tile* PK = D + kDBufs;
-  Row* rows = reinterpret_cast<Row*>(reinterpret_cast<char*>(smem) + kTiles);
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const Front fe(smem, pcm, F, L, left, wts, n, kBL, kYBufs);
+  const ALayout al = alayout();
+  constexpr int tsz = kBL * kYLd;
+  auto dt = [&](int j) { return smem + al.d + (j % kDBufs) * tsz; };
+  auto pkt = [&](int j) { return smem + al.pk + (j % kPBufs) * tsz; };
+  float* const gain_sh = smem + al.gain;
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const int lane0 = blockIdx.x * kBL;
-  const int nl = min(kBL, L - lane0);  // even: L is, and lane0 too
-  const int ns = nl / 2;
-  const int S = L / 2, s0 = lane0 / 2;
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int nl = fe.nl, ns = nl / 2;
+  const int S = L / 2, s0 = fe.lane0 / 2;
   const rt::AgcParams p = rt::load_agc_params(params);
   const rt::BiquadCoef cf = rt::load_coef(coef);
   const float crel = rt::sub(1.0f, p.rel);
   const float catt = rt::sub(1.0f, p.att);
+  // 16-byte ring pieces: whole blocks of lanes on aligned rows
+  const bool rvec = nl == kBL && (L * sizeof(R)) % 16 == 0 && ((U64)ring & 15) == 0;
 
-  // carries: biquad on warp 0 (per lane), rs/pk on warp 1 and the gain on
-  // warp 2 (per stream)
-  float x1 = 0.f, x2 = 0.f, y1 = 0.f, y2 = 0.f;
-  float rs = 0.f, pk = 0.f, g = 0.f, gain0 = 0.f, gain1 = 0.f;
+  // carries: the IIR half on warp 0 (per lane); the window sum and the
+  // peak on the window warp, the gain on the smoother warp (per stream)
+  float y1 = 0.f, y2 = 0.f;
+  float rs = 0.f, pk = 0.f, g = 0.f;
   if (warp == 0 && wl < nl) {
-    x1 = bq_in[0 * L + lane0 + wl];
-    x2 = bq_in[1 * L + lane0 + wl];
-    y1 = bq_in[2 * L + lane0 + wl];
-    y2 = bq_in[3 * L + lane0 + wl];
-  } else if (warp == 1 && wl < ns) {
+    y1 = bq_in[2 * L + fe.lane0 + wl];
+    y2 = bq_in[3 * L + fe.lane0 + wl];
+  } else if (warp == kWinWarp && wl < ns) {
     rs = agc_in[0 * S + s0 + wl];
     pk = agc_in[1 * S + s0 + wl];
-  } else if (warp == 2 && wl < ns) {
+  } else if (warp == kSmoothWarp && wl < ns) {
     g = agc_in[2 * S + s0 + wl];
-    gain0 = gains[lane0 + 2 * wl];
-    gain1 = gains[lane0 + 2 * wl + 1];
   }
+  if (tid < kBL) gain_sh[tid] = tid < nl ? gains[fe.lane0 + tid] : 0.f;
 
-  // element e of a tile: frame e / kBL, lane e % kBL (along a row); an
-  // elementwise thread takes e = sub + k * kNWork, k < kPer
-  auto stage_rows = [&](int i, int sub, Row& r) {  // tile i's frame `sub`
-    const int tc = i * kTile + min(sub, tile_len(n, i) - 1);
-    r.left = left[tc];
-    r.w = wts[tc];
+  auto ring_at = [&](int j, int t) {
+    return ring + (long long)((ring_row + j * kTile + t) & (kRing - 1)) * L + fe.lane0;
   };
-  auto ring_at = [&](int i, int t, int l) {
-    const int row = (ring_row + i * kTile + t) & (kRing - 1);
-    return (long long)row * L + lane0 + l;
-  };
-  auto desired = [&](int i, int sub) {
-    const int tt = tile_len(n, i);
-    Tile& db = D[i % kDBufs];
-    const Tile& pb = PK[i % kPBufs];
-    const Tile& yb = Y[i % kYBufs];
-#pragma unroll 1
-    for (int u = 0; u < kPer; ++u) {
-      const int e = sub + u * kNWork, t = e / kBL, l = e % kBL;
-      if (t < tt && l < nl) {
-        // the rel0 plans' peak is the current |y| (the detector is
-        // memoryless at release 0)
-        if (kPlan == kRel0f)
-          db[t][l] = rt::desired_gain_folded(db[t][l], yb[t][l], p);
-        else
-          db[t][l] = rt::desired_gain(
-              db[t][l], kPlan == kRel0 ? fabsf(yb[t][l]) : pb[t][l], p);
-      }
-    }
-  };
-  // this block's streams summed per (channel, frame), in stream order
-  auto mix = [&](int i, int sub) {
-    const int t0 = i * kTile, tt = tile_len(n, i);
-    Tile& yb = Y[i % kYBufs];
-    for (int e = sub; e < 2 * kTile; e += kNWork) {
-      const int c = e / kTile, t = e % kTile;
-      if (t < tt) {
-        float acc = yb[t][c];
-        for (int s = 1; s < ns; ++s) acc = rt::add(acc, yb[t][2 * s + c]);
-        partial[((long long)blockIdx.x * 2 + c) * n + t0 + t] = acc;
-      }
-    }
-  };
-  auto live = [&](int j) { return j >= 0 && j < n_tiles; };
 
-  if (tid < kTile) {
-    Row r;
-    stage_rows(0, tid, r);
-    rows[tid] = r;
-  }
-  __syncthreads();
-  for (int it = 0; it < n_tiles + kDepth; ++it) {
+  int gsub = 0;  // the thread's index in its group
+  const int group = work_group(warp, wl, gsub);
+  Row next[kStageRows];  // a copy thread's rows of the tile staged next
+  unsigned cur[kFrames][kWords<R>];  // a copy thread's ring words of tile it-2
+  fe.start(bq_in, group, gsub, next);
+
+  for (int it = 0; it < fe.n_tiles + kDepth; ++it) {
     if (warp == 0) {
-      const int j = it - 1;
-      if (live(j) && wl < nl) {
-        Tile& b = Y[j % kYBufs];
-        auto run = [&](auto tt) {
-          biquad_column(b, wl, tt, cf, x1, x2, y1, y2);
-        };
-        full_or_tail(tile_len(n, j), run);
-      }
-    } else if (warp == 1) {
-      const int j = it - 3;
-      if (kPlan != kSerial) {
-        if (live(j) && wl < ns) {
-          // in: the frame's deltas (D); out: the window sum after each of
-          // its sub-steps (D). The second tile is not read.
-          Tile& db = D[j % kDBufs];
+      fe.iir(it, wl, cf, y1, y2);
+    } else if (warp == kWinWarp) {
+      if (wl < ns && fe.live(it - 3)) {
+        // tile it-3's window sums over d, in place (lane 2s the lo
+        // sub-step's, lane 2s+1 the hi's); the serial plan's peaks over y
+        // into the peak tile
+        const int j = it - 3;
+        const int o = 2 * wl * kYLd;
+        if (kPlan == kSerial) {
+          auto step = [&](float (&d)[2], float (&y)[2]) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              rs = rt::add(rs, d[c]);
+              const float xs = fabsf(y[c]);
+              pk = rt::max_nan(xs, rt::add(rt::mul(p.rel, pk), rt::mul(crel, xs)));
+              d[c] = rs;
+              y[c] = pk;
+            }
+          };
+          full_or_tail(tile_len(n, j), [&](auto tt) {
+            stream_chunks<kWinCh>(dt(j) + o, fe.y_tile(j) + o, pkt(j) + o, tt, step);
+          });
+        } else {
           auto step = [&](float (&d)[2], float (&)[2]) {
+            // rel0: the hi sub-step's delta pre-added (the TPU kernel's
+            // repack); rel0f: the ring's packed delta
             const float dh = kPlan == kRel0 ? rt::add(d[0], d[1]) : d[1];
             d[0] = rt::add(rs, d[0]);
             rs = rt::add(rs, dh);
             d[1] = rs;
           };
           full_or_tail(tile_len(n, j), [&](auto tt) {
-            stream_chunks(db, db, &db, nullptr, 2 * wl, tt, step);
+            stream_chunks<kWinCh>(dt(j) + o, nullptr, nullptr, tt, step);
           });
         }
-      } else if (live(j) && wl < ns) {
-        // in: d (D) and y (Y); out: rs (D) and pk (PK)
-        Tile& db = D[j % kDBufs];
-        auto step = [&](float (&d)[2], float (&y)[2]) {
+      }
+    } else if (warp == kSmoothWarp) {
+      if (wl < ns && fe.live(it - 5)) {
+        // tile it-5's gains over its desired gains, in place
+        const int j = it - 5;
+        auto step = [&](float (&d)[2], float (&)[2]) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            rs = rt::add(rs, d[c]);
-            const float xs = fabsf(y[c]);
-            pk = rt::max_nan(xs,
-                             rt::add(rt::mul(p.rel, pk), rt::mul(crel, xs)));
-            d[c] = rs;
-            y[c] = pk;
+            g = kPlan == kSerial ? rt::smooth_gain(g, d[c], p.att, p.rel, p.max_gain)
+                                 : rt::smooth_gain_rel0(g, d[c], p.att, catt);
+            d[c] = g;
           }
         };
         full_or_tail(tile_len(n, j), [&](auto tt) {
-          stream_chunks(db, Y[j % kYBufs], &db, &PK[j % kPBufs], 2 * wl, tt,
-                        step);
+          stream_chunks<kSmoothCh<kPlan>>(dt(j) + 2 * wl * kYLd, nullptr, nullptr, tt, step);
         });
       }
-    } else if (warp == 2) {
-      const int j = it - 5;
-      if (live(j) && wl < ns) {
-        // in: desired gain (D) and y (Y); out: y*g*gain (Y)
-        Tile& yb = Y[j % kYBufs];
-        auto step = [&](float (&d)[2], float (&y)[2]) {
+    } else if (group == 2) {
+      if (fe.live(it - kDepth)) {
+        // tile it-6: each y times its gain and its lane's, summed over this
+        // block's streams in stream order, 4 frames of one channel an item
+        const int j = it - kDepth, tt = tile_len(n, j);
+        const float* const y = fe.y_tile(j);
+        const float* const gv = dt(j);
+        for (int e = gsub; e < 2 * (kTile / 4); e += kMixThreads) {
+          const int c = e / (kTile / 4), t = e % (kTile / 4) * 4;
+          if (t >= tt) continue;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            g = kPlan == kSerial
-                    ? rt::smooth_gain(g, d[c], p.att, p.rel, p.max_gain)
-                    : rt::smooth_gain_rel0(g, d[c], p.att, catt);
-            y[c] = rt::mul(rt::mul(y[c], g), c ? gain1 : gain0);
-          }
-        };
-        full_or_tail(tile_len(n, j), [&](auto tt) {
-          stream_chunks(D[j % kDBufs], yb, nullptr, &yb, 2 * wl, tt, step);
-        });
-      }
-    } else if (work_slot(warp) >= 0) {
-      const int sub = work_slot(warp) * 32 + wl;
-      const bool fill = live(it), prep = live(it - 2);
-      const bool stage = live(it + 1) && sub < kTile;
-      // 1. every global load of the iteration, from clamped, always-valid
-      //    addresses (unsigned, so that a negative row clamps too)
-      const Row* rf = rows + (it & 1) * kTile;  // tile it's staged rows
-      const int ttf = fill ? tile_len(n, it) : 1;
-      const int ttp = prep ? tile_len(n, it - 2) : 1;
-      float xl[kPer], xr[kPer];
-      R old[kPer];
-      Row next;
-      if (fill) {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNWork;
-          const U64 r0 = (U64)rf[min(e / kBL, ttf - 1)].left;
-          const long long lane = lane0 + min(e % kBL, nl - 1);
-          xl[k] = pcm[min(r0, (U64)F - 1) * L + lane];
-          xr[k] = pcm[min(r0 + 1, (U64)F - 1) * L + lane];
-        }
-      }
-      if (prep) {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNWork;
-          old[k] = ring[ring_at(it - 2, min(e / kBL, ttp - 1),
-                                min(e % kBL, nl - 1))];
-        }
-      }
-      if (stage) stage_rows(it + 1, sub, next);
-      // 2. shared-memory work while the loads are in flight
-      if (live(it - 4)) desired(it - 4, sub);
-      if (live(it - 6)) mix(it - 6, sub);
-      // 3. the loaded values used
-      if (fill) {
-        Tile& b = Y[it % kYBufs];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNWork, t = e / kBL, l = e % kBL;
-          if (t < ttf && l < nl) {
-            const Row& r = rf[t];
-            const float vl = (U64)r.left < (U64)F ? xl[k] : 0.f;
-            const float vr = (U64)r.left + 1 < (U64)F ? xr[k] : 0.f;
-            b[t][l] = rt::add(rt::mul(vl, r.w.x), rt::mul(vr, r.w.y));
-          }
-        }
-      }
-      if (prep) {
-        Tile& yb = Y[(it - 2) % kYBufs];
-        Tile& db = D[(it - 2) % kDBufs];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int e = sub + k * kNWork, t = e / kBL, l = e % kBL;
-          if (t < ttp && l < nl) {
-            const float y = yb[t][l];
-            float sq = rt::mul(y, y);
-            if (kPlan == kRel0f && (l & 1)) {  // the packed hi: sq0 + sq1
-              const float y0 = yb[t][l - 1];
-              sq = rt::add(rt::mul(y0, y0), sq);
+          for (int s = 0; s < kSB; ++s) {
+            if (s < ns) {
+              const int o = (2 * s + c) * kYLd + t;
+              const float4 a = *reinterpret_cast<const float4*>(y + o);
+              const float4 b = *reinterpret_cast<const float4*>(gv + o);
+              const float gl = gain_sh[2 * s + c];
+              const float4 v = make_float4(
+                  rt::mul(rt::mul(a.x, b.x), gl), rt::mul(rt::mul(a.y, b.y), gl),
+                  rt::mul(rt::mul(a.z, b.z), gl), rt::mul(rt::mul(a.w, b.w), gl));
+              acc = s ? make_float4(rt::add(acc.x, v.x), rt::add(acc.y, v.y),
+                                    rt::add(acc.z, v.z), rt::add(acc.w, v.w))
+                      : v;  // the first term alone
             }
-            const R q = ring_round<R>(sq);
-            ring[ring_at(it - 2, t, l)] = q;
-            db[t][l] = rt::sub(ring_f32(q), ring_f32(old[k]));
+          }
+          float* out = partial + ((long long)blockIdx.x * 2 + c) * n + (long long)j * kTile + t;
+          if (n % 4 == 0 && t + 4 <= tt) {
+            *reinterpret_cast<float4*>(out) = acc;
+          } else {
+            const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
+            for (int k = 0; k < 4 && t + k < tt; ++k) out[k] = a4[k];
           }
         }
       }
-      if (stage) rows[((it + 1) & 1) * kTile + sub] = next;
+    } else if (group == 0) {
+      fe.fill<false>(it, gsub, nullptr, 0.f, cf);
+      if (fe.live(it - 4)) {
+        // tile it-4's desired gains over its window sums (d's tile), its
+        // peaks (serial) or y (rel0*)
+        const int j = it - 4, l = gsub / (kTile / 4), t0 = gsub % (kTile / 4) * 4;
+        if (l < nl && t0 < tile_len(n, j)) {
+          const int o = l * kYLd + t0;
+          float4* const b4 = reinterpret_cast<float4*>(dt(j) + o);
+          const float4 rv = *b4;
+          const float4 yv = *reinterpret_cast<const float4*>(
+              (kPlan == kSerial ? pkt(j) : fe.y_tile(j)) + o);
+          const float r4[4] = {rv.x, rv.y, rv.z, rv.w}, y4[4] = {yv.x, yv.y, yv.z, yv.w};
+          float d4[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            d4[k] = kPlan == kRel0f ? rt::desired_gain_folded(r4[k], y4[k], p)
+                                    : rt::desired_gain(r4[k], kPlan == kRel0 ? fabsf(y4[k])
+                                                                            : y4[k], p);
+          *b4 = make_float4(d4[0], d4[1], d4[2], d4[3]);
+        }
+      }
+    } else if (group == 1) {
+      // the ring's values leaving the window for tile it-1's frames, loaded
+      // an iteration before their use (cur holds tile it-2's)
+      const int jr = it - 2;
+      const int ttr = fe.live(jr) ? tile_len(n, jr) : 0;
+      const int ttn = fe.live(it - 1) ? tile_len(n, it - 1) : 0;
+      unsigned nxt[kFrames][kWords<R>];
+#pragma unroll
+      for (int k = 0; k < kFrames; ++k) {
+        const int t = gsub + k * kCopy;
+        if (t < ttn) ring_load(ring_at(it - 1, t), rvec, nl, nxt[k]);
+      }
+      // the front end's copies; while they fly, tile it-2's squares, the
+      // ring's rounding and write, and d = q - old
+      fe.copy_step(it, gsub, next, [&] {
+        const float* const yb = fe.y_tile(jr);
+#pragma unroll
+        for (int k = 0; k < kFrames; ++k) {
+          const int t = gsub + k * kCopy;
+          if (t < ttr) ring_frame<kPlan == kRel0f>(yb, t, ring_at(jr, t), rvec, nl, cur[k], dt(jr));
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < kFrames; ++k)
+#pragma unroll
+        for (int w = 0; w < kWords<R>; ++w) cur[k][w] = nxt[k][w];
     }
     __syncthreads();
   }
 
-  if (warp == 0 && wl < nl) {
-    bq_out[0 * L + lane0 + wl] = x1;
-    bq_out[1 * L + lane0 + wl] = x2;
-    bq_out[2 * L + lane0 + wl] = y1;
-    bq_out[3 * L + lane0 + wl] = y2;
-  } else if (warp == 1 && wl < ns) {
+  if (warp == 0) {
+    fe.finish(bq_out, wl, y1, y2);
+  } else if (warp == kWinWarp && wl < ns) {
     agc_out[0 * S + s0 + wl] = rs;
-    agc_out[1 * S + s0 + wl] = pk;
-  } else if (warp == 2 && wl < ns) {
+    agc_out[1 * S + s0 + wl] = pk;  // rel0*: memoryless, the carry as it was
+  } else if (warp == kSmoothWarp && wl < ns) {
     agc_out[2 * S + s0 + wl] = g;
   }
-}
-
-__global__ void agc_mix_partials_kernel(const float* __restrict__ partial,
-                                        float* __restrict__ out, int nblk,
-                                        long long cn) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cn) return;
-  float acc = partial[i];
-  for (int b = 1; b < nblk; ++b) acc = rt::add(acc, partial[b * cn + i]);
-  out[i] = acc;
 }
 
 template <typename R, int kPlan>
@@ -429,7 +383,14 @@ cudaError_t launch(const float* pcm, long long F, int L, const long long* left,
                    float* agc_out, const float* params, void* ring,
                    int ring_row, float* partial, int n, int nblk,
                    cudaStream_t s) {
-  fused_agc_kernel<R, kPlan><<<nblk, kAgcThreads, kShmem, s>>>(
+  const size_t shmem = alayout().bytes;
+  auto kernel = fused_agc_kernel<R, kPlan>;
+  if (shmem > 48 * 1024) {  // more than the default needs opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<nblk, kThreads, shmem, s>>>(
       pcm, F, L, left, reinterpret_cast<const float2*>(wts), gains, coef,
       bq_in, bq_out, agc_in, agc_out, params, static_cast<R*>(ring),
       ring_row, partial, n);
@@ -449,29 +410,18 @@ int launch_plan(const float* pcm, long long F, int L, const long long* left,
     return (int)cudaErrorInvalidValue;
   const int nblk = (L + kBL - 1) / kBL;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      ring_bf16 ? launch<__nv_bfloat16, kPlan>(pcm, F, L, left, wts, gains,
-                                               coef, bq_in, bq_out, agc_in,
-                                               agc_out, params, ring, ring_row,
-                                               partial, n, nblk, s)
-                : launch<float, kPlan>(pcm, F, L, left, wts, gains, coef,
-                                       bq_in, bq_out, agc_in, agc_out, params,
-                                       ring, ring_row, partial, n, nblk, s);
+  auto run = ring_bf16 ? launch<__nv_bfloat16, kPlan> : launch<float, kPlan>;
+  const cudaError_t err = run(pcm, F, L, left, wts, gains, coef, bq_in, bq_out,
+                              agc_in, agc_out, params, ring, ring_row, partial,
+                              n, nblk, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)sum_partials(partial, out, nblk, n, s);
+  return (int)rt::front::sum_partials(partial, out, nblk, 2LL * n, s);
 }
 
 }  // namespace
 
-cudaError_t rt::fused_agc::sum_partials(const float* partial, float* out,
-                                        int nblk, int n, cudaStream_t s) {
-  const long long cn = 2LL * n;
-  agc_mix_partials_kernel<<<(unsigned)((cn + 255) / 256), 256, 0, s>>>(
-      partial, out, nblk, cn);
-  return cudaGetLastError();
-}
-
-// lanes per block: partial holds [ceil(L / this), 2, n] floats
+// lanes per block of K2, K2r, K2b and K2g: partial holds [ceil(L / this),
+// 2, n] floats
 extern "C" int rt_fused_agc_block_lanes() { return kBL; }
 
 extern "C" int rt_fused_resample_biquad_agc_mix(

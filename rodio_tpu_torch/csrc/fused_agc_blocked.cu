@@ -86,15 +86,16 @@
 // version's order, so the biquad carries, the AGC carries and the ring
 // equal the plain version's bit for bit, and the mix differs only by the
 // order of its sum over streams and blocks.
-#include "fused_agc_common.cuh"  // the ring's rounding
+#include "fused_agc_common.cuh"  // the ring
 #include "fused_front.cuh"
 
 namespace {
 
 using namespace rt::front;
 using rt::fused_agc::kRing;
-using rt::fused_agc::ring_f32;
-using rt::fused_agc::ring_round;
+using rt::fused_agc::kWords;
+using rt::fused_agc::ring_frame;
+using rt::fused_agc::ring_load;
 
 constexpr int kSB = kBL / 2;       // streams a block
 constexpr int kMaxChunk = 256;     // the longest chunk the wrapper passes
@@ -153,76 +154,6 @@ struct Pieces {
   __device__ int end(int p) const { return min(first + p * chunk, tt); }
   __device__ bool ends_chunk(int p) const { return first + p * chunk <= tt; }
 };
-
-// A frame's 8 ring values (the block's lanes) as raw 32-bit words, and as
-// f32, and the rounded ones back. vec: one 16-byte piece for bf16, two for
-// f32 (nl == 8 and the rows aligned); else lane by lane, the block's nl
-// lanes (nl is even).
-template <typename R>
-constexpr int kWords = kBL * (int)sizeof(R) / 4;
-
-__device__ __forceinline__ void ring_load(const __nv_bfloat16* p, bool vec, int nl,
-                                          unsigned (&w)[4]) {
-  if (vec) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  } else {
-    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      w[k] = 2 * k < nl ? h[2 * k] | (unsigned)h[2 * k + 1] << 16 : 0u;
-  }
-}
-__device__ __forceinline__ void ring_load(const float* p, bool vec, int nl,
-                                          unsigned (&w)[8]) {
-  if (vec) {
-    const uint4 a = reinterpret_cast<const uint4*>(p)[0];
-    const uint4 b = reinterpret_cast<const uint4*>(p)[1];
-    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
-    w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
-  } else {
-    const unsigned* u = reinterpret_cast<const unsigned*>(p);
-#pragma unroll
-    for (int l = 0; l < kBL; ++l) w[l] = l < nl ? u[l] : 0u;
-  }
-}
-__device__ __forceinline__ void ring_unpack(const unsigned (&w)[4], float (&o)[kBL]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    o[2 * k] = __uint_as_float(w[k] << 16);
-    o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void ring_unpack(const unsigned (&w)[8], float (&o)[kBL]) {
-#pragma unroll
-  for (int l = 0; l < kBL; ++l) o[l] = __uint_as_float(w[l]);
-}
-// q: values the ring's type holds exactly
-__device__ __forceinline__ void ring_store(__nv_bfloat16* p, bool vec, int nl,
-                                           const float (&q)[kBL]) {
-  if (vec) {
-    unsigned u[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      u[k] = (__float_as_uint(q[2 * k]) >> 16) | (__float_as_uint(q[2 * k + 1]) & 0xffff0000u);
-    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
-  } else {
-#pragma unroll
-    for (int l = 0; l < kBL; ++l)
-      if (l < nl) p[l] = __float2bfloat16_rn(q[l]);
-  }
-}
-__device__ __forceinline__ void ring_store(float* p, bool vec, int nl,
-                                           const float (&q)[kBL]) {
-  if (vec) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(q[0], q[1], q[2], q[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(q[4], q[5], q[6], q[7]);
-  } else {
-#pragma unroll
-    for (int l = 0; l < kBL; ++l)
-      if (l < nl) p[l] = q[l];
-  }
-}
 
 // one sub-step of pass 2: the composed map (B, L, H) after the step map of
 // b = (1-att)*des, h = max(0.1, des) (rodio_tpu/ops/fused.py:1070-1077)
@@ -501,22 +432,7 @@ fused_agc_blocked_kernel(const float* __restrict__ pcm, long long F, int L,
 #pragma unroll
         for (int k = 0; k < kFrames; ++k) {
           const int t = gsub + k * kCopy;
-          if (t < ttr) {
-            float q[kBL], old[kBL];
-            ring_unpack(cur[k], old);
-#pragma unroll
-            for (int s = 0; s < kSB; ++s) {
-              const float y0 = yb[2 * s * kYLd + t], yh = yb[(2 * s + 1) * kYLd + t];
-              const float sq0 = rt::mul(y0, y0);
-              q[2 * s] = ring_f32(ring_round<R>(sq0));
-              q[2 * s + 1] = ring_f32(ring_round<R>(rt::add(sq0, rt::mul(yh, yh))));
-            }
-            ring_store(ring_at(jr, t), rvec, nl, q);
-            float* const d = dt(jr) + t;
-#pragma unroll
-            for (int l = 0; l < kBL; ++l)
-              if (l < nl) d[l * kYLd] = rt::sub(q[l], old[l]);
-          }
+          if (t < ttr) ring_frame<true>(yb, t, ring_at(jr, t), rvec, nl, cur[k], dt(jr));
         }
       });
 #pragma unroll

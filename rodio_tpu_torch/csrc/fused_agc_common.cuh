@@ -1,48 +1,18 @@
-// What K2's serial and rel0 plans (fused_agc.cu: K2, K2r) use: the block's
-// shape, its 64-frame tiles, the warps' roles, the staged lerp rows, the
-// ring's rounding (K2g's and K2b's too, fused_agc_group.cu and
-// fused_agc_blocked.cu, which run on K1's front end), the biquad warp's
-// column walk and the sum of the blocks' mix partials in order.
+// What K2's plans on K1's front end share (fused_agc.cu: K2, K2r;
+// fused_agc_blocked.cu: K2b; fused_agc_group.cu: K2g): the RMS window's
+// ring, its rounding to the ring's type, and a frame's ring words loaded,
+// unpacked and stored for the block's 8 lanes at once.
 #pragma once
 
 #include <cuda_bf16.h>
 
-#include <type_traits>
-
 #include "agc_math.cuh"
-#include "lane_pipeline.cuh"  // rt::Steps
+#include "fused_front.cuh"  // rt::front::kBL, kYLd
 
 namespace rt::fused_agc {
 
-using U64 = unsigned long long;
-
-constexpr int kTile = 64;    // frames a tile
-constexpr int kBL = 8;       // lanes per block (whole stereo streams)
 constexpr int kRing = 4096;  // frames of the RMS window: 8192 samples / 2 ch
-constexpr int kBqCh = 16;    // frames per register chunk of warp 0
-// warps 3, 4, 7 and 8 are the elementwise warps (SMSPs 3, 0, 3, 0, beside
-// the light biquad warp); warps 5 and 6 stay idle
-constexpr int kNWork = 4 * 32;
-constexpr int kAgcThreads = 9 * 32;
-static_assert(kBL % 2 == 0 && kBL <= 32, "whole streams, one warp of lanes");
-
-typedef float Tile[kTile][kBL + 1];  // +1: no bank conflicts on columns
-
-__device__ __forceinline__ int tile_len(long long T, int i) {
-  return (int)min((long long)kTile, T - (long long)i * kTile);
-}
-
-// the elementwise slot of a warp, or -1
-__device__ __forceinline__ int work_slot(int warp) {
-  return warp == 3 || warp == 4 ? warp - 3 : warp == 7 || warp == 8 ? warp - 5
-                                                                    : -1;
-}
-
-// a frame's left input row and lerp weights, staged in shared memory
-struct Row {
-  long long left;
-  float2 w;
-};
+constexpr int kBL = rt::front::kBL;  // lanes a block (4 stereo streams)
 
 __device__ __forceinline__ float ring_f32(float v) { return v; }
 __device__ __forceinline__ float ring_f32(__nv_bfloat16 v) {
@@ -57,54 +27,99 @@ __device__ __forceinline__ __nv_bfloat16 ring_round<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// a whole tile's tt is rt::Steps<kTile>, a tail tile's an int
-template <class TT>
-constexpr bool kWhole = !std::is_same<TT, int>::value;
+// A frame's 8 ring values (the block's lanes) as raw 32-bit words, and as
+// f32, and the rounded ones back. vec: one 16-byte piece for bf16, two for
+// f32 (nl == 8 and the rows aligned); else lane by lane, the block's nl
+// lanes (nl is even).
+template <typename R>
+constexpr int kWords = kBL * (int)sizeof(R) / 4;
 
-// run(tt) for a tile of tt steps: a whole tile runs with tt a compile-time
-// kTile, so its copy of run has no per-step test (a branch per step costs
-// the serial warps more than the step)
-template <class Run>
-__device__ __forceinline__ void full_or_tail(int tt, Run run) {
-  if (tt == kTile)
-    run(rt::Steps<kTile>{});
-  else
-    run(tt);
+__device__ __forceinline__ void ring_load(const __nv_bfloat16* p, bool vec, int nl,
+                                          unsigned (&w)[4]) {
+  if (vec) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = 2 * k < nl ? h[2 * k] | (unsigned)h[2 * k + 1] << 16 : 0u;
+  }
 }
-
-// The biquad warp's walk down its lane's column of a tile (y over x in
-// place), kBqCh frames at a time in registers so that no step waits on a
-// load; the carries are this thread's lane's.
-template <class TT>
-__device__ __forceinline__ void biquad_column(Tile& b, int wl, TT tt,
-                                              const rt::BiquadCoef& cf,
-                                              float& x1, float& x2, float& y1,
-                                              float& y2) {
-#pragma unroll 1
-  for (int t0 = 0; t0 < kTile; t0 += kBqCh) {
-    float v[kBqCh];
+__device__ __forceinline__ void ring_load(const float* p, bool vec, int nl,
+                                          unsigned (&w)[8]) {
+  if (vec) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+  } else {
+    const unsigned* u = reinterpret_cast<const unsigned*>(p);
 #pragma unroll
-    for (int u = 0; u < kBqCh; ++u) v[u] = b[t0 + u][wl];
+    for (int l = 0; l < kBL; ++l) w[l] = l < nl ? u[l] : 0u;
+  }
+}
+__device__ __forceinline__ void ring_unpack(const unsigned (&w)[4], float (&o)[kBL]) {
 #pragma unroll
-    for (int u = 0; u < kBqCh; ++u) {
-      if (kWhole<TT> || t0 + u < tt) {
-        const float yt = rt::biquad_step(cf, v[u], x1, x2, y1, y2);
-        x2 = x1;
-        x1 = v[u];
-        y2 = y1;
-        y1 = yt;
-        v[u] = yt;
-      }
-    }
+  for (int k = 0; k < 4; ++k) {
+    o[2 * k] = __uint_as_float(w[k] << 16);
+    o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void ring_unpack(const unsigned (&w)[8], float (&o)[kBL]) {
 #pragma unroll
-    for (int u = 0; u < kBqCh; ++u)
-      if (kWhole<TT> || t0 + u < tt) b[t0 + u][wl] = v[u];
+  for (int l = 0; l < kBL; ++l) o[l] = __uint_as_float(w[l]);
+}
+// q: values the ring's type holds exactly
+__device__ __forceinline__ void ring_store(__nv_bfloat16* p, bool vec, int nl,
+                                           const float (&q)[kBL]) {
+  if (vec) {
+    unsigned u[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      u[k] = (__float_as_uint(q[2 * k]) >> 16) | (__float_as_uint(q[2 * k + 1]) & 0xffff0000u);
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBL; ++l)
+      if (l < nl) p[l] = __float2bfloat16_rn(q[l]);
+  }
+}
+__device__ __forceinline__ void ring_store(float* p, bool vec, int nl,
+                                           const float (&q)[kBL]) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(q[0], q[1], q[2], q[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(q[4], q[5], q[6], q[7]);
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBL; ++l)
+      if (l < nl) p[l] = q[l];
   }
 }
 
-// out[c, t] = sum over blocks b (in order) of partial[b, c, t], c < 2,
-// t < n, on stream s (defined in fused_agc.cu)
-cudaError_t sum_partials(const float* partial, float* out, int nblk, int n,
-                         cudaStream_t s);
+// One frame t of a y tile (lane-major, row stride rt::front::kYLd) through
+// the ring: the squares rounded to the ring's type (kPacked: the packed
+// basis, lane 2s = round(sq0) and lane 2s+1 = round(sq0 + sq1), the f32
+// sum; else each lane's own square), written to the ring at p, and d = q -
+// old, old the ring's words loaded before (w), into the d tile's frame t.
+template <bool kPacked, typename R>
+__device__ __forceinline__ void ring_frame(const float* yb, int t, R* p, bool vec,
+                                           int nl, const unsigned (&w)[kWords<R>],
+                                           float* d) {
+  constexpr int ld = rt::front::kYLd;
+  float q[kBL], old[kBL];
+  ring_unpack(w, old);
+#pragma unroll
+  for (int s = 0; s < kBL / 2; ++s) {
+    const float y0 = yb[2 * s * ld + t], y1 = yb[(2 * s + 1) * ld + t];
+    const float sq0 = rt::mul(y0, y0), sq1 = rt::mul(y1, y1);
+    q[2 * s] = ring_f32(ring_round<R>(sq0));
+    q[2 * s + 1] = ring_f32(ring_round<R>(kPacked ? rt::add(sq0, sq1) : sq1));
+  }
+  ring_store(p, vec, nl, q);
+#pragma unroll
+  for (int l = 0; l < kBL; ++l)
+    if (l < nl) d[l * ld + t] = rt::sub(q[l], old[l]);
+}
 
 }  // namespace rt::fused_agc

@@ -1,7 +1,8 @@
-// K1's front end, shared by K1 (fused.cu) and K2g (fused_agc_group.cu): the
-// block's shape and warp roles, the staged lerp rows, the PCM rows' copies,
-// the fill (the lerp, the gain where the kernel applies it before the
-// biquad, and the biquad's FIR half) and the IIR warp's register halves.
+// K1's front end, shared by K1 (fused.cu), K2 and K2r (fused_agc.cu), K2b
+// (fused_agc_blocked.cu) and K2g (fused_agc_group.cu): the block's shape
+// and warp roles, the staged lerp rows, the PCM rows' copies, the fill (the
+// lerp, the gain where the kernel applies it before the biquad, and the
+// biquad's FIR half) and the IIR warp's register halves.
 //
 // For each output frame o of lane l:
 //
@@ -18,11 +19,11 @@
 // (conversions/resample.py:125-133), built once on the host. PCM rows past
 // the buffer read as zero.
 //
-// The block (K2's shape): LB lanes of whole streams (kBL / C * C lanes;
-// one stream of C lanes for C > 8), so 128 blocks for 1024 lanes, walking
-// time in tiles of 128 frames, one __syncthreads a tile. Warp 0 runs the
-// IIR half on SMSP 0 (warps 4, 8 and 12 share it: idle in K1, K2g's AGC
-// warps); the other 12 warps are elementwise, four on each of SMSPs 1-3.
+// The block: LB lanes of whole streams (kBL / C * C lanes; one stream of C
+// lanes for C > 8), so 128 blocks for 1024 lanes, walking time in tiles of
+// 128 frames, one __syncthreads a tile. Warp 0 runs the IIR half on SMSP 0
+// (warps 4, 8 and 12 share it: idle in K1, the AGC's serial warps in K2's
+// plans); the other 12 warps are elementwise, four on each of SMSPs 1-3.
 // At iteration i:
 //
 //   fill warps (1-3, 5-7, 9, 10): tile i's lerp and FIR half u, a run of 4

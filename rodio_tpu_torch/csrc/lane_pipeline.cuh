@@ -1,5 +1,5 @@
 // rt::Steps, a tile length known at compile time, for the tile pipelines
-// (chain_pipeline.cuh, fused_front.cuh, fused_agc_common.cuh).
+// (chain_pipeline.cuh, fused_front.cuh).
 #pragma once
 
 namespace rt {

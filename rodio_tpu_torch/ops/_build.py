@@ -68,7 +68,7 @@ SIGNATURES = {
     "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
     # a, b, c, init, params, y, L, T, op, stream
     "rt_first_order": (P, P, P, P, P, P, I, LL, I, P),
-    # x, v0, power table, y, scratch, rows, M, P, stream
+    # x, v0, power table, y, scratch (or null), rows, M, P, stream
     "rt_blocked_max_affine": (P, P, P, P, P, I, I, I, P),
     # pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in, agc_out,
     # params, ring, ring_bf16, ring_row, partial, out, n, stream
@@ -104,6 +104,9 @@ SIGNATURES = {
     # T, P; returns the floats of global scratch K3 needs (0: none, it
     # stages [2, T] in shared memory), not an error code
     "rt_limiter_master_scratch_floats": (I, I),
+    # rows, M, P; returns the floats of global scratch K8 needs (0: none, it
+    # stages each row in shared memory), not an error code
+    "rt_blocked_max_affine_scratch_floats": (I, I, I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -252,6 +252,13 @@ def blocked_max_affine_const_plain(x, v0, a, *, P: int):
     return y.reshape(L, M)
 
 
+@functools.lru_cache(maxsize=None)
+def _bma_scratch_floats(L: int, M: int, P: int) -> int:
+    """The floats of global scratch K8 needs for x [L, M] in chunks of M/P,
+    the kernel's own rule: 0 where it stages each row in shared memory."""
+    return _build.load_library().rt_blocked_max_affine_scratch_floats(L, M, P)
+
+
 def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
     """y_t = max(x_t, a*y_{t-1} + (1-a)*x_t) over x [L, M] from v0 [L]
     (L <= 8, M % P == 0, P a power of two <= 128), sequential depth
@@ -268,11 +275,14 @@ def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
     v0 = _build.f32_arg("v0", v0, dev, (L,))
     pw = bma_power_table(a, Lc, dev)
     y = torch.empty_like(x)
-    scratch = torch.empty((2, Lc, L * P), dtype=torch.float32, device=dev)
+    nscratch = _bma_scratch_floats(L, M, P)
+    scratch = (torch.empty(nscratch, dtype=torch.float32, device=dev)
+               if nscratch else None)
     lib = _build.load_library()
     err = lib.rt_blocked_max_affine(
         x.data_ptr(), v0.data_ptr(), pw.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), L, M, P, _build.stream_handle(dev))
+        None if scratch is None else scratch.data_ptr(), L, M, P,
+        _build.stream_handle(dev))
     _build.check(err, "rt_blocked_max_affine")
     global bma_launches
     bma_launches += 1

@@ -622,29 +622,48 @@ def test_k6_k7_carries_cross_calls(dev, cut):
         assert torch.equal(torch.cat([y1, y2], 1), y), op
 
 
-@pytest.mark.parametrize("L,P,M", [(1, 128, 8192), (3, 8, 64), (8, 32, 3200)])
-def test_k8_blocked_max_affine_matches_plain(dev, L, P, M):
+@pytest.mark.parametrize("L,P,M", [
+    (1, 128, 8192), (3, 8, 64), (8, 32, 3200),
+    (1, 128, 128),     # Lc = 1 (M = P)
+    (2, 1, 64),        # P = 1: one chunk, no combine
+    (8, 128, 16384),   # 8 rows of 128 chunks: 1024 chunk threads
+    (2, 128, 262144),  # rows too long to stage in shared memory: a global scratch
+])
+@pytest.mark.parametrize("special", [False, True])
+def test_k8_blocked_max_affine_matches_plain(dev, L, P, M, special):
+    """Bit-equal (NaN where the plain version has NaN) from a warm and a zero
+    carry, at a coefficient of 0, 1, a live one and one on the card; with
+    ``special``, NaN and +-inf among the samples."""
     rng = np.random.default_rng(L * P)
-    x = _f32(np.abs(rng.standard_normal((L, M)) * 0.3), dev)
-    v0 = _f32(rng.uniform(0, 1, L), dev)
-    for a in (0.0, 0.99896, _f32(0.9, dev)):
-        before = limiter_block.bma_launches
-        yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
-        yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
-        torch.cuda.synchronize()
-        assert limiter_block.bma_launches == before + 1
-        assert torch.equal(yk, yp)
+    x = np.abs(rng.standard_normal((L, M)) * 0.3)
+    if special:
+        x.flat[rng.choice(L * M, 6, replace=False)] = [np.nan, np.inf, -np.inf] * 2
+    x = _f32(x, dev)
+    for v0 in (_f32(rng.uniform(0, 1, L), dev), torch.zeros(L, device=dev)):
+        for a in (0.0, 0.99896, _f32(0.9, dev), 1.0):
+            before = limiter_block.bma_launches
+            yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
+            yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
+            torch.cuda.synchronize()
+            assert limiter_block.bma_launches == before + 1
+            assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
+            assert torch.equal(yk.isnan(), yp.isnan())
 
 
 @pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S,n,o0,F", [
-    (3, 640, 0, 5000), (16, 333, 4000, 5000), (512, 1280, 160, 4000),
-    (4, 5000, 320, 6000),  # n > 4096: the block reads its own squares back
+@pytest.mark.parametrize("S,n,o0,F,to", [
+    (3, 640, 0, 5000, 160), (16, 333, 4000, 5000, 160), (512, 1280, 160, 4000, 160),
+    (4, 5000, 320, 6000, 160),  # n > 4096: the block reads its own squares back
+    # the 128-frame tile's edges: a lone frame, a tail of 127, whole tiles,
+    # a tail of 1; blocks starting off the tile grid
+    (3, 1, 0, 5000, 160), (5, 127, 0, 5000, 160), (4, 128, 128, 5000, 160),
+    (3, 129, 77, 5000, 160), (5, 255, 333, 5000, 160),
+    (6, 1280, 640, 3000, 320),  # 22.05 -> 48 kHz
 ])
-def test_k2_fused_agc_matches_plain(dev, ring_dtype, S, n, o0, F):
+def test_k2_fused_agc_matches_plain(dev, ring_dtype, S, n, o0, F, to):
     rng = np.random.default_rng(S * 100 + n)
     L = 2 * S
-    fr, to = 147, 160
+    fr = 147
     pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)
     left, phase = output_positions(o0, n, fr, to, dev)
     wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
@@ -725,16 +744,26 @@ def test_fused_agc_emit_never_waits_for_the_card(dev):
 AGC_PARAMS_REL0 = (AGC_PARAMS[0], 0.0) + AGC_PARAMS[2:]
 
 
-@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("plan", fused.AGC_REL0_PLANS)
-@pytest.mark.parametrize("S,n,o0,F,to", [
+#: (S, n, o0, F, to) for every rel0 plan; then, for K2r's serial plans only
+#: (a blocked plan takes whole grid steps), the 128-frame tile's edges
+_REL0_CASES = [
     (3, 640, 0, 5000, 160), (512, 1280, 320, 4000, 160),
     (4, 5120, 960, 7000, 160),  # n > 4096: the block reads its own squares back
     (6, 1280, 640, 3000, 320),  # 22.05 -> 48 kHz: m*to = 640
-])
+]
+_REL0_EDGES = [(3, 1, 0, 5000, 160), (5, 127, 0, 5000, 160), (4, 128, 128, 5000, 160),
+               (3, 129, 77, 5000, 160), (5, 255, 333, 5000, 160),
+               (6, 129, 640, 3000, 320)]
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("plan,S,n,o0,F,to", [
+    (plan, *case) for plan in fused.AGC_REL0_PLANS for case in _REL0_CASES
+] + [(plan, *case) for plan in ("rel0", "rel0f") for case in _REL0_EDGES])
 def test_k2r_k2b_rel0_plans_match_plain(dev, ring_dtype, plan, S, n, o0, F, to):
     """K2r (rel0, rel0f) and K2b (rel0b*, rel0c*) at 44.1 and 22.05 kHz,
-    from the stream's start and mid-stream (o0 > 0, on the step grid)."""
+    from the stream's start and mid-stream (o0 > 0, on the step grid; K2r
+    also off it, and at the tile's edges)."""
     rng = np.random.default_rng(S * 100 + n + to)
     L, fr = 2 * S, 147
     pcm = _f32(rng.standard_normal((F, L)) * 0.3, dev)

@@ -46,3 +46,18 @@ def test_instrument_leaves_a_source_without_a_tile_loop():
     src = ('#include "precise_math.cuh"\n__global__ void k(float* y, int n) {\n'
            "  for (int i = 0; i < n; ++i) y[i] = 0.f;\n}\n")
     assert warp_cycles.instrument(src, "k") is None
+
+
+def test_instrument_phases_times_each_marked_phase():
+    # K8 marks its phases with RT_PHASE(k); the rewrite defines the mark to
+    # read clock64() into an array of one slot per mark and adds its read-back
+    src = (_build.CSRC / "bma.cu").read_text()
+    marks = sorted(int(k) for k in re.findall(r"RT_PHASE\((\d+)\);", src))
+    assert marks == list(range(len(warp_cycles.PHASES) + 1))
+    out = warp_cycles.instrument_phases(src, "bma")
+    assert out.index("#define RT_PHASE(k)") < out.index("#ifndef RT_PHASE")
+    assert f"g_phase_cycles[{len(marks)}];" in out
+    assert out.count('extern "C" int rt_phase_cycles_bma(long long* out)') == 1
+    assert src in out
+    # a source without marks (an earlier K8) is timed only
+    assert warp_cycles.instrument_phases(src.replace("RT_PHASE(", "PHASE("), "bma") is None
