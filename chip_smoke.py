@@ -507,31 +507,44 @@ def main() -> int:
                 f"roofline {_bound(2 * L * T * 4, 7 * L * T)[0]:.4f} ms")
     del x5, db, yk5, yp5, pk5, pp5
 
-    # K9: K1's chunk stream, the ring 4 tiles deep, each call reading its
-    # buffer from memory (calls rotate through copies); against clone() of
-    # the same buffer
+    # K9: K1's block of PCM rows read at K1's geometry (8 lanes a block,
+    # 128-frame tiles) through K9's TMA ring, L2-cold in a CUDA graph (the
+    # calls rotate through copies of the buffer); beside it K1's own
+    # cp.async route at depth 3, the contiguous stream (the card's read
+    # ceiling) and clone() of the same buffer, timed the same way
     xk9 = dev_f32(rng.standard_normal((rows_read, L)))
-    err9 = _max_err(dma_roofline.dma_ring(xk9, tr=tile_rows, depth=4),
-                    dma_roofline.dma_ring_plain(xk9, tr=tile_rows))
-    err9 = max(err9, _max_err(dma_roofline.stream_max(xk9),
-                              dma_roofline.stream_max_plain(
-                                  xk9, blocks=dma_roofline.stream_blocks(xk9))))
+    xs9 = dma_roofline.cold_copies(xk9)
+    d9 = dma_roofline.K9_DEPTH
+    want9 = dma_roofline.dma_ring_plain(xk9, tr=tile_rows)
+    err9 = max(_max_err(dma_roofline.dma_ring(xk9, tr=tile_rows, depth=d9), want9),
+               _max_err(dma_roofline.dma_ring(xk9, tr=tile_rows, depth=dma_roofline.K1_DEPTH,
+                                              route="cp.async"), want9),
+               _max_err(dma_roofline.stream_max(xk9), dma_roofline.stream_max_plain(
+                   xk9, blocks=dma_roofline.stream_blocks(xk9))))
     pms9 = _time_ms(lambda: dma_roofline.dma_ring_plain(xk9, tr=tile_rows), 5)
-    lib9 = dma_roofline.time_ms_cold(torch.clone, xk9)
     reset()
     ms9 = dma_roofline.time_ms_cold(
-        lambda t: dma_roofline.dma_ring(t, tr=tile_rows, depth=4), xk9, reps=20)
+        lambda t: dma_roofline.dma_ring(t, tr=tile_rows, depth=d9), xk9, reps=20, copies=xs9)
     dma_run = counts()
-    expect(dma_run, "K9 probe", K9=21)  # a warm-up call and 20 timed
-    ms9s = dma_roofline.time_ms_cold(dma_roofline.stream_max, xk9)
+    expect(dma_run, "K9 probe", K9=21)  # a call before the graph and 20 captured in it
+    ms9k1 = dma_roofline.time_ms_cold(
+        lambda t: dma_roofline.dma_ring(t, tr=tile_rows, depth=dma_roofline.K1_DEPTH,
+                                        route="cp.async"), xk9, copies=xs9)
+    ms9s = dma_roofline.time_ms_cold(dma_roofline.stream_max, xk9, copies=xs9)
+    ms9c = dma_roofline.time_ms_cold(torch.clone, xk9, copies=xs9)
     nb9 = xk9.numel() * 4
+    n_tiles9 = -(-rows_read // tile_rows)
     record("K9", "dma_ring", "rodio_tpu_torch/csrc/dma_roofline.cu",
            "benches/dma_roofline.py:83", err9, BOUND_K9, ms9, pms9, nb9 + L * 4,
-           rows_read // tile_rows * L, _chain_ms(-(-rows_read // tile_rows), 1),
-           library_ms=lib9, note=f" [{rows_read}, {L}] f32, tiles of {tile_rows} rows, "
-           f"depth 4: {nb9 / ms9 / 1e6:.1f} GB/s; contiguous stream {ms9s:.4f} ms, "
-           f"{nb9 / ms9s / 1e6:.1f} GB/s; clone {2 * nb9 / lib9 / 1e6:.1f} GB/s moved")
-    del xk9
+           n_tiles9 * L, _chain_ms(n_tiles9, 1),
+           note=f" [{rows_read}, {L}] f32, {dma_roofline.K1_LANES} lanes a block, tiles of "
+           f"{tile_rows} rows, TMA ring depth {d9}, L2-cold in a CUDA graph: "
+           f"{nb9 / ms9 / 1e6:.1f} GB/s; K1's cp.async route at depth "
+           f"{dma_roofline.K1_DEPTH} {ms9k1:.4f} ms, {nb9 / ms9k1 / 1e6:.1f} GB/s; "
+           f"contiguous stream {ms9s:.4f} ms, {nb9 / ms9s / 1e6:.1f} GB/s; clone "
+           f"{ms9c:.4f} ms, {nb9 / ms9c / 1e6:.1f} GB/s read, {2 * nb9 / ms9c / 1e6:.1f} "
+           f"GB/s moved")
+    del xs9, xk9
     for r in results:
         if not r["max_abs_err"] <= r["bound_err"]:
             raise AssertionError(f"{r['kid']}: max|d| {r['max_abs_err']} exceeds "

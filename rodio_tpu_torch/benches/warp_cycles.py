@@ -11,8 +11,9 @@ K5 (``csrc/limiter_env.cu``), K6 (``csrc/agc.cu``) and K7
 barriers, so the slowest warp sets each iteration's length. This copies
 those sources into ``build/warp_cycles/``, adds a ``clock64()`` read at the
 start of each iteration and another before its barrier, builds them,
-``limiter_block.cu`` (K3, not instrumented) and ``bma.cu`` (K8, its phases
-timed where it marks them with ``RT_PHASE``) with the library's nvcc flags
+``limiter_block.cu`` (K3, not instrumented), ``bma.cu`` (K8, its phases
+timed where it marks them with ``RT_PHASE``) and ``dma_roofline.cu`` (K9
+and the contiguous stream, timed only) with the library's nvcc flags
 into a shared library of their own, and runs K1 at
 the main path's shape (512 stereo streams, one block of 12800 frames at
 44.1 -> 48 kHz), each K2 plan at path E's (the same, bf16 ring; K2g at AG =
@@ -21,8 +22,11 @@ the unfused chain's and path C's ([1024, 12800]) and path B's ([2, 4096]),
 K5 at path C's (``limiter_stream``, the Limit node's per-stream pass, on
 [1024, 12800] in stereo groups, and ``limiter_env``), K6 at path C's ([512,
 25600]), K7's ``agc_gain`` at path B's ([1, 8192], and [1, 512] with
-``group=8``) and K8 at path B's ([1, 8192], P = 128). It first prints the
-card's one-thread latencies of a dependent FMUL/FADD and of a smoother step
+``group=8``), K8 at path B's ([1, 8192], P = 128) and K9 at K1's block
+([11761, 1024] f32, L2-cold: the calls rotate through copies of it; its TMA
+ring and K1's cp.async route at K1's geometry, or a version before the TMA
+ring at its own, and ``stream_max``: ``--kernels K9,stream_max``). It
+first prints the card's one-thread latencies of a dependent FMUL/FADD and of a smoother step
 (``benches/op_latency.py``), the floors of the chains. For each tile
 pipeline it prints the card's first block's busy cycles per iteration by
 warp (lane 0's view) beside the iteration's whole length (kernel cycles
@@ -37,7 +41,9 @@ the host), and
 K1's mix against its plain version at gains of unit scale (no 1/S), where
 the mix is largest against the rounding of its sum over blocks. The reads
 cost a few cycles an iteration; the library itself is not changed.
-``--csrc`` takes the sources from another directory (another version of the
+``--kernels`` runs only those kernels' cases and builds only their sources
+(the other entry points are the library's). ``--csrc`` takes the sources
+from another directory (another version of the
 kernels, for an A/B in one call): a source whose tile loop is not where
 this expects it is built as it is and timed only, and an entry point it
 lacks is taken from the library; a version without ``rt_limiter_stream``
@@ -62,15 +68,22 @@ from ..core.math import DB_TO_LOG2, LOG2_TO_DB
 from ..effects.blt import blt_coefficients
 from ..effects.limit import Limit, LimitSettings
 from ..ops import _build, cuda_scan, fused, limiter_block
-from . import op_latency
+from . import dma_roofline, op_latency
+from .dma_roofline import graph_ms
 from ..sources.generators import SamplesBuffer
 
 OUT_ROOT = _build.BUILD_DIR.parent / "warp_cycles"
 SOURCES = ("fused_agc.cu", "fused_agc_blocked.cu", "fused_agc_group.cu", "fused.cu",
            "agc.cu", "first_order.cu", "limiter_env.cu", "biquad.cu")
-TIMED = ("limiter_block.cu", "bma.cu")  # built as they are, timed only
+TIMED = ("limiter_block.cu", "bma.cu", "dma_roofline.cu")  # built as they are, timed only
 PHASED = ("bma.cu",)  # ... but for the phases marked with RT_PHASE(k)
 PHASES = ("loads", "pass 1", "combine", "pass 2", "stores")
+#: the source of each kernel's cases (``--kernels`` builds only these)
+KERNEL_SOURCES = {"K1": "fused.cu", "K2": "fused_agc.cu", "K2r": "fused_agc.cu",
+                  "K2b": "fused_agc_blocked.cu", "K2g": "fused_agc_group.cu",
+                  "K3": "limiter_block.cu", "K4": "biquad.cu", "K5": "limiter_env.cu",
+                  "K6": "agc.cu", "K7": "first_order.cu", "K8": "bma.cu",
+                  "K9": "dma_roofline.cu", "stream_max": "dma_roofline.cu"}
 WARPS = 16  # per-warp totals for up to 16 warps, then the iterations and the
 SLOTS = WARPS + 2  # kernel's cycles
 BLOCKS = 1024  # each block's own cycles, for the first 1024 blocks
@@ -135,16 +148,24 @@ def instrument_phases(src: str, tag: str):
             "                                   sizeof(g_phase_cycles));\n}\n")
 
 
-def build(csrc: Path):
+def k9_before_tma(src: str) -> bool:
+    """Whether a version of ``dma_roofline.cu`` predates K9's TMA ring (32
+    lanes a block, the cp.async route alone, no lanes or route argument)."""
+    return "CUtensorMap" not in src
+
+
+def build(csrc: Path, names=SOURCES + TIMED):
     """The instrumented kernels of ``csrc``, built once per version of
-    their sources, the names of the sources that were instrumented, and
-    the entry points taken from the library (the version lacks them)."""
-    texts = {name: (csrc / name).read_text() for name in SOURCES + TIMED}
-    timed = {name: instrument(texts[name], name[:-3]) for name in SOURCES}
-    timed.update({name: instrument_phases(texts[name], name[:-3]) for name in PHASED})
+    their sources (``names``: those the cases need), the names of the
+    sources that were instrumented, and the entry points taken from the
+    library (the version lacks them, or its sources were not built)."""
+    texts = {name: (csrc / name).read_text() for name in names}
+    timed = {name: instrument(texts[name], name[:-3]) for name in SOURCES if name in texts}
+    timed.update({name: instrument_phases(texts[name], name[:-3])
+                  for name in PHASED if name in texts})
     texts.update({k: v for k, v in timed.items() if v is not None})
     instrumented = tuple(k for k, v in timed.items() if v is not None)
-    h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join([*_build.NVCC_FLAGS, *sorted(texts)]).encode())
     for name in sorted(p.name for p in csrc.glob("*.cu*")):
         h.update(texts.get(name, (csrc / name).read_text()).encode())
     out_dir = OUT_ROOT / h.hexdigest()[:16]
@@ -162,7 +183,8 @@ def build(csrc: Path):
     borrowed = set()
     for name, argtypes in _build.SIGNATURES.items():
         if not name.startswith(("rt_fused", "rt_limiter", "rt_agc", "rt_biquad",
-                                "rt_first_order", "rt_blocked_max_affine")):
+                                "rt_first_order", "rt_blocked_max_affine", "rt_dma_ring",
+                                "rt_stream_max")):
             continue
         try:
             fn = getattr(lib, name)
@@ -185,6 +207,10 @@ def build(csrc: Path):
         fn = getattr(lib, f"rt_block_cycles_clear_{name[:-3]}")
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    if k9_before_tma((csrc / "dma_roofline.cu").read_text()):  # x, R, L, tr, depth, out, stream
+        lib.rt_dma_ring.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p]
     lib.rt_error_string = main_lib.rt_error_string
     return lib, instrumented, borrowed
 
@@ -202,28 +228,6 @@ def _time_ms(call, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
-def graph_ms(call, reps: int) -> float:
-    """Mean ms per call of ``reps`` calls captured in one CUDA graph: the
-    card's time alone, where a call's host time exceeds its kernel's."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            call()
-    g.replay()
-    torch.cuda.synchronize()
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    s.record()
-    g.replay()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", default=str(_build.CSRC),
@@ -235,7 +239,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("warp_cycles: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    lib, instrumented, borrowed = build(Path(args.csrc))
+    names = SOURCES + TIMED
+    if args.kernels:
+        names = tuple(sorted({KERNEL_SOURCES[k] for k in args.kernels.split(",")}))
+    lib, instrumented, borrowed = build(Path(args.csrc), names)
     S, T, fr, to = 512, 12800, 147, 160
     L = 2 * S
     rng = np.random.default_rng(0)
@@ -337,6 +344,45 @@ def main(argv=None) -> int:
         st4 = tuple(f32(rng.standard_normal(lanes) * 0.01) for _ in range(4))
         return lambda: cuda_scan.biquad_df1(x4, coef4, st4)
 
+    # K9 at K1's block ([11761, 1024] f32), L2-cold: each call reads the next
+    # of the rotating copies of the buffer (a graph captures each call with
+    # its own), through the version's entry points: its TMA ring at K1's
+    # geometry and depth K9_DEPTH and K1's cp.async route at depth 3; a
+    # version before the TMA ring (32 lanes a block, cp.async only) at its
+    # own geometry (tiles of 59 rows, depth 4) and at K1's tile and depth.
+    # Then the contiguous stream at the version's own grid
+    rows9, tr9 = dma_roofline.k1_stream(T, fr, to)
+    xs9 = dma_roofline.cold_copies(f32(rng.standard_normal((rows9, L))))
+    out9 = torch.empty(L, device=dev)
+    old9 = k9_before_tma((Path(args.csrc) / "dma_roofline.cu").read_text())
+
+    def k9_call(route, tr, depth):
+        def run(x):
+            geo = ((tr, depth) if old9 else
+                   (tr, depth, dma_roofline.K1_LANES, dma_roofline.ROUTES[route]))
+            _build.check(lib.rt_dma_ring(x.data_ptr(), rows9, L, *geo, out9.data_ptr(),
+                                         _build.stream_handle(dev)), "rt_dma_ring")
+        return dma_roofline.rotating(run, xs9)
+
+    blocks9 = (-(-rows9 * L // 4 // 1024) if old9 else dma_roofline.stream_blocks(xs9[0]))
+    out9s = torch.empty(blocks9, device=dev)
+
+    def k9_stream(x):
+        _build.check(lib.rt_stream_max(x.data_ptr(), x.numel() // 4, blocks9,
+                                       out9s.data_ptr(), _build.stream_handle(dev)),
+                     "rt_stream_max")
+
+    k9_cases = ([("K9", "32 lanes, cp.async, tiles of 59, depth 4 (its own)",
+                  k9_call("cp.async", 59, 4), None, 20),
+                 ("K9", f"32 lanes, cp.async, tiles of {tr9}, depth 3",
+                  k9_call("cp.async", tr9, 3), None, 20)] if old9 else
+                [("K9", f"TMA ring, 8 lanes, tiles of {tr9}, depth {dma_roofline.K9_DEPTH}",
+                  k9_call("tma", tr9, dma_roofline.K9_DEPTH), None, 20),
+                 ("K9", f"K1's cp.async route, 8 lanes, tiles of {tr9}, depth 3",
+                  k9_call("cp.async", tr9, dma_roofline.K1_DEPTH), None, 20)])
+    k9_cases.append(("stream_max", f"[{rows9}, {L}] in {blocks9} chunks",
+                     dma_roofline.rotating(k9_stream, xs9), None, 20))
+
     # (kernel, label, call, instrumented source or None, reps)
     cases = [("K1", "C=2", lambda: fused.fused_resample_biquad_mix(
                   pcm, left, wts, channels=2, **kw), "fused", 20),
@@ -357,7 +403,7 @@ def main(argv=None) -> int:
              ("K2g", "agc_group=128", agc_call("serial", 128), "fused_agc_group", 20),
              ("K8", f"[1, {M8}] P={P8}", k8_call, "bma", 50),
              ("K4", f"[{L}, {T}]", k4_call(L, T), "biquad", 20),
-             ("K4", "[2, 4096]", k4_call(2, 4096), "biquad", 50)]
+             ("K4", "[2, 4096]", k4_call(2, 4096), "biquad", 50)] + k9_cases
     if args.kernels:
         cases = [c for c in cases if c[0] in args.kernels.split(",")]
     # K1 at gains of unit scale, n = 1280

@@ -84,8 +84,9 @@ SIGNATURES = {
     "rt_fused_resample_biquad_agc_blocked_mix": (P, LL, I, P, P, P, P, P, P,
                                                  P, P, P, P, I, I, I, I, P, P,
                                                  I, P),
-    # x, R, L, rows per tile, depth, out, stream
-    "rt_dma_ring": (P, LL, I, I, I, P, P),
+    # x, R, L, rows per tile, depth, lanes per block, route (0 TMA, 1
+    # cp.async), out, stream
+    "rt_dma_ring": (P, LL, I, I, I, I, I, P, P),
     # x, float4 count, blocks, out, stream
     "rt_stream_max": (P, LL, I, P, P),
     # (x0, a, b), out, iterations, stream

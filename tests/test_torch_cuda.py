@@ -14,8 +14,8 @@ NaN where the plain version has NaN); K2 1e-6 on the mix, its carries and
 ring bit-equal. K5 bit-equal (the same op order), ``limiter_env`` and
 ``limiter_stream`` (the Limit node's gain computer, envelopes, coupling and
 gain), NaN where the plain version has NaN; K2g (K2's group branch, on
-K1's front end) as K2; K9 bit-equal (the same sum order; the contiguous stream's
-max is order-free). K2r and K2b (K2's rel0 plans) as K2, their peak carry
+K1's front end) as K2; K9 bit-equal on both routes (the same sum order; the
+contiguous stream's max is order-free), eager and in a CUDA graph. K2r and K2b (K2's rel0 plans) as K2, their peak carry
 untouched.
 """
 import numpy as np
@@ -434,18 +434,66 @@ def test_group_agc_flagship_on_card_matches_cpu(dev):
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 5e-6
 
 
-@pytest.mark.parametrize("R,L,tr,depth", [(11761, 1024, 59, 4), (100, 36, 7, 2),
-                                          (1000, 64, 59, 6), (5, 8, 59, 3)])
-def test_k9_dma_ring_matches_plain(dev, R, L, tr, depth):
+# K1's block at n = 12800 in its 128-frame tiles; a part block of lanes
+# (36 = 4 blocks of 8 and 4 lanes of zero fill); R < tr (one partial tile);
+# 3 tiles, fewer than the ring's slots at depth 8 and 32
+K9_SHAPES = [(11761, 1024, 118), (100, 36, 7), (5, 8, 59), (300, 64, 100)]
+
+
+@pytest.mark.parametrize("depth", [2, 3, 8, 32])
+@pytest.mark.parametrize("lanes", [8, 32])
+@pytest.mark.parametrize("route", ["tma", "cp.async"])
+@pytest.mark.parametrize("R,L,tr", K9_SHAPES)
+def test_k9_dma_ring_matches_plain(dev, R, L, tr, route, lanes, depth):
     x = _f32(np.random.default_rng(R).standard_normal((R, L)), dev)
     before = dma_roofline.launches
-    got = dma_roofline.dma_ring(x, tr=tr, depth=depth)
     want = dma_roofline.dma_ring_plain(x, tr=tr)
+    kw = dict(tr=tr, depth=depth, lanes=lanes, route=route)
+    if dma_roofline.ring_bytes(tr, lanes, depth, route) > dma_roofline.SMEM_OPTIN:
+        with pytest.raises(ValueError, match="shared memory"):
+            dma_roofline.dma_ring(x, **kw)  # refused before it launches
+        assert dma_roofline.launches == before
+        return
+    got = dma_roofline.dma_ring(x, **kw)
     torch.cuda.synchronize()
     assert dma_roofline.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,L", [(11761, 1024), (100, 36), (5, 8), (3, 4), (1000, 64)])
+def test_k9_stream_max_matches_plain(dev, R, L):
+    x = _f32(np.random.default_rng(R + L).standard_normal((R, L)), dev)
     want = dma_roofline.stream_max_plain(x, blocks=dma_roofline.stream_blocks(x))
     assert torch.equal(dma_roofline.stream_max(x), want)
+
+
+def test_k9_in_a_cuda_graph_equals_the_eager_call(dev):
+    """K9's TMA ring, K1's cp.async route and the contiguous stream
+    captured in one CUDA graph (each launch with its own tensor map) give
+    the eager calls' results, on each of the rotating copies."""
+    rows, tr = dma_roofline.k1_stream(12800)
+    xs = [_f32(np.random.default_rng(s).standard_normal((rows, 1024)), dev)
+          for s in range(3)]
+    eager = [(dma_roofline.dma_ring(x, tr=tr),
+              dma_roofline.dma_ring(x, tr=tr, depth=3, route="cp.async"),
+              dma_roofline.stream_max(x)) for x in xs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    before = dma_roofline.launches
+    with torch.cuda.graph(g, stream=side):
+        outs = [(dma_roofline.dma_ring(x, tr=tr),
+                 dma_roofline.dma_ring(x, tr=tr, depth=3, route="cp.async"),
+                 dma_roofline.stream_max(x)) for x in xs]
+    assert dma_roofline.launches == before + 6  # counted where captured
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert dma_roofline.launches == before + 6  # replays add none
+    assert dma_roofline.time_ms_cold(lambda t: dma_roofline.dma_ring(t, tr=tr),
+                                     xs[0], reps=4, copies=xs) > 0.0
 
 
 def test_op_chain_matches_plain(dev):

@@ -205,24 +205,84 @@ def test_path_c_matches_jax_and_the_exact_chain():
 def test_dma_ring_plain_is_the_tile_row_sum():
     rng = np.random.default_rng(9)
     x = rng.standard_normal((1000, 64)).astype(np.float32)
-    got = dma_roofline.dma_ring(torch.from_numpy(x), tr=59, depth=4)
     want = np.zeros(64, np.float32)
-    for i in range(0, 1000, 59):
+    for i in range(0, 1000, 118):
         want = want + x[i]
-    np.testing.assert_array_equal(got.numpy(), want)
+    for lanes in (8, 32):
+        for route in ("tma", "cp.async"):
+            got = dma_roofline.dma_ring(torch.from_numpy(x), tr=118, depth=3,
+                                        lanes=lanes, route=route)
+            np.testing.assert_array_equal(got.numpy(), want)
     assert dma_roofline.launches == 0  # the plain version, on the CPU
-    assert dma_roofline.k1_stream(12800) == (11761, 59)
+    # K1's block at n = 12800: 11761 rows, its 128-frame tile ~128 * 147/160
+    assert dma_roofline.k1_stream(12800) == (11761, 118)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((100, 6), {}),                                   # L % 4 != 0
+    ((100, 8), {"tr": 257}),                          # more rows than a TMA box
+    ((100, 8), {"tr": 0}),
+    ((100, 64), {"lanes": 32, "tr": 256, "depth": 8}),  # 8 x 32 KB > 227 KB
+    ((100, 64), {"lanes": 32, "tr": 118, "depth": 16, "route": "cp.async"}),
+    ((100, 64), {"lanes": 2}),                        # a box row under 16 bytes
+    ((100, 64), {"lanes": 36}),                       # one warp holds <= 32 lanes
+    ((100, 64), {"lanes": 6}),
+    ((100, 64), {"depth": 5, "route": "cp.async"}),   # no such instance
+    ((100, 64), {"depth": 1}),
+    ((100, 64), {"depth": 65}),
+    ((100, 64), {"route": "ldg"}),
+])
+def test_dma_ring_refuses_what_its_kernel_cannot_take(shape, kw):
+    """The wrapper checks its arguments before it dispatches, on any device,
+    so the refusals the card would give are raised here too."""
+    x = torch.zeros(shape, dtype=torch.float32)
+    kw = {"tr": 118, **kw}
+    with pytest.raises(ValueError):
+        dma_roofline.dma_ring(x, **kw)
+    assert dma_roofline.launches == 0
+
+
+def test_dma_ring_refuses_an_unaligned_base():
+    x = torch.zeros(4 * 101 + 1, dtype=torch.float32)[1:].reshape(101, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        dma_roofline.dma_ring(x, tr=7)
+
+
+def test_dma_ring_bytes_at_k1_geometry():
+    """K1's tile of 118 rows x 8 lanes is 3776 bytes, a 3840-byte slot; the
+    TMA ring adds its barriers (a 128-byte multiple) and 128 bytes of
+    alignment; 32 lanes at depth 16 do not fit a block."""
+    assert dma_roofline.ring_bytes(118, 8, 16) == 128 + 256 + 16 * 3840
+    assert dma_roofline.ring_bytes(118, 8, 3, "cp.async") == 3 * 3776
+    assert dma_roofline.ring_bytes(118, 32, 16) > dma_roofline.SMEM_OPTIN
+    assert dma_roofline.ring_bytes(118, 8, 32) <= dma_roofline.SMEM_OPTIN
+    assert dma_roofline.in_flight_bytes(118, 8, 3, "cp.async") == 2 * 3776
+    assert dma_roofline.in_flight_bytes(118, 8, 8, "tma") == 8 * 3776
+
+
+def test_stream_blocks_is_two_an_sm():
+    assert dma_roofline.stream_blocks(torch.zeros(11761, 1024)) == 264
+    assert dma_roofline.stream_blocks(torch.zeros(5, 8)) == 1
+    assert dma_roofline.stream_blocks(torch.zeros(3, 2048)) == 3
+    n = 11761 * 1024
+    got = dma_roofline.stream_max(torch.arange(n, dtype=torch.float32))
+    # block b's last piece is the last p = b (mod 264) below 5881 pieces of 2048
+    last = [max(p for p in range(b, -(-n // 2048), 264)) for b in range(264)]
+    want = [min((p + 1) * 2048, n) - 1 for p in last]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
 
 
 def test_stream_max_plain_is_the_chunk_max():
+    """Block b's max is over the pieces (of 512 float4s) b, b + blocks, ..."""
     rng = np.random.default_rng(10)
-    x = rng.standard_normal((100, 12)).astype(np.float32)
+    x = rng.standard_normal((1000, 40)).astype(np.float32)
     got = dma_roofline.stream_max_plain(torch.from_numpy(x), blocks=7)
     flat = x.reshape(-1)
-    chunk = -(-300 // 7) * 4
-    want = [flat[b * chunk:(b + 1) * chunk].max() if b * chunk < 1200 else -np.inf
-            for b in range(7)]
+    pieces = [flat[i:i + 2048] for i in range(0, flat.size, 2048)]
+    want = [max(pieces[p].max() for p in range(b, len(pieces), 7)) for b in range(7)]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
+    got = dma_roofline.stream_max_plain(torch.from_numpy(x[:2]), blocks=3)
+    np.testing.assert_array_equal(got.numpy(), [x[:2].max(), -np.inf, -np.inf])
 
 
 def test_op_chain_plain_is_the_rounded_chain():

@@ -61,3 +61,23 @@ def test_instrument_phases_times_each_marked_phase():
     assert src in out
     # a source without marks (an earlier K8) is timed only
     assert warp_cycles.instrument_phases(src.replace("RT_PHASE(", "PHASE("), "bma") is None
+
+
+def test_kernel_sources_cover_every_kernel():
+    """``--kernels`` builds the sources KERNEL_SOURCES names: each is one
+    the library builds, instrumented or timed."""
+    assert set(warp_cycles.KERNEL_SOURCES.values()) <= set(warp_cycles.SOURCES
+                                                          + warp_cycles.TIMED)
+    for name in warp_cycles.KERNEL_SOURCES.values():
+        assert (_build.CSRC / name).exists(), name
+    assert {"K1", "K2", "K2r", "K2b", "K2g", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
+            "stream_max"} == set(warp_cycles.KERNEL_SOURCES)
+
+
+def test_k9_version_is_read_from_its_source():
+    """K9's TMA ring takes lanes and a route; a version before it (32 lanes,
+    cp.async only) is bound with its own arguments."""
+    assert not warp_cycles.k9_before_tma((_build.CSRC / "dma_roofline.cu").read_text())
+    assert warp_cycles.k9_before_tma(
+        'extern "C" int rt_dma_ring(const float* x, long long R, int L, int tr,\n'
+        "                           int depth, float* out, void* stream) {")
