@@ -9,7 +9,9 @@ Phases (each raises on failure, so the script exits non-zero):
 2. build: the kernels compiled from rodio_tpu_torch/csrc with nvcc;
 3. kernels: the latency of a dependent rounded f32 op and of one step of
    the AGC's gain smoother, measured on one thread (benches/op_latency.py);
-   then K4 (at [1024, 12800] and at path B's [2, 4096]), K3, K1, K2, K2r
+   then K4 (at [1024, 12800] and at path B's [2, 4096], on f32 blocks and,
+   its bf16 instance, on bf16 blocks), the generators' phase accumulator
+   (a ported lax.scan, at path H's [1, 1024]), K3, K1, K2, K2r
    and K2b (K2's serial and blocked rel0 plans),
    K2g (K2's group branch), K6, K7, K8, K5 (limiter_stream, the Limit
    node's whole per-stream pass, and limiter_env, its envelopes alone) and
@@ -44,8 +46,24 @@ Phases (each raises on failure, so the script exits non-zero):
      agc_plan="rel0b16" and precision="int2" (K2b and K3 once per block,
      under sync-debug "error"), its first 2 blocks against path A's; path
      E', the same with agc_plan="rel0f" (K2r), 2 blocks against path A's;
+   - path F, BASELINE config 1: Uniform(SamplesBuffer(...), 2, 48000,
+     rodio_compat=True) over 180 s of seeded 16-bit stereo at 44.1 kHz in
+     blocks of 4096 (the resampler's span path; no kernel of ours), the
+     whole render against the CPU's, under sync-debug "error";
+   - path G, config 5's unfused chain with the per-channel gains before
+     the resampler, so it takes its streaming ring path: Amplify ->
+     Resample(max_block=12800) -> BltFilter (K4) -> WideMixer -> Limit (K3),
+     512 streams, 12 blocks of 12800 under sync-debug "error", its first 2
+     blocks against the CPU;
+   - path G', make_flagship(512, scan_mode="pallas", block_bf16=True): K4's
+     bf16 instance and K3 once a block, its first 2 blocks against the CPU
+     (the bf16 rounding flips counted) and against the f32 chain (1e-2
+     relative);
+   - path H, BASELINE config 4: the parity case of tools/parity_tpu.py and
+     the scene of tests/test_baseline_configs.py (sine with rodio_compat:
+     the phase kernel once a branch a block), each whole against the CPU;
 5. times: ms per block and the aggregate realtime factor of the slice and
-   of paths A, B, C, D, E and E'.
+   of paths A, B, C, D, E, E', F, G, G' and H.
 
 It prints one JSON line of per-kernel results (each kernel's launches are
 those of the render whose path runs it; K9's, a tool on no render path,
@@ -82,7 +100,14 @@ BOUND_D_REL = 2e-3  # the group AGC against the serial plan, relative
 BOUND_E = 5e-6     # rel0b16: the blocked composition reassociates
 BOUND_E2 = 1e-6    # rel0f: the packed ring and the folded desired gain
 
+BOUND_K4BF = BOUND_PHASE = 0.0  # same op order, the same rounding to bf16
+BOUND_BF16_REL = 1e-2  # the bf16 block contract against the f32 chain
+
 PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
+#: path F: BASELINE config 1, 180 s of 16-bit stereo at 44.1 kHz
+PATH_F_SECONDS, PATH_F_BLOCK = 180, 4096
+#: path H: BASELINE config 4's graphs, in the parity tool's blocks
+PATH_H_BLOCK = 1024
 PATH_B_BLOCKS = -(-10 * PATH_B_RATE // PATH_B_BLOCK)  # 10 s of audio
 PATH_C_CHECK_STREAMS = 16
 #: (att, rel, target, max_gain, floor, 1/8192) of AgcSettings() at 48 kHz,
@@ -136,8 +161,9 @@ def main() -> int:
     from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
     from rodio_tpu_torch.effects.blt import blt_coefficients
     from rodio_tpu_torch.effects.limit import Limit, LimitSettings
-    from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block
-    from rodio_tpu_torch.profile_slice import config2
+    from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block, phase
+    from rodio_tpu_torch.profile_slice import (
+        config1, config2, config4_parity, config4_scene, ring_chain)
     from rodio_tpu_torch.sources.generators import SamplesBuffer
 
     # -- 1. device ---------------------------------------------------------
@@ -178,6 +204,7 @@ def main() -> int:
                 "K2b": (fused, "agc_blocked_launches"),
                 "K2g": (fused, "agc_group_launches"),
                 "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
+                "K4bf": (cuda_scan, "bf16_launches"), "phase": (phase, "launches"),
                 "K5": (cuda_scan, "limiter_stream_launches"),
                 "K6": (cuda_scan, "agc_launches"),
                 "K7": (cuda_scan, "first_order_launches"),
@@ -243,6 +270,41 @@ def main() -> int:
            2 * 2 * PATH_B_BLOCK * 4, 9 * 2 * PATH_B_BLOCK, _chain_ms(PATH_B_BLOCK, 3),
            note=f" [2, {PATH_B_BLOCK}] (path B)", path="config2")
     del xb, stb
+
+    # K4's bf16 instance (the block behind a Bf16Boundary, path G'): the same
+    # shapes, x and y bf16: 2 bytes in and 2 out a sample, the same chain
+    for Lb, Tb, note, reps in ((L, T, f" [{L}, {T}] bf16", 20),
+                               (2, PATH_B_BLOCK, f" [2, {PATH_B_BLOCK}] bf16 (path B's shape)",
+                                50)):
+        xh = dev_f32(rng.standard_normal((Lb, Tb)) * 0.1).to(torch.bfloat16)
+        sth = tuple(dev_f32(rng.standard_normal(Lb) * 0.01) for _ in range(4))
+        yk, sk = cuda_scan.biquad_df1(xh, coef, sth)
+        yp, sp = cuda_scan.biquad_df1_plain(xh, coef, sth)
+        errh = max(_max_err(yk.float(), yp.float()), *(_max_err(a, b) for a, b in zip(sk, sp)))
+        msh = _time_ms(lambda: cuda_scan.biquad_df1(xh, coef, sth), reps)
+        note += (f"; in a CUDA graph "
+                 f"{warp_cycles.graph_ms(lambda: cuda_scan.biquad_df1(xh, coef, sth), reps):.4f} ms")
+        pmsh = _time_ms(lambda: cuda_scan.biquad_df1_plain(xh, coef, sth), 2)
+        record("K4bf", "biquad_df1 (bf16 block)", "rodio_tpu_torch/csrc/biquad.cu",
+               "rodio_tpu/ops/pallas_scan.py:82", errh, BOUND_K4BF, msh, pmsh,
+               2 * Lb * Tb * 2, 9 * Lb * Tb, _chain_ms(Tb, 3), note=note,
+               path="flagship_bf16")
+    del xh, sth
+
+    # the generators' phase accumulator (rodio_compat=True) at path H's
+    # block: one generator, 1024 steps of FADD, FRND, FADD on one thread
+    p0h, steph = dev_f32([0.25]), dev_f32([np.float32(440.0) / np.float32(48000.0)])
+    pk, ck = phase.phase_accumulate(p0h, steph, PATH_H_BLOCK)
+    pp, cp = phase.phase_accumulate_plain(p0h, steph, PATH_H_BLOCK)
+    errp = max(_max_err(pk, pp), _max_err(ck, cp))
+    msp = _time_ms(lambda: phase.phase_accumulate(p0h, steph, PATH_H_BLOCK), 50)
+    gmsp = warp_cycles.graph_ms(lambda: phase.phase_accumulate(p0h, steph, PATH_H_BLOCK), 50)
+    pmsp = _time_ms(lambda: phase.phase_accumulate_plain(p0h, steph, PATH_H_BLOCK), 2)
+    record("phase", "phase_accumulate", "rodio_tpu_torch/csrc/phase.cu",
+           "rodio_tpu/sources/generators.py:106", errp, BOUND_PHASE, msp, pmsp,
+           PATH_H_BLOCK * 4 + 12, 3 * PATH_H_BLOCK, _chain_ms(PATH_H_BLOCK, 3),
+           note=f" [1, {PATH_H_BLOCK}] (a lax.scan, no pallas_call); in a CUDA graph "
+                f"{gmsp:.4f} ms (eager: the wrapper's host time)", path="config4_scene")
 
     # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
     # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its
@@ -748,6 +810,115 @@ def main() -> int:
         del eout
     del aout2
 
+    # path F: BASELINE config 1 at a real length, 180 s of seeded 16-bit
+    # stereo at 44.1 kHz through Uniform(rodio_compat=True): the span path
+    # (the phase re-bootstraps every 16384 frames); no kernel of ours runs
+    def path_f_node(device):
+        return config1(device, PATH_F_SECONDS, seed=SEED + 6)
+
+    path_f = path_f_node("cuda")
+    nf = -(-path_f.total_frames() // PATH_F_BLOCK) + 1  # through the end
+    fstate = path_f.init_state()
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    _, fout, fvalids = rtt.render_blocks(path_f, fstate, nf, PATH_F_BLOCK)
+    torch.cuda.set_sync_debug_mode("default")
+    path_f_run = counts()
+    expect(path_f_run, "path F")
+    cnode = path_f_node("cpu")
+    _, fcpu, fcvalids = rtt.render_blocks(cnode, cnode.init_state(), nf, PATH_F_BLOCK)
+    nvf = int(fvalids.sum().item())
+    err_f = _max_err(fout.cpu(), fcpu)
+    print(f"path F (config 1, {PATH_F_SECONDS} s, Uniform rodio_compat, span path): "
+          f"{nf} x {PATH_F_BLOCK}, {nvf} valid frames; card vs CPU, the whole render: "
+          f"max|d| {err_f:.3e} (bound {BOUND_B}); launches {path_f_run}")
+    if not (nvf == path_f.total_frames() and torch.equal(fvalids.cpu(), fcvalids)
+            and bool(torch.isfinite(fout).all()) and err_f <= BOUND_B):
+        raise AssertionError(f"path F: valid {nvf} of {path_f.total_frames()}, "
+                             f"card vs CPU {err_f}")
+    del fout, fcpu, cnode
+
+    # path G: config 5's unfused chain with the per-channel gains applied
+    # before the resampler, so its upstream is not random-access (a
+    # decoder's will not be): the streaming ring path, then K4, the mix and
+    # K3, at full width, under sync-debug "error"
+    def path_g_node(device):
+        return ring_chain(device, N_STREAMS, T, seed=SEED + 7)
+
+    path_g = path_g_node("cuda")
+    gstate = path_g.init_state()
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    _, gout, gvalids = rtt.render_blocks(path_g, gstate, N_BLOCKS, T)
+    torch.cuda.set_sync_debug_mode("default")
+    path_g_run = counts()
+    torch.cuda.synchronize()
+    print(f"path G: the ring resampler's chain, {N_BLOCKS} x {T}: launches {path_g_run}")
+    expect(path_g_run, "path G", K3=N_BLOCKS, K4=N_BLOCKS)
+    gpeak = check_output(gout, gvalids, "path G", N_BLOCKS, T)
+    cnode = path_g_node("cpu")
+    _, gcpu, _ = rtt.render_blocks(cnode, cnode.init_state(), 2, T)
+    err_g = _max_err(gout[:, :2 * T].cpu(), gcpu)
+    print(f"path G: card vs CPU, 2 blocks: max|d| {err_g:.3e} (bound {BOUND_B}); output "
+          f"peak {gpeak:.4f}")
+    if not err_g <= BOUND_B:
+        raise AssertionError(f"path G card vs CPU {err_g} exceeds {BOUND_B}")
+    del gout, gcpu, cnode
+
+    # path G': the unfused chain with bf16 blocks (make_flagship's
+    # block_bf16): K4's bf16 instance and K3 once a block
+    def bf16_chain(device):
+        return rtt.make_flagship(N_STREAMS, seconds=4.0, scan_mode="pallas",
+                                 block_bf16=True, device=device, max_block=T, seed=SEED)[0]
+
+    path_gb = bf16_chain("cuda")
+    reset()
+    _, hout, hvalids = rtt.render_blocks(path_gb, path_gb.init_state(), N_BLOCKS, T)
+    path_gb_run = counts()
+    torch.cuda.synchronize()
+    print(f"path G': the bf16-block chain, {N_BLOCKS} x {T}: launches {path_gb_run}")
+    expect(path_gb_run, "path G'", K3=N_BLOCKS, K4bf=N_BLOCKS)
+    hpeak = check_output(hout, hvalids, "path G'", N_BLOCKS, T)
+    cnode = bf16_chain("cpu")
+    _, hcpu, _ = rtt.render_blocks(cnode, cnode.init_state(), 2, T)
+    dh = (hout[:, :2 * T].cpu() - hcpu).abs()
+    flips = int((dh > BOUND_B).sum().item())
+    err_gb = float(dh.max().item())
+    f32_chain = rtt.make_flagship(N_STREAMS, seconds=4.0, scan_mode="pallas",
+                                  device="cuda", max_block=T, seed=SEED)[0]
+    _, f32out, _ = rtt.render_blocks(f32_chain, f32_chain.init_state(), 2, T)
+    rel_gb = _max_err(hout[:, :2 * T], f32out) / float(f32out.abs().max().item())
+    print(f"path G': card vs CPU, 2 blocks: max|d| {err_gb:.3e}, {flips} samples past "
+          f"{BOUND_B} (bf16 rounding flips); against the f32 chain: max relative |d| "
+          f"{rel_gb:.3e} (bound {BOUND_BF16_REL}); output peak {hpeak:.4f}")
+    if not (rel_gb < BOUND_BF16_REL and err_gb <= 2 ** -7 * hpeak):
+        raise AssertionError(f"path G': card vs CPU {err_gb}, vs f32 {rel_gb}")
+    del hout, hcpu, cnode, f32_chain, f32out
+
+    # path H: BASELINE config 4: the parity case of tools/parity_tpu.py
+    # (config4) and the scene of tests/test_baseline_configs.py without the
+    # control plane, each a whole render on the card against the CPU
+    path_h_runs, path_h_nodes = {}, {}
+    for label, build, emits in (("config4_parity", config4_parity, 1),
+                                ("config4_scene", config4_scene, 2)):
+        node = build("cuda")
+        nh = -(-node.total_frames() // PATH_H_BLOCK)
+        reset()
+        _, hcard, hv = rtt.render_blocks(node, node.init_state(), nh, PATH_H_BLOCK)
+        run = counts()
+        torch.cuda.synchronize()
+        expect(run, label, phase=emits * nh)  # the sine emits once a branch a block
+        cnode = build("cpu")
+        _, hc, hcv = rtt.render_blocks(cnode, cnode.init_state(), nh, PATH_H_BLOCK)
+        err_h = _max_err(hcard.cpu(), hc)
+        ok = (int(hv.sum().item()) == node.total_frames() and torch.equal(hv.cpu(), hcv)
+              and bool(torch.isfinite(hcard).all()) and float(hcard.abs().max()) > 0.0)
+        print(f"path H ({label}): {nh} x {PATH_H_BLOCK}, {int(hv.sum().item())} frames; "
+              f"card vs CPU: max|d| {err_h:.3e} (bound {BOUND_B}); launches {run}")
+        if not (ok and err_h <= BOUND_B):
+            raise AssertionError(f"path H ({label}): card vs CPU {err_h}, valid ok {ok}")
+        path_h_runs[label], path_h_nodes[label] = run, (node, nh)
+
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
         st = node.init_state()
@@ -769,6 +940,21 @@ def main() -> int:
         rt_factor = (N_STREAMS * T / 48000) / sec_per_block
         print(f"{label}: {sec_per_block * 1e3:.3f} ms per block of {T} frames x "
               f"{N_STREAMS} streams; aggregate realtime factor {rt_factor:.1f}x {tag}")
+    for label, node, n_streams in (("path G (ring resampler chain)", path_g, N_STREAMS),
+                                   ("path G' (bf16 blocks)", path_gb, N_STREAMS)):
+        sec_per_block = time_render(node, N_BLOCKS, T)
+        print(f"{label}: {sec_per_block * 1e3:.3f} ms per block of {T} frames x "
+              f"{n_streams} streams; aggregate realtime factor "
+              f"{n_streams * T / 48000 / sec_per_block:.1f}x {tag}")
+    sec_per_block = time_render(path_f, 400, PATH_F_BLOCK)
+    print(f"path F (config 1): {sec_per_block * 1e3:.4f} ms per block of {PATH_F_BLOCK} "
+          f"frames x 1 stream; realtime factor "
+          f"{PATH_F_BLOCK / 48000 / sec_per_block:.1f}x {tag}")
+    for label, (node, nh) in path_h_nodes.items():
+        sec_per_block = time_render(node, nh - 1, PATH_H_BLOCK)
+        print(f"path H ({label}): {sec_per_block * 1e3:.4f} ms per block of "
+              f"{PATH_H_BLOCK} frames x 1 stream; realtime factor "
+              f"{PATH_H_BLOCK / 48000 / sec_per_block:.1f}x {tag}")
     sec_per_block = time_render(config2("cuda", 0), 24, PATH_B_BLOCK)
     print(f"path B (config 2): {sec_per_block * 1e3:.3f} ms per block of "
           f"{PATH_B_BLOCK} frames x 1 stream; realtime factor "
@@ -781,7 +967,9 @@ def main() -> int:
             "config2_group8": path_b_runs[8], "per_stream": path_c_run,
             "limit_mono": path_c_limits["mono"], "limit_p2": path_c_limits["P=2"],
             "agc_group": path_d_run, "agc_rel0b16": rel0_runs["rel0b16"],
-            "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run}
+            "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run,
+            "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
+            **path_h_runs}
     kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",

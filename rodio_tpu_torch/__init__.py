@@ -9,15 +9,23 @@ held against (``tests/test_torch_*.py``).
 Layers (the counterparts of rodio_tpu's modules of the same names):
 
 - :mod:`rodio_tpu_torch.core`        — sample model, precise math, Node
-- :mod:`rodio_tpu_torch.sources`     — SamplesBuffer
-- :mod:`rodio_tpu_torch.conversions` — the rational lerp resampler
+  and its combinators, ``tree_select``, the error taxonomy
+- :mod:`rodio_tpu_torch.sources`     — SamplesBuffer, SignalGenerator and
+  its waves (SineWave, SquareWave, TriangleWave, SawtoothWave), Chirp,
+  Zero, Empty
+- :mod:`rodio_tpu_torch.conversions` — Resample (its weight form, lerp
+  form with spans, and streaming ring), RechannelNode, Uniform,
+  Bf16Boundary
 - :mod:`rodio_tpu_torch.effects`     — BltFilter, Amplify, Limit,
-  AutomaticGainControl
+  AutomaticGainControl, Distortion, LinearGainRamp, TakeDuration,
+  SkipDuration, Delay, Speed, ChannelVolume, Spatial, Pausable,
+  Stoppable, Skippable, TrackPosition, Repeat, Mix
 - :mod:`rodio_tpu_torch.parallel`    — WideMixer
 - :mod:`rodio_tpu_torch.ops`         — plain scans, the CUDA kernels
   (K1 fused, K2 fused AGC and K2g its group branch, K3 limiter, K4
-  biquad, K5 limiter envelopes, K6 AGC loop, K7 first-order scan, K8
-  blocked max-affine) and their build
+  biquad and its bf16 instance, K5 limiter envelopes, K6 AGC loop, K7
+  first-order scan, K8 blocked max-affine, the generators' phase
+  accumulator) and their build
 - :mod:`rodio_tpu_torch.graph`       — render / render_blocks / record
 - :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship,
   make_per_stream_chain

@@ -3,8 +3,9 @@
 :func:`state_from_jax` takes a port node and the state of the JAX node that
 mirrors it, as numpy arrays (``jax.device_get(state)``), and returns the
 port's state: biquad coefficients and carries, per-lane gains, the limiter
-carries, the AGC's carries, window and knobs, the output offset, the drain
-flag and the input position. A render can then start in one package and
+carries, the AGC's carries, window and knobs, the resampler's output
+offset, drain flag and ring, the generators' phases and counters, every
+basic effect's counters, flags and delay line, and the input position. A render can then start in one package and
 continue in the other. The PCM itself is not copied: the port node holds
 its own, made from the same numpy input.
 
@@ -26,18 +27,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .conversions.blockdtype import Bf16Boundary
+from .conversions.channels import RechannelNode
 from .conversions.resample import Resample
+from .conversions.uniform import Uniform
 from .core.node import Node, State
 from .effects.agc import AutomaticGainControl
-from .effects.basic import Amplify
+from .effects.basic import (
+    Amplify, ChannelVolume, Delay, Distortion, LinearGainRamp, Pausable, Repeat,
+    SkipDuration, Skippable, Speed, Stoppable, TakeDuration, TrackPosition)
 from .effects.blt import BltFilter
 from .effects.limit import Limit
+from .effects.mix import Mix
 from .flagship import FusedWidePipeline
 from .ops.fused import AGC_RING_FRAMES
 from .parallel.batch import WideMixer
-from .sources.generators import SamplesBuffer
+from .sources.generators import Chirp, Empty, SamplesBuffer, SignalGenerator, Zero
 
 _JAX_LANES = 1024  # the JAX fused kernel's lane count
+
+#: nodes whose state is their input's (under "in") and tensors named as the
+#: JAX node names them (TakeDuration's fade pair only with a fade-out)
+_PLAIN_STATES = (
+    (Resample, ("ring", "base_g", "fill", "out_o", "in_pulled", "in_end", "drained")),
+    (SignalGenerator, ("phase",)),
+    ((Chirp, Zero), ("i",)),
+    (Empty, ()),
+    (Distortion, ("gain", "threshold")),
+    ((LinearGainRamp, TakeDuration), ("frame", "fade_ms", "fade_r")),
+    (Delay, ("buf", "buffered_valid", "ended")),
+    (ChannelVolume, ("volumes",)),
+    (Pausable, ("paused",)),
+    (Stoppable, ("stopped",)),
+    (Skippable, ("skipped",)),
+    (TrackPosition, ("frames",)),
+)
 
 
 def _t(value, node: Node) -> torch.Tensor:
@@ -65,12 +89,26 @@ def state_from_jax(node: Node, jstate) -> State:
     if isinstance(node, BltFilter):
         st = {k: _t(jstate[k], node) for k in ("coef", "x1", "x2", "y1", "y2")}
         return {"in": state_from_jax(node.input, jstate["in"]), **st}
-    if isinstance(node, Resample):
-        if node.identity:
-            return {"in": state_from_jax(node.input, jstate["in"])}
-        return {"in": state_from_jax(node.input, jstate["in"]),
-                "out_o": int(jstate["out_o"]),
-                "drained": _t(jstate["drained"], node)}
+    if isinstance(node, (Bf16Boundary, RechannelNode, SkipDuration, Speed)):
+        return state_from_jax(node.input, jstate)
+    if isinstance(node, Uniform):
+        return state_from_jax(node._pipeline, jstate)
+    if isinstance(node, Mix):
+        return {"a": state_from_jax(node.input1, jstate["a"]),
+                "b": state_from_jax(node.input2, jstate["b"])}
+    if isinstance(node, Repeat):
+        return {"data": node._data, "pos": _t(jstate["pos"], node)}
+    if isinstance(node, SamplesBuffer):
+        st = {"pos": _t(jstate["pos"], node), "end": _t(jstate["end"], node)}
+        if "data" in jstate:
+            st["data"] = node._data
+        return st
+    for cls, keys in _PLAIN_STATES:
+        if isinstance(node, cls):
+            st = {k: _t(jstate[k], node) for k in keys if k in jstate}
+            if "in" in jstate:
+                st["in"] = state_from_jax(node.input, jstate["in"])
+            return st
     if isinstance(node, AutomaticGainControl):
         keys = ("peak", "gain", "rms_sum", "window", "widx", "enabled", "att",
                 "rel")
@@ -93,11 +131,6 @@ def state_from_jax(node: Node, jstate) -> State:
             st["gains"] = _t(np.asarray(jstate["gv"]).reshape(-1)[:L], node)
         if node.with_agc:
             st.update(_fused_agc_from_jax(node, jstate, st["ring"].dtype))
-        return st
-    if isinstance(node, SamplesBuffer):
-        st = {"pos": _t(jstate["pos"], node), "end": _t(jstate["end"], node)}
-        if "data" in jstate:
-            st["data"] = node._data
         return st
     raise NotImplementedError(f"no state conversion for {type(node).__name__}")
 

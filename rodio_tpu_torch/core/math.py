@@ -107,3 +107,22 @@ def duration_to_coefficient(duration_secs: float, sample_rate: int,
     denom = dt(secs * dt(sample_rate))
     with np.errstate(divide="ignore"):
         return dt(np.exp(dt(-1.0) / denom)) if denom != 0 else dt(0.0)
+
+
+def db_to_linear_host(decibels: float) -> float:
+    """dB -> linear amplitude on the host in f32, as the JAX package's
+    ``db_to_linear`` takes a host scalar (``amplify_decibel``)."""
+    dt = np.float32
+    return float(dt(2.0) ** dt(dt(decibels) * dt(dt(0.05) * dt(LOG2_10))))
+
+
+def amplify_normalized_factor(value: float) -> float:
+    """Perceptual volume curve of ``amplify_normalized``
+    (src/source/mod.rs:332-349): exp(6.9077554*v)/1000, linearly tapered
+    below v=0.1; input clamped to [0, 1]. On the host in f32."""
+    dt = np.float32
+    v = min(max(float(value), 0.0), 1.0)
+    amplitude = dt(_pymath.exp(6.907_755_4 * v)) / dt(1000.0)
+    if v < 0.1:
+        amplitude = dt(amplitude * dt(v * 10.0))
+    return float(dt(amplitude))

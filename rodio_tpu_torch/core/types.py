@@ -1,4 +1,4 @@
-"""Core sample model: the slice's part of rodio_tpu/core/types.py.
+"""Core sample model: the port's part of rodio_tpu/core/types.py.
 
 Samples are f32 (``float_dtype`` is ``torch.float32``); the f64 mode of the
 JAX package is not ported yet. Sample rates and channel counts are positive
@@ -12,6 +12,11 @@ import numpy as np
 import torch
 
 NANOS_PER_SEC = 1_000_000_000
+#: the reference's default sample rate (src/common.rs:10)
+DEFAULT_SAMPLE_RATE = 48_000
+#: UniformSourceIterator's span cap in interleaved samples
+#: (src/source/uniform.rs:56)
+MAX_SPAN_LEN = 32_768
 
 
 def float_dtype() -> torch.dtype:

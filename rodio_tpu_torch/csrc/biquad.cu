@@ -45,6 +45,17 @@
 // else. 30 KB of static shared memory. The x carries out are read from x
 // itself (its last two steps, or the carry-in where T < 2), so they are the
 // sequential scan's.
+//
+// The bf16 instance (a block behind a Bf16Boundary, the JAX kernel's bf16
+// block, pallas_scan.py:88-93) is the same kernel on E = __nv_bfloat16:
+// the copy warp stages bf16 rows (16 bytes, 8 values, a cp.async where
+// T % 8 == 0 and x is aligned, else plain loads), the FIR threads upcast
+// them (exactly), the arithmetic is unchanged, and the stores round y to
+// nearest even. Inside a call the feedback is f32, as the Pallas scratch
+// is; the y carries out are the stored (rounded) outputs, as the JAX
+// wrapper takes them (pallas_scan.py:133-138), so across calls the feedback
+// is the rounded output. Its bound at [1024, 12800]: 52.4 MB, 0.0157 ms at
+// 3.35 TB/s, under the same chain floor.
 #include "chain_pipeline.cuh"
 #include "precise_math.cuh"
 
@@ -84,15 +95,16 @@ __device__ __forceinline__ float fir(const rt::BiquadCoef& k, float x,
   return rt::add(rt::add(rt::mul(k.b0, x), rt::mul(k.b1, x1)), rt::mul(k.b2, x2));
 }
 
+template <class E>
 __global__ void __launch_bounds__(kThreads4, 1)
-biquad_df1_kernel(const float* __restrict__ x, float* __restrict__ y,
+biquad_df1_kernel(const E* __restrict__ x, E* __restrict__ y,
                   const float* __restrict__ coef,
                   const float* __restrict__ x1i, const float* __restrict__ x2i,
                   const float* __restrict__ y1i, const float* __restrict__ y2i,
                   float* __restrict__ x1o, float* __restrict__ x2o,
                   float* __restrict__ y1o, float* __restrict__ y2o,
                   int L, long long T, int vec) {
-  __shared__ __align__(16) float X[kXBufs][kLB][kLd];
+  __shared__ __align__(16) E X[kXBufs][kLB][kLdOf<E>];
   __shared__ __align__(16) float Y[kYBufs][kLB][kLd];
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const long long lane0 = (long long)blockIdx.x * kLB;
@@ -113,14 +125,14 @@ biquad_df1_kernel(const float* __restrict__ x, float* __restrict__ y,
   auto fir_tile = [&](int j, int sub) {
     for (int q = sub; q < nl * kQuads; q += kNWork) {
       const int l = q / kQuads, t0 = q % kQuads * 4;
-      const float4 v = *reinterpret_cast<const float4*>(X[j % kXBufs][l] + t0);
+      const float4 v = load4(X[j % kXBufs][l] + t0);
       float h1 = __shfl_up_sync(0xffffffffu, v.w, 1);  // x at t0 - 1
       float h2 = __shfl_up_sync(0xffffffffu, v.z, 1);  // x at t0 - 2
       if (t0 == 0) {
         if (j) {
-          const float* p = X[(j - 1) % kXBufs][l];
-          h2 = p[kTile - 2];
-          h1 = p[kTile - 1];
+          const E* p = X[(j - 1) % kXBufs][l];
+          h2 = to_f32(p[kTile - 2]);
+          h1 = to_f32(p[kTile - 1]);
         } else {
           h2 = x2i[lane0 + l];
           h1 = x1i[lane0 + l];
@@ -168,15 +180,30 @@ biquad_df1_kernel(const float* __restrict__ x, float* __restrict__ y,
     __syncthreads();
   }
 
-  // the carries: the last two inputs (the carry-in where T < 2) and outputs
+  // the carries: the last two inputs and stored outputs (the carry-in
+  // where T < 2); a bf16 block's y carries are its rounded outputs, so
+  // across calls the feedback is what was stored
   if (warp == 1 && wl < nl) {
     const long long l = lane0 + wl;
-    const float* xl = x + l * T;
-    x1o[l] = T >= 1 ? xl[T - 1] : x1i[l];
-    x2o[l] = T >= 2 ? xl[T - 2] : T == 1 ? x1i[l] : x2i[l];
-    y1o[l] = iir.y1;
-    y2o[l] = iir.y2;
+    const E* xl = x + l * T;
+    x1o[l] = T >= 1 ? to_f32(xl[T - 1]) : x1i[l];
+    x2o[l] = T >= 2 ? to_f32(xl[T - 2]) : T == 1 ? x1i[l] : x2i[l];
+    y1o[l] = T >= 1 ? stored<E>(iir.y1) : iir.y1;
+    y2o[l] = T >= 2 ? stored<E>(iir.y2) : iir.y2;
   }
+}
+
+template <class E>
+int launch_biquad(const E* x, E* y, const float* coef, const float* x1i,
+                  const float* x2i, const float* y1i, const float* y2i, float* x1o,
+                  float* x2o, float* y1o, float* y2o, int L, long long T, void* stream) {
+  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (L + kLB - 1) / kLB;
+  if (blocks == 0) return 0;
+  const int vec = T % kVec<E> == 0 && aligned16(x) && aligned16(y);
+  biquad_df1_kernel<E><<<blocks, kThreads4, 0, (cudaStream_t)stream>>>(
+      x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -186,13 +213,17 @@ extern "C" int rt_biquad_df1(const float* x, float* y, const float* coef,
                              const float* y1i, const float* y2i, float* x1o,
                              float* x2o, float* y1o, float* y2o, int L,
                              long long T, void* stream) {
-  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (L + kLB - 1) / kLB;
-  if (blocks == 0) return 0;
-  const int vec = T % 4 == 0 && aligned16(x) && aligned16(y);
-  biquad_df1_kernel<<<blocks, kThreads4, 0, (cudaStream_t)stream>>>(
-      x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, vec);
-  return (int)cudaGetLastError();
+  return launch_biquad(x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, stream);
+}
+
+// K4's bf16 instance: x and y bf16, everything else as rt_biquad_df1's
+extern "C" int rt_biquad_df1_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                                  const float* coef, const float* x1i,
+                                  const float* x2i, const float* y1i,
+                                  const float* y2i, float* x1o, float* x2o,
+                                  float* y1o, float* y2o, int L, long long T,
+                                  void* stream) {
+  return launch_biquad(x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, stream);
 }
 
 extern "C" const char* rt_error_string(int err) {

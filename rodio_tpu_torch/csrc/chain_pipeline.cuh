@@ -10,7 +10,8 @@
 //
 // - copy warps stage a tile's rows with cp.async (copy_rows), tiles ahead
 //   of their use: 16 bytes a copy where T % 4 == 0 and the array is 16-byte
-//   aligned, 4 bytes otherwise, so the chains never wait on global memory;
+//   aligned, 4 bytes otherwise, so the chains never wait on global memory
+//   (copy_lanes and store_lanes also take K4's bf16 blocks);
 // - a chain thread runs its lane's recurrence on H (kHalf = 64 by default)
 //   steps of its rows at a time in registers, loaded and stored 16 bytes at a time (chain_row),
 //   so the chain's steps are all the loop issues; a whole tile runs with a
@@ -19,6 +20,8 @@
 // - a tile's outputs leave from its staged rows, stored coalesced
 //   (store_rows), or are computed from them and stored coalesced.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <type_traits>
 
@@ -55,7 +58,47 @@ __host__ __device__ inline bool aligned16(const void* p) {
   return ((unsigned long long)p & 15) == 0;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// A block's element type E: f32, or bf16 (K4's bf16 instance), which the
+// kernels upcast on load (exactly) and round to nearest even on store.
+template <class E>
+constexpr int kVec = 16 / (int)sizeof(E);  // elements a 16-byte copy moves
+// a staged row's stride in elements: 16-byte rows, 4 banks apart
+template <class E>
+constexpr int kLdOf = kTile + kVec<E>;
+static_assert(kLdOf<float> == kLd, "f32 rows keep their stride");
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class E>
+__device__ __forceinline__ E from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v as a block of type E stores it, read back as f32
+template <class E>
+__device__ __forceinline__ float stored(float v) { return to_f32(from_f32<E>(v)); }
+
+// (a, b) rounded to bf16, as the 32 bits that hold them in memory, a first
+__device__ __forceinline__ unsigned bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Four consecutive elements at p (8- or 16-byte aligned) as f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src)
@@ -76,25 +119,33 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stages steps t0 .. t0 + tt - 1 of rows lane0 .. lane0 + nl - 1 of src
-// ([L, T]) into row l (dst + l * kLd) of a tile of nb >= nl lanes, as
-// thread sub of nsub copy threads. vec: T % 4 == 0 and src 16-byte aligned
-// (t0 is a multiple of kTile, so every 16-byte piece of a row lies inside
-// it).
-__device__ __forceinline__ void copy_lanes(float* dst,
-                                           const float* __restrict__ src,
+// ([L, T] of element type E: float, or __nv_bfloat16 for K4's bf16
+// instance) into row l (dst + l * kLdOf<E>) of a tile of nb >= nl lanes,
+// as thread sub of nsub copy threads. vec: T % kVec<E> == 0 and src
+// 16-byte aligned (t0 is a multiple of kTile, so every 16-byte piece of a
+// row lies inside it); 16 bytes a copy, kVec<E> elements. Otherwise 4-byte
+// cp.async for f32, and plain loads for bf16 (cp.async has no 2-byte form).
+template <class E>
+__device__ __forceinline__ void copy_lanes(E* dst, const E* __restrict__ src,
                                            long long lane0, int nb, int nl,
                                            long long T, long long t0, int tt,
                                            bool vec, int sub, int nsub) {
-  const float* s = src + lane0 * T + t0;
+  constexpr int V = kVec<E>, LD = kLdOf<E>;
+  const E* s = src + lane0 * T + t0;
   if (vec) {
-    for (int e = sub; e < nb * (kTile / 4); e += nsub) {
-      const int l = e / (kTile / 4), q = e % (kTile / 4);
-      if (l < nl && 4 * q < tt) cp_async16(dst + l * kLd + 4 * q, s + l * T + 4 * q);
+    for (int e = sub; e < nb * (kTile / V); e += nsub) {
+      const int l = e / (kTile / V), q = e % (kTile / V);
+      if (l < nl && V * q < tt) cp_async16(dst + l * LD + V * q, s + l * T + V * q);
     }
   } else {
     for (int e = sub; e < nb * kTile; e += nsub) {
       const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) cp_async4(dst + l * kLd + t, s + l * T + t);
+      if (l < nl && t < tt) {
+        if constexpr (sizeof(E) == 4)
+          cp_async4(dst + l * LD + t, s + l * T + t);
+        else
+          dst[l * LD + t] = s[l * T + t];
+      }
     }
   }
 }
@@ -108,27 +159,38 @@ __device__ __forceinline__ void copy_rows(Rows& dst,
   copy_lanes(dst[0], src, lane0, kBL, nl, T, t0, tt, vec, sub, nsub);
 }
 
-// Stores row l (src + l * kLd) of a tile of nb >= nl lanes, steps
+// Stores row l (src + l * kLd, f32) of a tile of nb >= nl lanes, steps
 // 0 .. tt - 1, to steps t0 .. t0 + tt - 1 of row lane0 + l (l < nl) of dst
-// ([L, T]), as thread sub of nsub; neighbouring threads store neighbouring
-// steps. vec as copy_lanes's, for dst.
-__device__ __forceinline__ void store_lanes(float* __restrict__ dst,
+// ([L, T] of element type E, rounded to nearest even for bf16), as thread
+// sub of nsub; neighbouring threads store neighbouring steps. vec as
+// copy_lanes's, for dst: 16 bytes a store.
+template <class E>
+__device__ __forceinline__ void store_lanes(E* __restrict__ dst,
                                             const float* src, long long lane0,
                                             int nb, int nl, long long T,
                                             long long t0, int tt, bool vec,
                                             int sub, int nsub) {
-  float* d = dst + lane0 * T + t0;
+  constexpr int V = kVec<E>;
+  E* d = dst + lane0 * T + t0;
   if (vec) {
-    for (int e = sub; e < nb * (kTile / 4); e += nsub) {
-      const int l = e / (kTile / 4), q = e % (kTile / 4);
-      if (l < nl && 4 * q < tt)
-        *reinterpret_cast<float4*>(d + l * T + 4 * q) =
-            *reinterpret_cast<const float4*>(src + l * kLd + 4 * q);
+    for (int e = sub; e < nb * (kTile / V); e += nsub) {
+      const int l = e / (kTile / V), q = e % (kTile / V);
+      if (l < nl && V * q < tt) {
+        const float4* r = reinterpret_cast<const float4*>(src + l * kLd + V * q);
+        if constexpr (sizeof(E) == 4) {
+          *reinterpret_cast<float4*>(d + l * T + V * q) = r[0];
+        } else {
+          const float4 a = r[0], b = r[1];
+          *reinterpret_cast<uint4*>(d + l * T + V * q) =
+              make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y),
+                         bf16x2(b.z, b.w));
+        }
+      }
     }
   } else {
     for (int e = sub; e < nb * kTile; e += nsub) {
       const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) d[l * T + t] = src[l * kLd + t];
+      if (l < nl && t < tt) d[l * T + t] = from_f32<E>(src[l * kLd + t]);
     }
   }
 }

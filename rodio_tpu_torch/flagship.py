@@ -13,7 +13,8 @@ and its parity partner, the unfused chain
 
   SamplesBuffer -> Resample -> BltFilter (K4) -> Amplify -> WideMixer -> Limit
 
-With the AGC on (``with_agc=True``: BASELINE config 5 with the config-2
+(with ``block_bf16=True`` a Bf16Boundary after the Resample, and K4 on bf16
+blocks). With the AGC on (``with_agc=True``: BASELINE config 5 with the config-2
 AGC stage per stream), the fused node runs K2 (resample + biquad + AGC +
 gain + mix; K2g, its group branch, with ``agc_group`` > 0; K2r or K2b
 with a rel0 ``agc_plan``), and the unfused chain gains an
@@ -37,6 +38,7 @@ import torch
 from .conversions.resample import (
     Resample, drain_bookkeeping, lerp_weights, output_positions,
     resample_output_frames)
+from .conversions.blockdtype import Bf16Boundary
 from .core.node import Node, State, mask_block
 from .core.types import StreamSpec
 from .core.math import duration_to_coefficient
@@ -370,7 +372,8 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
                   source_pcm: Optional[np.ndarray] = None,
                   max_block: int = 8192, precision: str = "auto",
                   agc_ring: str = "bf16", agc_group: int = 0,
-                  agc_plan: str = "auto", device: DeviceLike = None):
+                  agc_plan: str = "auto", block_bf16: bool = False,
+                  device: DeviceLike = None):
     """Build (master_node, state) for the flagship pipeline.
 
     The PCM and gains come from numpy with ``seed``, exactly as the JAX
@@ -379,7 +382,11 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
     K3); "exact", "auto" and "pallas" build the unfused chain (on a CUDA
     device "auto" and "pallas" run K4 and K3, and with the AGC "pallas"
     runs K6; the AGC's "auto" mode is not ported and raises). ``agc_ring``,
-    ``agc_group`` and ``agc_plan`` are the fused AGC's knobs.
+    ``agc_group`` and ``agc_plan`` are the fused AGC's knobs. ``block_bf16``
+    (the unfused chain only, as in the JAX package) inserts a
+    ``Bf16Boundary`` after the resampler, so K4 reads and writes bf16
+    blocks (``conversions/blockdtype.py``); with the AGC it is not ported
+    and raises.
     """
     rng = np.random.default_rng(seed)
     frames = int(seconds * in_rate)
@@ -420,7 +427,11 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
         return master, master.init_state()
     if scan_mode not in ("exact", "auto", "pallas"):
         raise NotImplementedError(f"scan_mode {scan_mode!r} is not ported")
-    chain = Resample(chain, out_rate)
+    chain = Resample(chain, out_rate, max_block=max_block)
+    if block_bf16:
+        if with_agc:
+            raise NotImplementedError("block_bf16 with the AGC is not ported")
+        chain = Bf16Boundary(chain)
     chain = BltFilter(chain, "low_pass", 2000.0, 0.5, mode=scan_mode)
     if with_agc:
         chain = AutomaticGainControl(chain, AgcSettings(), mode=scan_mode,

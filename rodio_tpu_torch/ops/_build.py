@@ -59,6 +59,10 @@ SIGNATURES = {
     # db, integ0, peak0, peak_out, carry_out, L, T, att, rel, 1-att, 1-rel,
     # stream
     "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),
+    # the same with x and y bf16
+    "rt_biquad_df1_bf16": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
+    # phase0, step, phases, phase_out, G, n, stream
+    "rt_phase_accumulate": (P, P, P, P, I, LL, P),
     # x, integ0, peak0, y, carry_out, L, T, channels per group, att, rel,
     # 1-att, 1-rel, threshold, knee_width, inv_knee_8, log2->dB scale,
     # dB->log2 scale, stream

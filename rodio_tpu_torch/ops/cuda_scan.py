@@ -1,6 +1,7 @@
 """K4, K5, K6 and K7: the per-lane serial scans (rodio_tpu/ops/pallas_scan.py).
 
-- :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad.
+- :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad, on f32
+  blocks and (its bf16 instance) on bf16 blocks.
 - :func:`limiter_env` (K5, ``csrc/limiter_env.cu``): the limiter's two
   envelope recurrences; :func:`limiter_stream`, the same kernel with the
   ``Limit`` node's gain computer before them and its coupling and gain
@@ -13,9 +14,9 @@
 Each wrapper runs its kernel on a CUDA tensor and its plain version, a
 sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
-``launches``, ``limiter_env_launches``, ``limiter_stream_launches``,
-``agc_launches`` and ``first_order_launches`` count each wrapper's
-launches.
+``launches``, ``bf16_launches``, ``limiter_env_launches``,
+``limiter_stream_launches``, ``agc_launches`` and ``first_order_launches``
+count each wrapper's launches.
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -34,8 +35,10 @@ from .limiter_block import limiter_gain_db
 from .scan import biquad_df1 as _biquad_scan
 from .scan import linear_scan, max_affine_scan
 
-#: kernel launches made by :func:`biquad_df1` (K4)
+#: kernel launches made by :func:`biquad_df1` on f32 blocks (K4)
 launches = 0
+#: kernel launches made by :func:`biquad_df1` on bf16 blocks (K4's bf16 instance)
+bf16_launches = 0
 #: kernel launches made by :func:`limiter_env` (K5)
 limiter_env_launches = 0
 #: kernel launches made by :func:`limiter_stream` (K5, the Limit node's pass)
@@ -49,15 +52,34 @@ FIRST_ORDER_OPS = ("linear", "max_affine", "agc_gain")
 
 
 def biquad_df1_plain(x, coeffs, state):
-    """The plain PyTorch version: the sequential DF-I scan."""
-    return _biquad_scan(x, coeffs, state, mode="exact")
+    """The plain PyTorch version: the sequential DF-I scan. A bf16 block is
+    upcast (exactly), scanned in f32 and stored bf16 rounded to nearest
+    even; its y carries are the stored outputs, upcast."""
+    if x.dtype != torch.bfloat16:
+        return _biquad_scan(x, coeffs, state, mode="exact")
+    y, (x1, x2, y1, y2) = _biquad_scan(x.float(), coeffs, state, mode="exact")
+    y = y.to(torch.bfloat16)
+    T = x.shape[-1]
+    if T >= 1:
+        y1 = y[:, -1].float()
+    if T >= 2:
+        y2 = y[:, -2].float()
+    return y, (x1, x2, y1, y2)
 
 
 def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
-    """Biquad over x [L, T] (lanes by time), coefficients a [5] f32 tensor
-    (b0, b1, b2, a1, a2) on x's device, state (x1, x2, y1, y2) each [L].
-    Returns (y [L, T], state'), the state being the last two inputs and
-    outputs of each lane."""
+    """Biquad over x [L, T] (lanes by time; f32, or bf16 behind a
+    ``Bf16Boundary``), coefficients a [5] f32 tensor (b0, b1, b2, a1, a2)
+    on x's device, state (x1, x2, y1, y2) each [L] f32. Returns (y [L, T]
+    in x's dtype, state'), the state being the last two inputs and stored
+    outputs of each lane (the carry-in where T < 2), in f32.
+
+    A bf16 block runs K4's bf16 instance: it upcasts on load, runs the
+    recurrence in f32 (inside a call the feedback is f32, as the Pallas
+    kernel's scratch is) and stores y rounded to bf16; across calls the
+    feedback is the rounded output (rodio_tpu/ops/pallas_scan.py:133-138)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"biquad_df1: x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
         return biquad_df1_plain(x, coeffs, state)
     if x.device.type != "cuda":
@@ -65,21 +87,24 @@ def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
     if x.dim() != 2:
         raise ValueError(f"biquad_df1: x must be [L, T], got {tuple(x.shape)}")
     L, T = x.shape
-    x = _build.f32_arg("x", x, x.device, (L, T))
+    bf16 = x.dtype == torch.bfloat16
+    x = _build._typed_arg("x", x, x.dtype, x.device, (L, T))
     coeffs = _build.f32_arg("coeffs", coeffs, x.device, (5,))
     st = [_build.f32_arg(f"state[{i}]", s, x.device, (L,))
           for i, s in enumerate(state)]
     lib = _build.load_library()
     y = torch.empty_like(x)
     out = torch.empty((4, L), dtype=torch.float32, device=x.device)
-    err = lib.rt_biquad_df1(
-        x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
-        *[s.data_ptr() for s in st], *[out[i].data_ptr() for i in range(4)],
-        L, T, _build.stream_handle(x.device),
-    )
-    _build.check(err, "rt_biquad_df1")
-    global launches
-    launches += 1
+    fn = lib.rt_biquad_df1_bf16 if bf16 else lib.rt_biquad_df1
+    err = fn(x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
+             *[s.data_ptr() for s in st], *[out[i].data_ptr() for i in range(4)],
+             L, T, _build.stream_handle(x.device))
+    _build.check(err, "rt_biquad_df1_bf16" if bf16 else "rt_biquad_df1")
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return y, (out[0], out[1], out[2], out[3])
 
 

@@ -27,5 +27,7 @@ class WideMixer(Node):
 
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state, n)
-        mixed = block.reshape(self.n_streams, self.spec.channels, n).sum(0)
+        # the stream sum is f32 whatever the block's dtype: a bf16 block is
+        # read at half width but never summed at bf16 precision
+        mixed = block.float().reshape(self.n_streams, self.spec.channels, n).sum(0)
         return s, mixed, valid

@@ -1,8 +1,8 @@
 """Where the time goes in the flagship slice on one CUDA card.
 
     python -m rodio_tpu_torch.profile_slice [--streams 512] [--block N]
-        [--blocks 12] [--with-agc | --path B | --path C | --path D |
-        --path E] [--out FILE]
+        [--blocks 12] [--with-agc | --path B | C | D | E | F | G | H]
+        [--out FILE]
 
 For each cell (``fused``: K1 then K3 per block; ``unfused``: Resample ->
 K4 -> Amplify -> WideMixer -> K3; with ``--with-agc``, the AGC slice
@@ -18,8 +18,14 @@ WideMixer -> K3; with ``--path D``, ``agc_group``, the fused AGC slice with
 ``agc_group=16``: K2g then K3; with ``--path E``, ``agc_rel0b16``, the JAX
 package's AGC-on bench leg, the fused AGC slice with ``agc_plan="rel0b16"``
 and ``precision="int2"``: K2b then K3, and ``agc_rel0f``, the same with
-``agc_plan="rel0f"``: K2r then K3) it prints, per block of ``--block``
-frames (default 12800; path B 4096, config 2's block):
+``agc_plan="rel0f"``: K2r then K3; with ``--path F``, ``config1``,
+BASELINE config 1: Uniform(rodio_compat=True) over 180 s of stereo, the
+resampler's span path; with ``--path G``, ``ring_chain``, the unfused
+chain with the resampler on its streaming ring (K4, K3), and
+``flagship_bf16``, ``make_flagship(block_bf16=True)`` (K4's bf16 instance,
+K3); with ``--path H``, ``config4_parity`` and ``config4_scene``,
+BASELINE config 4's graphs (the phase kernel)) it prints, per block of
+``--block`` frames (default 12800; paths B and F 4096, path H 1024):
 
 - ``wall_ms``: CUDA-event time of a render of ``--blocks`` blocks, 3 runs,
   no profiler;
@@ -80,6 +86,67 @@ def config2(device, group: int = 0, seconds: int = 10, rate: int = 44100):
     node = SamplesBuffer(2, rate, pcm, device=device).low_pass(2000.0)
     node = AutomaticGainControl(node, AgcSettings(), mode="pallas", group=group)
     return Limit(node, LimitSettings(), mode="pallas")
+
+
+def config1(device, seconds: int = 180, seed: int = 6):
+    """BASELINE config 1 (``configs[0]``): ``seconds`` of seeded 16-bit-grid
+    stereo PCM at 44.1 kHz through ``Uniform(..., 2, 48000,
+    rodio_compat=True)``, the resampler's span path."""
+    import numpy as np
+
+    from .conversions import Uniform
+    from .sources.generators import SamplesBuffer
+
+    pcm = (np.random.default_rng(seed).integers(-32768, 32768, (2, seconds * 44100))
+           / 32768.0).astype(np.float32)
+    return Uniform(SamplesBuffer(2, 44100, pcm, device=device), 2, 48000,
+                   rodio_compat=True)
+
+
+def ring_chain(device, streams: int = 512, max_block: int = 12800, seed: int = 7):
+    """BASELINE config 5's unfused chain with the per-channel gains applied
+    before the resampler, so its upstream is not random-access (as a
+    decoder's is not) and it takes its streaming ring path: Amplify ->
+    Resample -> BltFilter(mode="pallas") (K4) -> WideMixer ->
+    Limit(mode="pallas") (K3), on 4 s of seeded PCM."""
+    import numpy as np
+
+    from .conversions import Resample
+    from .effects import Amplify, BltFilter
+    from .effects.limit import Limit, LimitSettings
+    from .parallel.batch import WideMixer
+    from .sources.generators import SamplesBuffer
+
+    rng = np.random.default_rng(seed)
+    pcm = (rng.standard_normal((2 * streams, 4 * 44100)) * 0.1).astype(np.float32)
+    gains = np.repeat(rng.uniform(0.5, 1.5, streams) / streams, 2)
+    node = Amplify(SamplesBuffer(2 * streams, 44100, pcm, device=device), gains)
+    node = Resample(node, 48000, max_block=max_block)
+    node = BltFilter(node, "low_pass", 2000.0, 0.5, mode="pallas")
+    return Limit(WideMixer(node, streams), LimitSettings(), mode="pallas")
+
+
+#: BASELINE config 4's ears (tools/parity_tpu.py:174-191)
+EARS = ((-1.0, 0.0, 0.0), (1.0, 0.0, 0.0))
+
+
+def config4_parity(device):
+    """BASELINE config 4's parity case (tools/parity_tpu.py:174-191): a
+    440 Hz sine with the reference's phase accumulator, 0.3 s, panned."""
+    from .effects import Spatial, TakeDuration
+    from .sources import SineWave
+
+    return Spatial(TakeDuration(SineWave(440.0, rodio_compat=True, device=device), 0.3),
+                   (-0.7, 0.2, 0.0), *EARS)
+
+
+def config4_scene(device):
+    """The scene of tests/test_baseline_configs.py:130-158 without the
+    control plane: a 330 Hz sine, 1 s, faded in, with an echo, panned."""
+    from .sources import SineWave
+
+    return (SineWave(330.0, rodio_compat=True, device=device).take_duration(1.0)
+            .fade_in(0.1).reverb(0.03, 0.4).spatial((-2.0, 0.0, 0.0), *EARS))
 
 
 def _with_state(node):
@@ -144,12 +211,15 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=12)
     ap.add_argument("--with-agc", action="store_true",
                     help="profile the AGC slice (K2; unfused: K6)")
-    ap.add_argument("--path", choices=("B", "C", "D", "E"), default=None,
+    ap.add_argument("--path", choices=("B", "C", "D", "E", "F", "G", "H"), default=None,
                     help="profile path B (BASELINE config 2: K4, K8, K7, K3), "
                          "path C (the per-stream chain: K4, K6, K5, "
-                         "K3), path D (the group-rate fused AGC: K2g, K3) or "
+                         "K3), path D (the group-rate fused AGC: K2g, K3), "
                          "path E (the rel0b16 and rel0f AGC plans: K2b or "
-                         "K2r, K3)")
+                         "K2r, K3), path F (BASELINE config 1: the span "
+                         "path), path G (the ring resampler's chain: K4, K3; "
+                         "and block_bf16: K4's bf16 instance, K3) or path H "
+                         "(BASELINE config 4: the phase kernel)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -165,7 +235,7 @@ def main(argv=None) -> int:
     res = {"device": smi, "streams": args.streams, "block": args.block,
            "blocks": args.blocks, "with_agc": args.with_agc, "path": args.path}
     if args.block is None:
-        args.block = 4096 if args.path == "B" else 12800
+        args.block = {"B": 4096, "F": 4096, "H": 1024}.get(args.path, 12800)
     res["block"] = args.block
     kw = dict(seconds=4.0, device="cuda", max_block=args.block)
     if args.path == "B":
@@ -178,6 +248,16 @@ def main(argv=None) -> int:
         cells = {"agc_group": lambda: rtt.make_flagship(
             args.streams, scan_mode="fused", with_agc=True,
             agc_group=16, **kw)}
+    elif args.path == "F":
+        cells = {"config1": lambda: _with_state(config1("cuda"))}
+    elif args.path == "G":
+        cells = {"ring_chain": lambda: _with_state(ring_chain(
+                     "cuda", args.streams, args.block)),
+                 "flagship_bf16": lambda: rtt.make_flagship(
+                     args.streams, scan_mode="pallas", block_bf16=True, **kw)}
+    elif args.path == "H":
+        cells = {"config4_parity": lambda: _with_state(config4_parity("cuda")),
+                 "config4_scene": lambda: _with_state(config4_scene("cuda"))}
     elif args.path == "E":
         cells = {f"agc_{plan}": (lambda plan=plan: rtt.make_flagship(
             args.streams, scan_mode="fused", with_agc=True, agc_plan=plan,

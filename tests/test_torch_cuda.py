@@ -16,7 +16,8 @@ ring bit-equal. K5 bit-equal (the same op order), ``limiter_env`` and
 gain), NaN where the plain version has NaN; K2g (K2's group branch, on
 K1's front end) as K2; K9 bit-equal on both routes (the same sum order; the
 contiguous stream's max is order-free), eager and in a CUDA graph. K2r and K2b (K2's rel0 plans) as K2, their peak carry
-untouched.
+untouched. K4's bf16 instance and the generators' phase kernel bit-equal;
+the ring resampler on the card within 1e-6 of the CPU (the same ops).
 """
 import numpy as np
 import pytest
@@ -901,3 +902,83 @@ def test_rel0_flagship_on_card_matches_cpu(dev, plan):
     # the card's master limiter is the blocked order, the CPU's the
     # sequential one (4e-6)
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 5e-6
+
+
+# K4's bf16 instance: odd T, T % 8 != 0 (plain loads and scalar stores),
+# T < 2, a part block of lanes, path B's and the unfused chain's shapes
+@pytest.mark.parametrize("L,T", [
+    (5, 0), (5, 1), (5, 2), (3, 7), (8, 127), (8, 129), (13, 300), (6, 4100),
+    (2, 4096), (1024, 12800), (11, 4096), (9, 1000),
+])
+def test_k4_bf16_matches_plain(dev, L, T):
+    rng = np.random.default_rng(L * 11 + T)
+    x = _f32(rng.standard_normal((L, T)) * 0.3, dev).to(torch.bfloat16)
+    st = tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
+    coef = _f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev)
+    before = cuda_scan.bf16_launches
+    yk, sk = cuda_scan.biquad_df1(x, coef, st)
+    yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
+    torch.cuda.synchronize()
+    assert cuda_scan.bf16_launches == before + 1
+    assert yk.dtype == torch.bfloat16 and torch.equal(yk, yp)
+    for a, b in zip(sk, sp):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_k4_bf16_misaligned_and_across_calls(dev):
+    """x off 16-byte alignment (plain loads) and two calls in a row: the
+    second's feedback is the first's stored, rounded output."""
+    rng = np.random.default_rng(3)
+    L, T = 9, 4096
+    buf = _f32(rng.standard_normal(L * T + 1) * 0.3, dev).to(torch.bfloat16)
+    x = buf[1:].view(L, T)
+    assert x.data_ptr() % 16 != 0
+    coef = _f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev)
+    sk = sp = tuple(torch.zeros(L, device=dev) for _ in range(4))
+    for xx in (x, x.flip(1).contiguous()):
+        yk, sk = cuda_scan.biquad_df1(xx, coef, sk)
+        yp, sp = cuda_scan.biquad_df1_plain(xx, coef, sp)
+        assert torch.equal(yk, yp) and all(torch.equal(a, b) for a, b in zip(sk, sp))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_scan.biquad_df1(x.half(), coef, sk)
+
+
+@pytest.mark.parametrize("G,n", [(1, 4096), (1, 1), (3, 777), (130, 64), (1, 0)])
+def test_phase_kernel_matches_plain(dev, G, n):
+    from rodio_tpu_torch.ops import phase
+
+    rng = np.random.default_rng(G + n)
+    p0 = _f32(rng.uniform(0, 1, G), dev)
+    step = _f32(rng.uniform(1e-3, 0.2, G), dev)
+    before = phase.launches
+    pk, ck = phase.phase_accumulate(p0, step, n)
+    pp, cp = phase.phase_accumulate_plain(p0, step, n)
+    torch.cuda.synchronize()
+    assert phase.launches == before + 1
+    assert torch.equal(pk, pp) and torch.equal(ck, cp)
+
+
+def test_ring_resampler_on_card_matches_cpu(dev):
+    """The streaming ring path (an Amplify upstream is not random-access),
+    spans included, on the card against the CPU, with no host read."""
+    from rodio_tpu_torch.conversions import Resample, Uniform
+    from rodio_tpu_torch.effects import Amplify
+
+    rng = np.random.default_rng(9)
+    data = rng.uniform(-1, 1, (4, 20000)).astype(np.float32)
+    outs = []
+    for d in (dev, "cpu"):
+        src = Amplify(SamplesBuffer(4, 44100, data, device=d), 0.5)
+        for node in (Resample(src, 48000, max_block=1024),
+                     Uniform(src, 2, 48000, rodio_compat=True, max_block=1024)):
+            st = node.init_state()
+            if d is dev:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, out, valids = render_blocks(node, st, 24, 1000)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs.append((out.cpu(), valids.cpu()))
+    for (a, va), (b, vb) in zip(outs[:2], outs[2:]):
+        assert torch.equal(va, vb)
+        assert (a - b).abs().max().item() <= 1e-6
