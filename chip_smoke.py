@@ -22,7 +22,11 @@ Phases (each raises on failure, so the script exits non-zero):
    recurrence (its serial steps times the dependent ops of a step times
    that latency: ``chain_ms``) and, where one PyTorch call computes the
    same function, its time; K1 once more at gains of unit scale, where its
-   mix is largest against the rounding of its sum over blocks;
+   mix is largest against the rounding of its sum over blocks; threefry
+   (jax.random's threefry2x32, no pallas_call: csrc/threefry.cu) at path
+   K's block (uniform, Velvet's and Pink's fused shapes) and at 2^24 draws,
+   its bits and draws equal to the plain version, with torch.rand of the
+   same count as a yardstick; K7's linear op at Brownian's shape;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -62,8 +66,28 @@ Phases (each raises on failure, so the script exits non-zero):
    - path H, BASELINE config 4: the parity case of tools/parity_tpu.py and
      the scene of tests/test_baseline_configs.py (sine with rodio_compat:
      the phase kernel once a branch a block), each whole against the CPU;
+   - path I, BASELINE config 3: 64 sources (60 generators with
+     rodio_compat, 4 seeded buffers) into mixer(2, 48000), taken for 10 s
+     and pulled in blocks of 2048 to the end (the phase kernel 60 times a
+     pull), the whole render against the CPU's, with its time, device-busy
+     share and launches a pull;
+   - path K: path I's render dithered to 16 bits by the four algorithms
+     (threefry once a block), and the nine noise sources for 10 s each in
+     blocks of 4096 (threefry; Brownian and Red also K7), against the CPU:
+     bit-equal but the erf_inv sources, at their bounds;
+   - path J: profile_slice.player_script, a Player with a queue of three
+     sounds and a from_iter beside it in blocks of 256, with volume, pause,
+     live speed, seek and skip, the whole output against the CPU's;
+   - path L: seek_state on path B's chain over 600 s to 300 s and to 60 s
+     (the same replayed blocks: O(pre-roll)), timed, the 8 blocks after
+     the seek against the CPU's, then save_state mid-render, load_state on
+     the card and the continuation bit-equal;
+   the CPU references of paths I, J, K and L render in three child
+   processes, started after phase 3's timings and all finished before any
+   later timing;
 5. times: ms per block and the aggregate realtime factor of the slice and
-   of paths A, B, C, D, E, E', F, G, G' and H.
+   of paths A, B, C, D, E, E', F, G, G', H, I, J and K, the seek's time, and
+   the device-busy share of I, J, K and L.
 
 It prints one JSON line of per-kernel results (each kernel's launches are
 those of the render whose path runs it; K9's, a tool on no render path,
@@ -75,8 +99,10 @@ beside it, it fails before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N_STREAMS = 512
@@ -108,6 +134,23 @@ PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
 PATH_F_SECONDS, PATH_F_BLOCK = 180, 4096
 #: path H: BASELINE config 4's graphs, in the parity tool's blocks
 PATH_H_BLOCK = 1024
+#: path I: BASELINE config 3, 64 sources taken for 10 s (the test's 0.25 s
+#: would give the timing 6 blocks), pulled in blocks of 2048
+PATH_I_SECONDS, PATH_I_BLOCK = 10.0, 2048
+#: path J: the player script's blocks of 256 (profile_slice.player_script)
+PATH_J_BLOCKS = 700
+#: path K: each noise source for 10 s in blocks of 4096
+PATH_K_SECONDS, PATH_K_BLOCK = 10, 4096
+#: path L: path B's chain over 600 s, sought to 300 s (and to 60 s: the same
+#: replay, O(pre-roll)); blocks of 4096 after it
+PATH_L_SECONDS, PATH_L_TARGETS, PATH_L_BLOCK = 600, (300.0, 60.0), 4096
+#: path L: blocks rendered after the seek (a checkpoint after the third)
+PATH_L_CONT = 8
+BOUND_THREEFRY = 0.0  # integer arithmetic, exact float conversions
+#: the erf_inv sources on the card against the CPU: PyTorch's log1p and
+#: sqrt may round an ulp apart on the two devices; a normal draw is then
+#: within 4 ulp (|x| < 6: 4 * 2^-21), Brownian's integrator carries it
+BOUND_GAUSS, BOUND_BROWN = 2e-6, 1e-5
 PATH_B_BLOCKS = -(-10 * PATH_B_RATE // PATH_B_BLOCK)  # 10 s of audio
 PATH_C_CHECK_STREAMS = 16
 #: (att, rel, target, max_gain, floor, 1/8192) of AgcSettings() at 48 kHz,
@@ -121,10 +164,47 @@ HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 
 
-def _bound(nbytes: float, flops: float):
+#: INT32 operations a second: 132 SMs x 64 INT32 lanes x 1.98 GHz (the
+#: Hopper white paper's SM; the data sheet gives no INT32 rate)
+INT32_OPS_S = 132 * 64 * 1.98e9
+#: INT32 instructions of one threefry2x32 hash at the fewest: the low
+#: word's key add (the high word is 0: its add is hoisted), 20 rounds of an
+#: add, a funnel-shift rotate and an xor, 5 key injections of 2 adds (a
+#: key word plus its round constant is one value for every hash of the
+#: key), of which 4 of the first word's merge with the next round's add
+#: into one 3-input add (IADD3)
+THREEFRY_OPS = 1 + 20 * 3 + 5 * 2 - 4
+
+
+def _threefry_ops(mode: str, i: int, n: int, grid: int = 1) -> int:
+    """INT32 instructions that ``n`` draws of ``mode`` from counter ``i``
+    need at the fewest, counted on this run's counters: a hash per value
+    the function depends on, once, and the bits around it. uniform: the
+    block's fold_in and a hash a draw, +3 a draw (the xor, the shift and
+    the or). Velvet: 7 hashes a distinct cell t // grid (its fold_in,
+    randint's split into 2 keys and 4 draws), +26 a cell (4 xors; 2
+    elements of 3 modulos by an invariant, a mul-hi, a mul and a sub each,
+    a mul and an add), +6 a sample (the counter's add, its modulo by the
+    grid, the compare and the select). Pink: the 16 octave keys, 2 hashes
+    a distinct (octave, t >> octave) (its fold_in and its draw), +3 each
+    (the xor, the shift, the or); a sample's 15 float adds issue on the
+    FP32 pipe, below the INT32 time here."""
+    import numpy as np
+
+    t = (i + np.arange(n, dtype=np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31
+    if mode == "uniform":
+        return (n + 1) * THREEFRY_OPS + 3 * n
+    if mode == "velvet":
+        cells = len(np.unique(t // grid))
+        return cells * (7 * THREEFRY_OPS + 26) + 6 * n
+    pairs = sum(len(np.unique(t >> o)) for o in range(16))
+    return 16 * THREEFRY_OPS + pairs * (2 * THREEFRY_OPS + 3)
+
+
+def _bound(nbytes: float, flops: float, ops_per_s: float = F32_FLOPS_S):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the f32 operations over the peak rate."""
-    tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    and the operations over the peak rate of their type (f32 by default)."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / ops_per_s
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -147,12 +227,76 @@ def _max_err(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
+def _tensors(state):
+    """Every tensor of a nested state."""
+    if isinstance(state, dict):
+        state = list(state.values())
+    if isinstance(state, (list, tuple)):
+        return [t for v in state for t in _tensors(v)]
+    return [state] if hasattr(state, "device") else []
+
+
+def _cpu_reference(task: str):
+    """A path's render on the CPU, run in a child process while the card
+    works (path I's 60 phase accumulators and path L's replay are serial
+    loops on the CPU)."""
+    import torch
+
+    torch.set_num_threads(1)
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.graph import seek
+    from rodio_tpu_torch.profile_slice import (
+        NOISE, config2, config3, noise_source, player_script, pull_to_end)
+
+    if task == "L":
+        node = config2("cpu", 0, seconds=PATH_L_SECONDS)
+        st = seek.seek_state(node, PATH_L_TARGETS[0])
+        _, out, _ = rtt.render_blocks(node, st, PATH_L_CONT, PATH_L_BLOCK)
+        return out.numpy(), seek.replayed_blocks
+    if task == "I":
+        _, rx = config3("cpu", PATH_I_SECONDS)
+        blocks, pulls = pull_to_end(rx, PATH_I_BLOCK)
+        return torch.cat(blocks, dim=1).numpy(), pulls
+    if task == "J":
+        return player_script("cpu", PATH_J_BLOCKS).numpy()
+    n = -(-PATH_K_SECONDS * 48000 // PATH_K_BLOCK)
+    out = {}
+    for name in NOISE:
+        node = noise_source(name, "cpu")
+        out[name] = rtt.render_blocks(node, node.init_state(), n, PATH_K_BLOCK)[1].numpy()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    import multiprocessing
+
+    import rodio_tpu_torch  # noqa: F401  (fails here without the repository)
+
+    # the CPU references of paths I, J, K and L render in three child
+    # processes, started after the kernels' timings (phase 3) and waited for
+    # before any later timing; they are stopped however the run ends
+    pools = []
+
+    def start_references():
+        pools.append(multiprocessing.get_context("spawn").Pool(3))
+        return {t: pools[0].apply_async(_cpu_reference, (t,)) for t in ("L", "I", "K", "J")}
+
+    try:
+        return _main(start_references)
+    finally:
+        for pool in pools:
+            pool.terminate()
+            pool.join()
+
+
+def _main(start_references) -> int:
+    import torch
+
     import numpy as np
 
     import rodio_tpu_torch as rtt
@@ -161,9 +305,14 @@ def main() -> int:
     from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
     from rodio_tpu_torch.effects.blt import blt_coefficients
     from rodio_tpu_torch.effects.limit import Limit, LimitSettings
-    from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block, phase
+    from rodio_tpu_torch.effects import Dither
+    from rodio_tpu_torch.graph import seek
+    from rodio_tpu_torch.graph.seek import seek_state
+    from rodio_tpu_torch.graph.checkpoint import load_state, save_state
+    from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block, phase, threefry
     from rodio_tpu_torch.profile_slice import (
-        config1, config2, config4_parity, config4_scene, ring_chain)
+        NOISE, config1, config2, config3, config4_parity, config4_scene, noise_source,
+        player_script, profile_pulls, pull_to_end, ring_chain)
     from rodio_tpu_torch.sources.generators import SamplesBuffer
 
     # -- 1. device ---------------------------------------------------------
@@ -209,7 +358,7 @@ def main() -> int:
                 "K6": (cuda_scan, "agc_launches"),
                 "K7": (cuda_scan, "first_order_launches"),
                 "K8": (limiter_block, "bma_launches"),
-                "K9": (dma_roofline, "launches")}
+                "K9": (dma_roofline, "launches"), "threefry": (threefry, "launches")}
 
     def reset():
         for mod, attr in counters.values():
@@ -233,8 +382,8 @@ def main() -> int:
     results = []
 
     def record(kid, name, src, rep, err, bound_err, ms, pms, nbytes, flops,
-               chain_ms, library_ms=None, note="", path=None):
-        bound_ms, bound_by = _bound(nbytes, flops)
+               chain_ms, library_ms=None, note="", path=None, ops_per_s=F32_FLOPS_S):
+        bound_ms, bound_by = _bound(nbytes, flops, ops_per_s)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{kid} {name}{note}: max|d| {err:.3e} (bound {bound_err}); kernel "
               f"{ms:.4f} ms, plain {pms:.2f} ms; roofline {bound_ms:.4f} ms "
@@ -607,10 +756,66 @@ def main() -> int:
            f"{ms9c:.4f} ms, {nb9 / ms9c / 1e6:.1f} GB/s read, {2 * nb9 / ms9c / 1e6:.1f} "
            f"GB/s moved")
     del xs9, xk9
+
+    # threefry (no pallas_call: jax.random's threefry2x32, which XLA lowers
+    # to integer ops; its bound counts the INT32 instructions the function
+    # needs on this run's counters, _threefry_ops) at path K's block: a
+    # block's uniform draws under fold_in(key, i), Velvet's cells and Pink's
+    # 16 octaves; then 2^24 draws.
+    # Bits and uniform draws equal to the plain version on the card, the
+    # counter across the int32 wrap. Library: torch.rand of the same count
+    # (Philox, not this function): a yardstick of a generator's rate
+    key_t = threefry.seed_key(12, dev)
+    i_t = 2 ** 31 - 1000
+    ctr_t = torch.full((), i_t, dtype=torch.int64, device=dev)
+    nbig = 1 << 24
+    bits_k = threefry.threefry(key_t, ctr_t, nbig, "bits")
+    bits_p = threefry.threefry_plain(key_t, ctr_t, nbig, "bits")
+    if not torch.equal(bits_k.to(torch.int64) & threefry.M32, bits_p):
+        raise AssertionError("threefry bits differ from the plain version")
+    del bits_k, bits_p
+    for label, n, kw in (("uniform", PATH_K_BLOCK, dict(lo=-1.0, hi=1.0)),
+                         ("velvet", PATH_K_BLOCK, dict(grid=24)),
+                         ("pink", PATH_K_BLOCK, {}),
+                         ("uniform", nbig, dict(lo=-1.0, hi=1.0))):
+        mode = label
+
+        def call(mode=mode, n=n, kw=kw):
+            return threefry.threefry(key_t, ctr_t, n, mode, **kw)
+
+        errt = _max_err(call(), threefry.threefry_plain(key_t, ctr_t, n, mode, **kw))
+        reps = 50 if n < nbig else 20
+        mst = _time_ms(call, reps)
+        gmst = warp_cycles.graph_ms(call, reps)
+        pmst = _time_ms(lambda: threefry.threefry_plain(key_t, ctr_t, n, mode, **kw), 2)
+        libt = _time_ms(lambda: torch.rand(n, device=dev), reps)
+        record("threefry", f"threefry ({label}, {n} draws)", "rodio_tpu_torch/csrc/threefry.cu",
+               "rodio_tpu/sources/noise.py:40 (jax.random, no pallas_call)", errt,
+               BOUND_THREEFRY, mst, pmst, 4 * n + 24,
+               _threefry_ops(mode, i_t, n, kw.get("grid", 1)), 0.0,
+               library_ms=libt, path="noise", ops_per_s=INT32_OPS_S,
+               note=f"; in a CUDA graph {gmst:.4f} ms; bits of {nbig} draws equal; library: "
+                    f"torch.rand({n}) (Philox), a yardstick only")
+
+    # K7's linear op at Brownian's and Red's shape, [1, 4096]: their leaky
+    # integrator, 2 ops a step, both on the chain
+    w7 = dev_f32(rng.uniform(-1, 1, (1, PATH_K_BLOCK)))
+    leak7 = torch.full_like(w7, float(np.float32(1.0 - 2.0 * np.pi * 5.0 / 48000)))
+    a07 = dev_f32([0.3])
+    err7l = _max_err(cuda_scan.first_order(leak7, w7, a07, op="linear"),
+                     cuda_scan.first_order_plain(leak7, w7, a07, op="linear"))
+    ms7l = _time_ms(lambda: cuda_scan.first_order(leak7, w7, a07, op="linear"), 50)
+    gms7l = warp_cycles.graph_ms(lambda: cuda_scan.first_order(leak7, w7, a07, op="linear"), 50)
+    pms7l = _time_ms(lambda: cuda_scan.first_order_plain(leak7, w7, a07, op="linear"), 1)
+    record("K7", "first_order (linear, Brownian/Red)", "rodio_tpu_torch/csrc/first_order.cu",
+           "rodio_tpu/ops/pallas_scan.py:433", err7l, BOUND_K7, ms7l, pms7l,
+           3 * PATH_K_BLOCK * 4, 2 * PATH_K_BLOCK, _chain_ms(PATH_K_BLOCK, 2), path="noise",
+           note=f" linear [1, {PATH_K_BLOCK}]; in a CUDA graph {gms7l:.4f} ms")
     for r in results:
         if not r["max_abs_err"] <= r["bound_err"]:
             raise AssertionError(f"{r['kid']}: max|d| {r['max_abs_err']} exceeds "
                                  f"{r['bound_err']}")
+    refs = start_references()
 
     # -- 4. the paths --------------------------------------------------------
     def check_output(out, valids, name, n_blocks, block):
@@ -919,6 +1124,139 @@ def main() -> int:
             raise AssertionError(f"path H ({label}): card vs CPU {err_h}, valid ok {ok}")
         path_h_runs[label], path_h_nodes[label] = run, (node, nh)
 
+    # path I: BASELINE config 3 at full width, 64 sources into mixer(2,
+    # 48000), taken for 10 s and pulled in blocks of 2048 to the end (the
+    # mixer reads its members' valids back once a block); 60 generators with
+    # rodio_compat, so the phase kernel runs once a generator a pull
+    _, rx3 = config3("cuda", PATH_I_SECONDS)
+    reset()
+    blocks3, pulls3 = pull_to_end(rx3, PATH_I_BLOCK)
+    torch.cuda.synchronize()
+    path_i_run = counts()
+    expect(path_i_run, "path I", phase=60 * pulls3)
+    out3 = torch.cat(blocks3, dim=1)
+    want3, cpu_pulls3 = refs["I"].get()
+    err_i = _max_err(out3.cpu(), torch.from_numpy(want3))
+    n3 = out3.shape[1]
+    print(f"path I (config 3, 64 sources, {PATH_I_SECONDS} s, blocks of {PATH_I_BLOCK}): "
+          f"{pulls3} pulls, {n3} frames; card vs CPU, the whole render: max|d| {err_i:.3e} "
+          f"(bound {BOUND_B}); peak {float(out3.abs().max()):.4f}; launches {path_i_run}")
+    if not (pulls3 == cpu_pulls3 and tuple(want3.shape) == tuple(out3.shape)
+            and n3 >= PATH_I_SECONDS * 48000 and bool(torch.isfinite(out3).all())
+            and err_i <= BOUND_B):
+        raise AssertionError(f"path I: {pulls3} vs {cpu_pulls3} pulls, shapes "
+                             f"{tuple(out3.shape)} {want3.shape}, card vs CPU {err_i}")
+    del blocks3
+
+    # path K, dither: path I's CPU render dithered to 16 bits by each
+    # algorithm, on the card and on the CPU (the same input): threefry once
+    # a block
+    dither_runs = {}
+    for algo in ("tpdf", "rpdf", "gpdf", "highpass"):
+        outs = []
+        for device in ("cuda", "cpu"):
+            node = Dither(SamplesBuffer(2, 48000, want3, device=device), 16, algo, seed=3)
+            nd = -(-want3.shape[1] // PATH_I_BLOCK)
+            reset()
+            _, o, _ = rtt.render_blocks(node, node.init_state(), nd, PATH_I_BLOCK)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                dither_runs[algo] = counts()
+                expect(dither_runs[algo], f"dither {algo}", threefry=nd)
+            outs.append(o.cpu())
+        err_d = _max_err(*outs)
+        bound_d = 4 * 2.0 ** -21 * 2.0 ** -15 + 2.0 ** -24 if algo == "gpdf" else 0.0
+        print(f"path K: Dither({algo}, 16 bits) of path I's render, card vs CPU: max|d| "
+              f"{err_d:.3e} (bound {bound_d:.3e}); launches {dither_runs[algo]}")
+        if not err_d <= bound_d:
+            raise AssertionError(f"dither {algo}: card vs CPU {err_d} exceeds {bound_d}")
+    del out3
+
+    # path K: the nine noise sources, 10 s each in blocks of 4096, card
+    # against CPU; threefry once a block (Brownian and Red: and K7)
+    nk = -(-PATH_K_SECONDS * 48000 // PATH_K_BLOCK)
+    want_k = refs["K"].get()
+    noise_runs = {}
+    for name in NOISE:
+        node = noise_source(name, "cuda")
+        reset()
+        _, ok_, vk = rtt.render_blocks(node, node.init_state(), nk, PATH_K_BLOCK)
+        torch.cuda.synchronize()
+        noise_runs[name] = counts()
+        integrated = name in ("Brownian", "Red")
+        expect(noise_runs[name], name, threefry=nk, **({"K7": nk} if integrated else {}))
+        err_k = _max_err(ok_.cpu(), torch.from_numpy(want_k[name]))
+        bound_k = {"WhiteGaussian": BOUND_GAUSS, "Brownian": BOUND_BROWN}.get(name, 0.0)
+        print(f"path K: {name}, {nk} x {PATH_K_BLOCK}: card vs CPU max|d| {err_k:.3e} "
+              f"(bound {bound_k}); launches {noise_runs[name]}")
+        if not (err_k <= bound_k and int(vk.sum()) == nk * PATH_K_BLOCK):
+            raise AssertionError(f"path K {name}: card vs CPU {err_k} exceeds {bound_k}")
+    path_k_run = {k: sum(r[k] for r in noise_runs.values()) for k in noise_runs["Pink"]}
+
+    # path J: the player script (profile_slice.player_script) in blocks of
+    # 256: volume, pause and play, live speed (VariSpeed), seek to 20 s,
+    # skip to the sine; the whole output against the CPU's
+    reset()
+    out_j = player_script("cuda", PATH_J_BLOCKS)
+    torch.cuda.synchronize()
+    path_j_run = counts()
+    want_j = refs["J"].get()
+    err_j = _max_err(out_j.cpu(), torch.from_numpy(want_j))
+    print(f"path J (the player, {PATH_J_BLOCKS} x 256): card vs CPU, the whole output: "
+          f"max|d| {err_j:.3e} (bound {BOUND_B}); peak {float(out_j.abs().max()):.4f}; "
+          f"launches {path_j_run}")
+    if not (err_j <= BOUND_B and path_j_run["phase"] > 0
+            and float(out_j.abs().max()) > 0.1):
+        raise AssertionError(f"path J: card vs CPU {err_j}, launches {path_j_run}")
+    del out_j
+
+    # path L: seek on path B's chain over 600 s: to 300 s and to 60 s, the
+    # same replayed blocks (O(pre-roll)); the render after the seek against
+    # the CPU's (the replay runs K4 at [2, 8192], K7 and K8 at [1, 16384]);
+    # then a checkpoint mid-render, loaded back on the card, continues
+    # bit-equal. The CPU references are all in before the seek is timed
+    want_l, cpu_replay_l = refs["L"].get()
+    node_l = config2("cuda", 0, seconds=PATH_L_SECONDS)
+    seek_state(node_l, 1.0)  # warm-up
+    seeks = {}
+    for target in PATH_L_TARGETS:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_l = seek_state(node_l, target)
+        torch.cuda.synchronize()
+        seeks[target] = (time.perf_counter() - t0, seek.replayed_blocks, counts())
+    sec_l, replay_l, path_l_run = seeks[PATH_L_TARGETS[0]]
+    st_l = seek_state(node_l, PATH_L_TARGETS[0])
+    expect(path_l_run, "path L", **{k: replay_l for k in ("K3", "K4", "K7", "K8")})
+    if seeks[PATH_L_TARGETS[1]][1] != replay_l:
+        raise AssertionError(f"path L: replayed blocks {seeks}")
+    st_l, head_l, _ = rtt.render_blocks(node_l, st_l, 3, PATH_L_BLOCK)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "path_l.npz")
+        save_state(ckpt, st_l, metadata={"seconds": PATH_L_TARGETS[0]})
+        st_l2 = load_state(ckpt, node_l.init_state())
+    on_card = all(t.device.type == "cuda" for t in _tensors(st_l2))
+    _, cont_a, _ = rtt.render_blocks(node_l, st_l, PATH_L_CONT - 3, PATH_L_BLOCK)
+    _, cont_b, _ = rtt.render_blocks(node_l, st_l2, PATH_L_CONT - 3, PATH_L_BLOCK)
+    eq_l = torch.equal(cont_a, cont_b)
+    out_l = torch.cat([head_l, cont_a], dim=1)
+    err_l = _max_err(out_l.cpu(), torch.from_numpy(want_l))
+    print(f"path L (config 2 over {PATH_L_SECONDS} s): seek to {PATH_L_TARGETS[0]} s in "
+          f"{sec_l * 1e3:.2f} ms (host clock), {replay_l} blocks replayed (to "
+          f"{PATH_L_TARGETS[1]} s: {seeks[PATH_L_TARGETS[1]][1]} blocks, "
+          f"{seeks[PATH_L_TARGETS[1]][0] * 1e3:.2f} ms; on the CPU {cpu_replay_l}); launches "
+          f"{path_l_run}; the {PATH_L_CONT} blocks after the seek, card vs CPU: max|d| "
+          f"{err_l:.3e} (bound {BOUND_B}); checkpoint loaded on the card {on_card}, "
+          f"continuation bit-equal {eq_l} {tag}")
+    if not (eq_l and on_card and bool(torch.isfinite(out_l).all())):
+        raise AssertionError("path L: the checkpoint's continuation differs")
+    if not (err_l <= BOUND_B and cpu_replay_l == replay_l
+            and tuple(want_l.shape) == tuple(out_l.shape)):
+        raise AssertionError(f"path L: card vs CPU {err_l}, replayed {replay_l} vs "
+                             f"{cpu_replay_l}, shapes {tuple(out_l.shape)} {want_l.shape}")
+    del node_l, st_l, st_l2, cont_a, cont_b, out_l
+
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
         st = node.init_state()
@@ -959,6 +1297,58 @@ def main() -> int:
     print(f"path B (config 2): {sec_per_block * 1e3:.3f} ms per block of "
           f"{PATH_B_BLOCK} frames x 1 stream; realtime factor "
           f"{PATH_B_BLOCK / PATH_B_RATE / sec_per_block:.1f}x {tag}")
+    # paths I and J are host-driven pulls (each block's valids read back):
+    # timed by the host clock over the whole render (the CPU references'
+    # child processes have finished)
+    _, rx3 = config3("cuda", PATH_I_SECONDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pulls3 = pull_to_end(rx3, PATH_I_BLOCK)
+    torch.cuda.synchronize()
+    sec3 = (time.perf_counter() - t0) / pulls3
+    _, rx3 = config3("cuda", PATH_I_SECONDS)
+    prof_i = profile_pulls(lambda: rx3.next_block(PATH_I_BLOCK), 40)
+    print(f"path I (config 3, 64 sources, taken for {PATH_I_SECONDS} s): {sec3 * 1e3:.3f} ms "
+          f"a pull of {PATH_I_BLOCK} frames (host clock, {pulls3} pulls), realtime factor "
+          f"{PATH_I_BLOCK / 48000 / sec3:.2f}x; phase launches a pull "
+          f"{path_i_run['phase'] / pulls3:.1f}; over 40 pulls: device busy "
+          f"{prof_i['device_busy_ms']:.4f} ms a pull, idle share {prof_i['idle_share']:.3f}, "
+          f"{prof_i['launches_per_block']:.1f} device events a pull {tag}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    player_script("cuda", PATH_J_BLOCKS)
+    torch.cuda.synchronize()
+    sec_j = (time.perf_counter() - t0) / PATH_J_BLOCKS
+    prof_j = profile_pulls(lambda: player_script("cuda", PATH_J_BLOCKS), 1)
+    print(f"path J (the player): {sec_j * 1e3:.3f} ms a block of 256 frames (host clock, "
+          f"building the graph, the knob changes and the seek included), realtime factor "
+          f"{256 / 48000 / sec_j:.2f}x; phase launches {path_j_run['phase']} in "
+          f"{PATH_J_BLOCKS} blocks; device busy "
+          f"{prof_j['device_busy_ms'] / PATH_J_BLOCKS:.4f} ms a block, idle share "
+          f"{prof_j['idle_share']:.3f}, {prof_j['launches_per_block'] / PATH_J_BLOCKS:.1f} "
+          f"device events a block {tag}")
+    for name in NOISE:
+        sec_per_block = time_render(noise_source(name, "cuda"), nk - 1, PATH_K_BLOCK)
+        print(f"path K ({name}): {sec_per_block * 1e3:.4f} ms per block of {PATH_K_BLOCK} "
+              f"frames (CUDA events) {tag}")
+    for name in ("Pink", "Brownian"):
+        node = noise_source(name, "cuda")
+        st_k = [node.init_state()]
+
+        def pull_k(node=node, st_k=st_k):
+            st_k[0], _, _ = node.emit(st_k[0], PATH_K_BLOCK)
+
+        prof_k = profile_pulls(pull_k, 20)
+        print(f"path K: {name} over 20 blocks: device busy {prof_k['device_busy_ms']:.4f} ms "
+              f"a block, idle share {prof_k['idle_share']:.3f}, "
+              f"{prof_k['launches_per_block']:.1f} device events a block {tag}")
+    node_l = config2("cuda", 0, seconds=PATH_L_SECONDS)
+    prof_l = profile_pulls(lambda: seek_state(node_l, PATH_L_TARGETS[0]), 1)
+    print(f"path L (seek to {PATH_L_TARGETS[0]} s): profiled {prof_l['span_ms']:.2f} ms, "
+          f"device busy {prof_l['device_busy_ms']:.3f} ms, idle share "
+          f"{prof_l['idle_share']:.3f}, {prof_l['launches_per_block'] / replay_l:.1f} device "
+          f"events a replayed block {tag}")
+    del node_l
 
     # launches: from the render of the path that runs the kernel (K9: its
     # probe); launches_by_run keeps every render's counts apart
@@ -969,7 +1359,8 @@ def main() -> int:
             "agc_group": path_d_run, "agc_rel0b16": rel0_runs["rel0b16"],
             "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run,
             "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
-            **path_h_runs}
+            **path_h_runs, "config3": path_i_run, "player": path_j_run, "noise": path_k_run,
+            **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run}
     kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",

@@ -5,9 +5,13 @@ mirrors it, as numpy arrays (``jax.device_get(state)``), and returns the
 port's state: biquad coefficients and carries, per-lane gains, the limiter
 carries, the AGC's carries, window and knobs, the resampler's output
 offset, drain flag and ring, the generators' phases and counters, every
-basic effect's counters, flags and delay line, and the input position. A render can then start in one package and
-continue in the other. The PCM itself is not copied: the port node holds
-its own, made from the same numpy input.
+basic effect's counters, flags and delay line, the noise sources' and
+Dither's keys, counters and carries, VariSpeed's ring, fill, phase and
+ratio, PlayerControl's knobs, and the input position. A render can then
+start in one package and continue in the other. A ``jax.random`` key is
+taken as its key data, a uint32 pair: map the JAX state's keys through
+``jax.random.key_data`` before passing it. The PCM itself is not copied:
+the port node holds its own, made from the same numpy input.
 
 The JAX fused AGC pipeline keeps its lanes channel-major (lane c*512 + s,
 rodio_tpu/flagship.py:414-420), packs its per-stream carries as [12, 128]
@@ -31,18 +35,22 @@ from .conversions.blockdtype import Bf16Boundary
 from .conversions.channels import RechannelNode
 from .conversions.resample import Resample
 from .conversions.uniform import Uniform
+from .conversions.varispeed import VariSpeed
+from .control.player import PlayerControl
 from .core.node import Node, State
 from .effects.agc import AutomaticGainControl
 from .effects.basic import (
     Amplify, ChannelVolume, Delay, Distortion, LinearGainRamp, Pausable, Repeat,
     SkipDuration, Skippable, Speed, Stoppable, TakeDuration, TrackPosition)
 from .effects.blt import BltFilter
+from .effects.dither import Dither
 from .effects.limit import Limit
 from .effects.mix import Mix
 from .flagship import FusedWidePipeline
 from .ops.fused import AGC_RING_FRAMES
 from .parallel.batch import WideMixer
 from .sources.generators import Chirp, Empty, SamplesBuffer, SignalGenerator, Zero
+from .sources.noise import _NoiseBase
 
 _JAX_LANES = 1024  # the JAX fused kernel's lane count
 
@@ -61,6 +69,10 @@ _PLAIN_STATES = (
     (Stoppable, ("stopped",)),
     (Skippable, ("skipped",)),
     (TrackPosition, ("frames",)),
+    (_NoiseBase, ("key", "i", "prev", "prev_white", "prev_blue", "acc")),
+    (Dither, ("key", "i", "prev")),
+    (VariSpeed, ("ring", "fill", "frac", "ratio", "in_pulled", "in_end", "drained")),
+    (PlayerControl, ("volume", "paused", "stopped", "frames")),
 )
 
 
@@ -71,7 +83,7 @@ def _t(value, node: Node) -> torch.Tensor:
     elif arr.dtype.kind == "b":
         dtype = torch.bool
     else:
-        dtype = torch.int64
+        dtype, arr = torch.int64, arr.astype(np.int64)  # a key's uint32 words too
     return torch.as_tensor(arr.copy(), dtype=dtype, device=node.device)
 
 

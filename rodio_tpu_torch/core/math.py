@@ -44,6 +44,26 @@ DB_TO_LOG2 = _f32(0.05 * LOG2_10)
 LOG2_TO_DB = _f32(LOG10_2 * 20.0)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of f32 ``x``, on any device.
+
+    PyTorch's f32 ``sqrt`` on the CPU (MKL's) can be an ulp off, on a set
+    of elements that is not the same from one process to the next; CUDA's
+    and XLA's are correctly rounded, so off the CPU this is ``torch.sqrt``.
+    On the CPU the root is taken in f64, rounded to f32 and corrected by an
+    exact test: the midpoints between f32 neighbours have 25 bits, so their
+    squares are exact in f64."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    s = torch.sqrt(x.double()).float()
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    dn = torch.nextafter(s, torch.zeros_like(s))
+    xd, sd = x.double(), s.double()
+    hi = (sd + up.double()) * 0.5
+    lo = (sd + dn.double()) * 0.5
+    return torch.where(xd > hi * hi, up, torch.where(xd < lo * lo, dn, s))
+
+
 def _pow2i(e: torch.Tensor) -> torch.Tensor:
     """2^e for int32 e, by assembling the exponent field."""
     e = torch.clamp(e, -126, 127)

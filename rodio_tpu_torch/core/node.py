@@ -16,8 +16,8 @@ A node is a plain object with an explicit ``device``:
   ``valid == 0``. ``emit`` never reads a device value back to the host, so
   a loop of emits never waits for the card.
 
-The combinators of the JAX package's Node whose nodes the port has are
-here: all but ``dither``, ``buffered``, ``record`` and ``to_file``.
+The combinators of the JAX package's Node are here, all but ``to_file``
+(the WAV writer, ``io``, is not ported yet).
 """
 from __future__ import annotations
 
@@ -152,6 +152,11 @@ class Node:
         needed before it."""
         return self.mix(self.amplify(amplitude).delay(duration))
 
+    def dither(self, bits: int, algorithm: str = "tpdf", seed: int = 0) -> "Node":
+        from ..effects.dither import Dither
+
+        return Dither(self, bits, algorithm, seed)
+
     def uniform(self, channels: int, sample_rate: int) -> "Node":
         """Convert to a fixed (channels, rate): UniformSourceIterator
         (src/source/uniform.rs:33)."""
@@ -193,6 +198,17 @@ class Node:
         from ..effects.basic import Skippable
 
         return Skippable(self)
+
+    def buffered(self):
+        """Lazy shared-cache buffering (src/source/buffered.rs): the result
+        is host-driven and its clones share the cache. ``graph.render.record``
+        gives an eager buffer on the device."""
+        from ..sources.buffered import Buffered
+
+        return Buffered(self)
+
+    def record(self):
+        return self.buffered()
 
     def take_crossfade_with(self, other: "Node", duration: float) -> "Node":
         fo = self.take_duration(duration, fadeout=True)

@@ -40,6 +40,13 @@ def check_channels(channels: int) -> int:
     return channels
 
 
+def check_bit_depth(bits: int) -> int:
+    bits = int(bits)
+    if bits <= 0 or bits > 32:
+        raise ValueError(f"bit depth must be in 1..=32, got {bits}")
+    return bits
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamSpec:
     """Static format of a stream: (channels, sample_rate)."""

@@ -1,5 +1,4 @@
-"""The port's effects: the counterparts of rodio_tpu.effects' nodes (all
-but Dither)."""
+"""The port's effects: the counterparts of rodio_tpu.effects' nodes."""
 from .agc import AgcSettings, AutomaticGainControl
 from .basic import (
     Amplify,
@@ -18,11 +17,12 @@ from .basic import (
     TrackPosition,
 )
 from .blt import BltFilter
+from .dither import Dither
 from .limit import Limit, LimitSettings
 from .mix import Mix
 
 __all__ = ["AgcSettings", "Amplify", "AutomaticGainControl", "BltFilter",
-           "ChannelVolume", "Delay", "Distortion", "Limit", "LimitSettings",
+           "ChannelVolume", "Delay", "Dither", "Distortion", "Limit", "LimitSettings",
            "LinearGainRamp", "Mix", "Pausable", "Repeat", "SkipDuration",
            "Skippable", "Spatial", "Speed", "Stoppable", "TakeDuration",
            "TrackPosition"]

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.math import duration_to_coefficient
+from ..core.math import duration_to_coefficient, sqrt_rn
 from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
 from ..ops.cuda_scan import agc, desired_gain, first_order, ipow, smooth_gains
@@ -248,7 +248,7 @@ class AutomaticGainControl(Node):
             pks.append(peak)
             rss.append(rsum)
         peak_seq, sum_seq = torch.stack(pks, 1), torch.stack(rss, 1)
-        rms = torch.sqrt(sum_seq / float(RMS_WINDOW_SIZE))
+        rms = sqrt_rn(sum_seq / float(RMS_WINDOW_SIZE))
         rms_gain = torch.where(rms > 0.0, target / rms, max_gain)
         peak_gain = torch.where(peak_seq > 0.0,
                                 torch.minimum(target / peak_seq, max_gain),

@@ -383,10 +383,10 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
     device "auto" and "pallas" run K4 and K3, and with the AGC "pallas"
     runs K6; the AGC's "auto" mode is not ported and raises). ``agc_ring``,
     ``agc_group`` and ``agc_plan`` are the fused AGC's knobs. ``block_bf16``
-    (the unfused chain only, as in the JAX package) inserts a
-    ``Bf16Boundary`` after the resampler, so K4 reads and writes bf16
-    blocks (``conversions/blockdtype.py``); with the AGC it is not ported
-    and raises.
+    inserts a ``Bf16Boundary`` after the resampler, so K4 reads and writes
+    bf16 blocks (``conversions/blockdtype.py``); as in the JAX package it
+    runs only with ``scan_mode="pallas"`` and no AGC, and raises
+    ``NotImplementedError`` otherwise (ROADMAP F7).
     """
     rng = np.random.default_rng(seed)
     frames = int(seconds * in_rate)
@@ -427,10 +427,16 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
         return master, master.init_state()
     if scan_mode not in ("exact", "auto", "pallas"):
         raise NotImplementedError(f"scan_mode {scan_mode!r} is not ported")
+    if block_bf16 and (with_agc or scan_mode != "pallas"):
+        # the JAX package runs bf16 blocks only on the Pallas biquad without
+        # the AGC: its exact scan keeps an f32 carry against a bf16 block,
+        # and its AGC kernels have no bf16 instance (ROADMAP F7)
+        raise NotImplementedError(
+            "block_bf16 runs only with scan_mode='pallas' and no AGC: the JAX "
+            f"package cannot run scan_mode={scan_mode!r}, with_agc={with_agc} "
+            "(ROADMAP F7)")
     chain = Resample(chain, out_rate, max_block=max_block)
     if block_bf16:
-        if with_agc:
-            raise NotImplementedError("block_bf16 with the AGC is not ported")
         chain = Bf16Boundary(chain)
     chain = BltFilter(chain, "low_pass", 2000.0, 0.5, mode=scan_mode)
     if with_agc:

@@ -1,9 +1,11 @@
 """Offline rendering (rodio_tpu/graph/render.py).
 
-``render`` pulls to exhaustion and reads each block's ``valid`` back to the
-host; ``render_blocks``, the counterpart of ``render_scan``, runs a fixed
-number of blocks with no host read-back at all (a plain Python loop over
-``emit``; capturing it in a CUDA graph is later work).
+``compile_step`` is the one-block step the host-driven control plane
+(queue, buffered, seek, player) calls; ``render`` pulls to exhaustion and
+reads each block's ``valid`` back to the host; ``render_blocks``, the
+counterpart of ``render_scan``, runs a fixed number of blocks with no host
+read-back at all (a plain Python loop over ``emit``; capturing it in a
+CUDA graph is later work).
 """
 from __future__ import annotations
 
@@ -15,6 +17,17 @@ import torch
 from ..core.node import Node, State
 
 DEFAULT_BLOCK = 4096
+
+
+def compile_step(node: Node, block_frames: int):
+    """``state -> node.emit(state, block_frames)``: the counterpart of the
+    JAX package's jitted block step. PyTorch runs eagerly, so it is a plain
+    closure."""
+
+    def step(state: State):
+        return node.emit(state, block_frames)
+
+    return step
 
 
 def render(node: Node, *, max_frames: Optional[int] = None,

@@ -63,6 +63,8 @@ SIGNATURES = {
     "rt_biquad_df1_bf16": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
     # phase0, step, phases, phase_out, G, n, stream
     "rt_phase_accumulate": (P, P, P, P, I, LL, P),
+    # key, counter (or null), mode, n, lo, hi, grid, out, stream
+    "rt_threefry": (P, P, I, LL, F, F, I, P, P),
     # x, integ0, peak0, y, carry_out, L, T, channels per group, att, rel,
     # 1-att, 1-rel, threshold, knee_width, inv_knee_8, log2->dB scale,
     # dB->log2 scale, stream

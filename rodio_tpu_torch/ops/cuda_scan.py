@@ -22,14 +22,15 @@ count each wrapper's launches.
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
 of K2, K6 and K7 and by the AGC node. The one rsqrt of the port is
 ``1 / sqrt(x)``, both correctly rounded (``torch.rsqrt`` and CUDA's
-``rsqrtf`` are approximate).
+``rsqrtf`` are approximate, and PyTorch's f32 ``sqrt`` on the CPU can be
+an ulp off: ``core.math.sqrt_rn``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.math import DB_TO_LOG2, LOG2_TO_DB, db_to_linear
+from ..core.math import DB_TO_LOG2, LOG2_TO_DB, db_to_linear, sqrt_rn
 from . import _build
 from .limiter_block import limiter_gain_db
 from .scan import biquad_df1 as _biquad_scan
@@ -239,7 +240,7 @@ def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
 
 def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """1 / sqrt(x), each correctly rounded (the kernels' ``rsqrt_rn``)."""
-    return 1.0 / torch.sqrt(x)
+    return 1.0 / sqrt_rn(x)
 
 
 def desired_gain(rs, pk, target, max_gain, floor, inv_window):

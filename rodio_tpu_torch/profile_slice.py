@@ -149,6 +149,127 @@ def config4_scene(device):
             .fade_in(0.1).reverb(0.03, 0.4).spatial((-2.0, 0.0, 0.0), *EARS))
 
 
+def grid_pcm(channels: int, frames: int, seed: int):
+    """Seeded 16-bit-grid PCM, [channels, frames] f32: a decoded asset's
+    values."""
+    import numpy as np
+
+    k = np.random.default_rng(seed).integers(-20000, 20001, (channels, frames))
+    return (k / 32768.0).astype(np.float32)
+
+
+#: BASELINE config 3's decoded assets, synthesized: (channels, rate) of
+#: music.wav, music.flac, beep.wav and beep2.wav
+CONFIG3_BUFFERS = ((2, 44100), (2, 44100), (1, 48000), (1, 48000))
+
+
+def config3(device, seconds: float = 10.0, seed: int = 10):
+    """BASELINE config 3 (``configs[2]``), the shape of
+    tests/test_baseline_configs.py:105-127: 60 SineWave / SquareWave /
+    TriangleWave sources at 110 (1 + i % 16) Hz with ``rodio_compat`` (the
+    phase kernel, as tools/parity_tpu.py:155 builds its sines) and 4
+    buffers of seeded 16-bit-grid PCM in place of the decoded assets, each
+    amplified by 1/64 and taken for ``seconds``, into mixer(2, 48000).
+    Returns (Mixer, MixerSource)."""
+    from .control import mixer
+    from .sources import SamplesBuffer, SineWave, SquareWave, TriangleWave
+
+    tx, rx = mixer(2, 48000, device=device)
+    for i in range(60):
+        cls = (SineWave, SquareWave, TriangleWave)[i % 3]
+        tx.add(cls(110.0 * (1 + i % 16), rodio_compat=True, device=device)
+               .amplify(1 / 64).take_duration(seconds))
+    for j, (ch, rate) in enumerate(CONFIG3_BUFFERS):
+        pcm = grid_pcm(ch, int(seconds * rate) + 100, seed + j)
+        tx.add(SamplesBuffer(ch, rate, pcm, device=device).amplify(1 / 64)
+               .take_duration(seconds))
+    return tx, rx
+
+
+def pull_to_end(rx, block: int):
+    """Pull a host-driven source to its end: (the blocks on its device, the
+    pulls, the last of which yields nothing)."""
+    blocks = []
+    while True:
+        out, alive = rx.next_block(block)
+        if not alive:
+            return blocks, len(blocks) + 1
+        blocks.append(out)
+
+
+#: the player script's knob changes: block index -> (method, arguments)
+PLAYER_EVENTS = {40: ("set_volume", (0.5,)), 80: ("pause", ()), 100: ("play", ()),
+                 150: ("set_speed", (1.25,)), 300: ("try_seek", (20.0,)),
+                 420: ("skip_one", ())}
+
+
+def player_script(device, blocks: int = 700, seed: int = 8):
+    """A Player on mixer(2, 48000) in blocks of 256 (its default): a queue of
+    a 30 s seeded stereo buffer at 44.1 kHz and a 1 s SineWave take (with
+    ``rodio_compat``), and beside it in the mixer a ``from_iter`` of two
+    0.5 s buffers (a host-driven queue joins a mixer as a Player's does);
+    PLAYER_EVENTS change the volume, pause and play, set the speed live
+    (VariSpeed), seek to 20 s and skip to the sine. Returns the [2, blocks
+    * 256] output on the device."""
+    import torch
+
+    from .control import Player, mixer
+    from .control.player import _QueueNode
+    from .sources import SamplesBuffer, SineWave, from_iter
+
+    tx, rx = mixer(2, 48000, device=device)
+    player = Player.connect_new(tx)
+    player.append(SamplesBuffer(2, 44100, grid_pcm(2, 30 * 44100, seed), device=device))
+    player.append(SineWave(440.0, rodio_compat=True, device=device).take_duration(1.0))
+    parts = [SamplesBuffer(2, 48000, grid_pcm(2, 24000, seed + 1 + k), device=device)
+             for k in range(2)]
+    tx.add(_QueueNode(from_iter(parts, block_frames=player.block_frames, device=device),
+                      tx.spec))
+    out = []
+    for k in range(blocks):
+        if k in PLAYER_EVENTS:
+            name, args = PLAYER_EVENTS[k]
+            getattr(player, name)(*args)
+        out.append(rx.next_block(player.block_frames)[0])
+    return torch.cat(out, dim=1)
+
+
+#: the noise family of sources/noise.py, by class name
+NOISE = ("WhiteUniform", "WhiteTriangular", "WhiteGaussian", "Velvet", "Pink", "Blue",
+         "Violet", "Brownian", "Red")
+
+
+def noise_source(name: str, device, seed: int = 12):
+    from .sources import noise
+
+    return getattr(noise, name)(48000, seed=seed, device=device)
+
+
+def profile_pulls(pull, n: int) -> dict:
+    """Profile ``n`` calls of ``pull()`` (one block each, host-driven):
+    device busy time a block, the host span a block, the idle share and
+    the device events a block, as profile_cell reports them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(_SPAN):
+            for _ in range(n):
+                pull()
+            torch.cuda.synchronize()
+    span = [ev for ev in prof.events()
+            if ev.name == _SPAN and ev.device_type == DeviceType.CPU][0]
+    span_us = span.time_range.end - span.time_range.start
+    kern = _kernel_intervals(prof)
+    if not kern:
+        raise RuntimeError("the profile holds no device events")
+    busy_us = _union_us(kern)
+    return {"device_busy_ms": busy_us / 1e3 / n, "span_ms": span_us / 1e3 / n,
+            "idle_share": 1.0 - busy_us / span_us, "launches_per_block": len(kern) / n}
+
+
 def _with_state(node):
     return node, node.init_state()
 

@@ -1,4 +1,5 @@
-"""The port's sources: the counterparts of rodio_tpu.sources' generators."""
+"""The port's sources: the counterparts of rodio_tpu.sources."""
+from .buffered import Buffered
 from .generators import (
     Chirp,
     Empty,
@@ -10,6 +11,20 @@ from .generators import (
     TriangleWave,
     Zero,
 )
+from .noise import (
+    Blue,
+    Brownian,
+    Pink,
+    Red,
+    Velvet,
+    Violet,
+    WhiteGaussian,
+    WhiteTriangular,
+    WhiteUniform,
+)
+from .concat import EmptyCallback, from_factory, from_iter
 
-__all__ = ["Chirp", "Empty", "SamplesBuffer", "SawtoothWave", "SignalGenerator",
-           "SineWave", "SquareWave", "TriangleWave", "Zero"]
+__all__ = ["Blue", "Brownian", "Buffered", "Chirp", "Empty", "EmptyCallback", "Pink",
+           "Red", "SamplesBuffer", "SawtoothWave", "SignalGenerator", "SineWave",
+           "SquareWave", "TriangleWave", "Velvet", "Violet", "WhiteGaussian",
+           "WhiteTriangular", "WhiteUniform", "Zero", "from_factory", "from_iter"]

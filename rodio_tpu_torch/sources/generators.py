@@ -219,8 +219,10 @@ class SamplesBuffer(Node):
     """Device-resident PCM buffer source (src/buffer.rs:23-200).
 
     Accepts interleaved 1-D data (rodio layout) or a [channels, frames]
-    array. RANDOM_ACCESS marks the node as gatherable: downstream stages
-    (the resampler, the fused pipeline) read frames directly.
+    array or tensor (a tensor on the node's device is copied there, not
+    through the host). RANDOM_ACCESS marks the node as gatherable:
+    downstream stages (the resampler, the fused pipeline) read frames
+    directly.
     """
 
     RANDOM_ACCESS = True
@@ -236,16 +238,19 @@ class SamplesBuffer(Node):
             if pad_frames < 1:
                 raise ValueError("pad_frames must be >= 1")
             self.PAD_FRAMES = int(pad_frames)
-        arr = np.asarray(data, dtype=np.float32)
-        if arr.ndim == 1:
-            frames = len(arr) // channels
+        if isinstance(data, torch.Tensor):  # kept where it lies until copied below
+            arr = data.to(torch.float32)
+        else:
+            arr = torch.from_numpy(np.ascontiguousarray(np.asarray(data, dtype=np.float32)))
+        if arr.dim() == 1:
+            frames = arr.shape[0] // channels
             arr = arr[: frames * channels].reshape(frames, channels).T
-        elif arr.ndim != 2 or arr.shape[0] != channels:
+        elif arr.dim() != 2 or arr.shape[0] != channels:
             raise ValueError("data must be 1-D interleaved or [channels, frames]")
         self._frames = arr.shape[1]
         data_t = torch.zeros((channels, self._frames + self.PAD_FRAMES),
                              dtype=torch.float32, device=self.device)
-        data_t[:, : self._frames] = torch.from_numpy(np.ascontiguousarray(arr))
+        data_t[:, : self._frames] = arr
         self._data = data_t
         self._start = int(start_frame)
 

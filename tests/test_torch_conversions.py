@@ -321,3 +321,36 @@ def test_bf16_block_mode():
     with pytest.raises(NotImplementedError):
         make_flagship(2, seconds=0.05, scan_mode="pallas", with_agc=True,
                       block_bf16=True, device="cpu")
+
+
+@pytest.mark.parametrize("scan_mode,with_agc,streams", [
+    ("exact", False, 4), ("auto", False, 4), ("exact", True, 4), ("auto", True, 4),
+    ("pallas", True, 4), ("pallas", True, 16), ("pallas", False, 4)])
+def test_block_bf16_refused_where_jax_cannot_run(scan_mode, with_agc, streams):
+    """``block_bf16`` runs in the JAX package only with scan_mode="pallas"
+    and no AGC: its exact biquad scan keeps an f32 carry against the bf16
+    block (TypeError, rodio_tpu/ops/scan.py:133), and its AGC kernels have
+    no bf16 instance (K8 at 4 streams, K6 at 16: ValueError). The port
+    refuses the same combinations when the graph is built (ROADMAP F7)."""
+    from rodio_tpu.flagship import make_flagship as jmake
+
+    kw = dict(seconds=0.05, seed=1, scan_mode=scan_mode, with_agc=with_agc,
+              max_block=1024, block_bf16=True)
+    runs = scan_mode == "pallas" and not with_agc
+
+    def jax_block():
+        node, state = jmake(streams, **kw)
+        _, out, _ = jax.jit(lambda s: node.emit(s, 512))(state)
+        return np.asarray(out, np.float32)
+
+    if runs:
+        want = jax_block()
+        node, state = make_flagship(streams, device="cpu", **kw)
+        _, out, _ = node.emit(state, 512)
+        assert out.dtype == torch.float32 and out.shape == want.shape
+        assert np.isfinite(want).all() and bool(torch.isfinite(out).all())
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            jax_block()
+        with pytest.raises(NotImplementedError, match="F7"):
+            make_flagship(streams, device="cpu", **kw)

@@ -982,3 +982,167 @@ def test_ring_resampler_on_card_matches_cpu(dev):
     for (a, va), (b, vb) in zip(outs[:2], outs[2:]):
         assert torch.equal(va, vb)
         assert (a - b).abs().max().item() <= 1e-6
+
+
+# -- threefry, the noise sources, dither, varispeed and the control plane --
+
+@pytest.mark.parametrize("mode,n,kw", [
+    ("bits", 1, {}), ("bits", 4097, {}), ("bits", 1 << 20, {}),
+    ("uniform", 4096, dict(lo=-1.0, hi=1.0)), ("uniform", 777, {}),
+    ("uniform", 3001, dict(lo=float(np.nextafter(np.float32(-1), np.float32(0))), hi=1.0)),
+    ("velvet", 4096, dict(grid=24)), ("velvet", 513, dict(grid=7)),
+    ("pink", 4096, {}), ("pink", 1, {})])
+@pytest.mark.parametrize("i", [0, 2 ** 31 - 100, -2 ** 31])
+def test_threefry_kernel_matches_plain(dev, mode, n, kw, i):
+    """Threefry's four modes bit-equal to the plain int64 version, one
+    launch each, the counter across the int32 wrap."""
+    from rodio_tpu_torch.ops import threefry
+
+    key = threefry.seed_key(77, dev)
+    ctr = torch.full((), i, dtype=torch.int64, device=dev)
+    before = threefry.launches
+    k = threefry.threefry(key, ctr, n, mode, **kw)
+    p = threefry.threefry_plain(key, ctr, n, mode, **kw)
+    torch.cuda.synchronize()
+    assert threefry.launches == before + 1
+    if mode == "bits":
+        k = k.to(torch.int64) & threefry.M32
+    assert torch.equal(k, p)
+
+
+def test_threefry_kernel_refuses(dev):
+    from rodio_tpu_torch.ops import threefry
+
+    key = threefry.seed_key(1, dev)
+    ctr = torch.zeros((), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        threefry.threefry(key, ctr, 16, "velvet", grid=0)
+    with pytest.raises(ValueError):
+        threefry.threefry(key, ctr, 16, "nope")
+    with pytest.raises(ValueError):  # the key must be int64 [2] on the card
+        threefry.threefry(key.to(torch.int32), ctr, 16, "bits")
+
+
+NOISE_BOUNDS = {"WhiteGaussian": 2e-6, "Brownian": 1e-5}
+
+
+@pytest.mark.parametrize("name", ["WhiteUniform", "WhiteTriangular", "WhiteGaussian",
+                                  "Velvet", "Pink", "Blue", "Violet", "Brownian", "Red"])
+def test_noise_sources_on_card_match_cpu(dev, name):
+    """Path K at a small size: 3 blocks on the card against the CPU,
+    bit-equal but the erf_inv sources (PyTorch's log1p and sqrt may round
+    an ulp apart on the two devices)."""
+    from rodio_tpu_torch.ops import threefry
+    from rodio_tpu_torch.profile_slice import noise_source
+
+    outs = []
+    for d in (dev, "cpu"):
+        node = noise_source(name, d)
+        st = node.init_state()
+        st["i"] = torch.full((), 2 ** 31 - 700, dtype=torch.int64, device=st["i"].device)
+        before = threefry.launches
+        _, out, _ = render_blocks(node, st, 3, 511)
+        if d is dev:
+            torch.cuda.synchronize()
+            assert threefry.launches == before + 3
+        outs.append(out.cpu())
+    assert (outs[0] - outs[1]).abs().max().item() <= NOISE_BOUNDS.get(name, 0.0)
+
+
+@pytest.mark.parametrize("algo", ["tpdf", "rpdf", "gpdf", "highpass"])
+def test_dither_on_card_matches_cpu(dev, algo):
+    from rodio_tpu_torch.effects import Dither
+
+    data = np.random.default_rng(2).uniform(-0.9, 0.9, (2, 3000)).astype(np.float32)
+    outs = [render_blocks(n, n.init_state(), 4, 1000)[1].cpu() for n in (
+        Dither(SamplesBuffer(2, 48000, data, device=d), 16, algo, seed=4) for d in (dev, "cpu"))]
+    bound = 4 * 2.0 ** -21 * 2.0 ** -15 + 2.0 ** -24 if algo == "gpdf" else 0.0
+    assert (outs[0] - outs[1]).abs().max().item() <= bound
+
+
+def test_varispeed_on_card_matches_cpu(dev):
+    """A ratio schedule on the card against the CPU, with no host read in
+    emit."""
+    from rodio_tpu_torch.conversions import VariSpeed
+
+    data = (np.random.default_rng(3).standard_normal((2, 6000)) * 0.4).astype(np.float32)
+    outs = []
+    for d in (dev, "cpu"):
+        node = VariSpeed(SamplesBuffer(2, 44100, data, device=d), ratio=0.75, max_block=512)
+        st = node.init_state()
+        blocks = []
+        if d is dev:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k, r in enumerate((0.75, 1.0, 1.3, 2.5, 0.5, 1.7) * 3):
+                st = node.set_ratio(st, r)
+                st, out, _ = node.emit(st, 512)
+                blocks.append(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(torch.cat(blocks, dim=1).cpu())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+
+
+def test_config3_small_on_card_matches_cpu(dev):
+    """Path I at 0.1 s: the 64-source mix on the card against the CPU."""
+    from rodio_tpu_torch.ops import phase
+    from rodio_tpu_torch.profile_slice import config3, pull_to_end
+
+    res = []
+    for d in (dev, "cpu"):
+        _, rx = config3(d, 0.1)
+        before = phase.launches
+        blocks, pulls = pull_to_end(rx, 2048)
+        if d is dev:
+            assert phase.launches - before == 60 * pulls
+        res.append((torch.cat(blocks, dim=1).cpu(), pulls))
+    assert res[0][1] == res[1][1]
+    assert (res[0][0] - res[1][0]).abs().max().item() <= 1e-6
+
+
+def test_player_script_on_card_matches_cpu(dev):
+    """Path J, the first 450 blocks (through the seek and the skip)."""
+    from rodio_tpu_torch.profile_slice import player_script
+
+    a = player_script(dev, 450).cpu()
+    b = player_script("cpu", 450)
+    assert (a - b).abs().max().item() <= 1e-6
+    assert a.abs().max().item() > 0.1
+
+
+def test_seek_and_checkpoint_on_card(dev, tmp_path):
+    """Path L at 3 s: seek on path B's chain replays the same blocks for
+    any target past the pre-roll, lands where the CPU lands, and a
+    checkpoint loads back on the card and continues bit-equal."""
+    from rodio_tpu_torch.graph import seek
+    from rodio_tpu_torch.graph.checkpoint import load_state, save_state
+    from rodio_tpu_torch.profile_slice import config2
+
+    outs, replays = [], []
+    for d in (dev, "cpu"):
+        node = config2(d, 0, seconds=3)
+        st = seek.seek_state(node, 2.0, pre_roll=0.5)
+        replays.append(seek.replayed_blocks)
+        st, out, _ = render_blocks(node, st, 2, 4096)
+        outs.append(out.cpu())
+        if d is dev:
+            path = str(tmp_path / "s.npz")
+            save_state(path, st)
+            st2 = load_state(path, node.init_state())
+            assert st2["integ"].device.type == "cuda"
+            _, a, _ = render_blocks(node, st, 2, 4096)
+            _, b, _ = render_blocks(node, st2, 2, 4096)
+            assert torch.equal(a, b)
+    assert replays[0] == replays[1] == -(-int(0.5 * 44100) // 8192)
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+
+
+def test_sqrt_rn_on_card(dev):
+    """``sqrt_rn`` on the card is CUDA's f32 sqrt, which is correctly
+    rounded: it equals the CPU's sqrt_rn (the f64 root and its exact
+    correction) on every element."""
+    from rodio_tpu_torch.core.math import sqrt_rn
+
+    x = _f32(np.abs(np.random.default_rng(5).standard_normal(1 << 20)) * 9.0, dev)
+    assert torch.equal(sqrt_rn(x).cpu(), sqrt_rn(x.cpu()))

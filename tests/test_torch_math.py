@@ -142,3 +142,20 @@ def test_cuda_constants_match_the_python_ones():
         assert consts[f"LOG2_K{i}"] == c
     assert consts["SQRT2_F32"] == tmath.SQRT2_F32
     assert consts["TINY"] == tmath.TINY
+
+
+def test_sqrt_rn_correctly_rounded():
+    """``sqrt_rn`` is the correctly rounded f32 root (numpy's), on values
+    across the range and at the edges; PyTorch's CPU f32 ``sqrt`` (MKL's)
+    may be an ulp off on some elements, differently from one process to
+    the next, which made the noise's erf_inv irreproducible."""
+    from rodio_tpu_torch.core.math import sqrt_rn
+
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        np.abs(rng.standard_normal(300000)).astype(np.float32) * 7.0,
+        rng.uniform(0, 1e-30, 1000).astype(np.float32),
+        np.array([0.0, 1e-45, 1.0, 2.0, 4.0, 3.4e38, np.inf], np.float32)])
+    got = sqrt_rn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+    assert np.isnan(sqrt_rn(torch.tensor([np.nan, -1.0])).numpy()).all()
