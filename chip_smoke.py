@@ -85,9 +85,32 @@ Phases (each raises on failure, so the script exits non-zero):
    the CPU references of paths I, J, K and L render in three child
    processes, started after phase 3's timings and all finished before any
    later timing;
+   then the io layer (no kernel of its own; K4, K8, K7, K3 run under it):
+   - path M, BASELINE config 2 from a file: a seeded 180 s 16-bit stereo
+     master at 44.1 kHz written as WAV and as FLAC (tests/
+     test_torch_io_fixtures.py), each decoded whole onto the card by
+     Decoder, through config 2's chain in 1938 blocks of 4096 (K4, K8, K7,
+     K3 once a block), then to_file: the decoded PCM, the whole render and
+     the WAV read back each bit-equal (to the master, to the chain on
+     SamplesBuffer(master) on the card, to that render), the first 2
+     blocks against the CPU; decode seconds, ms a block, device busy and
+     idle share;
+   - path N, the same track streamed: StreamingWav (and StreamingDecoder
+     on the FLAC where libav is present) -> DeviceFeeder (pinned buffers,
+     a side stream) -> PushPort -> the chain, the feed loop under
+     sync-debug "error", bit-equal to path M's render; Resample(PushPort)
+     44.1 -> 48 kHz against Resample(Decoder); a LoopedDecoder over three
+     wraps against the CPU;
+   - path O, the device side: a file sink on the card with play(FLAC) and
+     a Microphone fed by a host thread, 10 s in buffers of 2048, against
+     the CPU's run; the threaded start()/close() with a CallbackDevice;
+     python -m rodio_tpu_torch render ... --agc --limit --seconds 30 in
+     process, against the same graph built by hand; probe and devices;
+     ms a buffer and the read-back's ms;
 5. times: ms per block and the aggregate realtime factor of the slice and
    of paths A, B, C, D, E, E', F, G, G', H, I, J and K, the seek's time, and
-   the device-busy share of I, J, K and L.
+   the device-busy share of I, J, K and L (paths M, N and O print theirs
+   with their checks).
 
 It prints one JSON line of per-kernel results (each kernel's launches are
 those of the render whose path runs it; K9's, a tool on no render path,
@@ -100,6 +123,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -146,6 +170,16 @@ PATH_K_SECONDS, PATH_K_BLOCK = 10, 4096
 PATH_L_SECONDS, PATH_L_TARGETS, PATH_L_BLOCK = 600, (300.0, 60.0), 4096
 #: path L: blocks rendered after the seek (a checkpoint after the third)
 PATH_L_CONT = 8
+#: path M: BASELINE config 2 from a 180 s 16-bit stereo file at 44.1 kHz, in
+#: blocks of 4096 (1938 blocks), timed over 24 blocks
+PATH_M_SECONDS, PATH_M_RATE, PATH_M_BLOCK, PATH_M_TIMED = 180, 44100, 4096, 24
+PATH_M_BLOCKS = -(-PATH_M_SECONDS * PATH_M_RATE // PATH_M_BLOCK)
+#: path N: Resample(PushPort) against Resample(Decoder) over 60 blocks; the
+#: LoopedDecoder over a 10 s file, three wraps
+PATH_N_RESAMPLE_BLOCKS, PATH_N_LOOP_SECONDS = 60, 10
+#: path O: the file sink's 10 s in buffers of 2048; the CLI's 30 s render
+PATH_O_BUFFER, PATH_O_CLI_SECONDS = 2048, 30
+PATH_O_BUFFERS = -(-10 * 48000 // PATH_O_BUFFER)
 BOUND_THREEFRY = 0.0  # integer arithmetic, exact float conversions
 #: the erf_inv sources on the card against the CPU: PyTorch's log1p and
 #: sqrt may round an ulp apart on the two devices; a normal draw is then
@@ -223,6 +257,15 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Mean host ms per call of ``fn`` (a call that waits for the card)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def _max_err(a, b) -> float:
     return float((a - b).abs().max().item())
 
@@ -265,6 +308,331 @@ def _cpu_reference(task: str):
         node = noise_source(name, "cpu")
         out[name] = rtt.render_blocks(node, node.init_state(), n, PATH_K_BLOCK)[1].numpy()
     return out
+
+
+def _with_port(state, fn):
+    """``state`` with ``fn`` applied to the PushPort state at its bottom."""
+    if "buf" in state:
+        return fn(state)
+    return {**state, "in": _with_port(state["in"], fn)}
+
+
+def _codecs() -> str:
+    """Which codec libraries this host has."""
+    import ctypes.util
+
+    from rodio_tpu_torch.io.native import missing_libav_headers
+
+    missing = missing_libav_headers()
+    libav = "libav: yes" if not missing else f"libav: no (missing {', '.join(missing)})"
+    libs = [f"lib{n}: {'yes' if ctypes.util.find_library(n) else 'no'}"
+            for n in ("mpg123", "vorbisfile")]
+    return ", ".join(["wav, flac: native", libav, *libs])
+
+
+def _io_paths(io_dir: str, h) -> dict:
+    """Paths M, N and O (the io layer), their checks and their times;
+    returns each render's launch counts. ``h``: the script's counters
+    (``reset``, ``counts``, ``expect``) and the card's ``tag``."""
+    import contextlib
+    import io as pyio
+    import threading
+
+    import numpy as np
+    import torch
+
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.__main__ import main as cli_main
+    from rodio_tpu_torch.conversions.resample import Resample
+    from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
+    from rodio_tpu_torch.effects.blt import BltFilter
+    from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+    from rodio_tpu_torch.io.decoder import Decoder, LoopedDecoder
+    from rodio_tpu_torch.io.device import DeviceSinkBuilder, play
+    from rodio_tpu_torch.io.microphone import Microphone, MicrophoneConfig
+    from rodio_tpu_torch.io.native import missing_libav_headers
+    from rodio_tpu_torch.io.streaming import (
+        DeviceFeeder, PushPort, StreamingDecoder, StreamingWav)
+    from rodio_tpu_torch.io.wav import read_wav
+    from rodio_tpu_torch.profile_slice import config2_chain, profile_pulls
+    from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_io_fixtures import (
+        pcm16_master, resampled_feed, write_flac, write_pcm_wav)
+
+    reset, counts, expect, tag = h["reset"], h["counts"], h["expect"], h["tag"]
+    rate, n, blocks = PATH_M_RATE, PATH_M_BLOCK, PATH_M_BLOCKS
+    total = PATH_M_SECONDS * rate
+    k16, master = pcm16_master(SEED + 13, 2, total)
+    paths = {"wav": os.path.join(io_dir, "master.wav"),
+             "flac": os.path.join(io_dir, "master.flac")}
+    t0 = time.perf_counter()
+    write_pcm_wav(paths["wav"], k16, rate, 16)
+    write_flac(paths["flac"], k16, rate)
+    print(f"path M: a {PATH_M_SECONDS} s 16-bit stereo master at {rate} Hz ({total} "
+          f"frames) written as WAV ({os.path.getsize(paths['wav'])} B) and FLAC "
+          f"({os.path.getsize(paths['flac'])} B) in {time.perf_counter() - t0:.2f} s")
+    master_t = torch.from_numpy(master)
+    runs = {}
+
+    # path M: each file decoded whole onto the card, config 2 in blocks of 4096
+    ref = config2_chain(SamplesBuffer(2, rate, master, device="cuda"))
+    _, ref_out, ref_valid = rtt.render_blocks(ref, ref.init_state(), blocks, n)
+    ref_out = ref_out[:, :total]
+    if int(ref_valid.sum().item()) != total or not bool(torch.isfinite(ref_out).all()):
+        raise AssertionError("path M: the SamplesBuffer render is short or not finite")
+    decode_s, m_nodes = {}, {}
+    for fmt, path in paths.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = Decoder(path, device="cuda")
+        torch.cuda.synchronize()
+        decode_s[fmt] = time.perf_counter() - t0
+        pcm_eq = torch.equal(dec.init_state()["data"][:, :total].cpu(), master_t)
+        node = config2_chain(dec)
+        reset()
+        _, out, valid = rtt.render_blocks(node, node.init_state(), blocks, n)
+        torch.cuda.synchronize()
+        run = runs[f"config2_{fmt}"] = counts()
+        expect(run, f"path M ({fmt})", K3=blocks, K4=blocks, K7=blocks, K8=blocks)
+        out_eq = (int(valid.sum().item()) == total
+                  and torch.equal(out[:, :total], ref_out))
+        wav_out = os.path.join(io_dir, f"out_{fmt}.wav")
+        node.to_file(wav_out)
+        back, back_rate = read_wav(wav_out)
+        file_eq = back_rate == rate and torch.equal(torch.from_numpy(back), ref_out.cpu())
+        cnode = config2_chain(Decoder(path, device="cpu"))
+        _, cout, _ = rtt.render_blocks(cnode, cnode.init_state(), 2, n)
+        err = _max_err(out[:, :2 * n].cpu(), cout)
+        print(f"path M ({fmt}): decoded in {decode_s[fmt]:.3f} s (host), PCM bit-equal to "
+              f"the master {pcm_eq}; {blocks} x {n}: launches {run}; the whole render "
+              f"bit-equal to the SamplesBuffer render {out_eq}, its WAV read back "
+              f"bit-equal {file_eq}; card vs CPU, 2 blocks: max|d| {err:.3e} "
+              f"(bound {BOUND_B})")
+        if not (pcm_eq and out_eq and file_eq and err <= BOUND_B):
+            raise AssertionError(f"path M ({fmt}): PCM {pcm_eq}, render {out_eq}, WAV "
+                                 f"{file_eq}, card vs CPU {err}")
+        m_nodes[fmt] = node
+        del out, dec
+
+    # path N: the same track streamed: a host feed -> DeviceFeeder (pinned
+    # buffers, a side stream) -> PushPort -> the same chain, the feed loop
+    # under sync-debug "error"; the whole output bit-equal to path M's
+    def stream(feed):
+        port = PushPort(2, rate, 2 * n, n, device="cuda")
+        node = config2_chain(port)
+        feeder = DeviceFeeder(feed, n, device="cuda")
+        st, outs, pushed = node.init_state(), [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(blocks):
+                blk, _ = feeder.next_device_block()
+                count = min(n, total - pushed)
+                pushed += count
+                st = _with_port(st, lambda ps: port.push(ps, blk, count))
+                if pushed == total:
+                    st = _with_port(st, port.end)
+                st, out, _ = node.emit(st, n)
+                outs.append(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return torch.cat(outs, dim=1), (time.perf_counter() - t0) / blocks
+
+    feeds = {"StreamingWav": lambda: StreamingWav(paths["wav"], chunk_frames=8192)}
+    if not missing_libav_headers():
+        feeds["StreamingDecoder (FLAC)"] = lambda: StreamingDecoder(paths["flac"],
+                                                                    chunk_frames=8192)
+    n_sec = {}
+    for label, make in feeds.items():
+        feed = make()
+        reset()
+        out, n_sec[label] = stream(feed)
+        run = runs[f"config2_stream_{'wav' if 'Wav' in label else 'flac'}"] = counts()
+        feed.close()
+        expect(run, f"path N ({label})", K3=blocks, K4=blocks, K7=blocks, K8=blocks)
+        eq = torch.equal(out[:, :total], ref_out)
+        print(f"path N ({label}): {blocks} x {n} under sync-debug \"error\": launches {run}; "
+              f"the whole output bit-equal to path M's {eq}")
+        if not eq:
+            raise AssertionError(f"path N ({label}): the streamed render differs from path M's")
+        del out
+    port_node, rp = resampled_feed(master[:, :PATH_N_RESAMPLE_BLOCKS * n], rate, 48000, n,
+                                   PATH_N_RESAMPLE_BLOCKS, device="cuda")
+    rd = Resample(Decoder(paths["wav"], device="cuda"), 48000)
+    _, rdo, _ = rtt.render_blocks(rd, rd.init_state(), PATH_N_RESAMPLE_BLOCKS, n)
+    err_rs = _max_err(rp, rdo)
+    form = "weight" if port_node.uses_weight_form(n) else "lerp"
+    print(f"path N: Resample(PushPort) 44.1 -> 48 kHz, {PATH_N_RESAMPLE_BLOCKS} x {n}, the "
+          f"{form} form (Resample(Decoder): "
+          f"{'weight' if rd.uses_weight_form(n) else 'lerp'}): max|d| {err_rs:.3e} "
+          f"against Resample(Decoder) (bound {BOUND_B})")
+    if not err_rs <= BOUND_B:
+        raise AssertionError(f"path N: Resample(PushPort) vs Resample(Decoder) {err_rs}")
+    loop_path = os.path.join(io_dir, "loop.wav")
+    write_pcm_wav(loop_path, k16[:, :PATH_N_LOOP_SECONDS * rate], rate, 16)
+    nl = -(-3 * PATH_N_LOOP_SECONDS * rate // n) + 1  # three wraps and into a fourth
+    louts = []
+    for d in ("cuda", "cpu"):
+        node = LoopedDecoder(loop_path, device=d)
+        _, o, _ = rtt.render_blocks(node, node.init_state(), nl, n)
+        louts.append(o.cpu())
+    loop_eq = torch.equal(louts[0], louts[1]) and torch.equal(
+        louts[0][:, 2 * PATH_N_LOOP_SECONDS * rate:3 * PATH_N_LOOP_SECONDS * rate],
+        master_t[:, :PATH_N_LOOP_SECONDS * rate])
+    print(f"path N: LoopedDecoder over {PATH_N_LOOP_SECONDS} s, {nl} x {n} (three wraps): "
+          f"card bit-equal to the CPU and to the master {loop_eq}; codecs: {_codecs()}")
+    if not loop_eq:
+        raise AssertionError("path N: LoopedDecoder on the card differs")
+
+    # path O, the device side: a file sink on the card with play(flac) (a
+    # Player through the mixer's Uniform to 48 kHz) and a Microphone fed
+    # from a host thread, 10 s in buffers of 2048, against the CPU's run
+    voice = (np.random.default_rng(SEED + 14).uniform(-0.1, 0.1, (2, PATH_O_BUFFERS * 2048))
+             .astype(np.float32))
+
+    def sink_run(device):
+        path = os.path.join(io_dir, f"sink_{device}.wav")
+        sink = (DeviceSinkBuilder(device=device).to_file(path)
+                .prefer_buffer_frames(PATH_O_BUFFER).open())
+        play(sink, paths["flac"])
+        mic = Microphone(MicrophoneConfig(channels=2, sample_rate=48000,
+                                          buffer_duration=0.5))
+        sink.mixer().add(mic)
+        inter = np.ascontiguousarray(voice.T).reshape(-1)
+        stop = threading.Event()
+
+        def talk():
+            off = 0
+            while off < len(inter) and not stop.is_set():
+                off += mic.feed(inter[off:off + 9600])
+                time.sleep(0.0005)
+
+        thread = threading.Thread(target=talk, daemon=True)
+        thread.start()
+        t0 = time.perf_counter()
+        try:
+            sink.render_blocks(PATH_O_BUFFERS)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / PATH_O_BUFFERS
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+            sink.close()
+        return read_wav(path)[0], sec
+
+    reset()
+    sink_card, sec_o = sink_run("cuda")
+    runs["sink"] = counts()
+    sink_cpu, _ = sink_run("cpu")
+    err_o = _max_err(torch.from_numpy(sink_card), torch.from_numpy(sink_cpu))
+    x = torch.zeros((2, PATH_O_BUFFER), device="cuda")
+    readback_ms = _host_ms(lambda: x.cpu(), 200)
+    print(f"path O: file sink, play(FLAC) + a Microphone fed by a host thread, "
+          f"{PATH_O_BUFFERS} buffers of {PATH_O_BUFFER} ({sink_card.shape[1]} frames): card vs "
+          f"CPU max|d| {err_o:.3e} (bound {BOUND_B}); {sec_o * 1e3:.3f} ms a buffer (host "
+          f"clock), realtime factor {PATH_O_BUFFER / 48000 / sec_o:.2f}x; the read-back of "
+          f"a buffer {readback_ms:.4f} ms; launches {runs['sink']} {tag}")
+    if not (err_o <= BOUND_B and sink_card.shape == (2, PATH_O_BUFFERS * PATH_O_BUFFER)
+            and float(np.abs(sink_card).max()) > 0.01):
+        raise AssertionError(f"path O: the sink's WAV, card vs CPU {err_o}")
+    got = []
+    sink = (DeviceSinkBuilder().with_callback(lambda b: got.append(len(b)))
+            .prefer_buffer_frames(PATH_O_BUFFER).open())
+    sink.mixer().add(SamplesBuffer(2, 48000, voice, device="cuda"))
+    sink.start()
+    time.sleep(1.0)
+    sink.close()
+    alive = sink._thread is not None
+    print(f"path O: threaded start()/close() with a CallbackDevice: {len(got)} buffers in "
+          f"~1 s, the thread stopped {not alive}")
+    if not got or alive or any(g != 2 * PATH_O_BUFFER for g in got):
+        raise AssertionError(f"path O: the threaded sink wrote {got}")
+
+    # path O: the CLI in-process, on the card, against the same graph by hand
+    cli_out = os.path.join(io_dir, "cli.wav")
+    argv = ["render", paths["flac"], cli_out, "--rate", "48000", "--low-pass", "2000",
+            "--agc", "--limit", "--seconds", str(PATH_O_CLI_SECONDS)]
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(pyio.StringIO()):
+        rc = cli_main(argv)
+    sec_cli = time.perf_counter() - t0
+    runs["cli_render"] = counts()
+    node = Resample(Decoder(paths["flac"], device="cuda").take_duration(PATH_O_CLI_SECONDS),
+                    48000)
+    node = BltFilter(node, "low_pass", 2000.0, 0.5, mode="auto")
+    node = AutomaticGainControl(node, AgcSettings(), mode="pallas")
+    want = Limit(node, LimitSettings(), mode="auto").render()
+    got_cli, cli_rate = read_wav(cli_out)
+    err_cli = (_max_err(torch.from_numpy(got_cli), torch.from_numpy(want))
+               if got_cli.shape == want.shape else float("inf"))
+    nb_cli = -(-want.shape[1] // 4096)
+    print(f"path O: python -m rodio_tpu_torch {' '.join(argv[:1])} <flac> <out> "
+          f"{' '.join(argv[3:])}: rc {rc}, {got_cli.shape[1]} frames at {cli_rate} Hz in "
+          f"{sec_cli:.2f} s; against the graph by hand on the card max|d| {err_cli:.3e} "
+          f"(bound {BOUND_B}); launches {runs['cli_render']}")
+    if not (rc == 0 and cli_rate == 48000 and err_cli <= BOUND_B):
+        raise AssertionError(f"path O: the CLI's render, rc {rc}, vs by hand {err_cli}")
+    if runs["cli_render"]["K8"] < nb_cli or runs["cli_render"]["K3"] < nb_cli:
+        raise AssertionError(f"path O: the CLI's AGC and limiter ran {runs['cli_render']}")
+    for argv in (["probe", paths["flac"]], ["devices"]):
+        text = pyio.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli_main(argv)
+        print(f"path O: {argv[0]}: " + "; ".join(
+            " ".join(line.split()) for line in text.getvalue().splitlines()
+            if not line.startswith("file:")))
+
+    # times: paths M and N on the card (the CPU references have finished)
+    for fmt, node in m_nodes.items():
+        st = node.init_state()
+        st, _, _ = rtt.render_blocks(node, st, 1, n)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        rtt.render_blocks(node, st, PATH_M_TIMED, n)
+        end.record()
+        torch.cuda.synchronize()
+        sec = start.elapsed_time(end) / 1e3 / PATH_M_TIMED
+        st_p = [node.init_state()]
+
+        def pull(node=node, st_p=st_p):
+            st_p[0], _, _ = node.emit(st_p[0], n)
+
+        prof = profile_pulls(pull, 40)
+        print(f"path M ({fmt}): decode {decode_s[fmt]:.3f} s (host); {sec * 1e3:.3f} ms a "
+              f"block of {n} (CUDA events, {PATH_M_TIMED} blocks), realtime factor "
+              f"{n / rate / sec:.1f}x; over 40 blocks: device busy "
+              f"{prof['device_busy_ms']:.4f} ms a block, idle share {prof['idle_share']:.3f}, "
+              f"{prof['launches_per_block']:.1f} device events a block {tag}")
+    for label, sec in n_sec.items():
+        feed = feeds[label]()
+        port = PushPort(2, rate, 2 * n, n, device="cuda")
+        node = config2_chain(port)
+        feeder = DeviceFeeder(feed, n, device="cuda")
+        st_p = [node.init_state()]
+
+        def step(node=node, st_p=st_p, feeder=feeder, port=port):
+            blk, _ = feeder.next_device_block()
+            st = _with_port(st_p[0], lambda ps: port.push(ps, blk, n))
+            st_p[0], _, _ = node.emit(st, n)
+
+        for _ in range(4):
+            step()
+        prof = profile_pulls(step, 40)
+        feed.close()
+        print(f"path N ({label}): {sec * 1e3:.3f} ms a block of {n} (host clock over the "
+              f"whole track, decode thread beside it), realtime factor "
+              f"{n / rate / sec:.1f}x; over 40 blocks: device busy "
+              f"{prof['device_busy_ms']:.4f} ms a block, idle share {prof['idle_share']:.3f}, "
+              f"{prof['launches_per_block']:.1f} device events a block {tag}")
+    return runs
 
 
 def main() -> int:
@@ -1257,6 +1625,17 @@ def _main(start_references) -> int:
                              f"{cpu_replay_l}, shapes {tuple(out_l.shape)} {want_l.shape}")
     del node_l, st_l, st_l2, cont_a, cont_b, out_l
 
+    # -- the io layer (M7): paths M, N and O ----------------------------------
+    # path M: BASELINE config 2 from a file, decoded whole: a seeded 180 s
+    # 16-bit-grid stereo master at 44.1 kHz written as WAV and as FLAC, each
+    # decoded onto the card, through profile_slice.config2's chain in blocks
+    # of 4096, then to_file as f32 WAV
+    io_dir = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        io_res = _io_paths(io_dir, dict(reset=reset, counts=counts, expect=expect, tag=tag))
+    finally:
+        shutil.rmtree(io_dir, ignore_errors=True)
+
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
         st = node.init_state()
@@ -1360,7 +1739,8 @@ def _main(start_references) -> int:
             "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run,
             "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
             **path_h_runs, "config3": path_i_run, "player": path_j_run, "noise": path_k_run,
-            **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run}
+            **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run,
+            **io_res}
     kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",

@@ -34,6 +34,10 @@ Layers (the counterparts of rodio_tpu's modules of the same names):
   compile_step, seek_state, save_state / load_state
 - :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship,
   make_per_stream_chain
+- :mod:`rodio_tpu_torch.io`          — Decoder, LoopedDecoder, WAV in and
+  out, streaming ingest (StreamingWav, StreamingDecoder, PushPort,
+  DeviceFeeder), device sinks, the microphone, and the host C++ it binds
+  (``native/``); ``python -m rodio_tpu_torch`` is its CLI
 - :mod:`rodio_tpu_torch.convert`     — carry a JAX render's state across
 - :mod:`rodio_tpu_torch.benches`     — K9, the streaming-read probe of
   K1's input, and the dependent-op latency probe (chain floors)

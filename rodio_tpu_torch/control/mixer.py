@@ -11,7 +11,9 @@
 - Admission is block-aligned: a source added between pulls joins at the
   next block.
 - A host-driven member (a Player's queue, anything with ``next_block``)
-  must match the mixer's format and is summed after the others.
+  must match the mixer's format and is summed after the others. Its block
+  may be a numpy array (a microphone's, a streaming feed's): it is moved
+  to the mixer's device here, in one place (``hosted_block``).
 
 With a fixed membership the mixer is itself a node (``init_state`` /
 ``emit``), and reads nothing back there.
@@ -25,7 +27,7 @@ import torch
 from ..conversions.uniform import Uniform
 from ..core.node import Node, State
 from ..core.types import StreamSpec
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, hosted_block, resolve_device
 
 
 class Mixer:
@@ -97,7 +99,7 @@ class MixerSource(Node):
             any_yield = any(v > 0 for v in valids)
         for node in hosted:
             block, alive = node.next_block(n)
-            total = total + block
+            total = total + hosted_block(block, self.device)
             if alive:
                 survivors.append((node, None))
                 any_yield = True

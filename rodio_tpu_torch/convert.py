@@ -7,7 +7,9 @@ carries, the AGC's carries, window and knobs, the resampler's output
 offset, drain flag and ring, the generators' phases and counters, every
 basic effect's counters, flags and delay line, the noise sources' and
 Dither's keys, counters and carries, VariSpeed's ring, fill, phase and
-ratio, PlayerControl's knobs, and the input position. A render can then
+ratio, PlayerControl's knobs, the input position (a ``Decoder``'s too, a
+``LoopedDecoder``'s with its pre-filled tail) and a ``PushPort``'s buffer,
+offsets and flags. A render can then
 start in one package and continue in the other. A ``jax.random`` key is
 taken as its key data, a uint32 pair: map the JAX state's keys through
 ``jax.random.key_data`` before passing it. The PCM itself is not copied:
@@ -47,6 +49,8 @@ from .effects.dither import Dither
 from .effects.limit import Limit
 from .effects.mix import Mix
 from .flagship import FusedWidePipeline
+from .io.decoder import LoopedDecoder
+from .io.streaming import PushPort
 from .ops.fused import AGC_RING_FRAMES
 from .parallel.batch import WideMixer
 from .sources.generators import Chirp, Empty, SamplesBuffer, SignalGenerator, Zero
@@ -73,6 +77,7 @@ _PLAIN_STATES = (
     (Dither, ("key", "i", "prev")),
     (VariSpeed, ("ring", "fill", "frac", "ratio", "in_pulled", "in_end", "drained")),
     (PlayerControl, ("volume", "paused", "stopped", "frames")),
+    (PushPort, ("buf", "base", "level", "overflow", "underflow", "ended")),
 )
 
 
@@ -110,6 +115,11 @@ def state_from_jax(node: Node, jstate) -> State:
                 "b": state_from_jax(node.input2, jstate["b"])}
     if isinstance(node, Repeat):
         return {"data": node._data, "pos": _t(jstate["pos"], node)}
+    if isinstance(node, LoopedDecoder):
+        # the node's own PCM with the head copied into its zero tail, as the
+        # JAX node's init_state pre-fills it
+        return {"data": node._data, "pos": _t(jstate["pos"], node),
+                "end": _t(jstate["end"], node)}
     if isinstance(node, SamplesBuffer):
         st = {"pos": _t(jstate["pos"], node), "end": _t(jstate["end"], node)}
         if "data" in jstate:

@@ -146,3 +146,13 @@ def amplify_normalized_factor(value: float) -> float:
     if v < 0.1:
         amplitude = dt(amplitude * dt(v * 10.0))
     return float(dt(amplitude))
+
+
+def nearest_multiple_of_two(n: int) -> int:
+    """Round to the nearest power of two, preferring the smaller
+    (src/math.rs:130-141); the device sinks' buffer size."""
+    if n <= 1:
+        return 1
+    nxt = 1 << (n - 1).bit_length()
+    prv = nxt >> 1
+    return prv if n - prv <= nxt - n else nxt

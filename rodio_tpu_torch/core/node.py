@@ -16,8 +16,8 @@ A node is a plain object with an explicit ``device``:
   ``valid == 0``. ``emit`` never reads a device value back to the host, so
   a loop of emits never waits for the card.
 
-The combinators of the JAX package's Node are here, all but ``to_file``
-(the WAV writer, ``io``, is not ported yet).
+The combinators of the JAX package's Node are here, ``to_file`` (the
+WAV writer of :mod:`rodio_tpu_torch.io.wav`) included.
 """
 from __future__ import annotations
 
@@ -221,6 +221,13 @@ class Node:
         from ..graph.render import render
 
         return render(self, max_frames=max_frames, block_frames=block_frames)
+
+    def to_file(self, path, **kw) -> None:
+        """Render to a WAV file (32-bit float by default; ``io.wav.write_wav``'s
+        ``bits``/``fmt`` and ``block_frames`` pass through)."""
+        from ..io.wav import wav_to_file
+
+        wav_to_file(self, path, **kw)
 
 
 def mask_block(block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

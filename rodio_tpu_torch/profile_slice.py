@@ -71,21 +71,28 @@ def _union_us(intervals) -> float:
     return total
 
 
+def config2_chain(node, group: int = 0):
+    """BASELINE config 2's chain (``BASELINE.json`` ``configs[1]``) on any
+    source, a decoder's or a PushPort's too: low_pass(2 kHz) ->
+    AutomaticGainControl(mode="pallas", group) -> Limit(mode="pallas")."""
+    from .effects import AgcSettings, AutomaticGainControl, BltFilter
+    from .effects.limit import Limit, LimitSettings
+
+    node = BltFilter(node, "low_pass", 2000.0, 0.5)  # node.low_pass; a PushPort is no Node
+    node = AutomaticGainControl(node, AgcSettings(), mode="pallas", group=group)
+    return Limit(node, LimitSettings(), mode="pallas")
+
+
 def config2(device, group: int = 0, seconds: int = 10, rate: int = 44100):
-    """BASELINE config 2 (``BASELINE.json`` ``configs[1]``) on ``seconds``
-    of seeded stereo PCM: low_pass(2 kHz) -> AutomaticGainControl(mode=
-    "pallas", group) -> Limit(mode="pallas")."""
+    """BASELINE config 2 on ``seconds`` of seeded stereo PCM
+    (:func:`config2_chain`)."""
     import numpy as np
 
-    from .effects import AgcSettings, AutomaticGainControl
-    from .effects.limit import Limit, LimitSettings
     from .sources.generators import SamplesBuffer
 
     pcm = np.random.default_rng(2).standard_normal(
         (2, seconds * rate)).astype(np.float32) * 0.3
-    node = SamplesBuffer(2, rate, pcm, device=device).low_pass(2000.0)
-    node = AutomaticGainControl(node, AgcSettings(), mode="pallas", group=group)
-    return Limit(node, LimitSettings(), mode="pallas")
+    return config2_chain(SamplesBuffer(2, rate, pcm, device=device), group)
 
 
 def config1(device, seconds: int = 180, seed: int = 6):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -31,3 +32,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def hosted_block(block, device: torch.device) -> torch.Tensor:
+    """A block a host-driven source returned (a numpy array, as the
+    microphone's and the streaming feeds' are, or a tensor) as an f32
+    tensor on ``device``. From numpy to the card this is a pageable copy,
+    which waits for it."""
+    if isinstance(block, torch.Tensor):
+        return block.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(block, dtype=np.float32)).to(device)

@@ -1146,3 +1146,147 @@ def test_sqrt_rn_on_card(dev):
 
     x = _f32(np.abs(np.random.default_rng(5).standard_normal(1 << 20)) * 9.0, dev)
     assert torch.equal(sqrt_rn(x).cpu(), sqrt_rn(x.cpu()))
+
+
+# -- the io layer (M7): no kernel of its own; the device side on the card --
+
+class _HostBlocks:
+    """A host-driven source over a list of [C, n] numpy blocks."""
+
+    def __init__(self, blocks, rate=48000):
+        from rodio_tpu_torch.core.types import StreamSpec
+
+        self.spec = StreamSpec(blocks[0].shape[0], rate)
+        self._it = iter(blocks)
+
+    def next_block(self, n):
+        b = next(self._it, None)
+        if b is None:
+            return np.zeros((self.spec.channels, n), np.float32), False
+        return b, True
+
+
+@pytest.mark.parametrize("delay", ["consumer", "copy"])
+def test_device_feeder_pinned_double_buffer(dev, delay):
+    """200 blocks through DeviceFeeder with the consumer's stream held back
+    by a sleep kernel before each use (or the side stream, before each
+    copy): every block bit-equal to its host block. A pinned buffer
+    refilled while its copy is still in flight, or a block read before its
+    copy, would show here."""
+    from rodio_tpu_torch.io.streaming import DeviceFeeder
+
+    rng = np.random.default_rng(200)
+    blocks = [rng.standard_normal((2, 4096)).astype(np.float32) for _ in range(200)]
+    feeder = DeviceFeeder(_HostBlocks(blocks), 4096, device=dev)
+    outs = []
+    for _ in range(200):
+        torch.cuda._sleep(100_000 if delay == "consumer" else 0)
+        if delay == "copy":
+            with torch.cuda.stream(feeder._stream):
+                torch.cuda._sleep(100_000)
+        b, alive = feeder.next_device_block()
+        assert alive and b.device == dev
+        outs.append(b * 1.0)  # read on the consumer's stream
+    torch.cuda.synchronize()
+    for o, h in zip(outs, blocks):
+        assert torch.equal(o.cpu(), torch.from_numpy(h))
+    assert not feeder.next_device_block()[1]
+
+
+def test_push_port_feed_loop_on_card_matches_cpu(dev):
+    """The feed loop (next_device_block -> push -> emit) under sync-debug
+    "error": no host wait; the outputs and the port's state equal the
+    CPU's."""
+    from rodio_tpu_torch.io.streaming import DeviceFeeder, PushPort
+
+    rng = np.random.default_rng(7)
+    blocks = [rng.standard_normal((2, 512)).astype(np.float32) for _ in range(30)]
+    res = []
+    for d in (dev, "cpu"):
+        port = PushPort(2, 48000, 1024, 512, device=d)
+        feeder = DeviceFeeder(_HostBlocks(blocks), 512, device=d)
+        st, outs = port.init_state(), []
+        if d is dev:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k in range(30):
+                blk, _ = feeder.next_device_block()
+                st = port.push(st, blk, 512 - (k % 3), k % 2)
+                st, out, _ = port.emit(st, 500)
+                outs.append(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        res.append((torch.cat(outs, 1).cpu(), {k: v.cpu() for k, v in st.items()}))
+    assert torch.equal(res[0][0], res[1][0])
+    for k in res[1][1]:
+        assert torch.equal(res[0][1][k], res[1][1][k]), k
+
+
+def test_resample_push_port_on_card(dev):
+    """Resample(PushPort) 44.1 -> 48 kHz on the card equals the CPU's and
+    Resample(Decoder)'s on the card (the weight form on both)."""
+    import sys
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_io_fixtures import pcm16_master, resampled_feed
+    from rodio_tpu_torch.conversions.resample import Resample
+
+    _, pcm = pcm16_master(3, 2, 3 * 44100)
+    outs = [resampled_feed(pcm, 44100, 48000, 4096, 20, device=d)[1].cpu() for d in (dev, "cpu")]
+    ref = Resample(SamplesBuffer(2, 44100, pcm, device=dev), 48000)
+    _, want, _ = render_blocks(ref, ref.init_state(), 20, 4096)
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+    assert (outs[0] - want.cpu()).abs().max().item() <= 1e-6
+
+
+def test_looped_decoder_and_decoder_on_card_match_cpu(dev, tmp_path):
+    import sys
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_io_fixtures import pcm16_master, write_flac
+    from rodio_tpu_torch.io.decoder import Decoder, LoopedDecoder
+    from rodio_tpu_torch.io.wav import read_wav
+
+    k, master = pcm16_master(4, 2, 30000)
+    path = str(tmp_path / "a.flac")
+    write_flac(path, k, 44100)
+    for block in (4096, 9000):  # within the pre-filled tail, and past it
+        outs = []
+        for d in (dev, "cpu"):
+            node = LoopedDecoder(path, device=d)
+            _, o, v = render_blocks(node, node.init_state(), -(-3 * 30000 // block), block)
+            outs.append(o.cpu())
+        assert torch.equal(outs[0], outs[1])
+        np.testing.assert_array_equal(outs[0][:, 30000:60000].numpy(), master)
+    d = Decoder(path, device=dev)
+    assert d.init_state()["data"].device == dev
+    d.low_pass(2000.0).to_file(str(tmp_path / "o.wav"))
+    c = Decoder(path, device="cpu").low_pass(2000.0)
+    assert torch.equal(torch.from_numpy(read_wav(str(tmp_path / "o.wav"))[0]),
+                       torch.from_numpy(c.render()))
+
+
+def test_hosted_blocks_and_the_sink_on_card(dev, tmp_path):
+    """A Microphone's numpy blocks summed into a mixer on the card, through
+    a file sink (one read-back a buffer): the WAV equals the CPU's."""
+    from rodio_tpu_torch.io.device import DeviceSinkBuilder
+    from rodio_tpu_torch.io.microphone import Microphone, MicrophoneConfig
+    from rodio_tpu_torch.io.wav import read_wav
+
+    voice = np.random.default_rng(1).uniform(-0.3, 0.3, (2, 8192)).astype(np.float32)
+    tone = np.full((2, 8192), 0.25, np.float32)
+    outs = []
+    for d in (dev, "cpu"):
+        path = str(tmp_path / f"{len(outs)}.wav")
+        sink = DeviceSinkBuilder(device=d).to_file(path).prefer_buffer_frames(2048).open()
+        mic = Microphone(MicrophoneConfig(channels=2, sample_rate=48000, buffer_duration=1.0))
+        assert mic.feed(np.ascontiguousarray(voice.T).reshape(-1)) == voice.size
+        sink.mixer().add(SamplesBuffer(2, 48000, tone, device=d))
+        sink.mixer().add(mic)
+        sink.render_blocks(4)
+        sink.close()
+        outs.append(read_wav(path)[0])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], tone + voice)

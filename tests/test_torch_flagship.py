@@ -273,7 +273,14 @@ def test_import_loads_no_jax():
             "rodio_tpu_torch.ops.fused, rodio_tpu_torch.ops.cuda_scan, "
             "rodio_tpu_torch.ops.limiter_block, rodio_tpu_torch.effects, "
             "rodio_tpu_torch.effects.agc, rodio_tpu_torch.profile_slice, "
-            "rodio_tpu_torch.benches.dma_roofline; "
+            "rodio_tpu_torch.benches.dma_roofline, rodio_tpu_torch.io, "
+            "rodio_tpu_torch.io.alsa, rodio_tpu_torch.io.decoder, "
+            "rodio_tpu_torch.io.device, rodio_tpu_torch.io.microphone, "
+            "rodio_tpu_torch.io.mp3, rodio_tpu_torch.io.native, "
+            "rodio_tpu_torch.io.pulse, rodio_tpu_torch.io.sample_convert, "
+            "rodio_tpu_torch.io.streaming, rodio_tpu_torch.io.uniform_host, "
+            "rodio_tpu_torch.io.vorbis, rodio_tpu_torch.io.wav, "
+            "rodio_tpu_torch.utils.trace, rodio_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'rodio_tpu' or m.startswith('rodio_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
