@@ -15,7 +15,9 @@ Phases (each raises on failure, so the script exits non-zero):
    and K2b (K2's serial and blocked rel0 plans),
    K2g (K2's group branch), K6, K7, K8, K5 (limiter_stream, the Limit
    node's whole per-stream pass, and limiter_env, its envelopes alone) and
-   K9 against their plain PyTorch versions on the card, at the shapes of
+   K9 and K1's ring mode (the farm's ring of (4 Kp + 1) * fr rows, read
+   modulo its rows, at a start whose last tile and last right tap cross
+   the seam) against their plain PyTorch versions on the card, at the shapes of
    the paths below, with
    their times, their roofline bounds (bytes over 3.35 TB/s or operations
    over 67 TFLOP/s f32, the larger: ``bound_ms``), the chain floor of a
@@ -107,6 +109,20 @@ Phases (each raises on failure, so the script exits non-zero):
      python -m rodio_tpu_torch render ... --agc --limit --seconds 30 in
      process, against the same graph built by hand; probe and devices;
      ms a buffer and the read-back's ms;
+   then the farm (M8), BASELINE config 5 fed live:
+   - path P: StreamFarm over 8 seeded 20 s 16-bit stereo WAVs at 44.1 kHz
+     (written to a temporary directory) for 512 streams, blocks of 12800,
+     gains U(0.5, 1.5)/512, offsets U(0, 9) s, looping, the i16 wire,
+     fused=True (K1's ring mode and K3 once a block), 48 blocks, every
+     step but the first under sync-debug "error" (the 32-block read-backs
+     aside): ms a block and the aggregate realtime multiple (host clock),
+     the host assembly, push and emit split (FarmSpans), device memory
+     after block 8 and at the end (equal), host RSS growth; then 12
+     profiled blocks of a fresh farm: device busy, idle share;
+   - path Q: the same farm with fused=False (K4 and K3 once a block),
+     within 2e-6 of P over all 48 blocks;
+   - path R: ShardedStreamFarm over a NCCL group of one initialised here,
+     bit-equal to P; then dryrun_multichip(1) on the card;
 5. times: ms per block and the aggregate realtime factor of the slice and
    of paths A, B, C, D, E, E', F, G, G', H, I, J and K, the seek's time, and
    the device-busy share of I, J, K and L (paths M, N and O print theirs
@@ -180,6 +196,11 @@ PATH_N_RESAMPLE_BLOCKS, PATH_N_LOOP_SECONDS = 60, 10
 #: path O: the file sink's 10 s in buffers of 2048; the CLI's 30 s render
 PATH_O_BUFFER, PATH_O_CLI_SECONDS = 2048, 30
 PATH_O_BUFFERS = -(-10 * 48000 // PATH_O_BUFFER)
+#: paths P, Q, R: BASELINE config 5 fed live, 512 streams over 8 seeded 20 s
+#: WAVs, 48 blocks of 12800 (12.8 s a stream: an offset past 7.2 s loops)
+PATH_P_FILES, PATH_P_SECONDS, PATH_P_BLOCK, PATH_P_BLOCKS = 8, 20, 12800, 48
+#: the JAX package's fused-vs-unfused farm bound (tests/test_streaming_farm.py:255-283)
+BOUND_FARM = 2e-6
 BOUND_THREEFRY = 0.0  # integer arithmetic, exact float conversions
 #: the erf_inv sources on the card against the CPU: PyTorch's log1p and
 #: sqrt may round an ulp apart on the two devices; a normal draw is then
@@ -635,6 +656,161 @@ def _io_paths(io_dir: str, h) -> dict:
     return runs
 
 
+def _farm_paths(farm_dir: str, h) -> dict:
+    """Paths P, Q and R (BASELINE config 5 fed live: the farm and the
+    sharded farm), their checks and their times; returns each run's launch
+    counts. ``h`` as for :func:`_io_paths`."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rodio_tpu_torch.dryrun import dryrun_multichip
+    from rodio_tpu_torch.parallel.farm import StreamFarm
+    from rodio_tpu_torch.parallel.sharded_farm import ShardedStreamFarm
+    from rodio_tpu_torch.parallel.sharding import stream_mesh
+    from rodio_tpu_torch.profile_slice import _kernel_intervals, _union_us
+    from rodio_tpu_torch.utils.trace import FarmSpans
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_io_fixtures import pcm16_master, write_pcm_wav
+
+    reset, counts, expect, tag = h["reset"], h["counts"], h["expect"], h["tag"]
+    n, blocks, S = PATH_P_BLOCK, PATH_P_BLOCKS, N_STREAMS
+    t0 = time.perf_counter()
+    files = []
+    for i in range(PATH_P_FILES):
+        k16, _ = pcm16_master(SEED + 40 + i, 2, PATH_P_SECONDS * 44100)
+        files.append(os.path.join(farm_dir, f"stream{i}.wav"))
+        write_pcm_wav(files[-1], k16, 44100, 16)
+    corpus_b = sum(os.path.getsize(f) for f in files)
+    rng = np.random.default_rng(SEED)
+    kw = dict(block_frames=n, loop=True, wire="i16", decode_workers=8,
+              gains=(rng.uniform(0.5, 1.5, S) / S).astype(np.float32),
+              start_offsets=rng.uniform(0.0, 9.0, S))
+    paths = [files[i % PATH_P_FILES] for i in range(S)]
+    print(f"path P: {PATH_P_FILES} seeded {PATH_P_SECONDS} s 16-bit stereo WAVs at 44.1 kHz "
+          f"({corpus_b} B) written in {time.perf_counter() - t0:.2f} s; {S} streams over "
+          f"them, offsets U(0, 9) s, looping, the i16 wire, blocks of {n}")
+
+    def rss_kb():
+        with open("/proc/self/status") as f:
+            return int(next(line for line in f if line.startswith("VmRSS")).split()[1])
+
+    def run_farm(farm, label, sync_debug=True, spans=None):
+        """Drive ``blocks`` blocks into a buffer on the card (no host read
+        inside the loop); the memory, RSS and host clock at block 8 and at
+        the end."""
+        out = torch.empty((2, blocks * n), dtype=torch.float32, device="cuda")
+        marks = {}
+
+        def on_block(k, o, v):
+            out[:, k * n:(k + 1) * n].copy_(o)
+            if k in (8, blocks - 1):
+                marks[k] = (torch.cuda.memory_allocated(), rss_kb(), time.perf_counter())
+
+        reset()
+        res = farm.run(blocks, on_block=on_block, spans=spans, sync_debug=sync_debug)
+        t_end = time.perf_counter()
+        farm.close()
+        run = counts()
+        (mem8, rss8, t8), (mem_end, rss_end, _) = marks[8], marks[blocks - 1]
+        sec = (t_end - t8) / (blocks - 1 - 8)
+        if not (res[0] == blocks * n and res[2] is False and res[1] > 0.0
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"{label}: valid, energy, overflow {res}")
+        if mem8 != mem_end:
+            raise AssertionError(f"{label}: device memory {mem8} B after block 8, {mem_end} "
+                                 "B at the end")
+        return out, run, sec, (mem8, mem_end, rss_end - rss8)
+
+    runs = {}
+    # path P: the fused farm, K1's ring mode + K3 a block, every step under
+    # sync-debug "error" but the 32-block read-backs
+    spans = FarmSpans("cuda")
+    farm_p = StreamFarm(paths, fused=True, device="cuda", **kw)
+    out_p, runs["farm_fused"], sec_p, mem_p = run_farm(farm_p, "path P", spans=spans)
+    expect(runs["farm_fused"], "path P", K1r=blocks, K3=blocks)
+    sp = spans.summary()
+    peak = float(out_p.abs().max())
+    print(f"path P (config 5 fed live, fused, {S} streams, {blocks} blocks of {n}): "
+          f"{sec_p * 1e3:.3f} ms a block (host clock, blocks 9-{blocks - 1} and the last "
+          f"block's device work), aggregate realtime multiple "
+          f"{S * n / 48000 / sec_p:.1f}x; host assembly {sp['assemble']['host_ms']:.3f} ms a "
+          f"block, push {sp['push']['host_ms']:.3f} ms host / {sp['push']['device_ms']:.4f} "
+          f"ms device, emit {sp['emit']['host_ms']:.3f} ms host / "
+          f"{sp['emit']['device_ms']:.4f} ms device (CUDA events); device memory "
+          f"{mem_p[0]} B after block 8, {mem_p[1]} B at the end; host RSS "
+          f"{mem_p[2]:+d} kB from block 8 to the end; launches {runs['farm_fused']}; "
+          f"peak {peak:.4f} {tag}")
+
+    # path Q: the unfused farm (PushPort -> Resample -> K4 -> Amplify ->
+    # WideMixer -> K3) on the same files and offsets, held to P
+    farm_q = StreamFarm(paths, fused=False, device="cuda", **kw)
+    out_q, runs["farm_unfused"], sec_q, mem_q = run_farm(farm_q, "path Q")
+    expect(runs["farm_unfused"], "path Q", K4=blocks, K3=blocks)
+    err_q = _max_err(out_p, out_q)
+    print(f"path Q (the unfused farm): {sec_q * 1e3:.3f} ms a block, "
+          f"{S * n / 48000 / sec_q:.1f}x; against path P over all {blocks} blocks: max|d| "
+          f"{err_q:.3e} (bound {BOUND_FARM}); device memory {mem_q[0]} B, {mem_q[1]} B; "
+          f"launches {runs['farm_unfused']} {tag}")
+    if not err_q <= BOUND_FARM:
+        raise AssertionError(f"path Q against P: {err_q} exceeds {BOUND_FARM}")
+    del out_q
+
+    # the device's busy and idle share over 12 blocks of a fused farm's
+    # steady state (blocks 4-15 of a 20-block run, profiled)
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_block(k, o, v):
+        if k == 3:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif k == 15:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            prof.stop()
+
+    farm_pp = StreamFarm(paths, fused=True, device="cuda", **kw)
+    farm_pp.run(20, on_block=on_block)
+    farm_pp.close()
+    kern = _kernel_intervals(prof)
+    busy_us, span_us = _union_us(kern), (window["t1"] - window["t0"]) * 1e6
+    print(f"path P over 12 profiled blocks: device busy {busy_us / 1e3 / 12:.4f} ms a block, "
+          f"host span {span_us / 1e3 / 12:.3f} ms a block, idle share "
+          f"{1.0 - busy_us / span_us:.3f}, {len(kern) / 12:.1f} device events a block {tag}")
+
+    # path R: ShardedStreamFarm over a NCCL group of one (initialised here on
+    # a free localhost port), bit-equal to path P; then the multi-card dry
+    # run on this card in the same group
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        farm_r = ShardedStreamFarm(paths, stream_mesh(), device="cuda", **kw)
+        out_r, runs["farm_sharded"], sec_r, _ = run_farm(farm_r, "path R")
+        expect(runs["farm_sharded"], "path R", K1r=blocks, K3=blocks)
+        eq_r = torch.equal(out_r, out_p)
+        print(f"path R (ShardedStreamFarm, NCCL group of one): {sec_r * 1e3:.3f} ms a block, "
+              f"{S * n / 48000 / sec_r:.1f}x; bit-equal to path P {eq_r}; launches "
+              f"{runs['farm_sharded']} {tag}")
+        if not eq_r:
+            raise AssertionError(f"path R differs from P: max|d| {_max_err(out_r, out_p)}")
+        reset()
+        dryrun_multichip(1, device="cuda")
+        runs["dryrun"] = counts()
+    finally:
+        dist.destroy_process_group()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -716,7 +892,8 @@ def _main(start_references) -> int:
 
     # Each run's launch counts are its own: every counter is set to 0 just
     # before the run (a render, or K9's probe) and read just after it.
-    counters = {"K1": (fused, "launches"), "K2": (fused, "agc_launches"),
+    counters = {"K1": (fused, "launches"), "K1r": (fused, "ring_launches"),
+                "K2": (fused, "agc_launches"),
                 "K2r": (fused, "agc_rel0_launches"),
                 "K2b": (fused, "agc_blocked_launches"),
                 "K2g": (fused, "agc_group_launches"),
@@ -879,6 +1056,33 @@ def _main(start_references) -> int:
     if not (err1u <= BOUND_K1 and torch.equal(bku, bpu)):
         raise AssertionError(f"K1 at unit-scale gains: mix max|d| {err1u}, carries "
                              f"equal {torch.equal(bku, bpu)}")
+
+    # K1's ring mode (the farm's FusedFarmPipeline, path P): the same block
+    # over the farm's ring of (4 Kp + 1) * fr rows, read modulo its rows, at
+    # a start (chunk 241) whose last tile's staged rows and last right tap
+    # cross the seam; the bytes and operations are K1's
+    ring_rows = (4 * (T // to) + 1) * fr
+    ring = dev_f32(rng.standard_normal((ring_rows, L)) * 0.1)
+    c0r = ring_rows // fr - T // to
+    left_r, phase_r = output_positions(c0r * to, T, fr, to, dev)
+    wts_r = dev_f32(np.stack(lerp_weights(fr, to), axis=1))[phase_r]
+    if not int(left_r[-1]) + 1 == ring_rows:
+        raise AssertionError("K1 ring mode: the block's last right tap does not cross the seam")
+    kw1r = dict(kw1, ring=True)
+    mk, bk = fused.fused_resample_biquad_mix(ring, left_r, wts_r, **kw1r)
+    mp, bp = fused.fused_resample_biquad_mix_plain(ring, left_r, wts_r, **kw1r)
+    err1r = max(_max_err(mk, mp), _max_err(bk, bp))
+    ms1r = _time_ms(lambda: fused.fused_resample_biquad_mix(ring, left_r, wts_r, **kw1r), 20)
+    gms1r = warp_cycles.graph_ms(
+        lambda: fused.fused_resample_biquad_mix(ring, left_r, wts_r, **kw1r), 20)
+    pms1r = _time_ms(lambda: fused.fused_resample_biquad_mix_plain(ring, left_r, wts_r,
+                                                                   **kw1r), 2)
+    record("K1r", "fused_resample_biquad_mix (ring mode)", "rodio_tpu_torch/csrc/fused.cu",
+           "rodio_tpu/ops/fused.py:1912", err1r, BOUND_K1, ms1r, pms1r,
+           pcm_bytes + 2 * T * 4, 14 * L * T, _chain_ms(T, 3),
+           note=f" 512x2 streams, n={T}, a ring of {ring_rows} rows, chunk {c0r} (the "
+                f"seam in its last tile); in a CUDA graph {gms1r:.4f} ms", path="farm_fused")
+    del ring
 
     # K2: the same block with the AGC, the ring warm: every row holds a
     # square that leaves the window, and each stream's window sum is theirs;
@@ -1636,6 +1840,14 @@ def _main(start_references) -> int:
     finally:
         shutil.rmtree(io_dir, ignore_errors=True)
 
+    # -- the farm (M8): paths P, Q and R ------------------------------------
+    farm_dir = tempfile.mkdtemp(prefix="chip_smoke_farm_")
+    try:
+        farm_res = _farm_paths(farm_dir, dict(reset=reset, counts=counts, expect=expect,
+                                              tag=tag))
+    finally:
+        shutil.rmtree(farm_dir, ignore_errors=True)
+
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
         st = node.init_state()
@@ -1740,8 +1952,9 @@ def _main(start_references) -> int:
             "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
             **path_h_runs, "config3": path_i_run, "player": path_j_run, "noise": path_k_run,
             **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run,
-            **io_res}
-    kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K2": "agc_fused",
+            **io_res, **farm_res}
+    kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K1r": "farm_fused",
+                    "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",
                     "K8": "config2", "K5": "per_stream", "K9": "dma_probe"}

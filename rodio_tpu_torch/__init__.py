@@ -24,19 +24,25 @@ Layers (the counterparts of rodio_tpu's modules of the same names):
   Stoppable, Skippable, TrackPosition, Repeat, Mix, Dither
 - :mod:`rodio_tpu_torch.control`     — mixer, queue, Player,
   SpatialPlayer: the host-driven control plane
-- :mod:`rodio_tpu_torch.parallel`    — WideMixer
+- :mod:`rodio_tpu_torch.parallel`    — WideMixer, stream batches
+  (stack_states, BatchedChain, BatchedMixer, batched_buffers), the stream
+  farm (HostDecodePool, StreamFarm), the stream axis over the ranks of a
+  torch.distributed group (stream_mesh, hybrid_stream_mesh, the sharded
+  mixer, batch and pipelines) and the sharded farm
 - :mod:`rodio_tpu_torch.ops`         — plain scans, the CUDA kernels
-  (K1 fused, K2 fused AGC and K2g its group branch, K3 limiter, K4
+  (K1 fused and its ring mode, K2 fused AGC and K2g its group branch, K3 limiter, K4
   biquad and its bf16 instance, K5 limiter envelopes, K6 AGC loop, K7
   first-order scan, K8 blocked max-affine, the generators' phase
   accumulator, threefry for the noise) and their build
 - :mod:`rodio_tpu_torch.graph`       — render / render_blocks / record /
   compile_step, seek_state, save_state / load_state
 - :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship,
-  make_per_stream_chain
+  make_per_stream_chain, and the farm's ChunkRingFeed and
+  FusedFarmPipeline
+- :mod:`rodio_tpu_torch.dryrun`      — the multi-card dry run
 - :mod:`rodio_tpu_torch.io`          — Decoder, LoopedDecoder, WAV in and
   out, streaming ingest (StreamingWav, StreamingDecoder, PushPort,
-  DeviceFeeder), device sinks, the microphone, and the host C++ it binds
+  DeviceFeeder, WavStream), device sinks, the microphone, and the host C++ it binds
   (``native/``); ``python -m rodio_tpu_torch`` is its CLI
 - :mod:`rodio_tpu_torch.convert`     — carry a JAX render's state across
 - :mod:`rodio_tpu_torch.benches`     — K9, the streaming-read probe of

@@ -48,11 +48,12 @@ from .effects.blt import BltFilter
 from .effects.dither import Dither
 from .effects.limit import Limit
 from .effects.mix import Mix
-from .flagship import FusedWidePipeline
+from .flagship import ChunkRingFeed, FusedFarmPipeline, FusedWidePipeline
 from .io.decoder import LoopedDecoder
 from .io.streaming import PushPort
 from .ops.fused import AGC_RING_FRAMES
 from .parallel.batch import WideMixer
+from .parallel.sharding import ShardedFusedPipeline, ShardedWidePipeline, _BlockFeed
 from .sources.generators import Chirp, Empty, SamplesBuffer, SignalGenerator, Zero
 from .sources.noise import _NoiseBase
 
@@ -137,6 +138,16 @@ def state_from_jax(node: Node, jstate) -> State:
         return {"in": state_from_jax(node.input, jstate["in"]),
                 **{k: _t(jstate[k], node) for k in keys},
                 "consts": node.consts()}
+    if isinstance(node, FusedFarmPipeline):
+        L = node.input.spec.channels
+        return {"in": state_from_jax(node.input, jstate["in"]),
+                "out_o": int(jstate["out_o"]),
+                "bq": _t(np.stack([np.asarray(b)[:L] for b in jstate["bq"]]), node),
+                "coeffs": _t(jstate["coeffs"], node)}
+    if isinstance(node, ChunkRingFeed):
+        return _ring_from_jax(node, jstate)
+    if isinstance(node, _BlockFeed):
+        return {}
     if isinstance(node, FusedWidePipeline):
         L = node._wide
         st = node.init_state()  # the port's own PCM layout and gains
@@ -185,3 +196,57 @@ def _fused_agc_from_jax(node: FusedWidePipeline, jstate, ring_dtype) -> State:
     return {"agc": _t(agc, node),
             "ring": _t(ring, node).to(ring_dtype),
             "agc_par": _t(jstate["agc_par"], node)}
+
+
+def _ring_from_jax(node: ChunkRingFeed, jstate) -> State:
+    """The JAX feed's chunk ring [Nc, pieces, fr_p, 1024] (bf16 pieces,
+    summed here in f32) and its carry as the port's frame ring: chunk c's
+    fr frames at rows (c*fr + i) mod R for the Nc chunks before w, the
+    carry's frames after them. A JAX ring whose gains were folded in at
+    push (``gain_post`` False) has them divided out again, which can leave
+    a sample an ulp from the raw one."""
+    wide, fr, Nc, R = node.spec.channels, node.fr, node.ring_chunks, node.rows
+    pieces = np.asarray(jstate["chunks"]).astype(np.float32)
+    vals = pieces[:, 0]
+    for p in range(1, pieces.shape[1]):
+        vals = vals + pieces[:, p]
+    w = int(jstate["w"])
+    ring = np.zeros((R, wide), np.float32)
+    if w:
+        for c in range(max(0, w - Nc), w):
+            ring[(c * fr + np.arange(fr)) % R] = vals[c % Nc, :fr, :wide]
+        ring[(w * fr + np.arange(fr)) % R] = np.asarray(jstate["carry"], np.float32)[:, :wide]
+    gain = np.asarray(jstate["gain"], np.float32)[:wide]
+    if not node.gain_post:
+        ring = ring / gain
+    return {"ring": _t(ring, node), "w": w, "overflow": _t(jstate["overflow"], node),
+            "ended": _t(jstate["ended"], node), "gain": _t(gain, node)}
+
+
+def sharded_state_from_jax(pipe, jstate, rank: int = None) -> State:
+    """This rank's state of a sharded pipeline (a ShardedFusedPipeline, or
+    the ``pipe`` of a ShardedFusedFarm, or a ShardedWidePipeline) from the
+    JAX pipeline's: a ShardedFusedPipeline's chain leaves are stacked
+    [n_dev, ...] (entry ``rank`` taken), a ShardedWidePipeline's are the
+    global chain's state (this rank's rows of each per-stream leaf taken);
+    the master limiter's state is replicated. ``rank``: the mesh's by
+    default."""
+    rank = pipe.mesh.rank if rank is None else rank
+    master = state_from_jax(pipe.master, {**jstate["master"], "in": {}})
+    master["in"] = {}
+    if isinstance(pipe, ShardedFusedPipeline):
+        def pick(x):
+            if isinstance(x, dict):
+                return {k: pick(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(pick(v) for v in x)
+            return np.asarray(x)[rank]
+
+        return {"chain": state_from_jax(pipe.template, pick(jstate["chain"])),
+                "master": master}
+    if isinstance(pipe, ShardedWidePipeline):
+        if rank != pipe.mesh.rank:
+            raise ValueError("a ShardedWidePipeline converts its own rank's state")
+        return {"chain": pipe.local_state(state_from_jax(pipe.global_chain, jstate["chain"])),
+                "master": master}
+    raise NotImplementedError(f"no sharded state conversion for {type(pipe).__name__}")

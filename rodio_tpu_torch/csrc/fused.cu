@@ -1,7 +1,9 @@
 // K1: resample + per-lane gain + biquad + stream mix, one pass per block.
 //
 // Replaces rodio_tpu/ops/fused.py fused_resample_biquad_mix /
-// _fused_kernel + _fused_body (the flagship's FusedWidePipeline). For each
+// _fused_kernel + _fused_body (the flagship's FusedWidePipeline and, in
+// ring mode, the farm's FusedFarmPipeline over a rolling ring whose row r
+// holds input rows r, r + R, r + 2R, ...: ring_chunks > 0). For each
 // output frame o of lane l:
 //
 //   left = (o / to)*fr + (fr*(o % to)) / to,  j = o % to
@@ -45,6 +47,7 @@ using namespace rt::front;
 constexpr int kYBufs = 3;      // y tiles: i, i-1, i-2
 constexpr int kDepth = 2;      // iterations from a tile's fill to its mix
 
+template <bool kRing>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_kernel(const float* __restrict__ pcm, long long F, int L,
              const long long* __restrict__ left,
@@ -53,8 +56,8 @@ fused_kernel(const float* __restrict__ pcm, long long F, int L,
              float* __restrict__ bq_out, float* __restrict__ partial, int n,
              int C) {
   extern __shared__ float4 smem4[];
-  const Front fe(reinterpret_cast<float*>(smem4), pcm, F, L, left, wts, n,
-                 block_lanes(C), kYBufs);
+  const FrontT<kRing> fe(reinterpret_cast<float*>(smem4), pcm, F, L, left, wts,
+                         n, block_lanes(C), kYBufs);
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const int ns = fe.nl / C;
   const rt::BiquadCoef cf = rt::load_coef(coef);
@@ -146,12 +149,14 @@ cudaError_t rt::front::sum_partials(const float* partial, float* out, int nblk,
 // lanes per block for C channels: partial holds [ceil(L / this), C, n]
 extern "C" int rt_fused_block_lanes(int C) { return block_lanes(C); }
 
-extern "C" int rt_fused_resample_biquad_mix(
-    const float* pcm, long long F, int L, const long long* left,
-    const float* wts, const float* gains, const float* coef,
-    const float* bq_in, float* bq_out, float* partial, float* out, int n,
-    int C, void* stream) {
-  if (C < 1 || C > kMaxLB || L % C || n < 1 || F < 1)
+namespace {
+
+template <bool kRing>
+int launch(const float* pcm, long long F, int L, const long long* left,
+           const float* wts, const float* gains, const float* coef,
+           const float* bq_in, float* bq_out, float* partial, float* out,
+           int n, int C, void* stream) {
+  if (C < 1 || C > kMaxLB || L % C || n < 1 || F < 1 || (kRing && F < kMaxRows))
     return (int)cudaErrorInvalidValue;
   const int LB = block_lanes(C);
   const int nblk = (L + LB - 1) / LB;
@@ -160,13 +165,35 @@ extern "C" int rt_fused_resample_biquad_mix(
   const size_t shmem = layout(LB, kYBufs).bytes;
   if (shmem > 48 * 1024) {  // more than the default needs opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        fused_kernel<kRing>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_kernel<<<nblk, kThreads, shmem, s>>>(
+  fused_kernel<kRing><<<nblk, kThreads, shmem, s>>>(
       pcm, F, L, left, reinterpret_cast<const float2*>(wts), gains, coef,
       bq_in, bq_out, partial, n, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)rt::front::sum_partials(partial, out, nblk, (long long)C * n, s);
+}
+
+}  // namespace
+
+extern "C" int rt_fused_resample_biquad_mix(
+    const float* pcm, long long F, int L, const long long* left,
+    const float* wts, const float* gains, const float* coef,
+    const float* bq_in, float* bq_out, float* partial, float* out, int n,
+    int C, void* stream) {
+  return launch<false>(pcm, F, L, left, wts, gains, coef, bq_in, bq_out,
+                       partial, out, n, C, stream);
+}
+
+// K1's ring mode: pcm is a ring of R rows (R >= 192), input row r read at
+// ring row r mod R (the farm's rolling ring, rodio_tpu/ops/fused.py:300-309)
+extern "C" int rt_fused_resample_biquad_mix_ring(
+    const float* pcm, long long R, int L, const long long* left,
+    const float* wts, const float* gains, const float* coef,
+    const float* bq_in, float* bq_out, float* partial, float* out, int n,
+    int C, void* stream) {
+  return launch<true>(pcm, R, L, left, wts, gains, coef, bq_in, bq_out,
+                      partial, out, n, C, stream);
 }

@@ -44,7 +44,8 @@
 // once, as a range, two iterations ahead, and the fill reads its two taps
 // from shared memory; a frame whose rows lie outside the staged range (a
 // ratio that moves further, or rows out of order) loads them from global
-// memory itself. Warp 0 keeps half a tile of its lane in registers at a
+// memory itself. In ring mode (FrontT<true>, K1 over the farm's rolling
+// ring) row r is ring row r mod F and nothing reads as zero. Warp 0 keeps half a tile of its lane in registers at a
 // time, loaded and stored 16 bytes at a time (its tile rows are
 // lane-major), so its chain runs with no per-step test and no load inside.
 // The x history (v1, v2) crosses tiles through a small array and comes from
@@ -196,8 +197,12 @@ __device__ __forceinline__ void iir_row(float* b, TT tt, float a1, float a2,
 }
 
 // One block's front end: its geometry, its shared buffers and the stages
-// of the fill, copy and IIR warps.
-struct Front {
+// of the fill, copy and IIR warps. kRing (K1's ring mode): the PCM is a
+// ring of F rows, input row r read at row r mod F; F >= kMaxRows, so a
+// tile's staged range wraps at most once: its start is reduced mod F once
+// a tile, and each row then costs a compare and a subtract.
+template <bool kRing = false>
+struct FrontT {
   const float* __restrict__ pcm;
   long long F;
   int L, n, LB, nY, lane0, nl, n_tiles;
@@ -207,7 +212,7 @@ struct Front {
   float *Y, *PR, *hist, *last;
   bool vec;  // 16-byte PCM copies: the block's rows are 16-byte aligned
 
-  __device__ Front(float* smem, const float* pcm_, long long F_, int L_,
+  __device__ FrontT(float* smem, const float* pcm_, long long F_, int L_,
                    const long long* left_, const float2* wts_, int n_, int LB_,
                    int nY_)
       : pcm(pcm_), F(F_), L(L_), n(n_), LB(LB_), nY(nY_), left(left_),
@@ -247,19 +252,22 @@ struct Front {
   __device__ void copy_tile(int i, int gsub) const {
     long long r0;
     const int span = row_range(i, r0);
+    if (kRing) r0 %= F;  // once a tile; the rows below wrap by a subtract
     float* dst = pcm_of(i);
     if (vec) {
       const int per = LB / 4;
       for (int e = gsub; e < span * per; e += kCopy) {
         const int k = e / per, q = e - k * per;
-        const U64 r = (U64)(r0 + k);
+        U64 r = (U64)(r0 + k);
+        if (kRing && r >= (U64)F) r -= (U64)F;
         cp_async<16>(dst + k * LB + 4 * q,
                      pcm + min(r, (U64)F - 1) * L + lane0 + 4 * q, r < (U64)F);
       }
     } else {
       for (int e = gsub; e < span * LB; e += kCopy) {
         const int k = e / LB, l = e - k * LB;
-        const U64 r = (U64)(r0 + k);
+        U64 r = (U64)(r0 + k);
+        if (kRing && r >= (U64)F) r -= (U64)F;
         cp_async<4>(dst + e, pcm + min(r, (U64)F - 1) * L + lane0 + min(l, nl - 1),
                     r < (U64)F && l < nl);
       }
@@ -359,9 +367,17 @@ struct Front {
       } else {  // a row outside the staged range: from global memory
 #pragma unroll
         for (int k = 0; k < kRun + 2; ++k) {
-          const U64 r1 = (U64)rw[k].left, lane = lane0 + l;
-          xl[k] = r1 < (U64)F ? pcm[r1 * L + lane] : 0.f;
-          xr[k] = r1 + 1 < (U64)F ? pcm[(r1 + 1) * L + lane] : 0.f;
+          const U64 lane = lane0 + l;
+          if (kRing) {
+            const U64 r1 = (U64)rw[k].left % (U64)F;
+            const U64 r2 = r1 + 1 == (U64)F ? 0 : r1 + 1;
+            xl[k] = pcm[r1 * L + lane];
+            xr[k] = pcm[r2 * L + lane];
+          } else {
+            const U64 r1 = (U64)rw[k].left;
+            xl[k] = r1 < (U64)F ? pcm[r1 * L + lane] : 0.f;
+            xr[k] = r1 + 1 < (U64)F ? pcm[(r1 + 1) * L + lane] : 0.f;
+          }
         }
       }
       float v[kRun + 2];
@@ -414,6 +430,8 @@ struct Front {
     }
   }
 };
+
+using Front = FrontT<false>;
 
 // out[i] = sum over blocks b (in order) of partial[b * cn + i], in f64,
 // rounded to f32 once, on stream s (defined in fused.cu)

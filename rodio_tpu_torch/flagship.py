@@ -39,7 +39,7 @@ from .conversions.resample import (
     Resample, drain_bookkeeping, lerp_weights, output_positions,
     resample_output_frames)
 from .conversions.blockdtype import Bf16Boundary
-from .core.node import Node, State, mask_block
+from .core.node import Node, State, full_valid, mask_block
 from .core.types import StreamSpec
 from .core.math import duration_to_coefficient
 from .core.types import duration_to_nanos
@@ -81,6 +81,31 @@ def _content_probe(input_node) -> tuple:
     out = (bool(res[0]), bool(res[1]), bool(res[2]))
     input_node._content_probe_cache = out
     return out
+
+
+class _LerpTaps:
+    """(left rows [n], lerp weights [n, 2]) of output frames o0 .. o0+n-1
+    for K1. left(o0 + t) = (o0 // to)*from + left(o0 % to + t), so the rows
+    and weights of each (o0 % to, n) are built once and a block costs one
+    add."""
+
+    def __init__(self, from_: int, to: int, device: torch.device):
+        self.from_, self.to, self.device = from_, to, device
+        # [to, 2]: the two lerp weights of each phase
+        self._wtab = torch.from_numpy(
+            np.stack(lerp_weights(from_, to), axis=1)).to(device)
+        self._cache = {}
+
+    def __call__(self, o0: int, n: int):
+        key = (o0 % self.to, n)
+        taps = self._cache.get(key)
+        if taps is None:
+            if len(self._cache) >= 8:
+                self._cache.clear()
+            left, phase = output_positions(key[0], n, self.from_, self.to,
+                                           self.device)
+            taps = self._cache[key] = (left, self._wtab.index_select(0, phase))
+        return taps[0] + (o0 // self.to) * self.from_, taps[1]
 
 
 class FusedWidePipeline(Node):
@@ -167,10 +192,7 @@ class FusedWidePipeline(Node):
         if per_lane.shape != (wide,):
             raise ValueError(f"gains must be [{n_streams}] or [{wide}]")
         self._gains = per_lane
-        # [to, 2]: the two lerp weights of each phase
-        self._wtab = torch.from_numpy(
-            np.stack(lerp_weights(self.from_, self.to), axis=1)).to(self.device)
-        self._taps_cache = {}
+        self._taps = _LerpTaps(self.from_, self.to, self.device)
         self._wide = wide
         self._s0 = getattr(input_node, "_start", 0)
         self.with_agc = bool(with_agc)
@@ -322,21 +344,6 @@ class FusedWidePipeline(Node):
         return {**state, "coeffs": torch.tensor(co, dtype=torch.float32,
                                                 device=self.device)}
 
-    def _taps(self, o0: int, n: int):
-        """(left rows [n], lerp weights [n, 2]) of output frames o0 ..
-        o0+n-1. left(o0 + t) = (o0 // to)*from + left(o0 % to + t), so the
-        rows and weights of each (o0 % to, n) are built once and a block
-        costs one add."""
-        key = (o0 % self.to, n)
-        taps = self._taps_cache.get(key)
-        if taps is None:
-            if len(self._taps_cache) >= 8:
-                self._taps_cache.clear()
-            left, phase = output_positions(key[0], n, self.from_, self.to,
-                                           self.device)
-            taps = self._taps_cache[key] = (left, self._wtab.index_select(0, phase))
-        return taps[0] + (o0 // self.to) * self.from_, taps[1]
-
     def emit(self, state: State, n: int):
         o0 = state["out_o"]
         left, wts = self._taps(o0, n)
@@ -363,6 +370,179 @@ class FusedWidePipeline(Node):
         _, _, valid, drained = drain_bookkeeping(left, in_end, state["drained"], n)
         return ({**state, "out_o": o0 + n, "drained": drained, "bq": bq,
                  **extra}, mask_block(mix, valid), valid)
+
+
+class ChunkRingFeed:
+    """The farm's device-resident rolling ring (rodio_tpu/flagship.py:783-895):
+    the live-feed counterpart of FusedWidePipeline's PCM, so the streaming
+    farm's constant-memory path runs K1 (in ring mode) instead of the
+    unfused chain.
+
+    The JAX feed writes whole chunks of ``fr`` frames (each with its
+    boundary row) into a ring of ``ring_chunks`` chunks, as bf16 pieces the
+    MXU multiplies exactly, and keeps the last ``fr`` frames of a push
+    (``carry``) outside it. This ring holds f32 frames time-major, ``[R,
+    wide]``, as K1's PCM is, and every pushed frame f lands at row f mod R,
+    the carry included; so R = (ring_chunks + 1) * fr rows keep the same
+    chunks readable: chunks [w - ring_chunks, w) and the carry, after w
+    chunks are complete. The first push (``prime=True``) carries (Kp + 1) *
+    fr frames (chunks 0 .. Kp-1 and the carry), each later one Kp * fr.
+
+    ``precision`` takes the JAX values ("int3", "int2") and refuses others;
+    the ring is f32 either way, exact for any content. The per-lane gains
+    live in the state (``"gain"``: shard-varying content rides the state),
+    and K1 applies them after the lerp. The JAX feed folds them into the
+    PCM at push unless ``gain_post``; the two orders differ by rounding.
+
+    The state's ``w`` (chunks complete) is a host int the host already
+    knows (every push adds Kp), ``overflow`` and ``ended`` device flags.
+    :meth:`push` writes the ring in place: the returned state shares it.
+    """
+
+    #: live input: no seekable past
+    LIVE = True
+
+    def __init__(self, wide: int, in_rate: int, fr: int, Kp: int,
+                 ring_chunks: int, precision: str, per_lane_gain,
+                 gain_post: bool = False, *, device: DeviceLike = None):
+        from .utils.device import resolve_device
+
+        if ring_chunks % Kp:
+            raise ValueError(f"ring_chunks {ring_chunks} must be a multiple of Kp {Kp}")
+        if precision not in ("int3", "int2"):
+            raise ValueError(f"precision must be 'int3' or 'int2', got {precision!r}")
+        self.spec = StreamSpec(wide, in_rate)
+        self.device = resolve_device(device)
+        self.fr, self.Kp, self.ring_chunks = int(fr), int(Kp), int(ring_chunks)
+        self.precision = precision
+        self.npc = 3 if precision == "int3" else 2
+        self.gain_post = bool(gain_post)
+        self.rows = (self.ring_chunks + 1) * self.fr
+        g = np.asarray(per_lane_gain, np.float32)
+        if g.shape != (wide,):
+            raise ValueError(f"per_lane_gain must be [{wide}]")
+        self._gain = g
+
+    def total_frames(self):
+        return None
+
+    def init_state(self) -> State:
+        dev = self.device
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        return {
+            "ring": torch.zeros((self.rows, self.spec.channels), dtype=torch.float32,
+                                device=dev),
+            "w": 0,  # chunks complete (absolute)
+            "overflow": false, "ended": false.clone(),
+            "gain": torch.from_numpy(self._gain.copy()).to(dev),
+        }
+
+    def frames_written(self, state: State) -> int:
+        """Frames pushed so far: (w + 1) * fr after the first push."""
+        return (state["w"] + 1) * self.fr if state["w"] else 0
+
+    def push(self, state: State, block: torch.Tensor, *, prime: bool = False) -> State:
+        """Append one push: ``block`` [wide, (Kp + 1) * fr] f32 on the first
+        (``prime``) push, [wide, Kp * fr] on later ones. Reads nothing back."""
+        fr, Kp, R = self.fr, self.Kp, self.rows
+        T = (Kp + 1) * fr if prime else Kp * fr
+        if tuple(block.shape) != (self.spec.channels, T):
+            raise ValueError(f"push block {tuple(block.shape)}, expected "
+                             f"[{self.spec.channels}, {T}]")
+        if prime != (state["w"] == 0):
+            raise ValueError("the first push, and only it, takes prime=True")
+        ring = state["ring"]
+        at = self.frames_written(state) % R
+        head = min(T, R - at)
+        span = block.T
+        ring[at:at + head].copy_(span[:head])
+        if head < T:
+            ring[:T - head].copy_(span[head:])
+        return {**state, "w": state["w"] + Kp}
+
+    def end(self, state: State) -> State:
+        return {**state, "ended": torch.ones((), dtype=torch.bool, device=self.device)}
+
+
+class FusedFarmPipeline(Node):
+    """K1 in ring mode over a :class:`ChunkRingFeed`: resample + biquad +
+    per-lane gain + stream mix of the streaming farm's live feed
+    (rodio_tpu/flagship.py:897-1034). Coefficients live in the state (a
+    retune rebuilds nothing). Each block of ``n`` (a multiple of m*to)
+    needs chunks [c0, c0 + n/to) resident, c0 = out_o / to: the feed's
+    ``overflow`` turns on when one is not yet written (w < c0 + K) or
+    already overwritten (c0 < w - ring_chunks), on the same schedule as
+    the JAX package's. ``m``, ``lookahead`` and ``firfold`` are the JAX
+    kernel's schedule knobs: ``m`` only sets the block multiple here."""
+
+    def __init__(self, feed: ChunkRingFeed, to_rate: int, n_streams: int,
+                 kind: Optional[str] = "low_pass", freq: float = 2000.0,
+                 q: float = 0.5, *, m: int = 2):
+        self.input = feed
+        self.device = feed.device
+        wide = feed.spec.channels
+        if wide % n_streams:
+            raise ValueError("channel count not divisible by stream count")
+        self.n_streams = n_streams
+        C = wide // n_streams
+        self.spec = StreamSpec(C, to_rate)
+        g = math.gcd(feed.spec.sample_rate, to_rate)
+        self.from_ = feed.spec.sample_rate // g
+        self.to = to_rate // g
+        if self.from_ != feed.fr:
+            raise ValueError(f"the feed's chunks hold {feed.fr} frames, the ratio {self.from_}")
+        if self.from_ == self.to or self.to < 2:
+            # ROADMAP F3: the JAX package refuses the identity ratio
+            raise ValueError("fused farm needs a non-identity rational rate ratio")
+        self.m = int(m)
+        self.precision = feed.precision
+        self._kind, self._freq, self._q = kind, float(freq), float(q)
+        # no filter stage requested: the identity biquad (b0 = 1)
+        self.coeffs = ((1.0, 0.0, 0.0, 0.0, 0.0) if kind is None else
+                       blt_coefficients(kind, to_rate, freq, q).as_tuple())
+        self._taps = _LerpTaps(self.from_, self.to, self.device)
+
+    def total_frames(self) -> Optional[int]:
+        return None
+
+    def init_state(self) -> State:
+        dev = self.device
+        return {
+            "in": self.input.init_state(),
+            "out_o": 0,  # host int: advances by n per emit
+            "bq": torch.zeros((4, self.input.spec.channels), dtype=torch.float32,
+                              device=dev),
+            "coeffs": torch.tensor(self.coeffs, dtype=torch.float32, device=dev),
+        }
+
+    def retune(self, state: State, kind: Optional[str] = None,
+               freq: Optional[float] = None, q: Optional[float] = None) -> State:
+        """Live retune (src/source/blt.rs:68-91): new coefficients into the
+        state; the carries persist."""
+        kind = self._kind if kind is None else kind
+        freq = self._freq if freq is None else float(freq)
+        q = self._q if q is None else float(q)
+        co = blt_coefficients(kind, self.spec.sample_rate, freq, q).as_tuple()
+        return {**state, "coeffs": torch.tensor(co, dtype=torch.float32,
+                                                device=self.device)}
+
+    def emit(self, state: State, n: int):
+        to = self.to
+        if n % (self.m * to):
+            raise ValueError(f"a fused farm block must be a multiple of {self.m * to}")
+        K = n // to
+        ins = state["in"]
+        o0 = state["out_o"]
+        c0 = o0 // to  # absolute chunk index
+        w, Nc = ins["w"], self.input.ring_chunks
+        if w < c0 + K or c0 < w - Nc:  # host ints: no read-back
+            ins = {**ins, "overflow": torch.ones_like(ins["overflow"])}
+        left, wts = self._taps(o0, n)
+        mix, bq = fused_resample_biquad_mix(
+            ins["ring"], left, wts, gains=ins["gain"], coeffs=state["coeffs"],
+            bq=state["bq"], channels=self.spec.channels, ring=True)
+        return ({**state, "in": ins, "out_o": o0 + n, "bq": bq}, mix,
+                full_valid(n, self.device))
 
 
 def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,

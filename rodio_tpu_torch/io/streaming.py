@@ -124,6 +124,70 @@ def wav_stream_spec(path: str) -> StreamSpec:
     return StreamSpec(header[1], header[2])
 
 
+class WavStream:
+    """A PCM WAV file with ``FfStream``'s interface (``channels``,
+    ``sample_rate``, ``duration``, ``read``, ``seek``, ``seek_accurate``,
+    ``take_param_change``, ``close``), read incrementally from the file:
+    the farm's host decode of WAV without libav. Every seek is an exact
+    byte offset (WAV is constant-rate PCM), so ``seek`` is as accurate as
+    ``seek_accurate``."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb")
+        header = _wav_header(self._f)
+        if header is None:
+            self._f.close()
+            raise WavError(f"{path!r}: missing data chunk")
+        self._tag, self.channels, self.sample_rate, self._bits, nbytes = header
+        if self._bits not in (16, 24, 32):
+            self._f.close()
+            raise WavError(f"unsupported streaming format {self._tag}/{self._bits}")
+        self._frame_bytes = self._bits // 8 * self.channels
+        self._data0 = self._f.tell()
+        self._frames = nbytes // self._frame_bytes
+        self._pos = 0
+        self.duration = self._frames / self.sample_rate
+
+    def read(self, max_frames: int) -> np.ndarray:
+        """Up to ``max_frames`` [channels, m] f32 frames (m == 0: the end)."""
+        m = max(0, min(int(max_frames), self._frames - self._pos))
+        buf = self._f.read(m * self._frame_bytes)
+        m = len(buf) // self._frame_bytes
+        self._pos += m
+        if m == 0:
+            return np.zeros((self.channels, 0), np.float32)
+        return np.ascontiguousarray(_wav_convert(buf[: m * self._frame_bytes], self._tag,
+                                                 self._bits, self.channels))
+
+    def take_param_change(self):
+        return None  # a WAV file has one span
+
+    def seek(self, seconds: float) -> None:
+        self.seek_accurate(seconds)
+
+    def seek_accurate(self, seconds: float = None, *, frames: int = None) -> int:
+        """Seek to ``frames`` (or round(seconds * rate)); returns the frame
+        reached (the target, or the end of the file before it)."""
+        target = int(frames) if frames is not None else int(round(float(seconds) * self.sample_rate))
+        self._pos = max(0, min(target, self._frames))
+        self._f.seek(self._data0 + self._pos * self._frame_bytes)
+        return self._pos
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def open_stream(path: str):
+    """A host decode stream with ``FfStream``'s interface: :class:`WavStream`
+    for a ``.wav``/``.wave`` path, else ``FfStream`` (libav; raises
+    ``LibavUnavailable`` where libav is missing)."""
+    if os.path.splitext(str(path))[1].lower() in (".wav", ".wave"):
+        return WavStream(path)
+    from .native import FfStream
+
+    return FfStream(path)
+
+
 class StreamingFeed:
     """Producer thread -> SPSC ring -> block consumer.
 
@@ -395,6 +459,56 @@ class PushPort:
                 out, valid)
 
 
+class PinnedStager:
+    """Host arrays to the card through two pinned buffers and a side stream,
+    with no wait for the card: a pinned buffer is refilled only after its
+    previous copy's event has completed (polled), the copy runs on the side
+    stream into a tensor allocated there, and :meth:`take` makes the
+    consumer's stream wait on the copy's event and keeps the tensor alive
+    for it (``record_stream``). On the CPU it hands out the array as a
+    tensor."""
+
+    POLL_SLEEP = 50e-6
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.shape, self.dtype, self.device = tuple(shape), dtype, device
+        if device.type == "cuda":
+            self._stream = torch.cuda.Stream(device)
+            self._pinned = [torch.empty(self.shape, dtype=dtype, pin_memory=True)
+                            for _ in range(2)]
+            self._copied: list = [None, None]  # each pinned buffer's last copy
+            self._slot = 0
+
+    def stage(self, block: np.ndarray) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Start ``block``'s copy: (the device tensor, its copy's event)."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.array(block)).to(self.dtype), None
+        if tuple(block.shape) != self.shape:
+            raise ValueError(f"staged block {tuple(block.shape)}, expected {self.shape}")
+        slot = self._slot
+        self._slot ^= 1
+        done = self._copied[slot]
+        while done is not None and not done.query():
+            time.sleep(self.POLL_SLEEP)
+        self._pinned[slot].numpy()[...] = block
+        with torch.cuda.stream(self._stream):
+            out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+            out.copy_(self._pinned[slot], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._copied[slot] = event
+        return out, event
+
+    def take(self, staged) -> torch.Tensor:
+        """The staged tensor, ready for the consumer's (current) stream."""
+        block, event = staged
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            block.record_stream(consumer)
+        return block
+
+
 class DeviceFeeder:
     """Double-buffered host-to-device block feed.
 
@@ -414,40 +528,16 @@ class DeviceFeeder:
     ``device="cpu"`` it hands out CPU tensors and uses no stream.
     """
 
-    POLL_SLEEP = 50e-6
-
     def __init__(self, host_source, block_frames: int, *, device: DeviceLike = None):
         self.source = host_source
         self.block_frames = int(block_frames)
         self.device = resolve_device(device)
-        shape = (host_source.spec.channels, self.block_frames)
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._pinned = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
-                            for _ in range(2)]
-            self._copied: list = [None, None]  # each pinned buffer's last copy
-            self._slot = 0
+        self._stager = PinnedStager((host_source.spec.channels, self.block_frames),
+                                    torch.float32, self.device)
+        self._stream = getattr(self._stager, "_stream", None)  # the side stream
         self._pending = None
         self._alive = True
         self._prefetch()
-
-    def _stage(self, block: np.ndarray) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-        if self.device.type == "cpu":
-            return torch.from_numpy(np.array(block, dtype=np.float32)), None
-        slot = self._slot
-        self._slot ^= 1
-        done = self._copied[slot]
-        while done is not None and not done.query():
-            time.sleep(self.POLL_SLEEP)
-        self._pinned[slot].numpy()[...] = block
-        with torch.cuda.stream(self._stream):
-            out = torch.empty(self._pinned[slot].shape, dtype=torch.float32,
-                              device=self.device)
-            out.copy_(self._pinned[slot], non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._copied[slot] = event
-        return out, event
 
     def _prefetch(self):
         if not self._alive:
@@ -455,7 +545,8 @@ class DeviceFeeder:
             return
         block, alive = self.source.next_block(self.block_frames)
         self._alive = alive
-        self._pending = self._stage(block) if alive else None
+        self._pending = (self._stager.stage(np.asarray(block, np.float32))
+                         if alive else None)
 
     def next_device_block(self):
         """-> (block [C, block_frames] on the device, alive). The next
@@ -464,10 +555,6 @@ class DeviceFeeder:
             c = self.source.spec.channels
             return torch.zeros((c, self.block_frames), dtype=torch.float32,
                                device=self.device), False
-        block, event = self._pending
-        if event is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(event)
-            block.record_stream(consumer)
+        block = self._stager.take(self._pending)
         self._prefetch()
         return block, True

@@ -56,6 +56,9 @@ SIGNATURES = {
     # C, stream
     "rt_fused_resample_biquad_mix": (P, LL, I, P, P, P, P, P, P, P, P, I, I,
                                      P),
+    # the same with a ring of R rows in place of F (K1's ring mode)
+    "rt_fused_resample_biquad_mix_ring": (P, LL, I, P, P, P, P, P, P, P, P, I,
+                                          I, P),
     # db, integ0, peak0, peak_out, carry_out, L, T, att, rel, 1-att, 1-rel,
     # stream
     "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),

@@ -30,7 +30,12 @@ smoother a clamp of an affine map, ``g' = max(0.1, min(d, att*g +
 chunks of the JAX pipeline's grid steps and thread the gain through the
 chunk totals only (K2b, ``csrc/fused_agc_blocked.cu``).
 
-``launches`` counts K1's launches, ``agc_launches`` K2's,
+With ``ring=True`` (K1's ring mode, the farm's ``FusedFarmPipeline``) the
+PCM is a rolling ring of R rows: input row r is ring row r mod R, and no
+row reads as zero (rodio_tpu/ops/fused.py:300-309, ``ring_chunks``).
+
+``launches`` counts K1's launches, ``ring_launches`` its ring mode's,
+``agc_launches`` K2's,
 ``agc_group_launches`` K2g's, ``agc_rel0_launches`` K2r's and
 ``agc_blocked_launches`` K2b's.
 """
@@ -47,6 +52,10 @@ from .scan import biquad_df1
 
 #: kernel launches made by :func:`fused_resample_biquad_mix` (K1)
 launches = 0
+#: ... and with ``ring=True`` (K1's ring mode)
+ring_launches = 0
+#: the fewest rows K1's ring mode takes (a tile stages at most this many)
+RING_MIN_ROWS = 192
 #: kernel launches made by :func:`fused_resample_biquad_agc_mix` (K2)
 agc_launches = 0
 #: ... and with ``agc_group`` > 0 (K2g, K2's group branch)
@@ -78,27 +87,30 @@ def rel0_chunks(plan: str) -> int:
     return int(plan[5:]) if len(plan) > 5 else (16 if plan[4] == "c" else 8)
 
 
-def _lerp(pcm, left, wts):
+def _lerp(pcm, left, wts, ring: bool = False):
     """[n, L] lerp ``wts[:, 0]*x[left] + wts[:, 1]*x[left+1]`` (rows past F
-    read as zero)."""
+    read as zero; with ``ring`` row r reads row r mod F)."""
     F = pcm.shape[0]
 
     def rows(idx):
+        if ring:
+            return pcm[idx % F]
         r = pcm[torch.clamp(idx, max=F - 1)]
         return torch.where((idx < F)[:, None], r, torch.zeros_like(r))
 
     return rows(left) * wts[:, 0:1] + rows(left + 1) * wts[:, 1:2]
 
 
-def _lerp_gain(pcm, left, wts, gains):
+def _lerp_gain(pcm, left, wts, gains, ring: bool = False):
     """[n, L] gained lerp: the gain after the lerp (``gain_post``)."""
-    return _lerp(pcm, left, wts) * gains
+    return _lerp(pcm, left, wts, ring) * gains
 
 
 def fused_resample_biquad_mix_plain(pcm, left, wts, *, gains, coeffs, bq,
-                                    channels: int):
-    """The plain PyTorch version of K1, on any device."""
-    v = _lerp_gain(pcm, left, wts, gains)                    # [n, L]
+                                    channels: int, ring: bool = False):
+    """The plain PyTorch version of K1 (and of its ring mode), on any
+    device."""
+    v = _lerp_gain(pcm, left, wts, gains, ring)              # [n, L]
     y, st = biquad_df1(v.T, coeffs, tuple(bq))               # [L, n]
     mix = y.reshape(-1, channels, v.shape[0]).sum(0)
     return mix, torch.stack(st)
@@ -114,22 +126,27 @@ def _block_lanes(C: int) -> int:
 def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
                               wts: torch.Tensor, *, gains: torch.Tensor,
                               coeffs: torch.Tensor, bq: torch.Tensor,
-                              channels: int):
+                              channels: int, ring: bool = False):
     """One block of the fused pipeline.
 
-    pcm: [F, L] f32 time-major PCM (frame 0 = the stream's first frame).
+    pcm: [F, L] f32 time-major PCM (frame 0 = the stream's first frame);
+    with ``ring`` a rolling ring of F >= :data:`RING_MIN_ROWS` rows, input
+    row r at ring row r mod F (K1's ring mode).
     left: [n] int64, each output frame's left input frame, and wts: [n, 2]
     f32, its two lerp weights (``conversions.resample.output_positions``
     and ``lerp_weights``).
     gains: [L]; coeffs: [5] (b0, b1, b2, a1, a2); bq: [4, L] biquad carries
     (x1, x2, y1, y2). Returns (mix [C, n], bq' [4, L])."""
+    F, L = pcm.shape
+    if ring and F < RING_MIN_ROWS:
+        raise ValueError(f"fused_resample_biquad_mix: a ring of {F} rows; ring "
+                         f"mode takes at least {RING_MIN_ROWS}")
     if pcm.device.type == "cpu":
         return fused_resample_biquad_mix_plain(
             pcm, left, wts, gains=gains, coeffs=coeffs, bq=bq,
-            channels=channels)
+            channels=channels, ring=ring)
     if pcm.device.type != "cuda":
         raise ValueError(f"fused_resample_biquad_mix: unsupported device {pcm.device}")
-    F, L = pcm.shape
     n = left.shape[0]
     C = int(channels)
     if not 1 <= C <= 32 or L % C or n < 1 or F < 1:
@@ -147,14 +164,18 @@ def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
     partial = torch.empty((nblk, C, n), dtype=torch.float32, device=dev)
     mix = torch.empty((C, n), dtype=torch.float32, device=dev)
     bq_out = torch.empty_like(bq)
-    err = _build.load_library().rt_fused_resample_biquad_mix(
+    name = "rt_fused_resample_biquad_mix" + ("_ring" if ring else "")
+    err = getattr(_build.load_library(), name)(
         pcm.data_ptr(), F, L, left.data_ptr(), wts.data_ptr(),
         gains.data_ptr(), coeffs.data_ptr(), bq.data_ptr(), bq_out.data_ptr(),
         partial.data_ptr(), mix.data_ptr(), n, C, _build.stream_handle(dev),
     )
-    _build.check(err, "rt_fused_resample_biquad_mix")
-    global launches
-    launches += 1
+    _build.check(err, name)
+    global launches, ring_launches
+    if ring:
+        ring_launches += 1
+    else:
+        launches += 1
     return mix, bq_out
 
 

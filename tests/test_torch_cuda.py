@@ -1290,3 +1290,186 @@ def test_hosted_blocks_and_the_sink_on_card(dev, tmp_path):
         outs.append(read_wav(path)[0])
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0], tone + voice)
+
+
+# -- M8: K1's ring mode, the farm and the sharded farm on the card --
+
+@pytest.mark.parametrize("S,C,n,R,c0", [
+    (4, 2, 640, (4 * 4 + 1) * 147, 15),     # a small farm: the block's rows wrap
+    (3, 2, 1280, 300, 3),                   # a ring barely over a tile's 192 rows
+    (5, 1, 129, 200, 1),                    # C = 1, a tail tile
+    (2, 12, 640, 441, 2),                   # C > 8: one stream a block
+    (512, 2, 12800, (4 * 80 + 1) * 147, 283),  # the farm's block at 512 streams
+    (512, 2, 12800, (4 * 80 + 1) * 147, 241),  # ... its last right tap at row R
+])
+def test_k1_ring_mode_matches_plain_across_the_seam(dev, S, C, n, R, c0):
+    """K1's ring mode against its plain version, two blocks in a row, at a
+    start whose staged tiles and last right tap cross ring row R."""
+    fr, to = 147, 160
+    rng = np.random.default_rng(S * 31 + n)
+    L = S * C
+    ring = _f32(rng.standard_normal((R, L)) * 0.1, dev)
+    kw = dict(gains=_f32(rng.uniform(0.1, 1.0, L), dev), channels=C,
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev))
+    o0 = c0 * to
+    bk = bp = _f32(rng.standard_normal((4, L)) * 0.01, dev)
+    crossed = False
+    for block in range(2):
+        left, phase = output_positions(o0 + block * n, n, fr, to, dev)
+        crossed |= bool(((left // R) != ((left + 1) // R)).any() or
+                        (left[0] // R != left[-1] // R))
+        wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+        before = fused.ring_launches
+        mk, bk = fused.fused_resample_biquad_mix(ring, left, wts, bq=bk, ring=True, **kw)
+        mp, bp = fused.fused_resample_biquad_mix_plain(ring, left, wts, bq=bp, ring=True, **kw)
+        torch.cuda.synchronize()
+        assert fused.ring_launches == before + 1
+        assert (mk - mp).abs().max().item() <= 1e-6, block
+        assert torch.equal(bk, bp), block
+    assert crossed
+
+
+def test_k1_ring_mode_rows_outside_the_staged_range(dev):
+    """48 -> 22.05 kHz over a ring: the later frames of a tile load their
+    rows from global memory, modulo the ring there too."""
+    fr, to, S, C, n, R = 320, 147, 4, 2, 300, 1000
+    rng = np.random.default_rng(9)
+    ring = _f32(rng.standard_normal((R, S * C)) * 0.1, dev)
+    kw = dict(gains=_f32(rng.uniform(0.1, 1.0, S * C), dev), channels=C,
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(np.zeros((4, S * C)), dev))
+    left, phase = output_positions(2 * to + 5, n, fr, to, dev)
+    assert int(left[-1]) > R
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    mk, bk = fused.fused_resample_biquad_mix(ring, left, wts, ring=True, **kw)
+    mp, bp = fused.fused_resample_biquad_mix_plain(ring, left, wts, ring=True, **kw)
+    assert (mk - mp).abs().max().item() <= 1e-6 and torch.equal(bk, bp)
+
+
+def test_k1_ring_mode_in_a_cuda_graph(dev):
+    """The ring kernel captured in a CUDA graph and replayed equals eager."""
+    fr, to, S, n = 147, 160, 64, 1280
+    R = (4 * (n // to) + 1) * fr
+    rng = np.random.default_rng(4)
+    ring = _f32(rng.standard_normal((R, S * 2)) * 0.1, dev)
+    left, phase = output_positions(5 * to, n, fr, to, dev)
+    wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
+    kw = dict(gains=_f32(rng.uniform(0.1, 1.0, S * 2), dev), channels=2, ring=True,
+              coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
+              bq=_f32(np.zeros((4, S * 2)), dev))
+    want, _ = fused.fused_resample_biquad_mix(ring, left, wts, **kw)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fused.fused_resample_biquad_mix(ring, left, wts, **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got, _ = fused.fused_resample_biquad_mix(ring, left, wts, **kw)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _farm_corpus(tmp_path, n=4, seconds=2):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_io_fixtures import pcm16_master, write_pcm_wav
+
+    paths = []
+    for i in range(n):
+        k, _ = pcm16_master(60 + i, 2, seconds * 44100)
+        paths.append(str(tmp_path / f"f{i}.wav"))
+        write_pcm_wav(paths[-1], k, 44100, 16)
+    return paths
+
+
+@pytest.mark.parametrize("fused_path", [True, False])
+def test_stream_farm_on_card_matches_cpu(dev, tmp_path, fused_path):
+    """The farm on the card (K1's ring mode + K3, or K4 + K3; every step
+    under sync-debug "error" but the 32-block read-backs) against the CPU
+    farm, on the i16 wire with looping staggered streams."""
+    from rodio_tpu_torch.ops import cuda_scan
+    from rodio_tpu_torch.parallel.farm import StreamFarm
+
+    paths = _farm_corpus(tmp_path)
+    outs, runs = {}, {}
+    for d in (dev, "cpu"):
+        farm = StreamFarm(paths, block_frames=1280, fused=fused_path, wire="i16", loop=True,
+                          start_offsets=[0.0, 0.5, 1.2, 1.9], device=d)
+        blocks = []
+        launches = (fused.ring_launches, cuda_scan.launches, limiter_block.launches)
+        res = farm.run(40, on_block=lambda k, o, v: blocks.append(o),
+                       sync_debug=d is dev)
+        farm.close()
+        runs[str(d)] = (res, tuple(a - b for a, b in zip(
+            (fused.ring_launches, cuda_scan.launches, limiter_block.launches), launches)))
+        outs[str(d)] = torch.cat(blocks, 1).cpu()
+    (res_card, l_card), (res_cpu, _) = runs[str(dev)], runs["cpu"]
+    assert res_card[0] == res_cpu[0] == 40 * 1280 and res_card[2] is res_cpu[2] is False
+    assert l_card == ((40, 0, 40) if fused_path else (0, 40, 40))
+    assert (outs[str(dev)] - outs["cpu"]).abs().max().item() <= 1e-6
+
+
+def test_fused_farm_overflow_on_card_matches_cpu(dev):
+    """Pushes past the ring with no emit set the overflow flag on the card
+    as on the CPU, with no read-back in the emits."""
+    from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+    from rodio_tpu_torch.flagship import ChunkRingFeed, FusedFarmPipeline
+
+    flags = []
+    for d in (dev, "cpu"):
+        feed = ChunkRingFeed(8, 44100, 147, 4, 16, "int2", np.full(8, 0.25, np.float32),
+                             gain_post=True, device=d)
+        m = Limit(FusedFarmPipeline(feed, 48000, 4), LimitSettings(), mode="auto")
+        st = m.init_state()
+        rng = np.random.default_rng(1)
+
+        def push(st, T, prime=False):
+            b = torch.from_numpy(rng.standard_normal((8, T)).astype(np.float32) * 0.1).to(d)
+            return {**st, "in": {**st["in"], "in": feed.push(st["in"]["in"], b, prime=prime)}}
+
+        st = push(st, 5 * 147, prime=True)
+        seen = []
+        for k in range(8):
+            st = push(st, 4 * 147)
+            if k >= 3:
+                st = push(st, 4 * 147)  # running ahead of the emits
+            st, _, _ = m.emit(st, 640)
+            seen.append(bool(st["in"]["in"]["overflow"]))
+        flags.append(seen)
+    assert flags[0] == flags[1] and flags[0][0] is False and flags[0][-1] is True
+
+
+def test_sharded_stream_farm_nccl_group_of_one(dev, tmp_path):
+    """ShardedStreamFarm over a NCCL group of one (initialised here, on a
+    free localhost port) is bit-equal to the single-card fused farm."""
+    import socket
+
+    import torch.distributed as dist
+
+    from rodio_tpu_torch.parallel.farm import StreamFarm
+    from rodio_tpu_torch.parallel.sharded_farm import ShardedStreamFarm
+    from rodio_tpu_torch.parallel.sharding import stream_mesh
+
+    paths = _farm_corpus(tmp_path)
+    kw = dict(block_frames=1280, wire="i16", loop=True, start_offsets=[0.0, 0.3, 0.6, 0.9])
+    farm = StreamFarm(paths, fused=True, device=dev, **kw)
+    a = []
+    farm.run(8, on_block=lambda k, o, v: a.append(o))
+    farm.close()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        sfarm = ShardedStreamFarm(paths, stream_mesh(), device=dev, **kw)
+        b = []
+        sfarm.run(8, on_block=lambda k, o, v: b.append(o))
+        sfarm.close()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(torch.cat(a, 1), torch.cat(b, 1))
