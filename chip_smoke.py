@@ -13,7 +13,8 @@ Phases (each raises on failure, so the script exits non-zero):
    its bf16 instance, on bf16 blocks), the generators' phase accumulator
    (a ported lax.scan, at path H's [1, 1024]), K3, K1, K2, K2r
    and K2b (K2's serial and blocked rel0 plans),
-   K2g (K2's group branch), K6, K7, K8, K5 (limiter_stream, the Limit
+   K2g (K2's group branch), K6, K7 (and its agc_gain at path S's [512,
+   25600], on the inputs path S's AGC hands it), K8, K5 (limiter_stream, the Limit
    node's whole per-stream pass, and limiter_env, its envelopes alone) and
    K9 and K1's ring mode (the farm's ring of (4 Kp + 1) * fr rows, read
    modulo its rows, at a start whose last tile and last right tap cross
@@ -28,7 +29,13 @@ Phases (each raises on failure, so the script exits non-zero):
    (jax.random's threefry2x32, no pallas_call: csrc/threefry.cu) at path
    K's block (uniform, Velvet's and Pink's fused shapes) and at 2^24 draws,
    its bits and draws equal to the plain version, with torch.rand of the
-   same count as a yardstick; K7's linear op at Brownian's shape;
+   same count as a yardstick; K7's linear op at Brownian's shape; the
+   latency of a dependent f64 op (DMUL, DADD), then the f64 instances
+   (set_float64) of K4 (at [1024, 12800] and [2, 4096]), K3 (at [2, 12800]
+   and [2, 4096]), K7 (agc_gain at [1, 8192]) and K8 (at [1, 8192]), each
+   eager and in a CUDA graph, against their f64 plain versions, their
+   operations over 34 TFLOP/s FP64 and their chain floors at the f64 op's
+   latency;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -84,9 +91,11 @@ Phases (each raises on failure, so the script exits non-zero):
      (the same replayed blocks: O(pre-roll)), timed, the 8 blocks after
      the seek against the CPU's, then save_state mid-render, load_state on
      the card and the continuation bit-equal;
-   the CPU references of paths I, J, K and L render in three child
-   processes, started after phase 3's timings and all finished before any
-   later timing;
+   the CPU references render in child processes: path I's first and alone,
+   started before the build (its serial loop is the longest), J, K, L, S,
+   T, U and V's in three started after phase 3's timings; path I is held
+   to its reference after path L, and all are finished before the timings
+   of paths M to V;
    then the io layer (no kernel of its own; K4, K8, K7, K3 run under it):
    - path M, BASELINE config 2 from a file: a seeded 180 s 16-bit stereo
      master at 44.1 kHz written as WAV and as FLAC (tests/
@@ -123,6 +132,22 @@ Phases (each raises on failure, so the script exits non-zero):
      within 2e-6 of P over all 48 blocks;
    - path R: ShardedStreamFarm over a NCCL group of one initialised here,
      bit-equal to P; then dryrun_multichip(1) on the card;
+   then the associative scans (M10) and the f64 mode (M9), each with its
+   ms a block, launches a block, device busy, idle share and peak device
+   memory:
+   - path S: make_flagship(512, with_agc=True, scan_mode="auto"), 12
+     blocks of 12800: K4, the AGC's associative peak scan (torch ops) and
+     K7's smoother, K3; its 16-stream graph against the CPU's;
+   - path T: the same with scan_mode="parallel": the associative biquad,
+     peak scan and limiter envelopes in torch ops, K7's smoother; against
+     the CPU at 16 streams, and the torch-op scans card vs CPU bit-equal;
+   - path U: BASELINE config 2 in f64, path B's chain and length (10 s,
+     blocks of 4096): the f64 instances of K4, K8, K7 and K3 once a block;
+     its first 2 blocks against the f64 CPU render and against the f32
+     chain on the card (which it must differ from);
+   - path V: config 5's unfused chain in f64 at 512 streams ("pallas"), 12
+     blocks of 12800: K4's and K3's f64 instances; 16 streams against the
+     f64 CPU render;
 5. times: ms per block and the aggregate realtime factor of the slice and
    of paths A, B, C, D, E, E', F, G, G', H, I, J and K, the seek's time, and
    the device-busy share of I, J, K and L (paths M, N and O print theirs
@@ -137,6 +162,7 @@ beside it, it fails before printing any result.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -217,6 +243,22 @@ REL0_RPC = 16
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
+F64_FLOPS_S = 34e12  # FP64 outside the tensor cores
+#: the f64 instances against their f64 plain versions: K4, K7, K8 the same
+#: op order (0.0); K3 the same blocked order (aim 0)
+BOUND_K4F64 = BOUND_K7F64 = BOUND_K8F64 = 0.0
+BOUND_K3F64 = 1e-12
+#: an f64 path on the card against its f64 render on the CPU: K4, K7, K8 and
+#: K3 bit-equal to their plain versions; the window sum's f64 cumsum and the
+#: mix over streams sum in another order on the two devices
+BOUND_F64 = 1e-12
+#: path S's 16 streams on the card against the CPU: the card's master
+#: limiter is K3's blocked order, the CPU's "auto" the sequential one
+#: (tests/test_torch_cuda.py::test_flagship_on_card_matches_cpu)
+BOUND_S = 1e-6 + 4e-6
+#: paths S, T: the associative scans and the AGC over 512 streams; U, V:
+#: f64; blocks of each path's render
+PATH_ST_STREAMS_CHECK = 16
 
 
 #: INT32 operations a second: 132 SMs x 64 INT32 lanes x 1.98 GHz (the
@@ -323,12 +365,69 @@ def _cpu_reference(task: str):
         return torch.cat(blocks, dim=1).numpy(), pulls
     if task == "J":
         return player_script("cpu", PATH_J_BLOCKS).numpy()
+    if task in ("S", "T", "U", "V"):
+        return _scan_f64_render(task, "cpu", 2).numpy()
     n = -(-PATH_K_SECONDS * 48000 // PATH_K_BLOCK)
     out = {}
     for name in NOISE:
         node = noise_source(name, "cpu")
         out[name] = rtt.render_blocks(node, node.init_state(), n, PATH_K_BLOCK)[1].numpy()
     return out
+
+
+class _SampleMode:
+    """set_float64 for paths U and V while their graphs are built and
+    rendered, restored after."""
+
+    def __init__(self, task: str):
+        self.f64 = task in ("U", "V")
+
+    def __enter__(self):
+        from rodio_tpu_torch.core import types
+
+        self.was = types.float64_enabled()
+        types.set_float64(self.f64)
+
+    def __exit__(self, *exc):
+        from rodio_tpu_torch.core import types
+
+        types.set_float64(self.was)
+
+
+def _scan_f64_graph(task: str, device, streams: int = PATH_ST_STREAMS_CHECK):
+    """(node, state) of path S, T, U or V on ``device``: S and T config 5
+    with the AGC (make_flagship) in scan_mode "auto" and "parallel"; U
+    BASELINE config 2 (path B's chain, 10 s) and V config 5's unfused chain
+    ("pallas"), both f64 (build them under ``_SampleMode``). S, T and V take
+    ``streams`` streams: the checks' 16, or 512 for the runs."""
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.profile_slice import config2
+
+    if task == "U":
+        node = config2(device, 0)
+        return node, node.init_state()
+    mode = {"S": "auto", "T": "parallel", "V": "pallas"}[task]
+    return rtt.make_flagship(streams, seconds=4.0, scan_mode=mode, with_agc=task != "V",
+                             device=device, max_block=T, seed=SEED)
+
+
+def _scan_f64_render(task: str, device, n_blocks: int):
+    """The first ``n_blocks`` of path S, T, U or V (the checks' size)."""
+    import rodio_tpu_torch as rtt
+
+    with _SampleMode(task):
+        node, st = _scan_f64_graph(task, device)
+        block = PATH_B_BLOCK if task == "U" else T
+        return rtt.render_blocks(node, st, n_blocks, block)[1]
+
+
+_T0 = time.perf_counter()
+
+
+def _stamp(label: str) -> None:
+    """The seconds since the script started, before a phase or path (the
+    run's time budget)."""
+    print(f"time: {label} at {time.perf_counter() - _T0:.1f} s", flush=True)
 
 
 def _with_port(state, fn):
@@ -811,6 +910,132 @@ def _farm_paths(farm_dir: str, h) -> dict:
     return runs
 
 
+def _scan_f64_paths(wants, h) -> dict:
+    """Paths S, T (make_flagship(512, with_agc=True) in scan_mode "auto"
+    and "parallel": the associative peak scan and K7's smoother, K4 and K3
+    under "auto", the torch-op scans everywhere under "parallel"), U
+    (BASELINE config 2 in f64: path B's chain and length on the f64
+    instances of K4, K8, K7 and K3) and V (config 5's unfused chain in f64
+    at 512 streams: K4's and K3's f64 instances). Each renders its blocks
+    with the launches counted, then prints ms a block (CUDA events),
+    launches a block, device busy and idle share (3 profiled blocks) and
+    the peak device memory; S, T and V at 16 streams, and U's first 2
+    blocks, against the CPU's renders (the child processes'); U against
+    the same chain in f32 on the card, which it must differ from. ``wants``
+    holds the CPU renders. Returns the runs' launch counts."""
+    runs = {}
+    paths = (("S", "agc_auto", N_BLOCKS, T, dict(K4=1, K7=1, K3=1)),
+             ("T", "agc_parallel", N_BLOCKS, T, dict(K7=1)),
+             ("U", "config2_f64", PATH_B_BLOCKS, PATH_B_BLOCK,
+              dict(K4f64=1, K8f64=1, K7f64=1, K3f64=1)),
+             ("V", "config5_f64", N_BLOCKS, T, dict(K4f64=1, K3f64=1)))
+    for task, name, n_blocks, block, per_block in paths:
+        with _SampleMode(task):
+            runs[name] = _scan_f64_path(task, name, n_blocks, block, per_block,
+                                        wants[task], h)
+    return runs
+
+
+def _scan_f64_path(task, name, n_blocks, block, per_block, want, h) -> dict:
+    """One of paths S, T, U, V (see _scan_f64_paths), ``want`` its CPU
+    render: its launch counts."""
+    import numpy as np
+    import torch
+
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.ops import scan
+    from rodio_tpu_torch.profile_slice import config2, profile_pulls
+
+    reset, counts, expect, tag = h["reset"], h["counts"], h["expect"], h["tag"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()  # the smoke's own tensors so far
+    node, st = _scan_f64_graph(task, "cuda", N_STREAMS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    st, out, valids = rtt.render_blocks(node, st, n_blocks, block)
+    run = counts()
+    torch.cuda.synchronize()
+    peak_mem = torch.cuda.max_memory_allocated()
+    expect(run, f"path {task}", **{k: v * n_blocks for k, v in per_block.items()})
+    want_dtype = torch.float64 if task in ("U", "V") else torch.float32
+    n_valid = int(valids.sum().item())
+    if (out.dtype != want_dtype or not bool(torch.isfinite(out).all())
+            or n_valid != (10 * PATH_B_RATE if task == "U" else n_blocks * block)):
+        raise AssertionError(f"path {task}: {out.dtype}, {n_valid} valid frames, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    # against the CPU: the same graph at 16 streams (U: its first 2 blocks)
+    want = torch.from_numpy(want)
+    got = (out[:, :2 * block] if task == "U"
+           else _scan_f64_render(task, "cuda", 2)).cpu()
+    err = _max_err(got, want)
+    bound = {"S": BOUND_S, "T": BOUND_B}.get(task, BOUND_F64)
+    extra = ""
+    if task == "U":  # the same chain in f32 on the card
+        with _SampleMode("f32"):
+            o32 = config2("cuda", 0)
+            _, o32, _ = rtt.render_blocks(o32, o32.init_state(), 2, block)
+        d32 = _max_err(got, o32.cpu().double())
+        extra = f"; against the f32 chain on the card {d32:.3e} (must exceed 1e-9)"
+        if not d32 > 1e-9:
+            raise AssertionError(f"path U: f64 vs f32 {d32}: the f64 mode did not run")
+    if task == "T":  # the torch-op scans: the card and the CPU bit for bit
+        rng = np.random.default_rng(SEED + 9)
+        a, b, c = (rng.uniform(0.5, 1.0, (64, block)), rng.standard_normal((64, block)),
+                   rng.uniform(0.9, 1.0, (64, block)))
+        y0 = rng.standard_normal(64)
+        eq = []
+        for f in (scan.linear_scan, scan.max_affine_scan):
+            args = (a, b, y0) if f is scan.linear_scan else (a, b, c, y0)
+            on = [f(*(torch.from_numpy(v.astype(np.float32)).to(d) for v in args),
+                    mode="parallel").cpu() for d in (dev, "cpu")]
+            eq.append(torch.equal(*on))
+        co = torch.tensor((0.02, 0.04, 0.02, -1.56, 0.64))
+        zs = tuple(torch.zeros(64) for _ in range(4))
+        on = [scan.biquad_df1(torch.from_numpy(b.astype(np.float32)).to(d), co.to(d),
+                              tuple(z.to(d) for z in zs), mode="parallel")[0].cpu()
+              for d in (dev, "cpu")]
+        eq.append(torch.equal(*on))
+        extra = f"; the torch-op scans at [64, {block}], card vs CPU bit-equal {eq}"
+        if not all(eq):
+            raise AssertionError(f"path T: the scans differ on the card {eq}")
+    what = "2 blocks" if task == "U" else "16 streams, 2 blocks"
+    print(f"path {task} ({name}): card vs CPU ({what}): max|d| {err:.3e} "
+          f"(bound {bound}){extra}")
+    if not (err <= bound and got.shape == want.shape):
+        raise AssertionError(f"path {task}: card vs CPU {err} exceeds {bound}")
+
+    # times: CUDA events over the blocks after a warm-up block; 3
+    # profiled blocks for device busy and the idle share
+    st = node.init_state()
+    st, _, _ = rtt.render_blocks(node, st, 1, block)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    n_timed = min(n_blocks - 1, 24)
+    start.record()
+    st, _, _ = rtt.render_blocks(node, st, n_timed, block)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n_timed
+    st_p = [st]
+
+    def pull():
+        st_p[0], _, _ = node.emit(st_p[0], block)
+
+    prof = profile_pulls(pull, 3)
+    streams = 1 if task == "U" else N_STREAMS
+    rate = PATH_B_RATE if task == "U" else 48000
+    print(f"path {task} ({name}): {ms:.3f} ms a block of {block} frames x {streams} "
+          f"streams, realtime factor {streams * block / rate / (ms / 1e3):.1f}x; launches "
+          f"a block { {k: v / n_blocks for k, v in run.items() if v} }; device busy "
+          f"{prof['device_busy_ms']:.4f} ms a block, idle share {prof['idle_share']:.3f}, "
+          f"{prof['launches_per_block']:.1f} device events a block; peak device memory "
+          f"{peak_mem} B, {peak_mem - base_mem} B above the smoke's tensors before the "
+          f"path {tag}")
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -821,14 +1046,16 @@ def main() -> int:
 
     import rodio_tpu_torch  # noqa: F401  (fails here without the repository)
 
-    # the CPU references of paths I, J, K and L render in three child
-    # processes, started after the kernels' timings (phase 3) and waited for
-    # before any later timing; they are stopped however the run ends
+    # the CPU references of the paths render in child processes: path I's
+    # (a serial loop of ~260 s on one core) first and alone, before the
+    # build, the others in three after the kernels' timings (phase 3); each
+    # is waited for before the timings of paths M to V, and all are stopped
+    # however the run ends
     pools = []
 
-    def start_references():
-        pools.append(multiprocessing.get_context("spawn").Pool(3))
-        return {t: pools[0].apply_async(_cpu_reference, (t,)) for t in ("L", "I", "K", "J")}
+    def start_references(tasks, workers):
+        pools.append(multiprocessing.get_context("spawn").Pool(workers))
+        return {t: pools[-1].apply_async(_cpu_reference, (t,)) for t in tasks}
 
     try:
         return _main(start_references)
@@ -848,6 +1075,7 @@ def _main(start_references) -> int:
     from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
     from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
     from rodio_tpu_torch.effects.blt import blt_coefficients
+    agc_mod = importlib.import_module("rodio_tpu_torch.effects.agc")
     from rodio_tpu_torch.effects.limit import Limit, LimitSettings
     from rodio_tpu_torch.effects import Dither
     from rodio_tpu_torch.graph import seek
@@ -869,6 +1097,7 @@ def _main(start_references) -> int:
     print(f"device: {kind}")
     print(f"nvidia-smi: {smi}")
     tag = f"[{smi}]"
+    refs = start_references(("I",), 1)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -877,6 +1106,7 @@ def _main(start_references) -> int:
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s)")
 
+    _stamp("phase 3")
     # -- 3. kernels against their plain versions, main-path shapes ----------
     op_s = op_latency.seconds_per_op(dev)
     print(f"chain: a dependent rounded f32 op (FMUL, FADD) takes {op_s * 1e9:.4f} ns "
@@ -903,7 +1133,11 @@ def _main(start_references) -> int:
                 "K6": (cuda_scan, "agc_launches"),
                 "K7": (cuda_scan, "first_order_launches"),
                 "K8": (limiter_block, "bma_launches"),
-                "K9": (dma_roofline, "launches"), "threefry": (threefry, "launches")}
+                "K9": (dma_roofline, "launches"), "threefry": (threefry, "launches"),
+                "K4f64": (cuda_scan, "f64_launches"),
+                "K7f64": (cuda_scan, "first_order_f64_launches"),
+                "K3f64": (limiter_block, "f64_launches"),
+                "K8f64": (limiter_block, "bma_f64_launches")}
 
     def reset():
         for mod, attr in counters.values():
@@ -1238,6 +1472,39 @@ def _main(start_references) -> int:
            note=f" agc_gain [1, 8192] (+ linear, max_affine [8, 512]), the smoother's own "
                 f"chain {8192 * smooth_s * 1e3:.4f} ms; agc_gain [1, 512] (group=8): "
                 f"{ms7g:.4f} ms, chain floor {_chain_ms(512, 5):.4f} ms")
+    # ... and at path S's shape, [512, 25600] (512 stereo streams, blocks of
+    # 12800: 128 blocks of 4 lanes), on path S's own inputs: the desired
+    # gains, carry and knobs the AGC hands K7 in path S's second block
+    seen7 = []
+
+    def first_order_seen(*args, **kw):
+        seen7.append((args, kw))
+        return cuda_scan.first_order(*args, **kw)
+
+    node_s, st_s = _scan_f64_graph("S", "cuda", N_STREAMS)
+    agc_mod.first_order = first_order_seen
+    try:
+        rtt.render_blocks(node_s, st_s, 2, T)
+    finally:
+        agc_mod.first_order = cuda_scan.first_order
+    del node_s, st_s
+    (des_s, _, g0_s), kw_s = seen7[-1]
+    if tuple(des_s.shape) != (N_STREAMS, 2 * T) or kw_s.get("op") != "agc_gain":
+        raise AssertionError(f"K7 at path S: {tuple(des_s.shape)}, {kw_s}")
+
+    def k7_s():
+        return cuda_scan.first_order(des_s, des_s, g0_s, **kw_s)
+
+    err7s = _max_err(k7_s(), cuda_scan.first_order_plain(des_s, des_s, g0_s, **kw_s))
+    ms7s = _time_ms(k7_s, 20)
+    gms7s = warp_cycles.graph_ms(k7_s, 20)
+    pms7s = _time_ms(lambda: cuda_scan.first_order_plain(des_s, des_s, g0_s, **kw_s), 1)
+    record("K7", "first_order (agc_gain, path S)", "rodio_tpu_torch/csrc/first_order.cu",
+           "rodio_tpu/ops/pallas_scan.py:433", err7s, BOUND_K7, ms7s, pms7s,
+           2 * des_s.numel() * 4, 10 * des_s.numel(), _chain_ms(2 * T, 5), path="agc_auto",
+           note=f" agc_gain [{N_STREAMS}, {2 * T}] on path S's inputs; in a CUDA graph "
+                f"{gms7s:.4f} ms; the smoother's own chain {2 * T * smooth_s * 1e3:.4f} ms")
+    del seen7, des_s, g0_s
 
     # K8: the peak detector over [1, 8192], P = 128, release as data; chain:
     # n/P + log2 P steps of 3 ops
@@ -1254,6 +1521,66 @@ def _main(start_references) -> int:
            2 * 8192 * 4, 4 * 8192, _chain_ms(8192 // 128 + 7, 3),
            note=f" [1, 8192] P=128; in a CUDA graph {gms8:.4f} ms (eager: the "
                 f"wrapper's host time)")
+
+    # the f64 instances (set_float64: paths U and V): K4 at path V's [1024,
+    # 12800] and path U's [2, 4096], K3 at [2, 12800] and [2, 4096], K7's
+    # agc_gain and K8 at path U's [1, 8192]; each eager and as 20 calls in a
+    # CUDA graph, against its f64 plain version; bytes 8 a value, operations
+    # over the FP64 rate, the chain floor at the DMUL/DADD latency
+    dop_s = op_latency.seconds_per_dop(dev)
+    print(f"chain: a dependent rounded f64 op (DMUL, DADD) takes {dop_s * 1e9:.4f} ns "
+          f"on one thread {tag}")
+
+    def dev_f64(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(dev)
+
+    def f64_row(kid, name, src, rep, bound, call, plain, nbytes, flops, chain, note, path,
+                plain_reps=2):
+        out_k, out_p = call(), plain()
+        flat = lambda o: o if isinstance(o, torch.Tensor) else torch.cat(
+            [o[0].reshape(-1), *(t.reshape(-1) for t in o[1])])
+        err = _max_err(flat(out_k), flat(out_p))
+        ms = _time_ms(call, 20)
+        gms = warp_cycles.graph_ms(call, 20)
+        record(kid, name, src, rep, err, bound, ms, _time_ms(plain, plain_reps), nbytes,
+               flops, chain * dop_s * 1e3, ops_per_s=F64_FLOPS_S, path=path,
+               note=f"{note}; in a CUDA graph {gms:.4f} ms")
+
+    coef64 = coef.double()
+    for Lf, Tf, path in ((L, T, "config5_f64"), (2, PATH_B_BLOCK, "config2_f64")):
+        xf = dev_f64(rng.standard_normal((Lf, Tf)) * 0.1)
+        stf = tuple(dev_f64(rng.standard_normal(Lf) * 0.01) for _ in range(4))
+        f64_row("K4f64", "biquad_df1 (f64 block)", "rodio_tpu_torch/csrc/biquad.cu",
+                "rodio_tpu/ops/pallas_scan.py:82", BOUND_K4F64,
+                lambda: cuda_scan.biquad_df1(xf, coef64, stf),
+                lambda: cuda_scan.biquad_df1_plain(xf, coef64, stf),
+                2 * Lf * Tf * 8, 9 * Lf * Tf, Tf * 3, f" [{Lf}, {Tf}] f64", path)
+    del xf, stf
+    for Tf, path in ((T, "config5_f64"), (PATH_B_BLOCK, "config2_f64")):
+        xmf = dev_f64(rng.standard_normal((2, Tf)) * 0.7)
+        i0f, p0f = dev_f64([0.5, 1.0]), dev_f64([0.8, 0.3])
+        f64_row("K3f64", "limiter_master (f64)", "rodio_tpu_torch/csrc/limiter_block.cu",
+                "rodio_tpu/ops/limiter_block.py:175", BOUND_K3F64,
+                lambda: limiter_block.limiter_master(xmf, i0f, p0f, **kw),
+                lambda: limiter_block.limiter_master_plain(xmf, i0f, p0f, **kw),
+                2 * 2 * Tf * 8, 60 * 2 * Tf, Tf // 128 + 7, f" [2, {Tf}] P=128 f64", path,
+                plain_reps=5)
+    desf, g0f, p7f = dev_f64(rng.uniform(0.5, 7.0, (1, 8192))), dev_f64([1.0]), params[[0, 1, 3]].double()
+    f64_row("K7f64", "first_order (f64)", "rodio_tpu_torch/csrc/first_order.cu",
+            "rodio_tpu/ops/pallas_scan.py:433", BOUND_K7F64,
+            lambda: cuda_scan.first_order(desf, desf, g0f, op="agc_gain", params=p7f),
+            lambda: cuda_scan.first_order_plain(desf, desf, g0f, op="agc_gain", params=p7f),
+            2 * 8192 * 8, 10 * 8192, 8192 * 5, " agc_gain [1, 8192] f64", "config2_f64",
+            plain_reps=1)
+    x8f, v8f, a8f = dev_f64(np.abs(rng.standard_normal((1, 8192)) * 0.3)), dev_f64([0.4]), \
+        params[1].double()
+    f64_row("K8f64", "blocked_max_affine_const (f64)", "rodio_tpu_torch/csrc/bma.cu",
+            "rodio_tpu/ops/limiter_block.py:293", BOUND_K8F64,
+            lambda: limiter_block.blocked_max_affine_const(x8f, v8f, a8f, P=128),
+            lambda: limiter_block.blocked_max_affine_const_plain(x8f, v8f, a8f, P=128),
+            2 * 8192 * 8, 4 * 8192, 8192 // 128 + 7, " [1, 8192] P=128 f64 (its power "
+            "table an f64 cumprod)", "config2_f64")
+    del desf, x8f
 
     # K5: the Limit node's per-stream pass (limiter_stream) at path C's
     # shape [1024, 12800] in stereo groups, and at ragged shapes in groups
@@ -1387,8 +1714,9 @@ def _main(start_references) -> int:
         if not r["max_abs_err"] <= r["bound_err"]:
             raise AssertionError(f"{r['kid']}: max|d| {r['max_abs_err']} exceeds "
                                  f"{r['bound_err']}")
-    refs = start_references()
+    refs.update(start_references(("L", "K", "J", "S", "T", "U", "V"), 3))
 
+    _stamp("phase 4, the slice")
     # -- 4. the paths --------------------------------------------------------
     def check_output(out, valids, name, n_blocks, block):
         if tuple(out.shape) != (2, n_blocks * block) or not bool(torch.isfinite(out).all()):
@@ -1488,6 +1816,7 @@ def _main(start_references) -> int:
             raise AssertionError(f"path B card vs CPU {err_b} exceeds {BOUND_B}")
         path_b_runs[group] = run
 
+    _stamp("path C")
     # path C: the per-stream chain of tests/test_parallel.py:106-117 with
     # the TPU dispatch of each node ("pallas"), BASELINE config 5's 512
     # streams on 4 s of seeded PCM, then the master limiter
@@ -1587,6 +1916,7 @@ def _main(start_references) -> int:
         del eout
     del aout2
 
+    _stamp("path F")
     # path F: BASELINE config 1 at a real length, 180 s of seeded 16-bit
     # stereo at 44.1 kHz through Uniform(rodio_compat=True): the span path
     # (the phase re-bootstraps every 16384 frames); no kernel of ours runs
@@ -1672,6 +2002,7 @@ def _main(start_references) -> int:
         raise AssertionError(f"path G': card vs CPU {err_gb}, vs f32 {rel_gb}")
     del hout, hcpu, cnode, f32_chain, f32out
 
+    _stamp("path H")
     # path H: BASELINE config 4: the parity case of tools/parity_tpu.py
     # (config4) and the scene of tests/test_baseline_configs.py without the
     # control plane, each a whole render on the card against the CPU
@@ -1696,33 +2027,25 @@ def _main(start_references) -> int:
             raise AssertionError(f"path H ({label}): card vs CPU {err_h}, valid ok {ok}")
         path_h_runs[label], path_h_nodes[label] = run, (node, nh)
 
+    _stamp("path I")
     # path I: BASELINE config 3 at full width, 64 sources into mixer(2,
     # 48000), taken for 10 s and pulled in blocks of 2048 to the end (the
     # mixer reads its members' valids back once a block); 60 generators with
-    # rodio_compat, so the phase kernel runs once a generator a pull
+    # rodio_compat, so the phase kernel runs once a generator a pull. Held
+    # to its CPU reference after path L, when that is done
     _, rx3 = config3("cuda", PATH_I_SECONDS)
     reset()
     blocks3, pulls3 = pull_to_end(rx3, PATH_I_BLOCK)
     torch.cuda.synchronize()
     path_i_run = counts()
     expect(path_i_run, "path I", phase=60 * pulls3)
-    out3 = torch.cat(blocks3, dim=1)
-    want3, cpu_pulls3 = refs["I"].get()
-    err_i = _max_err(out3.cpu(), torch.from_numpy(want3))
-    n3 = out3.shape[1]
-    print(f"path I (config 3, 64 sources, {PATH_I_SECONDS} s, blocks of {PATH_I_BLOCK}): "
-          f"{pulls3} pulls, {n3} frames; card vs CPU, the whole render: max|d| {err_i:.3e} "
-          f"(bound {BOUND_B}); peak {float(out3.abs().max()):.4f}; launches {path_i_run}")
-    if not (pulls3 == cpu_pulls3 and tuple(want3.shape) == tuple(out3.shape)
-            and n3 >= PATH_I_SECONDS * 48000 and bool(torch.isfinite(out3).all())
-            and err_i <= BOUND_B):
-        raise AssertionError(f"path I: {pulls3} vs {cpu_pulls3} pulls, shapes "
-                             f"{tuple(out3.shape)} {want3.shape}, card vs CPU {err_i}")
+    out3 = torch.cat(blocks3, dim=1).cpu()
     del blocks3
 
-    # path K, dither: path I's CPU render dithered to 16 bits by each
-    # algorithm, on the card and on the CPU (the same input): threefry once
-    # a block
+    _stamp("path K")
+    # path K, dither: path I's render dithered to 16 bits by each algorithm,
+    # on the card and on the CPU (the same input): threefry once a block
+    want3 = out3.numpy()
     dither_runs = {}
     for algo in ("tpdf", "rpdf", "gpdf", "highpass"):
         outs = []
@@ -1742,7 +2065,7 @@ def _main(start_references) -> int:
               f"{err_d:.3e} (bound {bound_d:.3e}); launches {dither_runs[algo]}")
         if not err_d <= bound_d:
             raise AssertionError(f"dither {algo}: card vs CPU {err_d} exceeds {bound_d}")
-    del out3
+    del want3
 
     # path K: the nine noise sources, 10 s each in blocks of 4096, card
     # against CPU; threefry once a block (Brownian and Red: and K7)
@@ -1782,6 +2105,7 @@ def _main(start_references) -> int:
         raise AssertionError(f"path J: card vs CPU {err_j}, launches {path_j_run}")
     del out_j
 
+    _stamp("path L")
     # path L: seek on path B's chain over 600 s: to 300 s and to 60 s, the
     # same replayed blocks (O(pre-roll)); the render after the seek against
     # the CPU's (the replay runs K4 at [2, 8192], K7 and K8 at [1, 16384]);
@@ -1829,6 +2153,26 @@ def _main(start_references) -> int:
                              f"{cpu_replay_l}, shapes {tuple(out_l.shape)} {want_l.shape}")
     del node_l, st_l, st_l2, cont_a, cont_b, out_l
 
+    # path I against its CPU render, the whole render
+    want3, cpu_pulls3 = refs["I"].get()
+    _stamp("path I's CPU reference fetched")
+    err_i = _max_err(out3, torch.from_numpy(want3))
+    n3 = out3.shape[1]
+    print(f"path I (config 3, 64 sources, {PATH_I_SECONDS} s, blocks of {PATH_I_BLOCK}): "
+          f"{pulls3} pulls, {n3} frames; card vs CPU, the whole render: max|d| {err_i:.3e} "
+          f"(bound {BOUND_B}); peak {float(out3.abs().max()):.4f}; launches {path_i_run}")
+    if not (pulls3 == cpu_pulls3 and tuple(want3.shape) == tuple(out3.shape)
+            and n3 >= PATH_I_SECONDS * 48000 and bool(torch.isfinite(out3).all())
+            and err_i <= BOUND_B):
+        raise AssertionError(f"path I: {pulls3} vs {cpu_pulls3} pulls, shapes "
+                             f"{tuple(out3.shape)} {want3.shape}, card vs CPU {err_i}")
+    del out3, want3
+
+    # paths S, T, U and V's CPU renders, fetched before any later timing
+    want_scan_f64 = {t: refs[t].get() for t in ("S", "T", "U", "V")}
+    _stamp("paths S-V's CPU references fetched")
+
+    _stamp("paths M, N, O")
     # -- the io layer (M7): paths M, N and O ----------------------------------
     # path M: BASELINE config 2 from a file, decoded whole: a seeded 180 s
     # 16-bit-grid stereo master at 44.1 kHz written as WAV and as FLAC, each
@@ -1840,6 +2184,7 @@ def _main(start_references) -> int:
     finally:
         shutil.rmtree(io_dir, ignore_errors=True)
 
+    _stamp("paths P, Q, R")
     # -- the farm (M8): paths P, Q and R ------------------------------------
     farm_dir = tempfile.mkdtemp(prefix="chip_smoke_farm_")
     try:
@@ -1848,6 +2193,12 @@ def _main(start_references) -> int:
     finally:
         shutil.rmtree(farm_dir, ignore_errors=True)
 
+    _stamp("paths S, T, U, V")
+    # -- the associative scans (M10) and f64 (M9): paths S, T, U and V ------
+    scan_f64_runs = _scan_f64_paths(want_scan_f64, dict(reset=reset, counts=counts,
+                                                        expect=expect, tag=tag))
+
+    _stamp("phase 5")
     # -- 5. times ----------------------------------------------------------
     def time_render(node, n_blocks, block):
         st = node.init_state()
@@ -1952,7 +2303,7 @@ def _main(start_references) -> int:
             "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
             **path_h_runs, "config3": path_i_run, "player": path_j_run, "noise": path_k_run,
             **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run,
-            **io_res, **farm_res}
+            **io_res, **farm_res, **scan_f64_runs}
     kernel_paths = {"K4": "unfused", "K3": "fused", "K1": "fused", "K1r": "farm_fused",
                     "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
@@ -1969,6 +2320,7 @@ def _main(start_references) -> int:
          "library_ms": r["library_ms"]}
         for r in results
     ]}))
+    _stamp("the end")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

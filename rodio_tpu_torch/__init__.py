@@ -8,7 +8,8 @@ held against (``tests/test_torch_*.py``).
 
 Layers (the counterparts of rodio_tpu's modules of the same names):
 
-- :mod:`rodio_tpu_torch.core`        — sample model, precise math, Node
+- :mod:`rodio_tpu_torch.core`        — sample model (f32, or f64 after
+  ``set_float64(True)``), precise math, Node
   and its combinators, ``tree_select``, the error taxonomy
 - :mod:`rodio_tpu_torch.sources`     — SamplesBuffer, SignalGenerator and
   its waves (SineWave, SquareWave, TriangleWave, SawtoothWave), Chirp,
@@ -29,11 +30,12 @@ Layers (the counterparts of rodio_tpu's modules of the same names):
   farm (HostDecodePool, StreamFarm), the stream axis over the ranks of a
   torch.distributed group (stream_mesh, hybrid_stream_mesh, the sharded
   mixer, batch and pipelines) and the sharded farm
-- :mod:`rodio_tpu_torch.ops`         — plain scans, the CUDA kernels
-  (K1 fused and its ring mode, K2 fused AGC and K2g its group branch, K3 limiter, K4
-  biquad and its bf16 instance, K5 limiter envelopes, K6 AGC loop, K7
-  first-order scan, K8 blocked max-affine, the generators' phase
-  accumulator, threefry for the noise) and their build
+- :mod:`rodio_tpu_torch.ops`         — plain and associative scans
+  (``mode="parallel"``), the CUDA kernels (K1 fused and its ring mode, K2
+  fused AGC and K2g its group branch, K3 limiter, K4 biquad and its bf16
+  instance, K5 limiter envelopes, K6 AGC loop, K7 first-order scan, K8
+  blocked max-affine, f64 instances of K3, K4, K7 and K8, the generators'
+  phase accumulator, threefry for the noise) and their build
 - :mod:`rodio_tpu_torch.graph`       — render / render_blocks / record /
   compile_step, seek_state, save_state / load_state
 - :mod:`rodio_tpu_torch.flagship`    — FusedWidePipeline, make_flagship,
@@ -53,7 +55,7 @@ Entry points run on the current CUDA device unless the caller passes
 """
 
 from .control import Player, SpatialPlayer, mixer, queue
-from .core.types import StreamSpec
+from .core.types import StreamSpec, set_float64
 from .effects import AgcSettings, AutomaticGainControl
 from .flagship import FusedWidePipeline, make_flagship, make_per_stream_chain
 from .graph.checkpoint import load_state, save_state
@@ -82,4 +84,5 @@ __all__ = [
     "resolve_device",
     "save_state",
     "seek_state",
+    "set_float64",
 ]

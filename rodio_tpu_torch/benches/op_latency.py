@@ -1,11 +1,13 @@
 """The latency of one dependent rounded f32 op (FMUL or FADD) on the card,
-and of one step of the AGC's gain smoother.
+of one f64 op (DMUL or DADD), and of one step of the AGC's gain smoother.
 
 A recurrence kernel (K1-K8) cannot finish sooner than its serial steps
 times the dependent ops of a step times this latency: its chain floor.
 :func:`seconds_per_op` times one thread's chain of FMUL and FADD in turn
 (``csrc/op_latency.cu``) at two lengths, so that the launch cancels out;
-``chip_smoke.py`` takes every kernel's chain floor from it.
+``chip_smoke.py`` takes every kernel's chain floor from it, and the f64
+instances' (K3, K4, K7, K8) from :func:`seconds_per_dop`, the same chain
+of DMUL and DADD (``rt_op_chain_f64``).
 :func:`smooth_step` times one thread's chain of the smoother's steps
 (``smooth_gain``, whose mul, add, max, min and select bind K6's and K7's
 smoother warps) the same way, and reads its SM cycles a step from
@@ -26,7 +28,7 @@ ITERS = 1 << 18
 
 def op_chain_plain(xab: torch.Tensor, iters: int) -> torch.Tensor:
     """The plain version of :func:`op_chain`: x = x*a, x = x + b, 16 times
-    per iteration, each op rounded to f32."""
+    per iteration, each op rounded to xab's type."""
     x, a, b = xab[0:1], xab[1:2], xab[2:3]
     for _ in range(iters * OPS_PER_ITER // 2):
         x = x * a + b
@@ -34,17 +36,20 @@ def op_chain_plain(xab: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def op_chain(xab: torch.Tensor, iters: int) -> torch.Tensor:
-    """xab: f32 [3] (x0, a, b). Returns [1]: x after ``iters`` iterations
-    of 32 dependent ops on one thread."""
+    """xab: f32 [3] (x0, a, b), or f64 for the DMUL/DADD chain. Returns
+    [1]: x after ``iters`` iterations of 32 dependent ops on one thread."""
     if xab.device.type == "cpu":
         return op_chain_plain(xab, iters)
     if xab.device.type != "cuda":
         raise ValueError(f"op_chain: unsupported device {xab.device}")
-    xab = _build.f32_arg("xab", xab, xab.device, (3,))
-    out = torch.empty(1, dtype=torch.float32, device=xab.device)
-    err = _build.load_library().rt_op_chain(xab.data_ptr(), out.data_ptr(),
-                                            iters, _build.stream_handle(xab.device))
-    _build.check(err, "rt_op_chain")
+    f64 = xab.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    xab = _build._typed_arg("xab", xab, dt, xab.device, (3,))
+    out = torch.empty(1, dtype=dt, device=xab.device)
+    name = "rt_op_chain_f64" if f64 else "rt_op_chain"
+    err = getattr(_build.load_library(), name)(xab.data_ptr(), out.data_ptr(),
+                                               iters, _build.stream_handle(xab.device))
+    _build.check(err, name)
     return out
 
 
@@ -97,6 +102,13 @@ def _seconds_per_step(chain) -> float:
 def seconds_per_op(device) -> float:
     """Seconds per dependent FMUL or FADD on one thread."""
     xab = torch.tensor([1.0, 0.999, 1e-3], dtype=torch.float32, device=device)
+    return _seconds_per_step(lambda k: op_chain(xab, k))
+
+
+def seconds_per_dop(device) -> float:
+    """Seconds per dependent DMUL or DADD on one thread: the chain floor's
+    latency for the f64 instances."""
+    xab = torch.tensor([1.0, 0.999, 1e-3], dtype=torch.float64, device=device)
     return _seconds_per_step(lambda k: op_chain(xab, k))
 
 

@@ -78,7 +78,7 @@ class MixerSource(Node):
         """One [channels, n] block on the mixer's device: (block, alive).
         ``alive`` is False when the mixer has ended (no source yielded)."""
         self._admit()
-        total = torch.zeros((self.spec.channels, n), dtype=torch.float32,
+        total = torch.zeros((self.spec.channels, n), dtype=self.dtype,
                             device=self.device)
         if not self._current:
             return total, False
@@ -99,7 +99,7 @@ class MixerSource(Node):
             any_yield = any(v > 0 for v in valids)
         for node in hosted:
             block, alive = node.next_block(n)
-            total = total + hosted_block(block, self.device)
+            total = total + hosted_block(block, self.device, self.dtype)
             if alive:
                 survivors.append((node, None))
                 any_yield = True
@@ -112,7 +112,7 @@ class MixerSource(Node):
         return [st for _, st in self._current]
 
     def emit(self, state: State, n: int):
-        total = torch.zeros((self.spec.channels, n), dtype=torch.float32, device=self.device)
+        total = torch.zeros((self.spec.channels, n), dtype=self.dtype, device=self.device)
         new_states = []
         max_valid = torch.zeros((), dtype=torch.int64, device=self.device)
         for (node, _), st in zip(self._current, state):

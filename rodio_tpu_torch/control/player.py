@@ -50,7 +50,7 @@ class PlayerControl(Node):
     def init_state(self) -> State:
         dev = self.device
         return {"in": self.input.init_state(),
-                "volume": torch.full((), self.volume, dtype=torch.float32, device=dev),
+                "volume": torch.full((), self.volume, dtype=self.dtype, device=dev),
                 "paused": torch.full((), bool(self.initially_paused), device=dev),
                 "stopped": torch.zeros((), dtype=torch.bool, device=dev),
                 "frames": torch.zeros((), dtype=torch.int64, device=dev)}

@@ -18,7 +18,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..core.node import Node
-from ..core.types import DEFAULT_SAMPLE_RATE
+from ..core.types import DEFAULT_SAMPLE_RATE, float_dtype
 from ..graph.render import compile_step
 from ..utils.device import DeviceLike, resolve_device
 
@@ -66,6 +66,8 @@ class SourcesQueueOutput:
         self.input = input_queue
         self.block_frames = block_frames
         self.device = resolve_device(device)
+        #: the sample type when the queue was built
+        self.dtype = float_dtype()
         self.current: Optional[dict] = None
         #: called when a queued sound becomes current: the Player lands knobs
         #: changed between append and start before the sound's first sample
@@ -160,7 +162,7 @@ class SourcesQueueOutput:
         from ..conversions.channels import rechannel_block
 
         channels, rate = self.channels(), self.sample_rate()
-        out = torch.zeros((channels, n), dtype=torch.float32, device=self.device)
+        out = torch.zeros((channels, n), dtype=self.dtype, device=self.device)
         filled = 0
         while filled < n:
             if self.current is None and not self._go_next(

@@ -52,8 +52,9 @@ class SpatialPlayer(Player):
         target = _find_volumes(cur["state"])
         if target is not None:
             lvol, rvol = spatial_volumes(self._emitter, self._left_ear, self._right_ear)
-            target["volumes"] = torch.tensor([float(lvol), float(rvol)], dtype=torch.float32,
-                                             device=target["volumes"].device)
+            vols = target["volumes"]
+            target["volumes"] = torch.tensor([float(lvol), float(rvol)], dtype=vols.dtype,
+                                             device=vols.device)
 
 
 def _find_volumes(state):

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.node import Node, State, clip_valid, mask_block, tree_select
-from ..core.types import StreamSpec
+from ..core.types import StreamSpec, np_float_dtype
 
 #: the ring path's "not ended yet" input end (the JAX package's int32 max)
 BIG = 2**31 - 1
@@ -73,13 +73,14 @@ def resample_output_frames(n_in: int, from_: int, to: int) -> int:
     return n_full + (1 if drain else 0)
 
 
-def lerp_weights(from_: int, to: int):
+def lerp_weights(from_: int, to: int, dtype=np.float32):
     """Per phase j: (weight of x[left], weight of x[left+1]), the nonzero
     entries of column j of the JAX operator ``G0``/``g1``
-    (resample.py:_build_lerp_matrix), in f32."""
+    (resample.py:_build_lerp_matrix), in ``dtype`` (f32, or f64 under
+    ``set_float64``)."""
     j = np.arange(to, dtype=np.int64)
-    frac = ((from_ * j) % to).astype(np.float32) / np.float32(to)
-    return np.float32(1.0) - frac, frac
+    frac = ((from_ * j) % to).astype(dtype) / dtype(to)
+    return dtype(1.0) - frac, frac
 
 
 def output_positions(o0, n: int, from_: int, to: int, device):
@@ -133,13 +134,14 @@ class Resample(Node):
         # the ring path's ring: twice the largest pull (static)
         self.R = 2 * (-(-max_block * self.from_ // self.to) + 3)
         if not self.identity:
-            w0, w1 = lerp_weights(self.from_, self.to)
+            dt = np_float_dtype(self.dtype)
+            w0, w1 = lerp_weights(self.from_, self.to, dt)
             self._w0 = torch.from_numpy(w0).to(self.device)
             self._w1 = torch.from_numpy(w1).to(self.device)
             # the lerp form's f32(num) / f32(to) for every numerator, made
             # on the host: a CUDA division by a host scalar multiplies by
             # its reciprocal, which rounds differently
-            frac = np.arange(self.to, dtype=np.float32) / np.float32(self.to)
+            frac = np.arange(self.to, dtype=dt) / dt(self.to)
             self._frac = torch.from_numpy(frac).to(self.device)
 
     def total_frames(self) -> Optional[int]:
@@ -166,7 +168,7 @@ class Resample(Node):
                     "drained": drained}
         return {
             "in": self.input.init_state(),
-            "ring": torch.zeros((self.spec.channels, self.R), dtype=torch.float32,
+            "ring": torch.zeros((self.spec.channels, self.R), dtype=self.dtype,
                                 device=self.device),
             "base_g": self._zero(),
             "fill": self._zero(),

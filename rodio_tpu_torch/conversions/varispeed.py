@@ -25,11 +25,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core.node import Node, State, clip_valid, tree_select
-from ..core.types import StreamSpec
+from ..core.types import StreamSpec, np_float_dtype
 
 _BIG = 2 ** 31 - 1
 
@@ -52,6 +51,7 @@ class VariSpeed(Node):
         #: the pull size that covers one block's worst-case demand
         self.P = int(math.ceil(max_block * max_ratio)) + 4
         self.R = 2 * self.P
+        self._dt, self._np_dt = self.dtype, np_float_dtype(self.dtype)
 
     def total_frames(self) -> Optional[int]:
         return None  # the duration depends on the ratio's history
@@ -62,11 +62,11 @@ class VariSpeed(Node):
     def init_state(self) -> State:
         return {
             "in": self.input.init_state(),
-            "ring": torch.zeros((self.spec.channels, self.R), dtype=torch.float32,
+            "ring": torch.zeros((self.spec.channels, self.R), dtype=self._dt,
                                 device=self.device),
             "fill": self._i64(0),
-            "frac": torch.zeros((), dtype=torch.float32, device=self.device),
-            "ratio": torch.full((), float(np.float32(self.ratio0)), dtype=torch.float32,
+            "frac": torch.zeros((), dtype=self._dt, device=self.device),
+            "ratio": torch.full((), float(self._np_dt(self.ratio0)), dtype=self._dt,
                                 device=self.device),
             "in_pulled": self._i64(0),
             "in_end": self._i64(_BIG),
@@ -77,10 +77,10 @@ class VariSpeed(Node):
         """Live varispeed (speed.rs:56-65 ``set_factor``): a state update
         that applies from the next block."""
         if isinstance(ratio, torch.Tensor):
-            r = ratio.to(device=self.device, dtype=torch.float32)
+            r = ratio.to(device=self.device, dtype=self._dt)
         else:  # a fill on the device, not a copy from the host
-            r = torch.full((), float(np.float32(ratio)), dtype=torch.float32, device=self.device)
-        r = torch.clamp(r, float(np.float32(1e-3)), float(np.float32(self.max_ratio)))
+            r = torch.full((), float(self._np_dt(ratio)), dtype=self._dt, device=self.device)
+        r = torch.clamp(r, float(self._np_dt(1e-3)), float(self._np_dt(self.max_ratio)))
         return {**state, "ratio": r}
 
     def emit(self, state: State, n: int):
@@ -92,7 +92,7 @@ class VariSpeed(Node):
         P = min(self.P, int(math.ceil(n * self.max_ratio)) + 4)
 
         i_idx = torch.arange(n, device=dev)
-        p = frac + ratio * i_idx.to(torch.float32)  # block-local positions
+        p = frac + ratio * i_idx.to(self._dt)  # block-local positions
         left = torch.floor(p).to(torch.int64)
         not_ended = state["in_end"] == _BIG
         do_pull = (left[n - 1] + 2 > state["fill"]) & not_ended
@@ -101,9 +101,9 @@ class VariSpeed(Node):
         fill = state["fill"]
         pos = fill + torch.arange(P, device=dev)
         pos = torch.where(do_pull & (pos < R), pos, torch.full_like(pos, R))
-        spare = torch.zeros((self.spec.channels, 1), dtype=torch.float32, device=dev)
+        spare = torch.zeros((self.spec.channels, 1), dtype=self._dt, device=dev)
         ring = torch.cat([state["ring"], spare], dim=1).index_copy(
-            1, pos, xblk.to(torch.float32))[:, :R]
+            1, pos, xblk.to(self._dt))[:, :R]
         in_pulled = torch.where(do_pull, state["in_pulled"] + P, state["in_pulled"])
         ended_now = do_pull & (v_in < P)
         in_end = torch.where(ended_now & not_ended, state["in_pulled"] + v_in,
@@ -117,7 +117,7 @@ class VariSpeed(Node):
             return torch.where(inside[None, :], v, torch.zeros_like(v))
 
         lval, rval = take(left), take(left + 1)
-        f = (p - left.to(torch.float32))[None, :]
+        f = (p - left.to(self._dt))[None, :]
         out = lval + (rval - lval) * f
 
         # a full lerp needs the right-hand frame (the global input index of
@@ -129,10 +129,10 @@ class VariSpeed(Node):
         drained = state["drained"] | (valid < n)
 
         # shift the consumed whole frames out of the ring
-        total = frac + ratio * torch.full((), float(n), dtype=torch.float32, device=dev)
+        total = frac + ratio * torch.full((), float(n), dtype=self._dt, device=dev)
         shift = torch.minimum(torch.floor(total).to(torch.int64), fill)
-        frac_new = total - shift.to(torch.float32)
-        ext = torch.cat([ring, torch.zeros((self.spec.channels, P), dtype=torch.float32,
+        frac_new = total - shift.to(self._dt)
+        ext = torch.cat([ring, torch.zeros((self.spec.channels, P), dtype=self._dt,
                                            device=dev)], dim=1)
         ring_new = ext[:, torch.clamp(shift, 0, P) + torch.arange(R, device=dev)]
         return ({"in": in_new, "ring": ring_new, "fill": fill - shift, "frac": frac_new,

@@ -84,8 +84,8 @@ _PLAIN_STATES = (
 
 def _t(value, node: Node) -> torch.Tensor:
     arr = np.asarray(value)
-    if arr.dtype.kind == "f":
-        dtype = torch.float32
+    if arr.dtype.kind == "f":  # f64 arrays (the JAX package under x64) stay f64
+        dtype = torch.float64 if arr.dtype == np.float64 else torch.float32
     elif arr.dtype.kind == "b":
         dtype = torch.bool
     else:

@@ -26,16 +26,25 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .types import StreamSpec
+from .types import StreamSpec, float_dtype
 
 State = Dict[str, Any]
 
 
 class Node:
-    """Base class for block-engine audio nodes."""
+    """Base class for block-engine audio nodes. ``dtype`` is the sample
+    type (:func:`~rodio_tpu_torch.core.types.float_dtype`) when the node
+    was built: its states, blocks and rounded constants keep it whatever
+    ``set_float64`` says by the time it renders."""
 
     spec: StreamSpec
     device: torch.device
+    dtype: torch.dtype
+
+    def __new__(cls, *args, **kwargs):
+        node = super().__new__(cls)
+        node.dtype = float_dtype()
+        return node
 
     def total_frames(self) -> Optional[int]:
         return None
@@ -228,6 +237,13 @@ class Node:
         from ..io.wav import wav_to_file
 
         wav_to_file(self, path, **kw)
+
+
+def widen(block: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A bf16 block (behind a ``Bf16Boundary``) as the sample type
+    ``dtype``, as JAX promotes it against an f32 or f64 operand; any other
+    block as it is."""
+    return block.to(dtype) if block.dtype == torch.bfloat16 else block
 
 
 def mask_block(block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

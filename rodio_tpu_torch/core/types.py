@@ -1,8 +1,12 @@
 """Core sample model: the port's part of rodio_tpu/core/types.py.
 
-Samples are f32 (``float_dtype`` is ``torch.float32``); the f64 mode of the
-JAX package is not ported yet. Sample rates and channel counts are positive
-ints, checked as the reference checks them.
+Samples are f32 by default and f64 after ``set_float64(True)``, the analog
+of the reference's ``64bit`` feature (rodio_tpu/core/types.py:27-48): a
+node reads :func:`float_dtype` when it builds a sample tensor (its state,
+its block), so the flag must be set before a graph is built. Wire formats
+(i16/i24 PCM, ring indices, ``Bf16Boundary``) keep their own types. Sample
+rates and channel counts are positive ints, checked as the reference checks
+them.
 """
 from __future__ import annotations
 
@@ -19,9 +23,39 @@ DEFAULT_SAMPLE_RATE = 48_000
 MAX_SPAN_LEN = 32_768
 
 
+_FLOAT64 = False
+
+
+def set_float64(enabled: bool) -> None:
+    """Select f64 samples (the reference's ``64bit`` cargo feature) for the
+    graphs built from now on."""
+    global _FLOAT64
+    _FLOAT64 = bool(enabled)
+
+
+def float64_enabled() -> bool:
+    return _FLOAT64
+
+
 def float_dtype() -> torch.dtype:
-    """The ``Sample`` dtype of the port (f32 only)."""
-    return torch.float32
+    """The ``Float``/``Sample`` dtype (src/common.rs:18-48)."""
+    return torch.float64 if _FLOAT64 else torch.float32
+
+
+def sample_dtype() -> torch.dtype:
+    return float_dtype()
+
+
+def np_float_dtype(dtype: torch.dtype = None):
+    """``dtype`` (by default :func:`float_dtype`) as a numpy type, for
+    host-side sample arrays."""
+    return np.float64 if (dtype or float_dtype()) == torch.float64 else np.float32
+
+
+def to_sample(value: float, dtype: torch.dtype = None) -> float:
+    """A host constant rounded to the sample type ``dtype`` (by default
+    :func:`float_dtype`), as the JAX package's ``dt(value)`` takes it."""
+    return float(np_float_dtype(dtype)(value))
 
 
 def check_sample_rate(rate: int) -> int:

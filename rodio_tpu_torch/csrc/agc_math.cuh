@@ -74,6 +74,26 @@ __device__ __forceinline__ float smooth_gain(float g, float des, float att,
   return des > g ? up : down;
 }
 
+// f64 (K7's f64 instance): NaN-propagating min and max as selects (PTX's
+// min.NaN has no f64 form), and the smoother with the f64 clip bound 0.1
+__device__ __forceinline__ double min_nan(double a, double b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ double max_nan(double a, double b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ double clip_nan(double v, double lo, double hi) {
+  return min_nan(max_nan(v, lo), hi);
+}
+__device__ __forceinline__ double smooth_gain(double g, double des, double att,
+                                              double rel, double max_gain) {
+  const double up = clip_nan(add(mul(g, att), mul(des, sub(1.0, att))), 0.1,
+                             max_gain);
+  const double down = clip_nan(add(mul(g, rel), mul(des, sub(1.0, rel))), 0.1,
+                               max_gain);
+  return des > g ? up : down;
+}
+
 // The rel0 plans (release coefficient 0, rodio_tpu/ops/fused.py:810-1158).
 // The smoother: max(0.1, min(des, att*g + (1-att)*des)); catt = 1 - att,
 // rounded. Its chain through g is mul, add, min, max.

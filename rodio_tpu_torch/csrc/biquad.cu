@@ -56,6 +56,16 @@
 // wrapper takes them (pallas_scan.py:133-138), so across calls the feedback
 // is the rounded output. Its bound at [1024, 12800]: 52.4 MB, 0.0157 ms at
 // 3.35 TB/s, under the same chain floor.
+//
+// The f64 instance (set_float64: rodio_tpu/core/types.py:29, the JAX
+// kernel in its input dtype under interpret mode, pallas_scan.py:97) is
+// the same kernel on E = C = double: x, y, the coefficients and the
+// carries f64, every mul and add an f64 op rounded alone (__dmul_rn,
+// __dadd_rn), so it equals the f64 sequential scan bit for bit. A block
+// holds kLBOf<double> = 4 lanes, so its staged rows (twice as wide) stay
+// under the 48 KB of static shared memory: 29 KB. Its bound at [2, 4096]
+// and [1024, 12800]: 2 x 8 bytes a sample over 3.35 TB/s, under a chain of
+// 3 dependent DMUL/DADD a step (benches/op_latency.py).
 #include "chain_pipeline.cuh"
 #include "precise_math.cuh"
 
@@ -63,7 +73,9 @@ namespace {
 
 using namespace rt::chain;
 
-constexpr int kLB = 8;              // lanes a block
+// lanes a block: 8, and 4 for f64 blocks (their rows take twice the bytes)
+template <class E>
+constexpr int kLBOf = std::is_same<E, double>::value ? 4 : 8;
 constexpr int kThreads4 = 8 * 32;   // warps 4 and 5 idle
 constexpr int kNWork = 4 * 32;      // elementwise threads
 constexpr int kXBufs = 4;           // x tiles staged: i+3 .. i
@@ -77,12 +89,19 @@ __device__ __forceinline__ int work_slot(int warp) {
   return warp == 2 || warp == 3 ? warp - 2 : warp == 6 || warp == 7 ? warp - 4 : -1;
 }
 
+// the coefficients in the chain's type C
+template <class C>
+struct Coef {
+  C b0, b1, b2, a1, a2;
+};
+
 // the chain's step: u in, y out in its place
+template <class C>
 struct Iir {
-  float y1, y2, a1, a2;
+  C y1, y2, a1, a2;
   template <int H>
-  __device__ __forceinline__ void operator()(float (&v)[1][H], int u) {
-    const float yt = rt::sub(rt::sub(v[0][u], rt::mul(a1, y1)), rt::mul(a2, y2));
+  __device__ __forceinline__ void operator()(C (&v)[1][H], int u) {
+    const C yt = rt::sub(rt::sub(v[0][u], rt::mul(a1, y1)), rt::mul(a2, y2));
     y2 = y1;
     y1 = yt;
     v[0][u] = yt;
@@ -90,30 +109,33 @@ struct Iir {
 };
 
 // the FIR half of one step: (b0*x + b1*x1) + b2*x2
-__device__ __forceinline__ float fir(const rt::BiquadCoef& k, float x,
-                                     float x1, float x2) {
+template <class C>
+__device__ __forceinline__ C fir(const Coef<C>& k, C x, C x1, C x2) {
   return rt::add(rt::add(rt::mul(k.b0, x), rt::mul(k.b1, x1)), rt::mul(k.b2, x2));
 }
 
-template <class E>
+// E: the block's element type (float, __nv_bfloat16 or double); the chain
+// computes in C = Calc<E>, which also types the coefficients and carries
+template <class E, class C = Calc<E>>
 __global__ void __launch_bounds__(kThreads4, 1)
 biquad_df1_kernel(const E* __restrict__ x, E* __restrict__ y,
-                  const float* __restrict__ coef,
-                  const float* __restrict__ x1i, const float* __restrict__ x2i,
-                  const float* __restrict__ y1i, const float* __restrict__ y2i,
-                  float* __restrict__ x1o, float* __restrict__ x2o,
-                  float* __restrict__ y1o, float* __restrict__ y2o,
+                  const C* __restrict__ coef,
+                  const C* __restrict__ x1i, const C* __restrict__ x2i,
+                  const C* __restrict__ y1i, const C* __restrict__ y2i,
+                  C* __restrict__ x1o, C* __restrict__ x2o,
+                  C* __restrict__ y1o, C* __restrict__ y2o,
                   int L, long long T, int vec) {
+  constexpr int kLB = kLBOf<E>;
   __shared__ __align__(16) E X[kXBufs][kLB][kLdOf<E>];
-  __shared__ __align__(16) float Y[kYBufs][kLB][kLd];
+  __shared__ __align__(16) C Y[kYBufs][kLB][kLdOf<C>];
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   const long long lane0 = (long long)blockIdx.x * kLB;
   const int nl = (int)min((long long)kLB, L - lane0);
   const int n_tiles = (int)((T + kTile - 1) / kTile);
-  const rt::BiquadCoef k = rt::load_coef(coef);
+  const Coef<C> k{coef[0], coef[1], coef[2], coef[3], coef[4]};
   auto live = [&](int j) { return j >= 0 && j < n_tiles; };
 
-  Iir iir{0.f, 0.f, k.a1, k.a2};
+  Iir<C> iir{C(0), C(0), k.a1, k.a2};
   if (warp == 1 && wl < nl) {
     iir.y1 = y1i[lane0 + wl];
     iir.y2 = y2i[lane0 + wl];
@@ -125,22 +147,22 @@ biquad_df1_kernel(const E* __restrict__ x, E* __restrict__ y,
   auto fir_tile = [&](int j, int sub) {
     for (int q = sub; q < nl * kQuads; q += kNWork) {
       const int l = q / kQuads, t0 = q % kQuads * 4;
-      const float4 v = load4(X[j % kXBufs][l] + t0);
-      float h1 = __shfl_up_sync(0xffffffffu, v.w, 1);  // x at t0 - 1
-      float h2 = __shfl_up_sync(0xffffffffu, v.z, 1);  // x at t0 - 2
+      const auto v = load4(X[j % kXBufs][l] + t0);
+      C h1 = __shfl_up_sync(0xffffffffu, v.w, 1);  // x at t0 - 1
+      C h2 = __shfl_up_sync(0xffffffffu, v.z, 1);  // x at t0 - 2
       if (t0 == 0) {
         if (j) {
           const E* p = X[(j - 1) % kXBufs][l];
-          h2 = to_f32(p[kTile - 2]);
-          h1 = to_f32(p[kTile - 1]);
+          h2 = to_calc(p[kTile - 2]);
+          h1 = to_calc(p[kTile - 1]);
         } else {
           h2 = x2i[lane0 + l];
           h1 = x1i[lane0 + l];
         }
       }
-      *reinterpret_cast<float4*>(Y[j % kYBufs][l] + t0) =
-          make_float4(fir(k, v.x, h1, h2), fir(k, v.y, v.x, h1), fir(k, v.z, v.y, v.x),
-                      fir(k, v.w, v.z, v.y));
+      *reinterpret_cast<std::decay_t<decltype(v)>*>(Y[j % kYBufs][l] + t0) =
+          make4(fir(k, v.x, h1, h2), fir(k, v.y, v.x, h1), fir(k, v.z, v.y, v.x),
+                fir(k, v.w, v.z, v.y));
     }
   };
   auto copy_tile = [&](int j) {
@@ -167,8 +189,8 @@ biquad_df1_kernel(const E* __restrict__ x, E* __restrict__ y,
       cp_async_wait<1>();  // tile it+2 has landed
     } else if (warp == 1) {
       if (live(it) && wl < nl) {
-        float* const rows[1] = {Y[it % kYBufs][wl]};
-        full_or_tail(tile_len(T, it), [&](auto tt) { chain_row<1, 1>(rows, tt, iir); });
+        C* const rows[1] = {Y[it % kYBufs][wl]};
+        full_or_tail(tile_len(T, it), [&](auto tt) { chain_row<1, 1, kHalf, C>(rows, tt, iir); });
       }
     } else if (slot >= 0) {
       const int sub = slot * 32 + wl;
@@ -186,19 +208,24 @@ biquad_df1_kernel(const E* __restrict__ x, E* __restrict__ y,
   if (warp == 1 && wl < nl) {
     const long long l = lane0 + wl;
     const E* xl = x + l * T;
-    x1o[l] = T >= 1 ? to_f32(xl[T - 1]) : x1i[l];
-    x2o[l] = T >= 2 ? to_f32(xl[T - 2]) : T == 1 ? x1i[l] : x2i[l];
-    y1o[l] = T >= 1 ? stored<E>(iir.y1) : iir.y1;
-    y2o[l] = T >= 2 ? stored<E>(iir.y2) : iir.y2;
+    x1o[l] = T >= 1 ? to_calc(xl[T - 1]) : x1i[l];
+    x2o[l] = T >= 2 ? to_calc(xl[T - 2]) : T == 1 ? x1i[l] : x2i[l];
+    if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+      y1o[l] = T >= 1 ? stored<E>(iir.y1) : iir.y1;
+      y2o[l] = T >= 2 ? stored<E>(iir.y2) : iir.y2;
+    } else {
+      y1o[l] = iir.y1;
+      y2o[l] = iir.y2;
+    }
   }
 }
 
-template <class E>
-int launch_biquad(const E* x, E* y, const float* coef, const float* x1i,
-                  const float* x2i, const float* y1i, const float* y2i, float* x1o,
-                  float* x2o, float* y1o, float* y2o, int L, long long T, void* stream) {
+template <class E, class C = Calc<E>>
+int launch_biquad(const E* x, E* y, const C* coef, const C* x1i,
+                  const C* x2i, const C* y1i, const C* y2i, C* x1o,
+                  C* x2o, C* y1o, C* y2o, int L, long long T, void* stream) {
   if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (L + kLB - 1) / kLB;
+  const int blocks = (L + kLBOf<E> - 1) / kLBOf<E>;
   if (blocks == 0) return 0;
   const int vec = T % kVec<E> == 0 && aligned16(x) && aligned16(y);
   biquad_df1_kernel<E><<<blocks, kThreads4, 0, (cudaStream_t)stream>>>(
@@ -223,6 +250,15 @@ extern "C" int rt_biquad_df1_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
                                   const float* y2i, float* x1o, float* x2o,
                                   float* y1o, float* y2o, int L, long long T,
                                   void* stream) {
+  return launch_biquad(x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, stream);
+}
+
+// K4's f64 instance: x, y, the coefficients and the carries f64
+extern "C" int rt_biquad_df1_f64(const double* x, double* y, const double* coef,
+                                 const double* x1i, const double* x2i,
+                                 const double* y1i, const double* y2i,
+                                 double* x1o, double* x2o, double* y1o,
+                                 double* y2o, int L, long long T, void* stream) {
   return launch_biquad(x, y, coef, x1i, x2i, y1i, y2i, x1o, x2o, y1o, y2o, L, T, stream);
 }
 

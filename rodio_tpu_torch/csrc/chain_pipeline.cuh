@@ -59,16 +59,22 @@ __host__ __device__ inline bool aligned16(const void* p) {
 }
 
 // A block's element type E: f32, or bf16 (K4's bf16 instance), which the
-// kernels upcast on load (exactly) and round to nearest even on store.
+// kernels upcast on load (exactly) and round to nearest even on store, or
+// f64 (the f64 instances of K4 and K7), which they compute in: Calc<E> is
+// the type a chain computes in.
 template <class E>
 constexpr int kVec = 16 / (int)sizeof(E);  // elements a 16-byte copy moves
+template <class E>
+using Calc = std::conditional_t<std::is_same<E, double>::value, double, float>;
 // a staged row's stride in elements: 16-byte rows, 4 banks apart
 template <class E>
 constexpr int kLdOf = kTile + kVec<E>;
 static_assert(kLdOf<float> == kLd, "f32 rows keep their stride");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// an element as its Calc type: bf16 widened to f32, f64 stays f64
+__device__ __forceinline__ float to_calc(float v) { return v; }
+__device__ __forceinline__ float to_calc(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ double to_calc(double v) { return v; }
 template <class E>
 __device__ __forceinline__ E from_f32(float v);
 template <>
@@ -79,7 +85,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 // v as a block of type E stores it, read back as f32
 template <class E>
-__device__ __forceinline__ float stored(float v) { return to_f32(from_f32<E>(v)); }
+__device__ __forceinline__ float stored(float v) { return to_calc(from_f32<E>(v)); }
 
 // (a, b) rounded to bf16, as the 32 bits that hold them in memory, a first
 __device__ __forceinline__ unsigned bf16x2(float a, float b) {
@@ -87,15 +93,30 @@ __device__ __forceinline__ unsigned bf16x2(float a, float b) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// Four consecutive elements at p (8- or 16-byte aligned) as f32
+// Four consecutive f64 values, 16-byte aligned (two 16-byte accesses)
+struct __align__(16) Double4 {
+  double x, y, z, w;
+};
+
+// Four consecutive elements at p (8- or 16-byte aligned) as Calc values
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ Double4 load4(const double* p) {
+  return *reinterpret_cast<const Double4*>(p);
 }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+// and four Calc values as the same vector types
+__device__ __forceinline__ float4 make4(float a, float b, float c, float d) {
+  return make_float4(a, b, c, d);
+}
+__device__ __forceinline__ Double4 make4(double a, double b, double c, double d) {
+  return Double4{a, b, c, d};
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -107,6 +128,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -124,7 +150,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // as thread sub of nsub copy threads. vec: T % kVec<E> == 0 and src
 // 16-byte aligned (t0 is a multiple of kTile, so every 16-byte piece of a
 // row lies inside it); 16 bytes a copy, kVec<E> elements. Otherwise 4-byte
-// cp.async for f32, and plain loads for bf16 (cp.async has no 2-byte form).
+// cp.async for f32, 8-byte for f64, and plain loads for bf16 (cp.async has
+// no 2-byte form).
 template <class E>
 __device__ __forceinline__ void copy_lanes(E* dst, const E* __restrict__ src,
                                            long long lane0, int nb, int nl,
@@ -141,8 +168,10 @@ __device__ __forceinline__ void copy_lanes(E* dst, const E* __restrict__ src,
     for (int e = sub; e < nb * kTile; e += nsub) {
       const int l = e / kTile, t = e % kTile;
       if (l < nl && t < tt) {
-        if constexpr (sizeof(E) == 4)
+        if constexpr (std::is_same<E, float>::value)
           cp_async4(dst + l * LD + t, s + l * T + t);
+        else if constexpr (std::is_same<E, double>::value)
+          cp_async8(dst + l * LD + t, s + l * T + t);
         else
           dst[l * LD + t] = s[l * T + t];
       }
@@ -159,25 +188,26 @@ __device__ __forceinline__ void copy_rows(Rows& dst,
   copy_lanes(dst[0], src, lane0, kBL, nl, T, t0, tt, vec, sub, nsub);
 }
 
-// Stores row l (src + l * kLd, f32) of a tile of nb >= nl lanes, steps
-// 0 .. tt - 1, to steps t0 .. t0 + tt - 1 of row lane0 + l (l < nl) of dst
-// ([L, T] of element type E, rounded to nearest even for bf16), as thread
-// sub of nsub; neighbouring threads store neighbouring steps. vec as
-// copy_lanes's, for dst: 16 bytes a store.
-template <class E>
+// Stores row l (src + l * kLdOf<C>, of the chain's type C: f32, or f64 for
+// an f64 block) of a tile of nb >= nl lanes, steps 0 .. tt - 1, to steps
+// t0 .. t0 + tt - 1 of row lane0 + l (l < nl) of dst ([L, T] of element
+// type E, rounded to nearest even for bf16), as thread sub of nsub;
+// neighbouring threads store neighbouring steps. vec as copy_lanes's, for
+// dst: 16 bytes a store.
+template <class E, class C = float>
 __device__ __forceinline__ void store_lanes(E* __restrict__ dst,
-                                            const float* src, long long lane0,
+                                            const C* src, long long lane0,
                                             int nb, int nl, long long T,
                                             long long t0, int tt, bool vec,
                                             int sub, int nsub) {
-  constexpr int V = kVec<E>;
+  constexpr int V = kVec<E>, LDC = kLdOf<C>;
   E* d = dst + lane0 * T + t0;
   if (vec) {
     for (int e = sub; e < nb * (kTile / V); e += nsub) {
       const int l = e / (kTile / V), q = e % (kTile / V);
       if (l < nl && V * q < tt) {
-        const float4* r = reinterpret_cast<const float4*>(src + l * kLd + V * q);
-        if constexpr (sizeof(E) == 4) {
+        const float4* r = reinterpret_cast<const float4*>(src + l * LDC + V * q);
+        if constexpr (sizeof(E) == sizeof(C)) {  // f32 or f64: 16 bytes as they are
           *reinterpret_cast<float4*>(d + l * T + V * q) = r[0];
         } else {
           const float4 a = r[0], b = r[1];
@@ -190,7 +220,12 @@ __device__ __forceinline__ void store_lanes(E* __restrict__ dst,
   } else {
     for (int e = sub; e < nb * kTile; e += nsub) {
       const int l = e / kTile, t = e % kTile;
-      if (l < nl && t < tt) d[l * T + t] = from_f32<E>(src[l * kLd + t]);
+      if (l < nl && t < tt) {
+        if constexpr (std::is_same<E, C>::value)
+          d[l * T + t] = src[l * LDC + t];
+        else
+          d[l * T + t] = from_f32<E>(src[l * LDC + t]);
+      }
     }
   }
 }
@@ -207,27 +242,39 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 // A lane's recurrence over a tile of tt steps: H steps at a time, v[k][u]
 // holds rows[k][h + u] (k < NIN) in registers and step(v, u) runs step h + u,
 // rewriting its outputs in place; rows 0 .. NOUT - 1 are stored back. The
-// step keeps its carries itself.
-template <int NIN, int NOUT, int H = kHalf, class TT, class Step>
-__device__ __forceinline__ void chain_row(float* const (&rows)[NIN], TT tt,
+// step keeps its carries itself. C is the rows' type (f32, or f64 for the
+// f64 instances: 16-byte pieces of two values).
+template <int NIN, int NOUT, int H = kHalf, class C = float, class TT, class Step>
+__device__ __forceinline__ void chain_row(C* const (&rows)[NIN], TT tt,
                                           Step& step) {
   static_assert(NOUT <= NIN, "outputs overwrite inputs");
   static_assert(kTile % H == 0 && H % 4 == 0, "whole 16-byte pieces of a tile");
+  constexpr bool kF64 = std::is_same<C, double>::value;
   // not unrolled: one copy of the H-step body (code size)
 #pragma unroll 1
   for (int h = 0; h < kTile; h += H) {
     if (!kWhole<TT> && h >= tt) break;
-    float v[NIN][H];
+    C v[NIN][H];
 #pragma unroll
     for (int k = 0; k < NIN; ++k) {
-      const float4* r4 = reinterpret_cast<const float4*>(rows[k] + h);
+      if constexpr (kF64) {
+        const double2* r2 = reinterpret_cast<const double2*>(rows[k] + h);
 #pragma unroll
-      for (int q = 0; q < H / 4; ++q) {
-        const float4 f = r4[q];
-        v[k][4 * q] = f.x;
-        v[k][4 * q + 1] = f.y;
-        v[k][4 * q + 2] = f.z;
-        v[k][4 * q + 3] = f.w;
+        for (int q = 0; q < H / 2; ++q) {
+          const double2 f = r2[q];
+          v[k][2 * q] = f.x;
+          v[k][2 * q + 1] = f.y;
+        }
+      } else {
+        const float4* r4 = reinterpret_cast<const float4*>(rows[k] + h);
+#pragma unroll
+        for (int q = 0; q < H / 4; ++q) {
+          const float4 f = r4[q];
+          v[k][4 * q] = f.x;
+          v[k][4 * q + 1] = f.y;
+          v[k][4 * q + 2] = f.z;
+          v[k][4 * q + 3] = f.w;
+        }
       }
     }
 #pragma unroll
@@ -235,11 +282,17 @@ __device__ __forceinline__ void chain_row(float* const (&rows)[NIN], TT tt,
       if (kWhole<TT> || h + u < tt) step(v, u);
 #pragma unroll
     for (int k = 0; k < NOUT; ++k) {
-      float4* r4 = reinterpret_cast<float4*>(rows[k] + h);
+      if constexpr (kF64) {
+        double2* r2 = reinterpret_cast<double2*>(rows[k] + h);
 #pragma unroll
-      for (int q = 0; q < H / 4; ++q)
-        r4[q] = make_float4(v[k][4 * q], v[k][4 * q + 1], v[k][4 * q + 2],
-                            v[k][4 * q + 3]);
+        for (int q = 0; q < H / 2; ++q) r2[q] = make_double2(v[k][2 * q], v[k][2 * q + 1]);
+      } else {
+        float4* r4 = reinterpret_cast<float4*>(rows[k] + h);
+#pragma unroll
+        for (int q = 0; q < H / 4; ++q)
+          r4[q] = make_float4(v[k][4 * q], v[k][4 * q + 1], v[k][4 * q + 2],
+                              v[k][4 * q + 3]);
+      }
     }
   }
 }

@@ -30,6 +30,14 @@
 // of five tiles (from a tile's copy to its store; at most 31 KB of static
 // shared memory). Every op rounds alone, so the kernel equals its plain
 // PyTorch version bit for bit.
+//
+// The f64 instance (set_float64; the JAX kernel runs in its input dtype
+// under interpret mode, pallas_scan.py:446) is the same kernel on C =
+// double: the rows, the chain and the parameters f64, each op an f64 op
+// rounded alone (agc_math.cuh's f64 smoother clips at the f64 0.1, as the
+// JAX gain_step's dt(0.1)). A block holds kBLOf<double> = 2 lanes and the
+// chain 32 steps at a time in registers, so the ring stays at 31 KB of
+// static shared memory and the registers where the f32 instance's are.
 #include "agc_math.cuh"
 #include "chain_pipeline.cuh"
 
@@ -41,6 +49,11 @@ constexpr int kLinear = 0, kMaxAffine = 1, kAgcGain = 2;
 constexpr int kThreads7 = 2 * 32;  // warp 0 the chain, warp 1 the copies
 constexpr int kAhead = 3;          // tiles staged ahead of the chain's
 constexpr int kRing7 = kAhead + 2;  // tiles i-1 .. i+3
+// lanes a block, and steps a chain thread holds, by the chain's type
+template <class C>
+constexpr int kBLOf = std::is_same<C, double>::value ? 2 : kBL;
+template <class C>
+constexpr int kHalfOf = std::is_same<C, double>::value ? kHalf / 2 : kHalf;
 
 // the two warps' barrier, once a tile
 __device__ __forceinline__ void pair_sync() {
@@ -48,12 +61,12 @@ __device__ __forceinline__ void pair_sync() {
 }
 
 // the chain's step over its inputs' registers (a, b, c), y over a
-template <int OP, int NIN>
+template <int OP, int NIN, class C>
 struct FirstOrderStep {
-  float yc, att, rel, max_gain;
+  C yc, att, rel, max_gain;
 
   template <int H>
-  __device__ __forceinline__ void operator()(float (&v)[NIN][H], int u) {
+  __device__ __forceinline__ void operator()(C (&v)[NIN][H], int u) {
     if constexpr (OP == kLinear) {
       yc = rt::add(rt::mul(v[0][u], yc), v[1][u]);
     } else if constexpr (OP == kMaxAffine) {
@@ -65,31 +78,32 @@ struct FirstOrderStep {
   }
 };
 
-template <int OP>
+template <int OP, class C>
 __global__ void __launch_bounds__(kThreads7, 1)
-first_order_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const float* __restrict__ c,
-                   const float* __restrict__ init,
-                   const float* __restrict__ params, float* __restrict__ y,
+first_order_kernel(const C* __restrict__ a, const C* __restrict__ b,
+                   const C* __restrict__ c,
+                   const C* __restrict__ init,
+                   const C* __restrict__ params, C* __restrict__ y,
                    int L, long long T, int vec) {
   constexpr int NIN = OP == kLinear ? 2 : OP == kMaxAffine ? 3 : 1;
-  __shared__ __align__(16) Rows bufs[kRing7][NIN];
+  constexpr int BL = kBLOf<C>;
+  __shared__ __align__(16) C bufs[kRing7][NIN][BL][kLdOf<C>];
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const long long lane0 = (long long)blockIdx.x * kBL;
-  const int nl = (int)min((long long)kBL, L - lane0);
+  const long long lane0 = (long long)blockIdx.x * BL;
+  const int nl = (int)min((long long)BL, L - lane0);
   const int n_tiles = (int)((T + kTile - 1) / kTile);
-  const float* const in[3] = {a, b, c};
+  const C* const in[3] = {a, b, c};
   auto live = [&](int j) { return j >= 0 && j < n_tiles; };
   auto copy = [&](int j) {
     if (!live(j)) return;
     const int tt = tile_len(T, j);
 #pragma unroll
     for (int k = 0; k < NIN; ++k)
-      copy_rows(bufs[j % kRing7][k], in[k], lane0, nl, T, (long long)j * kTile,
-                tt, vec, wl, 32);
+      copy_lanes(bufs[j % kRing7][k][0], in[k], lane0, BL, nl, T,
+                 (long long)j * kTile, tt, vec, wl, 32);
   };
 
-  FirstOrderStep<OP, NIN> step{0.f, 0.f, 0.f, 0.f};
+  FirstOrderStep<OP, NIN, C> step{C(0), C(0), C(0), C(0)};
   if (OP == kAgcGain) {
     step.att = params[0];
     step.rel = params[1];
@@ -109,17 +123,18 @@ first_order_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int it = 0; it < n_tiles + 1; ++it) {
     if (warp == 0) {
       if (live(it) && wl < nl) {
-        float* rows[NIN];
+        C* rows[NIN];
 #pragma unroll
         for (int k = 0; k < NIN; ++k) rows[k] = bufs[it % kRing7][k][wl];
-        full_or_tail(tile_len(T, it),
-                     [&](auto tt) { chain_row<NIN, 1>(rows, tt, step); });
+        full_or_tail(tile_len(T, it), [&](auto tt) {
+          chain_row<NIN, 1, kHalfOf<C>, C>(rows, tt, step);
+        });
       }
     } else {
       const int j = it - 1;
       if (live(j))
-        store_rows(y, bufs[j % kRing7][0], lane0, nl, T, (long long)j * kTile,
-                   tile_len(T, j), vec, wl, 32);
+        store_lanes(y, bufs[j % kRing7][0][0], lane0, BL, nl, T,
+                    (long long)j * kTile, tile_len(T, j), vec, wl, 32);
       copy(it + kAhead);
       cp_async_commit();
       cp_async_wait<kAhead - 1>();  // tile it+1 has landed
@@ -128,26 +143,24 @@ first_order_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int OP>
-void launch(const float* a, const float* b, const float* c, const float* init,
-            const float* params, float* y, int L, long long T, int vec,
+template <int OP, class C>
+void launch(const C* a, const C* b, const C* c, const C* init,
+            const C* params, C* y, int L, long long T, int vec,
             int blocks, cudaStream_t s) {
-  first_order_kernel<OP><<<blocks, kThreads7, 0, s>>>(a, b, c, init, params,
-                                                      y, L, T, vec);
+  first_order_kernel<OP, C><<<blocks, kThreads7, 0, s>>>(a, b, c, init, params,
+                                                         y, L, T, vec);
 }
 
-}  // namespace
-
-extern "C" int rt_first_order(const float* a, const float* b, const float* c,
-                              const float* init, const float* params,
-                              float* y, int L, long long T, int op,
-                              void* stream) {
+template <class C>
+int first_order(const C* a, const C* b, const C* c, const C* init,
+                const C* params, C* y, int L, long long T, int op,
+                void* stream) {
   if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (L + kBL - 1) / kBL;
+  const int blocks = (L + kBLOf<C> - 1) / kBLOf<C>;
   if (blocks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   // the 16-byte path needs every array the op touches aligned
-  int vec = T % 4 == 0 && aligned16(a) && aligned16(y);
+  int vec = T % kVec<C> == 0 && aligned16(a) && aligned16(y);
   if (op != kAgcGain) vec = vec && aligned16(b);
   if (op == kMaxAffine) vec = vec && aligned16(c);
   switch (op) {
@@ -164,4 +177,21 @@ extern "C" int rt_first_order(const float* a, const float* b, const float* c,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rt_first_order(const float* a, const float* b, const float* c,
+                              const float* init, const float* params,
+                              float* y, int L, long long T, int op,
+                              void* stream) {
+  return first_order(a, b, c, init, params, y, L, T, op, stream);
+}
+
+// K7's f64 instance: every array and the parameters f64
+extern "C" int rt_first_order_f64(const double* a, const double* b,
+                                  const double* c, const double* init,
+                                  const double* params, double* y, int L,
+                                  long long T, int op, void* stream) {
+  return first_order(a, b, c, init, params, y, L, T, op, stream);
 }

@@ -11,6 +11,9 @@
 // (agc_math.cuh smooth_gain: mul, add, max, min and a select through the
 // gain), the chain that binds K6's and K7's smoother warps, on one thread,
 // in SM cycles (clock64) and in time.
+//
+// And the latency of one dependent rounded f64 op (DMUL and DADD in turn):
+// the chain floor of the f64 instances of K3, K4, K7 and K8.
 #include <cuda_runtime.h>
 
 #include "agc_math.cuh"
@@ -28,6 +31,20 @@ __global__ void op_chain_kernel(const float* __restrict__ xab,
     for (int u = 0; u < kOpsPerIter / 2; ++u) {
       x = __fmul_rn(x, a);
       x = __fadd_rn(x, b);
+    }
+  }
+  out[0] = x;
+}
+
+__global__ void op_chain_f64_kernel(const double* __restrict__ xab,
+                                    double* __restrict__ out, long long iters) {
+  double x = xab[0];
+  const double a = xab[1], b = xab[2];
+  for (long long i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < kOpsPerIter / 2; ++u) {
+      x = __dmul_rn(x, a);
+      x = __dadd_rn(x, b);
     }
   }
   out[0] = x;
@@ -59,6 +76,14 @@ extern "C" int rt_op_chain(const float* xab, float* out, long long iters,
                            void* stream) {
   if (iters < 0) return (int)cudaErrorInvalidValue;
   op_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(xab, out, iters);
+  return (int)cudaGetLastError();
+}
+
+// xab: (x0, a, b) f64; out: x after iters x 16 rounds of x = x*a, x = x + b
+extern "C" int rt_op_chain_f64(const double* xab, double* out, long long iters,
+                               void* stream) {
+  if (iters < 0) return (int)cudaErrorInvalidValue;
+  op_chain_f64_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(xab, out, iters);
   return (int)cudaGetLastError();
 }
 

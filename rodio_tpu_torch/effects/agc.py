@@ -18,8 +18,17 @@ Modes, as the JAX node's:
   (``op="agc_gain"``); with ``group`` > 0 the smoother advances once per
   group of frames (the AgcGroup contract of the JAX node's docstring).
   Otherwise the whole per-sample loop as K6.
-- ``"auto"`` and ``"parallel"`` run associative scans in the JAX package
-  (ROADMAP M10): not ported, they raise.
+- ``"auto"`` and ``"parallel"``: the JAX node's third branch
+  (rodio_tpu/effects/agc.py:357-366), on any device: the peak detector as
+  the associative max-affine scan (``ops/scan.py``, torch ops), the RMS
+  sum as a cumulative sum (taken in f64 and rounded back, so the card and
+  the CPU agree; JAX's f32 ``cumsum`` is its own associative scan), the
+  desired gain as ``"exact"`` computes it, and the gain smoother, which is
+  sequential, as K7's ``agc_gain`` op (``ops/cuda_scan.first_order``: the
+  kernel on a CUDA tensor, its plain loop on a CPU tensor).
+
+Any other mode name raises ``ValueError`` (the JAX node takes an unknown
+name as its third branch: ROADMAP F9).
 
 The live knobs (``set_enabled``, ``set_attack_time``,
 ``set_release_time``) are state updates: the kernels read the
@@ -40,6 +49,7 @@ from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
 from ..ops.cuda_scan import agc, desired_gain, first_order, ipow, smooth_gains
 from ..ops.limiter_block import blocked_max_affine_const
+from ..ops.scan import check_mode, max_affine_scan
 
 RMS_WINDOW_SIZE = 8192
 _MAX_NANOS = 10_000_000_000  # times clamped to 10 s (src/source/mod.rs:432-433)
@@ -55,9 +65,16 @@ class AgcSettings:
     absolute_max_gain: float = 7.0
 
 
-def _coefficient(seconds: float, rate: int) -> float:
+def _coefficient(seconds: float, rate: int, dtype: torch.dtype) -> float:
     nanos = min(duration_to_nanos(seconds), _MAX_NANOS)
-    return float(duration_to_coefficient(0, rate, nanos=nanos))
+    return float(duration_to_coefficient(0, rate, nanos=nanos, dtype=dtype))
+
+
+def _window_sums(rms_sum: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The running window sums ``rms_sum + cumsum(delta)`` [S, m], the
+    cumulative sum taken in float64 and rounded back: the same result on
+    every device."""
+    return rms_sum[:, None] + torch.cumsum(delta.to(torch.float64), dim=1).to(delta.dtype)
 
 
 class AutomaticGainControl(Node):
@@ -67,12 +84,8 @@ class AutomaticGainControl(Node):
 
     def __init__(self, input_node: Node, settings: AgcSettings = None,
                  *, mode: str = "exact", streams: int = 1, group: int = 0):
-        if mode in ("auto", "parallel"):
-            raise NotImplementedError(
-                f"AutomaticGainControl mode {mode!r} runs the associative "
-                "scans, not ported yet (ROADMAP M10)")
-        if mode not in ("exact", "pallas"):
-            raise ValueError(f"unknown AutomaticGainControl mode {mode!r}")
+        check_mode(mode, ("exact", "pallas", "auto", "parallel"),
+                   who="AutomaticGainControl")
         settings = settings or AgcSettings()
         self.input = input_node
         self.spec = input_node.spec
@@ -83,8 +96,8 @@ class AutomaticGainControl(Node):
             raise ValueError("channels not divisible by stream count")
         self.streams = streams
         rate = self.spec.sample_rate
-        self.attack_coeff = _coefficient(settings.attack_time, rate)
-        self.release_coeff = _coefficient(settings.release_time, rate)
+        self.attack_coeff = _coefficient(settings.attack_time, rate, self.dtype)
+        self.release_coeff = _coefficient(settings.release_time, rate, self.dtype)
         self.target_level = float(np.float32(settings.target_level))
         self.absolute_max_gain = float(np.float32(settings.absolute_max_gain))
         self.floor = 0.0
@@ -99,23 +112,22 @@ class AutomaticGainControl(Node):
         return self.input.total_frames()
 
     def init_state(self) -> State:
-        S, dev = self.streams, self.device
+        S, dev, dt = self.streams, self.device, self.dtype
 
-        def f32(v):
-            return torch.tensor(v, dtype=torch.float32, device=dev)
+        def scalar(v):
+            return torch.tensor(v, dtype=dt, device=dev)
 
         return {
             "in": self.input.init_state(),
-            "peak": torch.zeros(S, dtype=torch.float32, device=dev),
-            "gain": torch.ones(S, dtype=torch.float32, device=dev),
-            "rms_sum": torch.zeros(S, dtype=torch.float32, device=dev),
-            "window": torch.zeros((S, RMS_WINDOW_SIZE), dtype=torch.float32,
-                                  device=dev),
+            "peak": torch.zeros(S, dtype=dt, device=dev),
+            "gain": torch.ones(S, dtype=dt, device=dev),
+            "rms_sum": torch.zeros(S, dtype=dt, device=dev),
+            "window": torch.zeros((S, RMS_WINDOW_SIZE), dtype=dt, device=dev),
             "widx": torch.zeros((), dtype=torch.int64, device=dev),
             # the live control surface (src/source/agc.rs:302-361)
             "enabled": torch.tensor(self.enabled, device=dev),
-            "att": f32(self.attack_coeff),
-            "rel": f32(self.release_coeff),
+            "att": scalar(self.attack_coeff),
+            "rel": scalar(self.release_coeff),
             "consts": self.consts(),
         }
 
@@ -124,7 +136,7 @@ class AutomaticGainControl(Node):
         besides the knobs, a state tensor so that they reach the card once."""
         return torch.tensor([self.target_level, self.absolute_max_gain,
                              self.floor, 1.0 / RMS_WINDOW_SIZE],
-                            dtype=torch.float32, device=self.device)
+                            dtype=self.dtype, device=self.device)
 
     # -- live control handles (src/source/agc.rs:302-361) --
     def set_enabled(self, state: State, on: bool) -> State:
@@ -133,13 +145,13 @@ class AutomaticGainControl(Node):
         return {**state, "enabled": torch.tensor(bool(on), device=self.device)}
 
     def set_attack_time(self, state: State, seconds: float) -> State:
-        c = _coefficient(seconds, self.spec.sample_rate)
-        return {**state, "att": torch.tensor(c, dtype=torch.float32,
+        c = _coefficient(seconds, self.spec.sample_rate, self.dtype)
+        return {**state, "att": torch.tensor(c, dtype=state["att"].dtype,
                                              device=self.device)}
 
     def set_release_time(self, state: State, seconds: float) -> State:
-        c = _coefficient(seconds, self.spec.sample_rate)
-        return {**state, "rel": torch.tensor(c, dtype=torch.float32,
+        c = _coefficient(seconds, self.spec.sample_rate, self.dtype)
+        return {**state, "rel": torch.tensor(c, dtype=state["rel"].dtype,
                                              device=self.device)}
 
     def _finish(self, state, s_in, new_fields, y, x_thru, valid):
@@ -186,8 +198,10 @@ class AutomaticGainControl(Node):
                                 state["consts"]])
             gain_seq, carries = agc(xs, sq - old, state["peak"],
                                     state["rms_sum"], state["gain"], params)
-        else:
+        elif self.mode == "exact":
             gain_seq, carries = self._exact(state, xs, sq, old)
+        else:
+            gain_seq, carries = self._associative(state, xs, sq - old)
         peak_c, sum_c, gain_c = carries
         y = (xg * gain_seq).reshape(S, t, cg).transpose(1, 2)
         y = mask_block(y.reshape(c_total, t), valid)
@@ -203,9 +217,7 @@ class AutomaticGainControl(Node):
         rel, att = state["rel"], state["att"]
         target, max_gain, floor, inv_window = state["consts"]
         S = self.streams
-        # summed in float64: the same result on every device
-        rsum_seq = state["rms_sum"][:, None] + torch.cumsum(
-            delta.to(torch.float64), dim=1).to(torch.float32)
+        rsum_seq = _window_sums(state["rms_sum"], delta)
         peak_seq = blocked_max_affine_const(xs, state["peak"], rel, P=P)
         if self.group:
             cg = self.spec.channels // S
@@ -232,11 +244,36 @@ class AutomaticGainControl(Node):
         return gain_seq, (peak_seq[:, m - 1], rsum_seq[:, m - 1],
                           gain_seq[:, m - 1])
 
+    def _associative(self, state, xs, delta):
+        """The JAX node's third branch: the peak detector as the associative
+        max-affine scan, the RMS sum as a cumulative sum, the desired gain
+        elementwise, the smoother as K7's ``agc_gain``."""
+        rel, att = state["rel"], state["att"]
+        max_gain = state["consts"][1]
+        peak_seq = max_affine_scan(xs, (1.0 - rel) * xs, rel.expand_as(xs),
+                                   state["peak"], mode="parallel")
+        sum_seq = _window_sums(state["rms_sum"], delta)
+        desired = self._desired(state, sum_seq, peak_seq)
+        gain_seq = first_order(desired, desired, state["gain"], op="agc_gain",
+                               params=torch.stack([att, rel, max_gain]))
+        return gain_seq, (peak_seq[:, -1], sum_seq[:, -1], gain_seq[:, -1])
+
+    def _desired(self, state, sum_seq, peak_seq):
+        """The desired gain as the reference computes it: rms = sqrt(sum /
+        W), target / rms and target / peak, each capped at max_gain."""
+        target, max_gain, floor, _ = state["consts"]
+        rms = sqrt_rn(sum_seq / float(RMS_WINDOW_SIZE))
+        rms_gain = torch.where(rms > 0.0, target / rms, max_gain)
+        peak_gain = torch.where(peak_seq > 0.0,
+                                torch.minimum(target / peak_seq, max_gain),
+                                max_gain)
+        return torch.maximum(torch.minimum(rms_gain, peak_gain), floor)
+
     def _exact(self, state, xs, sq, old):
         """The reference's order, step by step: peak, then
         ``sum = (sum - old) + new``; rms = sqrt(sum / W), target / rms."""
         rel, att = state["rel"], state["att"]
-        target, max_gain, floor, _ = state["consts"]
+        max_gain = state["consts"][1]
         peak, rsum = state["peak"], state["rms_sum"]
         zero = torch.zeros_like(peak)
         pks, rss = [], []
@@ -248,11 +285,6 @@ class AutomaticGainControl(Node):
             pks.append(peak)
             rss.append(rsum)
         peak_seq, sum_seq = torch.stack(pks, 1), torch.stack(rss, 1)
-        rms = sqrt_rn(sum_seq / float(RMS_WINDOW_SIZE))
-        rms_gain = torch.where(rms > 0.0, target / rms, max_gain)
-        peak_gain = torch.where(peak_seq > 0.0,
-                                torch.minimum(target / peak_seq, max_gain),
-                                max_gain)
-        desired = torch.maximum(torch.minimum(rms_gain, peak_gain), floor)
+        desired = self._desired(state, sum_seq, peak_seq)
         gain_seq = smooth_gains(desired, state["gain"], att, rel, max_gain)
         return gain_seq, (peak, rsum, gain_seq[:, -1])

@@ -14,20 +14,23 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.math import _f32
-from ..core.node import Node, State, clip_valid, full_valid, mask_block, tree_select
-from ..core.types import NANOS_PER_SEC, StreamSpec, duration_to_nanos
+from ..core.node import (Node, State, clip_valid, full_valid, mask_block,
+                         tree_select, widen)
+from ..core.types import (NANOS_PER_SEC, StreamSpec, duration_to_nanos,
+                          np_float_dtype, to_sample)
 
 
-def _scalar(value, device, dtype=torch.float32) -> torch.Tensor:
+def _scalar(value, device, dtype) -> torch.Tensor:
+    """A 0-dim device tensor of ``dtype``."""
     return torch.full((), value, dtype=dtype, device=device)
 
 
-def _divisor(value: float, device) -> torch.Tensor:
-    """An f32 divisor as a 0-dim device tensor: a CUDA division by a host
-    scalar multiplies by its reciprocal, which rounds differently from the
-    CPU's (and the reference's) division."""
-    return _scalar(_f32(value), device)
+def _divisor(value: float, device, dtype) -> torch.Tensor:
+    """A divisor (rounded to the sample type ``dtype``) as a 0-dim device
+    tensor: a CUDA division by a host scalar multiplies by its reciprocal,
+    which rounds differently from the CPU's (and the reference's)
+    division."""
+    return _scalar(to_sample(value, dtype), device, dtype)
 
 
 class _Wrap(Node):
@@ -49,13 +52,13 @@ class Amplify(_Wrap):
     """sample * factor (src/source/amplify.rs:10-22). The factor lives in
     the state; it may be a scalar or a per-channel vector (the wide-channel
     batch layout carries per-stream volumes as per-channel gains). The
-    product is f32 whatever the block's dtype: a bf16 block times an f32
-    array is f32 in JAX, while torch would keep bf16 against a 0-dim
-    factor."""
+    product is of the sample type whatever the block's dtype: a bf16 block
+    times an f32 array is f32 in JAX, while torch would keep bf16 against a
+    0-dim factor."""
 
     def __init__(self, input_node: Node, factor):
         super().__init__(input_node)
-        self.factor = np.asarray(factor, dtype=np.float32)
+        self.factor = np.asarray(factor, dtype=np_float_dtype(self.dtype))
 
     def init_state(self) -> State:
         f = torch.from_numpy(self.factor.copy()).to(self.device)
@@ -66,7 +69,7 @@ class Amplify(_Wrap):
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state["in"], n)
         return ({"in": s, "factor": state["factor"]},
-                block.float() * state["factor"], valid)
+                widen(block, self.dtype) * state["factor"], valid)
 
 
 class Distortion(_Wrap):
@@ -79,13 +82,14 @@ class Distortion(_Wrap):
 
     def init_state(self) -> State:
         return {"in": self.input.init_state(),
-                "gain": _scalar(_f32(self.gain), self.device),
-                "threshold": _scalar(_f32(self.threshold), self.device)}
+                "gain": _scalar(to_sample(self.gain, self.dtype), self.device, self.dtype),
+                "threshold": _scalar(to_sample(self.threshold, self.dtype), self.device,
+                                     self.dtype)}
 
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state["in"], n)
         t = state["threshold"]
-        out = torch.clamp(block.float() * state["gain"], min=-t, max=t)
+        out = torch.clamp(widen(block, self.dtype) * state["gain"], min=-t, max=t)
         # frames past valid stay silent whatever the threshold does
         return ({"in": s, "gain": state["gain"], "threshold": t},
                 mask_block(out, valid), valid)
@@ -119,11 +123,12 @@ class LinearGainRamp(_Wrap):
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state["in"], n)
         f = state["frame"] + torch.arange(n, device=self.device)
-        p = f.to(torch.float32) * _f32(self.step_p)
-        ramp = _f32(self.start_gain) * (1.0 - p) + _f32(self.end_gain) * p
-        after = _f32(self.end_gain) if self.clamp_end else 1.0
+        dt = self.dtype
+        p = f.to(dt) * to_sample(self.step_p, dt)
+        ramp = to_sample(self.start_gain, dt) * (1.0 - p) + to_sample(self.end_gain, dt) * p
+        after = to_sample(self.end_gain, dt) if self.clamp_end else 1.0
         gain = torch.where(f < self.ramp_frames, ramp, torch.full_like(ramp, after))
-        return {"in": s, "frame": state["frame"] + n}, block.float() * gain[None, :], valid
+        return {"in": s, "frame": state["frame"] + n}, widen(block, dt) * gain[None, :], valid
 
 
 class TakeDuration(_Wrap):
@@ -151,7 +156,7 @@ class TakeDuration(_Wrap):
         self.fadeout = bool(fadeout)
         self._valid_frames = -(-self.n_samples // c)  # ceil: the final frame padded
         self._tail_channels = self.n_samples % c  # 0: a full final frame
-        self._total_ms = _divisor(float(self.duration_ns // 1_000_000), self.device)
+        self._total_ms = _divisor(float(self.duration_ns // 1_000_000), self.device, self.dtype)
 
     def total_frames(self) -> Optional[int]:
         inner = self.input.total_frames()
@@ -180,8 +185,8 @@ class TakeDuration(_Wrap):
                  + torch.arange(c, device=dev)[:, None])
             ms = state["fade_ms"] + torch.div(state["fade_r"] - j * d, M,
                                               rounding_mode="floor")
-            ms = torch.clamp(ms, min=0).to(torch.float32)
-            block = (block.float() * ms) / self._total_ms
+            ms = torch.clamp(ms, min=0).to(self.dtype)
+            block = (widen(block, self.dtype) * ms) / self._total_ms
             raw = state["fade_r"] - n * c * d
             q = torch.div(raw, M, rounding_mode="floor")
             new_state["fade_ms"] = state["fade_ms"] + q
@@ -252,7 +257,7 @@ class Delay(_Wrap):
         return {
             "in": self.input.init_state(),
             "buf": torch.zeros((self.spec.channels, self.delay_frames),
-                               dtype=torch.float32, device=self.device),
+                               dtype=self.dtype, device=self.device),
             "buffered_valid": _scalar(self.delay_frames, self.device, torch.int64),
             "ended": _scalar(False, self.device, torch.bool),
         }
@@ -261,7 +266,7 @@ class Delay(_Wrap):
         s, x, v_in = self.input.emit(state["in"], n)
         if self.delay_frames == 0:
             return {**state, "in": s}, x, v_in
-        joined = torch.cat([state["buf"], x.float()], dim=1)  # [C, d + n]
+        joined = torch.cat([state["buf"], widen(x, self.dtype)], dim=1)  # [C, d + n]
         avail = state["buffered_valid"] + v_in
         valid = clip_valid(avail, n)
         return ({"in": s, "buf": joined[:, n:],
@@ -295,16 +300,16 @@ class ChannelVolume(_Wrap):
         if not self.volumes:
             raise ValueError("need at least one channel volume")
         self.spec = StreamSpec(len(self.volumes), input_node.spec.sample_rate)
-        self._count = _divisor(float(input_node.spec.channels), self.device)
+        self._count = _divisor(float(input_node.spec.channels), self.device, self.dtype)
 
     def init_state(self) -> State:
         return {"in": self.input.init_state(),
-                "volumes": torch.tensor(self.volumes, dtype=torch.float32,
+                "volumes": torch.tensor(self.volumes, dtype=self.dtype,
                                         device=self.device)}
 
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state["in"], n)
-        block = block.float()
+        block = widen(block, self.dtype)
         acc = block[0]
         for c in range(1, block.shape[0]):
             acc = acc + block[c]

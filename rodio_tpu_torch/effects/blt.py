@@ -14,6 +14,7 @@ import torch
 
 from ..core.node import Node, State, mask_block
 from ..ops.cuda_scan import biquad_df1
+from ..ops.scan import biquad_df1 as biquad_scan, check_mode
 
 F = np.float32
 
@@ -60,15 +61,14 @@ class BltFilter(Node):
 
     ``mode``: "auto", "exact" and "pallas" all run the sequential order,
     which is the order K4 runs: the kernel on a CUDA tensor, the plain scan
-    on a CPU tensor. The associative scan ("assoc") is not ported yet."""
+    on a CPU tensor. "parallel" runs the associative scan of the 2x2
+    companion maps in torch ops (``ops/scan.biquad_df1``), on any device.
+    Any other name raises ``ValueError`` (the JAX node takes an unknown
+    name as "parallel": ROADMAP F9)."""
 
     def __init__(self, input_node: Node, kind: str, freq: float, q: float = 0.5,
                  *, mode: str = "auto"):
-        if mode in ("assoc", "parallel"):
-            raise NotImplementedError(
-                f"BltFilter mode {mode!r} (the associative scan) is not ported yet")
-        if mode not in ("auto", "exact", "pallas"):
-            raise ValueError(f"unknown BltFilter mode {mode!r}")
+        check_mode(mode, ("auto", "exact", "pallas", "parallel"), who="BltFilter")
         self.input = input_node
         self.spec = input_node.spec
         self.device = input_node.device
@@ -82,10 +82,10 @@ class BltFilter(Node):
         return self.input.total_frames()
 
     def init_state(self) -> State:
-        z = torch.zeros(self.spec.channels, dtype=torch.float32, device=self.device)
+        dt = self.dtype
+        z = torch.zeros(self.spec.channels, dtype=dt, device=self.device)
         return {"in": self.input.init_state(),
-                "coef": torch.tensor(self.coeffs, dtype=torch.float32,
-                                     device=self.device),
+                "coef": torch.tensor(self.coeffs, dtype=dt, device=self.device),
                 "x1": z, "x2": z, "y1": z, "y2": z}
 
     def retune(self, state: State, kind: Optional[str] = None,
@@ -97,13 +97,16 @@ class BltFilter(Node):
         freq = self.freq if freq is None else float(freq)
         q = self.q if q is None else float(q)
         co = blt_coefficients(kind, self.spec.sample_rate, freq, q).as_tuple()
-        return {**state, "coef": torch.tensor(co, dtype=torch.float32,
+        return {**state, "coef": torch.tensor(co, dtype=state["coef"].dtype,
                                               device=self.device)}
 
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
         st = (state["x1"], state["x2"], state["y1"], state["y2"])
-        y, (x1, x2, y1, y2) = biquad_df1(x, state["coef"], st)
+        if self.mode == "parallel":
+            y, (x1, x2, y1, y2) = biquad_scan(x, state["coef"], st, mode="parallel")
+        else:
+            y, (x1, x2, y1, y2) = biquad_df1(x, state["coef"], st)
         return (
             {"in": s, "coef": state["coef"], "x1": x1, "x2": x2, "y1": y1, "y2": y2},
             mask_block(y, valid),

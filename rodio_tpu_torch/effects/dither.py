@@ -18,7 +18,7 @@ import torch
 from ..core.node import Node, State, mask_block
 from ..core.types import check_bit_depth
 from ..ops import threefry
-from ..sources.noise import GAUSSIAN_STD
+from ..sources.noise import GAUSSIAN_STD, _refuse_float64
 
 ALGORITHMS = ("tpdf", "rpdf", "gpdf", "highpass")
 
@@ -26,6 +26,7 @@ ALGORITHMS = ("tpdf", "rpdf", "gpdf", "highpass")
 class Dither(Node):
     def __init__(self, input_node: Node, target_bits: int,
                  algorithm: str = "tpdf", seed: int = 0):
+        _refuse_float64("Dither")
         algorithm = algorithm.lower()
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown dither algorithm {algorithm!r}")

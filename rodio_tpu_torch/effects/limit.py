@@ -22,6 +22,12 @@ channels and applies it, in one pass; on a CPU tensor its plain version,
 the JAX node's torch ops and sequential scans. On the card a group wider
 than 32 channels runs its envelopes alone on K5 (``limiter_env``), the
 rest in torch.
+
+``mode="parallel"`` runs the JAX node's associative path on any device and
+input (rodio_tpu/effects/limit.py:166-212): the gain computer, both
+envelopes through the associative scans of ``ops/scan.py`` and the coupled
+gain, in torch ops. Any other name raises ``ValueError`` (the JAX node's
+scans take an unknown name as "exact": ROADMAP F9).
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import torch
 from ..core.math import duration_to_coefficient
 from ..core.node import Node, State, mask_block
 from ..core.types import duration_to_nanos
-from ..ops.cuda_scan import limiter_stream
-from ..ops.limiter_block import limiter_master
+from ..ops.cuda_scan import limiter_couple_gain, limiter_env_plain, limiter_stream
+from ..ops.limiter_block import limiter_gain_db, limiter_master
+from ..ops.scan import check_mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +98,7 @@ class Limit(Node):
 
     def __init__(self, input_node: Node, settings: LimitSettings = None,
                  *, mode: str = "auto", streams: int = 1):
-        if mode not in ("auto", "exact", "pallas"):
-            raise ValueError(f"Limit mode {mode!r} is not ported")
+        check_mode(mode, ("auto", "exact", "pallas", "parallel"), who="Limit")
         settings = settings or LimitSettings()
         self.input = input_node
         self.spec = input_node.spec
@@ -117,11 +123,14 @@ class Limit(Node):
         return self.input.total_frames()
 
     def init_state(self) -> State:
-        z = torch.zeros(self.spec.channels, dtype=torch.float32, device=self.device)
+        z = torch.zeros(self.spec.channels, dtype=self.dtype, device=self.device)
         return {"in": self.input.init_state(), "integ": z, "peak": z}
 
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
+        if self.mode == "parallel":
+            y, (integ_c, peak_c) = self._parallel(x, state)
+            return {"in": s, "integ": integ_c, "peak": peak_c}, mask_block(y, valid), valid
         P = min(128, n & -n)
         blocked = (self.mode in ("auto", "pallas") and self.streams == 1
                    and self.spec.channels == 2 and P >= 8)
@@ -137,3 +146,14 @@ class Limit(Node):
             inv_knee_8=self.inv_knee_8,
             group_channels=self.spec.channels // self.streams)
         return {"in": s, "integ": integ_c, "peak": peak_c}, mask_block(y, valid), valid
+
+    def _parallel(self, x, state):
+        """Both envelopes through the associative scans, then the coupled
+        gain: the JAX node's ``mode="parallel"`` path."""
+        db = limiter_gain_db(x, self.threshold, self.knee_width, self.inv_knee_8)
+        peak, carries = limiter_env_plain(db, state["integ"], state["peak"],
+                                          att=self.attack, rel=self.release,
+                                          mode="parallel")
+        y = limiter_couple_gain(x, peak, state["peak"],
+                                self.spec.channels // self.streams)
+        return y, carries

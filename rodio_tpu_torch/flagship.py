@@ -40,13 +40,14 @@ from .conversions.resample import (
     resample_output_frames)
 from .conversions.blockdtype import Bf16Boundary
 from .core.node import Node, State, full_valid, mask_block
-from .core.types import StreamSpec
+from .core.types import StreamSpec, float64_enabled
 from .core.math import duration_to_coefficient
 from .core.types import duration_to_nanos
 from .effects.agc import RMS_WINDOW_SIZE, AgcSettings, AutomaticGainControl
 from .effects.basic import Amplify
 from .effects.blt import BltFilter, blt_coefficients
 from .effects.limit import Limit, LimitSettings
+from .ops.scan import check_mode
 from .ops.fused import (
     AGC_REL0_PLANS, AGC_RING_FRAMES, fused_resample_biquad_agc_mix,
     fused_resample_biquad_mix, rel0_chunks)
@@ -55,6 +56,18 @@ from .sources.generators import SamplesBuffer
 from .utils.device import DeviceLike
 
 PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
+#: the scan modes make_flagship takes (the JAX package's documented names)
+SCAN_MODES = ("exact", "parallel", "pallas", "auto", "fused")
+
+
+def refuse_float64(name: str) -> None:
+    """The fused family (K1, K2 and their plans) has no f64 form: under
+    ``set_float64`` it refuses to build, as the JAX package cannot run it
+    (``lax.rem`` on int32 against int64 indices: ROADMAP F8)."""
+    if float64_enabled():
+        raise NotImplementedError(
+            f"{name} does not run in float64: the JAX package's fused pipeline "
+            "raises a TypeError there (ROADMAP F8); build the unfused chain")
 #: the precisions whose PCM the JAX package splits into integer pieces
 INT_PIECES = ("int3", "int2", "i8", "i24")
 
@@ -167,6 +180,7 @@ class FusedWidePipeline(Node):
                  agc_settings: Optional[AgcSettings] = None,
                  agc_ring: str = "bf16", agc_group: int = 0,
                  agc_plan: str = "auto"):
+        refuse_float64("FusedWidePipeline")
         if not (getattr(input_node, "RANDOM_ACCESS", False)
                 and hasattr(input_node, "slice_frames")):
             raise TypeError("FusedWidePipeline needs a sliceable random-access source")
@@ -478,6 +492,7 @@ class FusedFarmPipeline(Node):
     def __init__(self, feed: ChunkRingFeed, to_rate: int, n_streams: int,
                  kind: Optional[str] = "low_pass", freq: float = 2000.0,
                  q: float = 0.5, *, m: int = 2):
+        refuse_float64("FusedFarmPipeline")
         self.input = feed
         self.device = feed.device
         wide = feed.spec.channels
@@ -559,15 +574,19 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
     The PCM and gains come from numpy with ``seed``, exactly as the JAX
     package makes them, so both packages see identical input. ``scan_mode``
     "fused" builds FusedWidePipeline -> Limit (K1, or K2 with the AGC, then
-    K3); "exact", "auto" and "pallas" build the unfused chain (on a CUDA
-    device "auto" and "pallas" run K4 and K3, and with the AGC "pallas"
-    runs K6; the AGC's "auto" mode is not ported and raises). ``agc_ring``,
+    K3; refused under ``set_float64``, ROADMAP F8); "exact", "auto",
+    "pallas" and "parallel" build the unfused chain (on a CUDA device "auto"
+    and "pallas" run K4 and K3, and with the AGC "pallas" runs K6 and
+    "auto" the associative peak scan and K7's smoother; "parallel" runs the
+    associative scans everywhere, and K7 for the AGC's smoother). Any other
+    name raises ``ValueError``. ``agc_ring``,
     ``agc_group`` and ``agc_plan`` are the fused AGC's knobs. ``block_bf16``
     inserts a ``Bf16Boundary`` after the resampler, so K4 reads and writes
     bf16 blocks (``conversions/blockdtype.py``); as in the JAX package it
     runs only with ``scan_mode="pallas"`` and no AGC, and raises
     ``NotImplementedError`` otherwise (ROADMAP F7).
     """
+    check_mode(scan_mode, SCAN_MODES, who="make_flagship")
     rng = np.random.default_rng(seed)
     frames = int(seconds * in_rate)
     if source_pcm is None:
@@ -605,8 +624,6 @@ def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,
                                   agc_group=agc_group, agc_plan=agc_plan)
         master = Limit(fused, LimitSettings(), mode="auto")
         return master, master.init_state()
-    if scan_mode not in ("exact", "auto", "pallas"):
-        raise NotImplementedError(f"scan_mode {scan_mode!r} is not ported")
     if block_bf16 and (with_agc or scan_mode != "pallas"):
         # the JAX package runs bf16 blocks only on the Pallas biquad without
         # the AGC: its exact scan keeps an f32 carry against a bf16 block,

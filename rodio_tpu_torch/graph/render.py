@@ -14,9 +14,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.types import float_dtype, np_float_dtype
+
 from ..core.node import Node, State
 
 DEFAULT_BLOCK = 4096
+
+
+def _dtype(node) -> torch.dtype:
+    """The node's sample type: the one it was built with (a node without a
+    ``dtype``, as a duck-typed one may be: the current one)."""
+    return getattr(node, "dtype", None) or float_dtype()
 
 
 def compile_step(node: Node, block_frames: int):
@@ -55,7 +63,7 @@ def render(node: Node, *, max_frames: Optional[int] = None,
         if v < block_frames:
             break
     if not chunks:
-        return np.zeros((node.spec.channels, 0), dtype=np.float32)
+        return np.zeros((node.spec.channels, 0), dtype=np_float_dtype(_dtype(node)))
     return np.concatenate(chunks, axis=1)[:, :limit]
 
 
@@ -70,7 +78,7 @@ def render_blocks(node: Node, state: State, n_blocks: int, T: int):
         blocks.append(block)
         valids.append(valid)
     out = torch.cat(blocks, dim=1) if blocks else torch.zeros(
-        (node.spec.channels, 0), dtype=torch.float32, device=node.device)
+        (node.spec.channels, 0), dtype=_dtype(node), device=node.device)
     vals = torch.stack(valids) if valids else torch.zeros(
         0, dtype=torch.int64, device=node.device)
     return state, out, vals

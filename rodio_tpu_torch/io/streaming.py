@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.node import State, clip_valid, full_valid, mask_block
-from ..core.types import StreamSpec
+from ..core.types import StreamSpec, float_dtype
 from ..utils.device import DeviceLike, resolve_device
 from .native import SpscRing
 from .wav import WAVE_FORMAT_EXTENSIBLE, WAVE_FORMAT_IEEE_FLOAT, WAVE_FORMAT_PCM, WavError
@@ -369,6 +369,8 @@ class PushPort:
                  push_frames: int, *, device: DeviceLike = None):
         self.spec = StreamSpec(channels, sample_rate)
         self.device = resolve_device(device)
+        #: the sample type when the port was built
+        self.dtype = float_dtype()
         self.capacity = int(capacity)
         self.push_frames = int(push_frames)
         #: the resampler's window-eligibility bound (resample.py reads it):
@@ -390,7 +392,7 @@ class PushPort:
         false = torch.zeros((), dtype=torch.bool, device=self.device)
         return {
             "buf": torch.zeros((self.spec.channels, self.capacity),
-                               dtype=torch.float32, device=self.device),
+                               dtype=self.dtype, device=self.device),
             "base": zero, "level": zero.clone(),
             "overflow": false, "underflow": false.clone(), "ended": false.clone(),
         }

@@ -42,6 +42,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
 F = ctypes.c_float
+D = ctypes.c_double
 
 #: argument types of each C entry point (all return a cudaError_t as int)
 SIGNATURES = {
@@ -64,6 +65,12 @@ SIGNATURES = {
     "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),
     # the same with x and y bf16
     "rt_biquad_df1_bf16": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
+    # the same with every array f64 (K4's f64 instance)
+    "rt_biquad_df1_f64": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
+    # rt_limiter_master's arguments with every array and scalar f64 (K3's
+    # f64 instance)
+    "rt_limiter_master_f64": (P, P, P, P, P, P, P, P, P, I, I,
+                              D, D, D, D, D, D, D, D, D, D, D, P),
     # phase0, step, phases, phase_out, G, n, stream
     "rt_phase_accumulate": (P, P, P, P, I, LL, P),
     # key, counter (or null), mode, n, lo, hi, grid, out, stream
@@ -77,8 +84,12 @@ SIGNATURES = {
     "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
     # a, b, c, init, params, y, L, T, op, stream
     "rt_first_order": (P, P, P, P, P, P, I, LL, I, P),
+    # the same on f64 arrays and parameters (K7's f64 instance)
+    "rt_first_order_f64": (P, P, P, P, P, P, I, LL, I, P),
     # x, v0, power table, y, scratch (or null), rows, M, P, stream
     "rt_blocked_max_affine": (P, P, P, P, P, I, I, I, P),
+    # the same on f64 rows, carries and power table (K8's f64 instance)
+    "rt_blocked_max_affine_f64": (P, P, P, P, P, I, I, I, P),
     # pcm, F, L, left, wts, gains, coef, bq_in, bq_out, agc_in, agc_out,
     # params, ring, ring_bf16, ring_row, partial, out, n, stream
     "rt_fused_resample_biquad_agc_mix": (P, LL, I, P, P, P, P, P, P, P, P, P,
@@ -100,6 +111,8 @@ SIGNATURES = {
     "rt_stream_max": (P, LL, I, P, P),
     # (x0, a, b), out, iterations, stream
     "rt_op_chain": (P, P, LL, P),
+    # the same with x, a, b and out f64 (DMUL and DADD)
+    "rt_op_chain_f64": (P, P, LL, P),
     # (g0, att, rel, max_gain, lo, hi), out (g, cycles), iterations, stream
     "rt_smooth_chain": (P, P, LL, P),
     # no arguments; returns K2's lanes per block (its partials' row count
@@ -117,6 +130,12 @@ SIGNATURES = {
     # rows, M, P; returns the floats of global scratch K8 needs (0: none, it
     # stages each row in shared memory), not an error code
     "rt_blocked_max_affine_scratch_floats": (I, I, I),
+    # T, P; the doubles of global scratch K3's f64 instance needs, not an
+    # error code
+    "rt_limiter_master_f64_scratch": (I, I),
+    # rows, M, P; the doubles of global scratch K8's f64 instance needs, not
+    # an error code
+    "rt_blocked_max_affine_f64_scratch": (I, I, I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -229,6 +248,16 @@ def f32_arg(name: str, t: torch.Tensor, device: torch.device,
     """``t`` as a contiguous f32 tensor; raises unless it is f32 of
     ``shape`` on ``device``, which is all a kernel takes."""
     return _typed_arg(name, t, torch.float32, device, shape)
+
+
+def refuse_f64(name: str, t: torch.Tensor, row: str) -> None:
+    """Raise ``NotImplementedError`` for an f64 CUDA tensor given to a
+    kernel that has no f64 instance: it neither casts to f32 nor falls back
+    to its plain version. ``row`` names its item in ROADMAP queue 2 (or
+    queue 3)."""
+    if t.dtype == torch.float64 and t.device.type == "cuda":
+        raise NotImplementedError(
+            f"{name}: no float64 instance of this kernel ({row})")
 
 
 def i64_arg(name: str, t: torch.Tensor, device: torch.device,

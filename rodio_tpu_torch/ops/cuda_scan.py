@@ -1,7 +1,8 @@
 """K4, K5, K6 and K7: the per-lane serial scans (rodio_tpu/ops/pallas_scan.py).
 
 - :func:`biquad_df1` (K4, ``csrc/biquad.cu``): the DF-I biquad, on f32
-  blocks and (its bf16 instance) on bf16 blocks.
+  blocks, (its bf16 instance) on bf16 blocks and (its f64 instance) on
+  f64 blocks.
 - :func:`limiter_env` (K5, ``csrc/limiter_env.cu``): the limiter's two
   envelope recurrences; :func:`limiter_stream`, the same kernel with the
   ``Limit`` node's gain computer before them and its coupling and gain
@@ -9,14 +10,16 @@
 - :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop.
 - :func:`first_order` (K7, ``csrc/first_order.cu``): a first-order
   recurrence, ``linear``, ``max_affine`` or ``agc_gain`` (the AGC's gain
-  smoother).
+  smoother), on f32 or (its f64 instance) f64 arrays.
 
 Each wrapper runs its kernel on a CUDA tensor and its plain version, a
 sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
-``launches``, ``bf16_launches``, ``limiter_env_launches``,
-``limiter_stream_launches``, ``agc_launches`` and ``first_order_launches``
-count each wrapper's launches.
+``launches``, ``bf16_launches``, ``f64_launches``, ``limiter_env_launches``,
+``limiter_stream_launches``, ``agc_launches``, ``first_order_launches`` and
+``first_order_f64_launches`` count each wrapper's launches. K5 and K6 have
+no f64 instance: given an f64 CUDA tensor they raise
+``NotImplementedError`` (ROADMAP queue 2).
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -40,14 +43,18 @@ from .scan import linear_scan, max_affine_scan
 launches = 0
 #: kernel launches made by :func:`biquad_df1` on bf16 blocks (K4's bf16 instance)
 bf16_launches = 0
+#: kernel launches made by :func:`biquad_df1` on f64 blocks (K4's f64 instance)
+f64_launches = 0
 #: kernel launches made by :func:`limiter_env` (K5)
 limiter_env_launches = 0
 #: kernel launches made by :func:`limiter_stream` (K5, the Limit node's pass)
 limiter_stream_launches = 0
 #: kernel launches made by :func:`agc` (K6)
 agc_launches = 0
-#: kernel launches made by :func:`first_order` (K7)
+#: kernel launches made by :func:`first_order` on f32 arrays (K7)
 first_order_launches = 0
+#: kernel launches made by :func:`first_order` on f64 arrays (K7's f64 instance)
+first_order_f64_launches = 0
 
 FIRST_ORDER_OPS = ("linear", "max_affine", "agc_gain")
 
@@ -69,18 +76,20 @@ def biquad_df1_plain(x, coeffs, state):
 
 
 def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
-    """Biquad over x [L, T] (lanes by time; f32, or bf16 behind a
-    ``Bf16Boundary``), coefficients a [5] f32 tensor (b0, b1, b2, a1, a2)
-    on x's device, state (x1, x2, y1, y2) each [L] f32. Returns (y [L, T]
-    in x's dtype, state'), the state being the last two inputs and stored
-    outputs of each lane (the carry-in where T < 2), in f32.
+    """Biquad over x [L, T] (lanes by time; f32, bf16 behind a
+    ``Bf16Boundary``, or f64 under ``set_float64``), coefficients a [5]
+    tensor (b0, b1, b2, a1, a2) on x's device, state (x1, x2, y1, y2) each
+    [L], both f32 (f64 for an f64 block). Returns (y [L, T] in x's dtype,
+    state'), the state being the last two inputs and stored outputs of each
+    lane (the carry-in where T < 2), in f32 (f64 for an f64 block).
 
     A bf16 block runs K4's bf16 instance: it upcasts on load, runs the
     recurrence in f32 (inside a call the feedback is f32, as the Pallas
     kernel's scratch is) and stores y rounded to bf16; across calls the
     feedback is the rounded output (rodio_tpu/ops/pallas_scan.py:133-138)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"biquad_df1: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"biquad_df1: x must be float32 or bfloat16 (or float64), "
+                         f"got {x.dtype}")
     if x.device.type == "cpu":
         return biquad_df1_plain(x, coeffs, state)
     if x.device.type != "cuda":
@@ -89,38 +98,46 @@ def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
         raise ValueError(f"biquad_df1: x must be [L, T], got {tuple(x.shape)}")
     L, T = x.shape
     bf16 = x.dtype == torch.bfloat16
+    f64 = x.dtype == torch.float64
+    cdt = torch.float64 if f64 else torch.float32  # the chain's type
     x = _build._typed_arg("x", x, x.dtype, x.device, (L, T))
-    coeffs = _build.f32_arg("coeffs", coeffs, x.device, (5,))
-    st = [_build.f32_arg(f"state[{i}]", s, x.device, (L,))
+    coeffs = _build._typed_arg("coeffs", coeffs, cdt, x.device, (5,))
+    st = [_build._typed_arg(f"state[{i}]", s, cdt, x.device, (L,))
           for i, s in enumerate(state)]
     lib = _build.load_library()
     y = torch.empty_like(x)
-    out = torch.empty((4, L), dtype=torch.float32, device=x.device)
-    fn = lib.rt_biquad_df1_bf16 if bf16 else lib.rt_biquad_df1
-    err = fn(x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
-             *[s.data_ptr() for s in st], *[out[i].data_ptr() for i in range(4)],
-             L, T, _build.stream_handle(x.device))
-    _build.check(err, "rt_biquad_df1_bf16" if bf16 else "rt_biquad_df1")
-    global launches, bf16_launches
+    out = torch.empty((4, L), dtype=cdt, device=x.device)
+    name = ("rt_biquad_df1_f64" if f64 else "rt_biquad_df1_bf16" if bf16
+            else "rt_biquad_df1")
+    err = getattr(lib, name)(x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
+                             *[s.data_ptr() for s in st],
+                             *[out[i].data_ptr() for i in range(4)],
+                             L, T, _build.stream_handle(x.device))
+    _build.check(err, name)
+    global launches, bf16_launches, f64_launches
     if bf16:
         bf16_launches += 1
+    elif f64:
+        f64_launches += 1
     else:
         launches += 1
     return y, (out[0], out[1], out[2], out[3])
 
 
-def _one_minus(c: float) -> float:
-    """1 - c rounded to f32, as the JAX kernel's ``(1.0 - c) * x`` takes
-    it."""
-    return float(np.float32(1.0 - c))
+def _one_minus(c: float, dtype: torch.dtype = torch.float32) -> float:
+    """1 - c rounded to ``dtype`` (f32, or f64: unrounded), as the JAX
+    kernel's ``(1.0 - c) * x`` takes it."""
+    return 1.0 - c if dtype == torch.float64 else float(np.float32(1.0 - c))
 
 
-def limiter_env_plain(db, integ0, peak0, *, att: float, rel: float):
-    """The plain PyTorch version of K5, on any device: the sequential
-    scans of the limiter's ``mode="exact"`` path, one op at a time."""
-    crel, catt = _one_minus(rel), _one_minus(att)
-    integ = max_affine_scan(db, db * crel, torch.full_like(db, rel), integ0)
-    peak = linear_scan(torch.full_like(integ, att), integ * catt, peak0)
+def limiter_env_plain(db, integ0, peak0, *, att: float, rel: float,
+                      mode: str = "exact"):
+    """The plain PyTorch version of K5, on any device: the scans of the
+    limiter's ``mode="exact"`` path, one op at a time (``mode="parallel"``:
+    its associative scans, the JAX node's ``"parallel"`` path)."""
+    crel, catt = _one_minus(rel, db.dtype), _one_minus(att, db.dtype)
+    integ = max_affine_scan(db, db * crel, torch.full_like(db, rel), integ0, mode=mode)
+    peak = linear_scan(torch.full_like(integ, att), integ * catt, peak0, mode=mode)
     return peak, (integ[:, -1], peak[:, -1])
 
 
@@ -139,6 +156,7 @@ def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
         raise ValueError(f"limiter_env: db must be [L, T >= 1], got {tuple(db.shape)}")
     L, T = db.shape
     dev = db.device
+    _build.refuse_f64("limiter_env", db, "ROADMAP queue 2: K5's f64 instance")
     db = _build.f32_arg("db", db, dev, (L, T))
     integ0 = _build.f32_arg("integ0", integ0, dev, (L,))
     peak0 = _build.f32_arg("peak0", peak0, dev, (L,))
@@ -215,6 +233,7 @@ def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
         return limiter_stream_plain(x, integ0, peak0, group_channels=cg, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"limiter_stream: unsupported device {x.device}")
+    _build.refuse_f64("limiter_stream", x, "ROADMAP queue 2: K5's f64 instance")
     lib = _build.load_library()
     if cg > lib.rt_limiter_stream_max_group():  # wider than a chain warp
         db = limiter_gain_db(x, threshold, knee_width, inv_knee_8)
@@ -290,11 +309,11 @@ def smooth_gains(des, g0, att, rel, max_gain):
 
 def _scalars(params, n: int, like: torch.Tensor) -> torch.Tensor:
     """``params`` (a sequence of floats or 0-dim tensors, or a tensor) as
-    an f32 [n] tensor on ``like``'s device."""
+    an [n] tensor of ``like``'s dtype (f32, or f64) on its device."""
     if isinstance(params, torch.Tensor):
-        p = params.to(dtype=torch.float32, device=like.device).reshape(-1)
+        p = params.to(dtype=like.dtype, device=like.device).reshape(-1)
     else:
-        p = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+        p = torch.stack([torch.as_tensor(v, dtype=like.dtype,
                                          device=like.device).reshape(())
                          for v in params])
     if p.shape != (n,):
@@ -337,6 +356,7 @@ def agc(xs: torch.Tensor, delta: torch.Tensor, peak0: torch.Tensor,
         raise ValueError(f"agc: xs must be [L, M], got {tuple(xs.shape)}")
     L, M = xs.shape
     dev = xs.device
+    _build.refuse_f64("agc", xs, "ROADMAP queue 2: K6's f64 instance")
     xs = _build.f32_arg("xs", xs, dev, (L, M))
     delta = _build.f32_arg("delta", delta, dev, (L, M))
     carries = [_build.f32_arg(name, v, dev, (L,)) for name, v in
@@ -375,7 +395,8 @@ def first_order(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
     - ``agc_gain``:   the AGC's gain smoother toward a, ``params`` =
       (att, rel, max_gain) as data (b is not read)
 
-    Returns y [L, T] (the carry is y[:, -1])."""
+    On f64 arrays (``set_float64``) K7's f64 instance runs, every op in
+    f64. Returns y [L, T] (the carry is y[:, -1])."""
     if op not in FIRST_ORDER_OPS:
         raise ValueError(f"unknown first-order op {op!r}")
     if a.device.type == "cpu":
@@ -386,19 +407,25 @@ def first_order(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
         raise ValueError(f"first_order: a must be [L, T], got {tuple(a.shape)}")
     L, T = a.shape
     dev = a.device
-    a = _build.f32_arg("a", a, dev, (L, T))
-    b = _build.f32_arg("b", b, dev, (L, T)) if op != "agc_gain" else a
-    c = _build.f32_arg("c", c, dev, (L, T)) if op == "max_affine" else a
-    init = _build.f32_arg("init", init, dev, (L,))
-    p = (_build.f32_arg("params", _scalars(params, 3, a), dev, (3,))
+    f64 = a.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    a = _build._typed_arg("a", a, dt, dev, (L, T))
+    b = _build._typed_arg("b", b, dt, dev, (L, T)) if op != "agc_gain" else a
+    c = _build._typed_arg("c", c, dt, dev, (L, T)) if op == "max_affine" else a
+    init = _build._typed_arg("init", init, dt, dev, (L,))
+    p = (_build._typed_arg("params", _scalars(params, 3, a), dt, dev, (3,))
          if op == "agc_gain" else init)
     y = torch.empty_like(a)
     lib = _build.load_library()
-    err = lib.rt_first_order(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+    name = "rt_first_order_f64" if f64 else "rt_first_order"
+    err = getattr(lib, name)(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                              init.data_ptr(), p.data_ptr(), y.data_ptr(), L,
                              T, FIRST_ORDER_OPS.index(op),
                              _build.stream_handle(dev))
-    _build.check(err, "rt_first_order")
-    global first_order_launches
-    first_order_launches += 1
+    _build.check(err, name)
+    global first_order_launches, first_order_f64_launches
+    if f64:
+        first_order_f64_launches += 1
+    else:
+        first_order_launches += 1
     return y

@@ -147,6 +147,7 @@ def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
             channels=channels, ring=ring)
     if pcm.device.type != "cuda":
         raise ValueError(f"fused_resample_biquad_mix: unsupported device {pcm.device}")
+    _build.refuse_f64("fused_resample_biquad_mix", pcm, "ROADMAP F8")
     n = left.shape[0]
     C = int(channels)
     if not 1 <= C <= 32 or L % C or n < 1 or F < 1:
@@ -466,6 +467,7 @@ def fused_resample_biquad_agc_mix(pcm: torch.Tensor, left: torch.Tensor,
     if pcm.device.type != "cuda":
         raise ValueError(
             f"fused_resample_biquad_agc_mix: unsupported device {pcm.device}")
+    _build.refuse_f64("fused_resample_biquad_agc_mix", pcm, "ROADMAP F8")
     if rpc and step_frames // rpc > AGC_BLOCKED_MAX_CHUNK:
         raise ValueError(
             f"agc_plan={agc_plan!r}: chunks of {step_frames // rpc} frames; "

@@ -17,7 +17,9 @@ PyTorch with the same rounding order, on a CPU tensor.
 K8, :func:`blocked_max_affine_const` (``csrc/bma.cu``), is the same blocked
 order for one max-affine recurrence with its coefficient as data: the
 AGC's peak detector. ``launches`` counts K3's launches, ``bma_launches``
-K8's.
+K8's; ``f64_launches`` and ``bma_f64_launches`` their f64 instances'
+(``set_float64``: the same kernels on f64 blocks, every op in f64, the
+power tables f64).
 """
 from __future__ import annotations
 
@@ -26,19 +28,25 @@ import functools
 import numpy as np
 import torch
 
-from ..core.math import DB_TO_LOG2, LOG2_TO_DB, TINY, exp2_precise, linear_to_db
+from ..core.math import (TINY, db_to_log2_scale, exp2_precise, linear_to_db,
+                         log2_to_db_scale)
 from . import _build
 
 #: kernel launches made by :func:`limiter_master` (K3)
 launches = 0
 #: kernel launches made by :func:`blocked_max_affine_const` (K8)
 bma_launches = 0
+#: kernel launches of K3's f64 instance
+f64_launches = 0
+#: kernel launches of K8's f64 instance
+bma_f64_launches = 0
 
 _BIG = 3.0e38
 
 
-def _f32(v: float) -> float:
-    return float(np.float32(v))
+def _host(v: float, dtype: torch.dtype) -> float:
+    """v rounded to ``dtype`` (f32; f64 keeps it)."""
+    return v if dtype == torch.float64 else float(np.float32(v))
 
 
 def limiter_gain_db(x, threshold: float, knee_width: float, inv_knee_8: float):
@@ -53,11 +61,13 @@ def limiter_gain_db(x, threshold: float, knee_width: float, inv_knee_8: float):
 
 
 @functools.lru_cache(maxsize=32)
-def _power_tables(att: float, rel: float, Lc: int, device: torch.device):
-    """(rel^(t+1), att^(t+1)) for t < Lc, made in float64, stored f32."""
+def _power_tables(att: float, rel: float, Lc: int, device: torch.device,
+                  dtype: torch.dtype = torch.float32):
+    """(rel^(t+1), att^(t+1)) for t < Lc, made in float64, stored in
+    ``dtype`` (the block's: f32, or f64)."""
     tt = np.arange(1, Lc + 1, dtype=np.float64)
     return tuple(
-        torch.from_numpy(np.power(float(c), tt).astype(np.float32)).to(device)
+        torch.from_numpy(np.power(float(c), tt)).to(device, dtype)
         for c in (rel, att)
     )
 
@@ -78,8 +88,9 @@ def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
     """The plain PyTorch version of K3, on any device."""
     Lc = _check_shape(x, P)
     T = x.shape[1]
-    relpow, attpow = _power_tables(att, rel, Lc, x.device)
-    cr, ca = _f32(1.0 - rel), _f32(1.0 - att)
+    dt = x.dtype
+    relpow, attpow = _power_tables(att, rel, Lc, x.device, dt)
+    cr, ca = _host(1.0 - rel, dt), _host(1.0 - att, dt)
     x3 = x.reshape(2, P, Lc)  # x3[c, p, t] = x[c, p*Lc + t]
     d = limiter_gain_db(x3, threshold, knee_width, inv_knee_8)
     lane = torch.arange(P, device=x.device)
@@ -97,7 +108,7 @@ def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
     b_all, c_all = torch.stack(bs, -1), torch.stack(cs, -1)
 
     # chunk combine (integ)
-    A = torch.full_like(B, _f32(rel ** Lc))
+    A = torch.full_like(B, _host(rel ** Lc, dt))
     k = 1
     while k < P:
         As, Bs, Cs = (torch.roll(v, k, 1) for v in (A, B, Cv))
@@ -120,7 +131,7 @@ def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
     cp_all = torch.stack(cps, -1)
 
     # chunk combine (peak)
-    A2 = torch.full_like(B, _f32(att ** Lc))
+    A2 = torch.full_like(B, _host(att ** Lc, dt))
     C2 = Cp
     k = 1
     while k < P:
@@ -137,16 +148,21 @@ def limiter_master_plain(x, integ0, peak0, *, att: float, rel: float,
     prev1 = torch.cat([v_peak[1][:, None], peak[1, :, :-1]], dim=1)
     mp = torch.stack([torch.maximum(peak[0], prev1),
                       torch.maximum(peak[0], peak[1])])
-    y = x3 * exp2_precise(mp * -DB_TO_LOG2)
+    y = x3 * exp2_precise(mp * -db_to_log2_scale(dt))
     return y.reshape(2, T), (integ[:, P - 1, Lc - 1], peak[:, P - 1, Lc - 1])
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(T: int, P: int) -> int:
-    """The floats of global scratch K3 needs at (T, P), the kernel's own
-    rule: 0 where it stages the block in shared memory, more for a block
-    too long for that, whose per-chunk rows then live in global memory."""
-    return _build.load_library().rt_limiter_master_scratch_floats(T, P)
+def _scratch_floats(T: int, P: int, dtype: torch.dtype = torch.float32) -> int:
+    """The values (of ``dtype``) of global scratch K3 needs at (T, P), the
+    kernel's own rule: 0 where it stages the block in shared memory, more
+    for a block too long for that (it counts bytes, so an f64 block gives
+    way at half the f32 length), whose per-chunk rows then live in global
+    memory."""
+    lib = _build.load_library()
+    if dtype == torch.float64:
+        return lib.rt_limiter_master_f64_scratch(T, P)
+    return lib.rt_limiter_master_scratch_floats(T, P)
 
 
 def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
@@ -155,7 +171,8 @@ def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     """Whole master-bus limiter on x [2, T] -> (y [2, T], (integ', peak')).
 
     T % P == 0, P a power of two <= 128. The carries are those of the
-    block's last sample."""
+    block's last sample. x and the carries f32, or f64 (K3's f64
+    instance)."""
     if x.device.type == "cpu":
         return limiter_master_plain(
             x, integ0, peak0, att=att, rel=rel, threshold=threshold,
@@ -164,26 +181,32 @@ def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
         raise ValueError(f"limiter_master: unsupported device {x.device}")
     Lc = _check_shape(x, P)
     T = x.shape[1]
-    x = _build.f32_arg("x", x, x.device, (2, T))
-    integ0 = _build.f32_arg("integ0", integ0, x.device, (2,))
-    peak0 = _build.f32_arg("peak0", peak0, x.device, (2,))
-    relpow, attpow = _power_tables(att, rel, Lc, x.device)
+    f64 = x.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    x = _build._typed_arg("x", x, dt, x.device, (2, T))
+    integ0 = _build._typed_arg("integ0", integ0, dt, x.device, (2,))
+    peak0 = _build._typed_arg("peak0", peak0, dt, x.device, (2,))
+    relpow, attpow = _power_tables(att, rel, Lc, x.device, dt)
     y = torch.empty_like(x)
-    carries = torch.empty((2, 2), dtype=torch.float32, device=x.device)
-    nscratch = _scratch_floats(T, P)
-    scratch = (torch.empty(nscratch, dtype=torch.float32, device=x.device)
+    carries = torch.empty((2, 2), dtype=dt, device=x.device)
+    nscratch = _scratch_floats(T, P, dt)
+    scratch = (torch.empty(nscratch, dtype=dt, device=x.device)
                if nscratch else None)
-    err = _build.load_library().rt_limiter_master(
+    name = "rt_limiter_master_f64" if f64 else "rt_limiter_master"
+    err = getattr(_build.load_library(), name)(
         x.data_ptr(), y.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
         carries[0].data_ptr(), carries[1].data_ptr(), relpow.data_ptr(),
         attpow.data_ptr(), None if scratch is None else scratch.data_ptr(), T, P,
         att, rel, 1.0 - att, 1.0 - rel, att ** Lc, rel ** Lc,
-        threshold, knee_width, inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
-        _build.stream_handle(x.device),
+        threshold, knee_width, inv_knee_8, log2_to_db_scale(dt),
+        db_to_log2_scale(dt), _build.stream_handle(x.device),
     )
-    _build.check(err, "rt_limiter_master")
-    global launches
-    launches += 1
+    _build.check(err, name)
+    global launches, f64_launches
+    if f64:
+        f64_launches += 1
+    else:
+        launches += 1
     return y, (carries[0], carries[1])
 
 
@@ -199,13 +222,16 @@ def _check_bma_shape(x: torch.Tensor, P: int) -> int:
     return M // P
 
 
-def bma_power_table(a, Lc: int, device) -> torch.Tensor:
-    """a^(t+1) for t < Lc as f32 on ``device``, made in float64 from the f32
-    coefficient ``a`` (a float or a 0-dim tensor: a live knob stays on the
-    card). One table serves K8 and its plain version, so they agree
-    exactly; the JAX package makes it with an f32 ``cumprod``, a few ulp
-    away."""
+def bma_power_table(a, Lc: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """a^(t+1) for t < Lc on ``device`` (a float or a 0-dim tensor: a live
+    knob stays on the card). One table serves K8 and its plain version, so
+    they agree exactly. f32: made in float64 from the f32 coefficient and
+    rounded (the JAX package makes it with an f32 ``cumprod``, a few ulp
+    away). f64: an f64 ``cumprod``, as the JAX package's (one launch; XLA
+    takes the products in another order, ulps apart)."""
     a64 = torch.as_tensor(a, device=device).to(torch.float64).reshape(())
+    if dtype == torch.float64:
+        return torch.cumprod(a64.expand(Lc), 0)
     tt = torch.arange(1, Lc + 1, dtype=torch.float64, device=device)
     return torch.pow(a64, tt).to(torch.float32)
 
@@ -215,7 +241,7 @@ def blocked_max_affine_const_plain(x, v0, a, *, P: int):
     order, vectorised."""
     Lc = _check_bma_shape(x, P)
     L, M = x.shape
-    pw = bma_power_table(a, Lc, x.device)
+    pw = bma_power_table(a, Lc, x.device, x.dtype)
     av = pw[0]
     ca = 1.0 - av
     x3 = x.reshape(L, P, Lc)  # x3[r, p, t] = x[r, p*Lc + t]
@@ -253,10 +279,16 @@ def blocked_max_affine_const_plain(x, v0, a, *, P: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _bma_scratch_floats(L: int, M: int, P: int) -> int:
-    """The floats of global scratch K8 needs for x [L, M] in chunks of M/P,
-    the kernel's own rule: 0 where it stages each row in shared memory."""
-    return _build.load_library().rt_blocked_max_affine_scratch_floats(L, M, P)
+def _bma_scratch_floats(L: int, M: int, P: int,
+                        dtype: torch.dtype = torch.float32) -> int:
+    """The values (of ``dtype``) of global scratch K8 needs for x [L, M] in
+    chunks of M/P, the kernel's own rule: 0 where it stages each row in
+    shared memory (it counts bytes, so f64 rows give way at half the f32
+    length)."""
+    lib = _build.load_library()
+    if dtype == torch.float64:
+        return lib.rt_blocked_max_affine_f64_scratch(L, M, P)
+    return lib.rt_blocked_max_affine_scratch_floats(L, M, P)
 
 
 def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
@@ -271,19 +303,24 @@ def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
     Lc = _check_bma_shape(x, P)
     L, M = x.shape
     dev = x.device
-    x = _build.f32_arg("x", x, dev, (L, M))
-    v0 = _build.f32_arg("v0", v0, dev, (L,))
-    pw = bma_power_table(a, Lc, dev)
+    f64 = x.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    x = _build._typed_arg("x", x, dt, dev, (L, M))
+    v0 = _build._typed_arg("v0", v0, dt, dev, (L,))
+    pw = bma_power_table(a, Lc, dev, dt)
     y = torch.empty_like(x)
-    nscratch = _bma_scratch_floats(L, M, P)
-    scratch = (torch.empty(nscratch, dtype=torch.float32, device=dev)
+    nscratch = _bma_scratch_floats(L, M, P, dt)
+    scratch = (torch.empty(nscratch, dtype=dt, device=dev)
                if nscratch else None)
-    lib = _build.load_library()
-    err = lib.rt_blocked_max_affine(
+    name = "rt_blocked_max_affine_f64" if f64 else "rt_blocked_max_affine"
+    err = getattr(_build.load_library(), name)(
         x.data_ptr(), v0.data_ptr(), pw.data_ptr(), y.data_ptr(),
         None if scratch is None else scratch.data_ptr(), L, M, P,
         _build.stream_handle(dev))
-    _build.check(err, "rt_blocked_max_affine")
-    global bma_launches
-    bma_launches += 1
+    _build.check(err, name)
+    global bma_launches, bma_f64_launches
+    if f64:
+        bma_f64_launches += 1
+    else:
+        bma_launches += 1
     return y

@@ -46,6 +46,8 @@ def phase_accumulate(phase0: torch.Tensor, step: torch.Tensor, n: int):
         raise ValueError(f"phase_accumulate: phase0 must be [G] and n >= 0, got "
                          f"{tuple(phase0.shape)}, n={n}")
     G, dev = phase0.shape[0], phase0.device
+    _build.refuse_f64("phase_accumulate", phase0,
+                      "ROADMAP queue 2: the phase accumulator's f64 instance")
     phase0 = _build.f32_arg("phase0", phase0, dev, (G,))
     step = _build.f32_arg("step", step, dev, (G,))
     phases = torch.empty((G, n), dtype=torch.float32, device=dev)

@@ -17,8 +17,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.node import Node, State
-from ..core.types import StreamSpec
+from ..core.node import Node, State, widen
+from ..core.types import StreamSpec, np_float_dtype
 
 
 def _tree_map(fn, *trees):
@@ -126,7 +126,7 @@ class WideMixer(Node):
         s, block, valid = self.input.emit(state, n)
         # the stream sum is f32 whatever the block's dtype: a bf16 block is
         # read at half width but never summed at bf16 precision
-        mixed = block.float().reshape(self.n_streams, self.spec.channels, n).sum(0)
+        mixed = widen(block, self.dtype).reshape(self.n_streams, self.spec.channels, n).sum(0)
         return s, mixed, valid
 
 
@@ -142,7 +142,7 @@ def batched_buffers(channels: int, sample_rate: int, buffers: Sequence[np.ndarra
     states = []
     template = None
     for buf, nf in zip(buffers, frames):
-        arr = np.zeros((channels, max_frames), dtype=np.float32)
+        arr = np.zeros((channels, max_frames), dtype=np_float_dtype())
         if buf.ndim == 1:
             buf = buf[: nf * channels].reshape(nf, channels).T
         arr[:, :nf] = buf

@@ -45,7 +45,7 @@ class _SharedCache:
     def read(self, start: int, n: int) -> torch.Tensor:
         """The [C, n] window at ``start`` (zero past the end)."""
         self.ensure(start + n)
-        out = torch.zeros((self.node.spec.channels, n), dtype=torch.float32,
+        out = torch.zeros((self.node.spec.channels, n), dtype=self.node.dtype,
                           device=self.node.device)
         pos = 0
         for chunk in self.chunks:
@@ -83,7 +83,7 @@ class Buffered:
         cache = self._cache
         cache.ensure(self._pos + n)
         if self._pos >= cache.frames and cache.exhausted:
-            return torch.zeros((self.spec.channels, n), dtype=torch.float32,
+            return torch.zeros((self.spec.channels, n), dtype=self._cache.node.dtype,
                                device=self.device), False
         block = cache.read(self._pos, n)
         self._pos += n
@@ -96,6 +96,6 @@ class Buffered:
         self._cache.ensure(2 ** 62)
         chunks = self._cache.chunks
         data = torch.cat(chunks, dim=1) if chunks else torch.zeros(
-            (self.spec.channels, 0), dtype=torch.float32, device=self.device)
+            (self.spec.channels, 0), dtype=self._cache.node.dtype, device=self.device)
         return SamplesBuffer(self.spec.channels, self.spec.sample_rate, data,
                              device=self.device)

@@ -69,10 +69,10 @@ class EmptyCallback(Node):
         return {}
 
     def emit(self, state: State, n: int):
-        return state, torch.zeros((self.spec.channels, n), dtype=torch.float32,
+        return state, torch.zeros((self.spec.channels, n), dtype=self.dtype,
                                   device=self.device), full_valid(0, self.device)
 
     def next_block(self, n: int):
         self.callback()
-        return torch.zeros((self.spec.channels, n), dtype=torch.float32,
+        return torch.zeros((self.spec.channels, n), dtype=self.dtype,
                            device=self.device), False

@@ -21,14 +21,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.math import _f32
 from ..core.node import Node, State, clip_valid, full_valid, mask_block
-from ..core.types import DEFAULT_SAMPLE_RATE, StreamSpec
+from ..core.types import (DEFAULT_SAMPLE_RATE, StreamSpec, np_float_dtype,
+                          to_sample)
 from ..ops.phase import phase_accumulate
 from ..utils.device import DeviceLike, resolve_device
 
 #: 2*pi rounded to f32, the factor the JAX package's f32 ``sin`` argument takes
 TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def _two_pi(dtype: torch.dtype) -> float:
+    """2*pi as a tensor of ``dtype`` takes it (f64: unrounded)."""
+    return 2.0 * np.pi if dtype == torch.float64 else TWO_PI
 
 
 def _frac64(x):
@@ -59,7 +64,7 @@ class SignalGenerator(Node):
         # (src/source/signal_generator.rs:113-114); the closed form keeps f64
         self._step64 = float(1.0 / (np.float64(sample_rate) / np.float64(frequency)))
         self._step32 = np.float32(1.0) / (np.float32(sample_rate) / np.float32(frequency))
-        self._step_t = torch.full((1,), float(self._step32), dtype=torch.float32,
+        self._step_t = torch.full((1,), float(self._step32), dtype=self.dtype,
                                   device=self.device)
         self._incr = {}  # block size -> the closed form's increments
 
@@ -67,21 +72,21 @@ class SignalGenerator(Node):
         return None
 
     def init_state(self) -> State:
-        return {"phase": torch.zeros((), dtype=torch.float32, device=self.device)}
+        return {"phase": torch.zeros((), dtype=self.dtype, device=self.device)}
 
     def seek_state(self, seconds: float) -> State:
         """O(1) seek (src/source/signal_generator.rs:165-169)."""
         period = np.float64(self.spec.sample_rate) / np.float64(self.frequency)
         seek = np.float64(seconds) * self.spec.sample_rate / period
-        return {"phase": torch.full((), float(np.float32(_frac64(seek))),
-                                    dtype=torch.float32, device=self.device)}
+        return {"phase": torch.full((), to_sample(_frac64(seek), self.dtype),
+                                    dtype=self.dtype, device=self.device)}
 
     @staticmethod
     def waveform(function, phase: torch.Tensor) -> torch.Tensor:
         if callable(function):
             return function(phase)
         if function == "sine":
-            return torch.sin(phase * TWO_PI)
+            return torch.sin(phase * _two_pi(phase.dtype))
         if function == "triangle":
             return 4.0 * torch.abs(phase - torch.floor(phase + 0.5)) - 1.0
         if function == "square":
@@ -96,14 +101,15 @@ class SignalGenerator(Node):
             phases, new_phase = phase_accumulate(state["phase"].view(1), self._step_t, n)
             block = SignalGenerator.waveform(self.function, phases)
             return {"phase": new_phase[0]}, block, full_valid(n, self.device)
-        incr = self._incr.get(n)
+        dt = state["phase"].dtype
+        incr = self._incr.get((n, dt))
         if incr is None:
             table = _frac64(np.arange(n, dtype=np.float64) * self._step64)
-            incr = self._incr[n] = torch.from_numpy(table.astype(np.float32)).to(self.device)
+            incr = self._incr[(n, dt)] = torch.from_numpy(table).to(self.device, dt)
         p = state["phase"] + incr
         p = p - torch.floor(p)
         block = SignalGenerator.waveform(self.function, p)[None, :]
-        new_phase = state["phase"] + _f32(_frac64(np.float64(n) * self._step64))
+        new_phase = state["phase"] + to_sample(_frac64(np.float64(n) * self._step64), self.dtype)
         new_phase = new_phase - torch.floor(new_phase)
         return {"phase": new_phase}, block, full_valid(n, self.device)
 
@@ -150,7 +156,7 @@ class Chirp(Node):
         self._total = int(np.float64(duration) * sample_rate)
         # the divisors as device tensors: a CUDA division by a host scalar
         # multiplies by its reciprocal, which rounds differently
-        self._div = torch.tensor([self._total, sample_rate], dtype=torch.float32,
+        self._div = torch.tensor([self._total, sample_rate], dtype=self.dtype,
                                  device=self.device)
 
     def total_frames(self) -> Optional[int]:
@@ -161,11 +167,11 @@ class Chirp(Node):
 
     def emit(self, state: State, n: int):
         i = state["i"] + torch.arange(n, device=self.device)
-        fi = i.to(torch.float32)
+        fi = i.to(self._div.dtype)
         ratio = fi / self._div[0]
-        freq = (_f32(self.start_frequency) * (1.0 - ratio)
-                + _f32(self.end_frequency) * ratio)
-        t = (fi / self._div[1]) * TWO_PI * freq
+        freq = (to_sample(self.start_frequency, self.dtype) * (1.0 - ratio)
+                + to_sample(self.end_frequency, self.dtype) * ratio)
+        t = (fi / self._div[1]) * _two_pi(fi.dtype) * freq
         valid = clip_valid(self._total - state["i"], n)
         block = mask_block(torch.sin(t)[None, :], valid)
         return {"i": state["i"] + n}, block, valid
@@ -187,7 +193,7 @@ class Zero(Node):
         return {"i": torch.zeros((), dtype=torch.int64, device=self.device)}
 
     def emit(self, state: State, n: int):
-        block = torch.zeros((self.spec.channels, n), dtype=torch.float32,
+        block = torch.zeros((self.spec.channels, n), dtype=self.dtype,
                             device=self.device)
         if self._total is None:
             valid = full_valid(n, self.device)
@@ -211,7 +217,7 @@ class Empty(Node):
         return {}
 
     def emit(self, state: State, n: int):
-        return state, torch.zeros((self.spec.channels, n), dtype=torch.float32,
+        return state, torch.zeros((self.spec.channels, n), dtype=self.dtype,
                                   device=self.device), full_valid(0, self.device)
 
 
@@ -239,9 +245,9 @@ class SamplesBuffer(Node):
                 raise ValueError("pad_frames must be >= 1")
             self.PAD_FRAMES = int(pad_frames)
         if isinstance(data, torch.Tensor):  # kept where it lies until copied below
-            arr = data.to(torch.float32)
+            arr = data.to(self.dtype)
         else:
-            arr = torch.from_numpy(np.ascontiguousarray(np.asarray(data, dtype=np.float32)))
+            arr = torch.from_numpy(np.ascontiguousarray(np.asarray(data, dtype=np_float_dtype(self.dtype))))
         if arr.dim() == 1:
             frames = arr.shape[0] // channels
             arr = arr[: frames * channels].reshape(frames, channels).T
@@ -249,7 +255,7 @@ class SamplesBuffer(Node):
             raise ValueError("data must be 1-D interleaved or [channels, frames]")
         self._frames = arr.shape[1]
         data_t = torch.zeros((channels, self._frames + self.PAD_FRAMES),
-                             dtype=torch.float32, device=self.device)
+                             dtype=self.dtype, device=self.device)
         data_t[:, : self._frames] = arr
         self._data = data_t
         self._start = int(start_frame)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.node import Node, State, full_valid
-from ..core.types import StreamSpec
+from ..core.types import StreamSpec, float64_enabled
 from ..ops import threefry
 from ..ops.cuda_scan import first_order
 from ..utils.device import DeviceLike, resolve_device
@@ -39,12 +39,23 @@ TRIANGULAR_STD = float(2.0 / np.sqrt(6.0))
 GAUSSIAN_STD = 0.6
 
 
+def _refuse_float64(name: str) -> None:
+    """The f64 draws of ``jax.random`` (64-bit threefry bits, f64 erf_inv)
+    are not ported: under ``set_float64`` the noise sources and ``Dither``
+    refuse to build (ROADMAP queue 2, threefry's f64 draws)."""
+    if float64_enabled():
+        raise NotImplementedError(
+            f"{name}: f64 noise draws are not ported (ROADMAP queue 2: "
+            "threefry's f64 draws)")
+
+
 def _f32(v: float, device) -> torch.Tensor:
     return torch.full((), float(np.float32(v)), dtype=torch.float32, device=device)
 
 
 class _NoiseBase(Node):
     def __init__(self, sample_rate: int, seed: int = 0, *, device: DeviceLike = None):
+        _refuse_float64(type(self).__name__)
         self.spec = StreamSpec(1, sample_rate)
         self.seed = seed
         self.device = resolve_device(device)

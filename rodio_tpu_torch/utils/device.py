@@ -34,11 +34,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def hosted_block(block, device: torch.device) -> torch.Tensor:
+def hosted_block(block, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A block a host-driven source returned (a numpy array, as the
-    microphone's and the streaming feeds' are, or a tensor) as an f32
-    tensor on ``device``. From numpy to the card this is a pageable copy,
-    which waits for it."""
+    microphone's and the streaming feeds' are, or a tensor) as a tensor of
+    the sample type ``dtype`` on ``device``. From numpy to the card this is
+    a pageable copy, which waits for it."""
+    from ..core.types import np_float_dtype
+
     if isinstance(block, torch.Tensor):
-        return block.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.ascontiguousarray(block, dtype=np.float32)).to(device)
+        return block.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(block, dtype=np_float_dtype(dtype))).to(device)

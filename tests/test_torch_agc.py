@@ -179,10 +179,17 @@ def test_kernel_modes_match_the_oracle(S, settings):
 
 
 def test_unported_modes_raise():
+    """The associative modes build and render (M10); unknown names, "assoc"
+    among them, raise ValueError; the group-rate smoother needs "pallas"."""
     src = SamplesBuffer(2, 48000, np.zeros((2, 10), np.float32), device="cpu")
     for mode in ("auto", "parallel"):
-        with pytest.raises(NotImplementedError, match="M10"):
-            AutomaticGainControl(src, mode=mode)
+        node = AutomaticGainControl(src, mode=mode)
+        _, out, valid = node.emit(node.init_state(), 10)
+        assert out.shape == (2, 10) and int(valid) == 10
+        with pytest.raises(ValueError):
+            AutomaticGainControl(src, mode=mode, group=8)
+    with pytest.raises(ValueError, match="parallel"):
+        AutomaticGainControl(src, mode="assoc")
     with pytest.raises(ValueError):
         AutomaticGainControl(src, mode="exact", group=8)
     with pytest.raises(ValueError):

@@ -18,6 +18,11 @@ K1's front end) as K2; K9 bit-equal on both routes (the same sum order; the
 contiguous stream's max is order-free), eager and in a CUDA graph. K2r and K2b (K2's rel0 plans) as K2, their peak carry
 untouched. K4's bf16 instance and the generators' phase kernel bit-equal;
 the ring resampler on the card within 1e-6 of the CPU (the same ops).
+The f64 instances of K4, K7 and K8 bit-equal to their f64 plain versions,
+K3's within 1e-12 (its f32 instance is held at 1e-6); the associative
+scans of ``mode="parallel"`` (torch ops) bit-equal between the card and the
+CPU; every kernel without an f64 instance raises ``NotImplementedError``
+by name on an f64 CUDA tensor.
 """
 import numpy as np
 import pytest
@@ -1473,3 +1478,220 @@ def test_sharded_stream_farm_nccl_group_of_one(dev, tmp_path):
     finally:
         dist.destroy_process_group()
     assert torch.equal(torch.cat(a, 1), torch.cat(b, 1))
+
+
+# ---- M9 and M10: the f64 instances and the associative scans ----
+
+@pytest.fixture
+def f64_mode():
+    """set_float64(True) for the graphs a test builds, restored after."""
+    from rodio_tpu_torch.core import types
+
+    was = types.float64_enabled()
+    types.set_float64(True)
+    try:
+        yield
+    finally:
+        types.set_float64(was)
+
+
+def _f64(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(dev)
+
+
+@pytest.mark.parametrize("L,T", [(5, 1), (5, 2), (64, 300), (2, 4096), (1024, 12800),
+                                 (13, 128), (3, 4097), (8, 129), (6, 258)])
+def test_k4_f64_matches_plain(dev, L, T):
+    """K4's f64 instance (4 lanes a block): y and the carries bit-equal to
+    the f64 sequential scan; its f32 launch count untouched."""
+    rng = np.random.default_rng(L * 11 + T)
+    x = _f64(rng.standard_normal((L, T)) * 0.3, dev)
+    st = tuple(_f64(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
+    coef = _f64(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev)
+    before = (cuda_scan.f64_launches, cuda_scan.launches)
+    yk, sk = cuda_scan.biquad_df1(x, coef, st)
+    yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
+    torch.cuda.synchronize()
+    assert (cuda_scan.f64_launches, cuda_scan.launches) == (before[0] + 1, before[1])
+    assert yk.dtype == torch.float64 and torch.equal(yk, yp)
+    for a, b in zip(sk, sp):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", ["linear", "max_affine", "agc_gain"])
+@pytest.mark.parametrize("L,T", [(1, 1), (1, 8192), (2, 127), (3, 300), (9, 512), (1, 65536)])
+def test_k7_f64_first_order_matches_plain(dev, op, L, T):
+    a, b, c, init = (_f64(v, dev) for v in _k7_inputs(op, L, T, L + T))
+    params = _f64([AGC_PARAMS[0], AGC_PARAMS[1], AGC_PARAMS[3]], dev)
+    before = (cuda_scan.first_order_f64_launches, cuda_scan.first_order_launches)
+    yk = cuda_scan.first_order(a, b, init, c, op=op, params=params)
+    yp = cuda_scan.first_order_plain(a, b, init, c, op=op, params=params)
+    torch.cuda.synchronize()
+    assert (cuda_scan.first_order_f64_launches,
+            cuda_scan.first_order_launches) == (before[0] + 1, before[1])
+    assert yk.dtype == torch.float64 and torch.equal(yk, yp)
+
+
+@pytest.mark.parametrize("L,P,M", [(1, 128, 8192), (3, 8, 64), (8, 32, 3200), (2, 1, 64),
+                                   (1, 128, 128), (1, 128, 12800), (2, 128, 25600)])
+def test_k8_f64_matches_plain(dev, L, P, M):
+    """Bit-equal, the f64 power table (an f64 cumprod) the same; at M =
+    25600, P = 128 an f64 row's chunks take the global scratch where an f32
+    row's still stage in shared memory."""
+    rng = np.random.default_rng(L * P + M)
+    x = np.abs(rng.standard_normal((L, M)) * 0.3)
+    x.flat[rng.choice(L * M, 2, replace=False)] = [np.nan, np.inf]
+    x = _f64(x, dev)
+    for v0 in (_f64(rng.uniform(0, 1, L), dev), torch.zeros(L, dtype=torch.float64, device=dev)):
+        for a in (0.99896, _f64(0.9, dev)[0], 1.0):
+            before = limiter_block.bma_f64_launches
+            yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
+            yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
+            torch.cuda.synchronize()
+            assert limiter_block.bma_f64_launches == before + 1
+            assert yk.dtype == torch.float64
+            assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
+            assert torch.equal(yk.isnan(), yp.isnan())
+
+
+def test_k8_f64_scratch_at_half_the_f32_row(dev):
+    assert limiter_block._bma_scratch_floats(2, 12800, 128, torch.float64) == 0
+    assert limiter_block._bma_scratch_floats(2, 25600, 128, torch.float32) == 0
+    assert limiter_block._bma_scratch_floats(2, 25600, 128, torch.float64) > 0
+
+
+def _k3_f64(dev, T, P, scale):
+    rng = np.random.default_rng(T + P)
+    lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
+                LimitSettings.mastering())
+    kw = dict(att=lim.attack, rel=lim.release, threshold=lim.threshold,
+              knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
+    x = _f64(rng.standard_normal((2, T)) * scale, dev)
+    i0, p0 = _f64([0.3, 1.2], dev), _f64([0.6, 0.1], dev)
+    before = (limiter_block.f64_launches, limiter_block.launches)
+    yk, ck = limiter_block.limiter_master(x, i0, p0, **kw)
+    yp, cp = limiter_block.limiter_master_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (limiter_block.f64_launches, limiter_block.launches) == (before[0] + 1, before[1])
+    assert yk.dtype == torch.float64
+    assert (yk - yp).abs().max().item() <= 1e-12
+    for a, b in zip(ck, cp):
+        assert (a - b).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("scale", [0.8, 4.0, 0.02])
+@pytest.mark.parametrize("T,P", [(640, 128), (96, 32), (12800, 128), (4096, 128),
+                                 (12800, 8), (64, 2)])
+def test_k3_f64_matches_plain(dev, T, P, scale):
+    _k3_f64(dev, T, P, scale)
+
+
+@pytest.mark.parametrize("T", [102392, 102408])
+def test_k3_f64_where_staging_gives_way(dev, T):
+    """P = 8: a block of 8 x 12799 f64 frames stages its chunks in shared
+    memory (204784 bytes), one of 8 x 12801 takes the global scratch; an
+    f32 block stages both."""
+    assert limiter_block._scratch_floats(T, 8, torch.float32) == 0
+    staged = limiter_block._scratch_floats(T, 8, torch.float64) == 0
+    assert staged == (T == 102392)
+    _k3_f64(dev, T, 8, 0.8)
+
+
+def test_op_chain_f64_matches_plain(dev):
+    xab = torch.tensor([1.0, 0.999, 1e-3], dtype=torch.float64, device=dev)
+    k = op_latency.op_chain(xab, 4)
+    p = op_latency.op_chain_plain(xab.cpu(), 4)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.float64 and torch.equal(k.cpu(), p)
+
+
+def test_assoc_scans_on_card_equal_cpu(dev):
+    """The torch-op associative scans round every op alone on both devices:
+    bit-equal, at odd and even lengths and at the main path's block."""
+    from rodio_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(5)
+    for L, T in ((3, 1), (3, 7), (4, 1000), (2, 4096), (1024, 12800)):
+        a, b, c = (rng.uniform(0.5, 1.0, (L, T)), rng.standard_normal((L, T)),
+                   rng.uniform(0.9, 1.0, (L, T)))
+        init = rng.standard_normal(L)
+        co = torch.tensor(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple())
+        st = tuple(rng.standard_normal(L) * 0.1 for _ in range(4))
+        for cast in (_f32, _f64):
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                A, B, C, I = (cast(v, d) for v in (a, b, c, init))
+                y1 = scan.linear_scan(A, B, I, mode="parallel")
+                y2 = scan.max_affine_scan(B, B * 0.1, C, I, mode="parallel")
+                y3, s3 = scan.biquad_df1(B, co.to(d, B.dtype), tuple(cast(v, d) for v in st),
+                                         mode="parallel")
+                outs.append([t.cpu() for t in (y1, y2, y3, *s3)])
+            for g, cpu in zip(*outs):
+                assert torch.equal(g, cpu)
+
+
+@pytest.mark.parametrize("mode", ["auto", "parallel"])
+def test_assoc_agc_flagship_on_card_matches_cpu(dev, mode):
+    """make_flagship(16, with_agc=True) in the associative modes, 3 blocks
+    of 640: the card (K4 and K3 under "auto", torch-op scans under
+    "parallel", K7's smoother in both) against the CPU's plain versions."""
+    node_g, st_g = make_flagship(16, seconds=0.2, scan_mode=mode, with_agc=True, device=dev)
+    node_c, st_c = make_flagship(16, seconds=0.2, scan_mode=mode, with_agc=True, device="cpu")
+    before = cuda_scan.first_order_launches
+    _, og, _ = render_blocks(node_g, st_g, 3, 640)
+    _, oc, _ = render_blocks(node_c, st_c, 3, 640)
+    torch.cuda.synchronize()
+    assert cuda_scan.first_order_launches == before + 3
+    # the card's limiter is K3's blocked order under "auto", the CPU's the
+    # sequential one (as test_flagship_on_card_matches_cpu)
+    assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-6 + 4e-6 * (mode == "auto")
+
+
+@pytest.mark.parametrize("mode", ["pallas", "auto"])
+def test_f64_flagship_on_card_matches_cpu(dev, f64_mode, mode):
+    """BASELINE config 5's unfused chain in f64 at 16 streams: K4's and K3's
+    f64 instances on the card against the f64 plain versions on the CPU
+    (the mix over streams sums in another order: 1e-12)."""
+    node_g, st_g = make_flagship(16, seconds=0.2, scan_mode=mode, device=dev)
+    node_c, st_c = make_flagship(16, seconds=0.2, scan_mode=mode, device="cpu")
+    before = (cuda_scan.f64_launches, limiter_block.f64_launches)
+    _, og, _ = render_blocks(node_g, st_g, 3, 640)
+    _, oc, _ = render_blocks(node_c, st_c, 3, 640)
+    torch.cuda.synchronize()
+    assert og.dtype == torch.float64
+    assert (cuda_scan.f64_launches, limiter_block.f64_launches) == (before[0] + 3, before[1] + 3)
+    bound = 1e-12 if mode == "pallas" else 4e-6  # "auto": the CPU's limiter is sequential
+    assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= bound
+
+
+def test_kernels_without_f64_raise_by_name(dev, f64_mode):
+    """K5, K6, the phase accumulator and K1/K2 refuse an f64 CUDA tensor by
+    name (no cast, no fallback); the fused pipelines and the noise sources
+    (threefry's f64 draws) refuse to build under set_float64."""
+    from rodio_tpu_torch.flagship import FusedWidePipeline
+    from rodio_tpu_torch.ops import phase
+    from rodio_tpu_torch.sources.noise import WhiteUniform
+
+    x = torch.zeros((2, 256), dtype=torch.float64, device=dev)
+    v = torch.zeros(2, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="K5"):
+        cuda_scan.limiter_env(x, v, v, att=0.9, rel=0.9)
+    with pytest.raises(NotImplementedError, match="K5"):
+        cuda_scan.limiter_stream(x, v, v, att=0.9, rel=0.9, threshold=-1.0,
+                                 knee_width=4.0, inv_knee_8=1 / 32, group_channels=2)
+    with pytest.raises(NotImplementedError, match="K6"):
+        cuda_scan.agc(x, x, v, v, v, [0.9] * 6)
+    with pytest.raises(NotImplementedError, match="phase accumulator"):
+        phase.phase_accumulate(v, v, 16)
+    with pytest.raises(NotImplementedError, match="F8"):
+        fused.fused_resample_biquad_mix(x, torch.zeros(8, dtype=torch.int64, device=dev),
+                                        x, gains=v, coeffs=v, bq=v, channels=2)
+    with pytest.raises(NotImplementedError, match="F8"):
+        fused.fused_resample_biquad_agc_mix(x, torch.zeros(8, dtype=torch.int64, device=dev),
+                                            x, gains=v, coeffs=v, bq=v, agc=v,
+                                            agc_params=v, ring=x, ring_row=0)
+    with pytest.raises(NotImplementedError, match="F8"):
+        make_flagship(4, seconds=0.1, scan_mode="fused", device=dev)
+    with pytest.raises(NotImplementedError, match="threefry"):
+        WhiteUniform(48000, device=dev)
+    assert FusedWidePipeline  # the class the fused mode builds

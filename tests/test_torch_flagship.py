@@ -165,10 +165,15 @@ def test_refused_configurations():
                           48000, np.ones(2, np.float32), 2)
     with pytest.raises(ValueError):
         make_flagship(4, seconds=0.1, scan_mode="fused", precision="bf16", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="parallel"):
         make_flagship(4, seconds=0.1, scan_mode="assoc", device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        make_flagship(4, seconds=0.1, scan_mode="auto", with_agc=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        make_flagship(4, seconds=0.1, scan_mode="bogus", device="cpu")
+    # the associative modes (M10) build
+    for mode in ("auto", "parallel"):
+        node, st = make_flagship(4, seconds=0.1, scan_mode=mode, with_agc=True,
+                                 device="cpu")
+        assert node.emit(st, 640)[1].shape == (2, 640)
 
 
 def test_agc_flagship_builds_in_every_ported_mode():

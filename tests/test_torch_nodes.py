@@ -145,9 +145,15 @@ def test_blt_filter_bit_equal_to_the_oracle(kind, freq, q):
 
 
 def test_blt_filter_assoc_not_ported():
-    with pytest.raises(NotImplementedError):
-        BltFilter(SamplesBuffer(1, 48000, np.zeros((1, 4), np.float32), device="cpu"),
-                  "low_pass", 1000.0, mode="assoc")
+    """The associative scan is mode="parallel" (M10): it builds and renders;
+    "assoc" and unknown names raise ValueError."""
+    src = SamplesBuffer(1, 48000, np.zeros((1, 4), np.float32), device="cpu")
+    node = BltFilter(src, "low_pass", 1000.0, mode="parallel")
+    assert node.emit(node.init_state(), 4)[1].shape == (1, 4)
+    with pytest.raises(ValueError, match="parallel"):
+        BltFilter(src, "low_pass", 1000.0, mode="assoc")
+    with pytest.raises(ValueError):
+        BltFilter(src, "low_pass", 1000.0, mode="bogus")
 
 
 @pytest.mark.parametrize("S", [4, 8])
