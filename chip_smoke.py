@@ -32,10 +32,14 @@ Phases (each raises on failure, so the script exits non-zero):
    same count as a yardstick; K7's linear op at Brownian's shape; the
    latency of a dependent f64 op (DMUL, DADD), then the f64 instances
    (set_float64) of K4 (at [1024, 12800] and [2, 4096]), K3 (at [2, 12800]
-   and [2, 4096]), K7 (agc_gain at [1, 8192]) and K8 (at [1, 8192]), each
-   eager and in a CUDA graph, against their f64 plain versions, their
-   operations over 34 TFLOP/s FP64 and their chain floors at the f64 op's
-   latency;
+   and [2, 4096]), K7 (agc_gain at [1, 8192]) and K8 (at [1, 8192]), K6 (at
+   path W's [512, 25600]), K5 (limiter_stream at path W's [1024, 12800] in
+   stereo groups, limiter_env beside it) and the phase accumulator (at [1,
+   1024]), each eager and in a CUDA graph, against their f64 plain
+   versions, their operations over 34 TFLOP/s FP64 and their chain floors
+   at the f64 op's latency; threefry's f64 instance (64-bit draws) at path
+   X's block (uniform, Velvet, Pink) and at 2^24 draws, with
+   torch.rand(dtype=torch.float64) as its yardstick;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -93,9 +97,9 @@ Phases (each raises on failure, so the script exits non-zero):
      the card and the continuation bit-equal;
    the CPU references render in child processes: path I's first and alone,
    started before the build (its serial loop is the longest), J, K, L, S,
-   T, U and V's in three started after phase 3's timings; path I is held
-   to its reference after path L, and all are finished before the timings
-   of paths M to V;
+   T, U, V, W, X and Y's in three started after phase 3's timings; path I
+   is held to its reference after path L, and all are finished before the
+   timings of paths M to Y;
    then the io layer (no kernel of its own; K4, K8, K7, K3 run under it):
    - path M, BASELINE config 2 from a file: a seeded 180 s 16-bit stereo
      master at 44.1 kHz written as WAV and as FLAC (tests/
@@ -134,7 +138,8 @@ Phases (each raises on failure, so the script exits non-zero):
      bit-equal to P; then dryrun_multichip(1) on the card;
    then the associative scans (M10) and the f64 mode (M9), each with its
    ms a block, launches a block, device busy, idle share and peak device
-   memory:
+   memory (paths W, X and Y: of the f64 instances of K6, K5, threefry and
+   the phase accumulator):
    - path S: make_flagship(512, with_agc=True, scan_mode="auto"), 12
      blocks of 12800: K4, the AGC's associative peak scan (torch ops) and
      K7's smoother, K3; its 16-stream graph against the CPU's;
@@ -148,6 +153,20 @@ Phases (each raises on failure, so the script exits non-zero):
    - path V: config 5's unfused chain in f64 at 512 streams ("pallas"), 12
      blocks of 12800: K4's and K3's f64 instances; 16 streams against the
      f64 CPU render;
+   - path W: config 5's per-stream chain in f64 (make_per_stream_chain(512)),
+     12 blocks of 12800: the f64 instances of K4, K6, K5 (limiter_stream,
+     groups of 2) and K3 once a block; 16 streams against the f64 CPU render
+     and against the f32 chain on the card (which it must differ from);
+     Limit on a mono input and on blocks of 4410 frames (K5 f64) against
+     the CPU;
+   - path X: the nine noise sources in f64, 10 s each in blocks of 4096
+     (threefry's f64 instance; Brownian and Red also K7's), and Dither by
+     its four algorithms to 16 bits of a seeded 10 s stereo buffer, against
+     the f64 CPU renders: bit-equal but the erf_inv sources, at their
+     bounds;
+   - path Y: BASELINE config 4 (path H's parity case and scene) in f64: the
+     phase accumulator's f64 instance once a branch a block, each whole
+     against the f64 CPU render and against the f32 render on the card;
 5. times: ms per block and the aggregate realtime factor of the slice and
    of paths A, B, C, D, E, E', F, G, G', H, I, J and K, the seek's time, and
    the device-busy share of I, J, K and L (paths M, N and O print theirs
@@ -252,12 +271,21 @@ BOUND_K3F64 = 1e-12
 #: K3 bit-equal to their plain versions; the window sum's f64 cumsum and the
 #: mix over streams sum in another order on the two devices
 BOUND_F64 = 1e-12
+BOUND_K6F64 = BOUND_K5F64 = BOUND_PHASEF64 = 0.0  # same op order, every op in f64
+#: the f64 erf_inv sources on the card against the CPU: PyTorch's f64 log1p
+#: may round apart on the two devices (a draw within ERFINV64_ULPS of
+#: 2^-50, times 0.6); Brownian's integrator carries it ~1/(1 - leak) steps;
+#: Dither's gpdf: that times its lsb 2^-15, plus one ulp (2^-53) of an
+#: output below 1 where x - noise * lsb rounds the other way
+BOUND_GAUSS64, BOUND_BROWN64 = 1e-13, 1e-11
+#: path X's Dither input: seeded stereo at 48 kHz, 10 s
+PATH_X_DITHER_SECONDS = 10
 #: path S's 16 streams on the card against the CPU: the card's master
 #: limiter is K3's blocked order, the CPU's "auto" the sequential one
 #: (tests/test_torch_cuda.py::test_flagship_on_card_matches_cpu)
 BOUND_S = 1e-6 + 4e-6
-#: paths S, T: the associative scans and the AGC over 512 streams; U, V:
-#: f64; blocks of each path's render
+#: paths S, T: the associative scans and the AGC over 512 streams; U, V,
+#: W: f64; the streams of each path's check against the CPU
 PATH_ST_STREAMS_CHECK = 16
 
 
@@ -365,8 +393,11 @@ def _cpu_reference(task: str):
         return torch.cat(blocks, dim=1).numpy(), pulls
     if task == "J":
         return player_script("cpu", PATH_J_BLOCKS).numpy()
-    if task in ("S", "T", "U", "V"):
+    if task in ("S", "T", "U", "V", "W"):
         return _scan_f64_render(task, "cpu", 2).numpy()
+    if task in ("X", "Y"):
+        with _SampleMode(task):
+            return _noise_config4_renders(task, "cpu")
     n = -(-PATH_K_SECONDS * 48000 // PATH_K_BLOCK)
     out = {}
     for name in NOISE:
@@ -376,11 +407,11 @@ def _cpu_reference(task: str):
 
 
 class _SampleMode:
-    """set_float64 for paths U and V while their graphs are built and
-    rendered, restored after."""
+    """set_float64 for paths U, V, W, X and Y while their graphs are built
+    and rendered, restored after."""
 
     def __init__(self, task: str):
-        self.f64 = task in ("U", "V")
+        self.f64 = task in ("U", "V", "W", "X", "Y")
 
     def __enter__(self):
         from rodio_tpu_torch.core import types
@@ -395,30 +426,94 @@ class _SampleMode:
 
 
 def _scan_f64_graph(task: str, device, streams: int = PATH_ST_STREAMS_CHECK):
-    """(node, state) of path S, T, U or V on ``device``: S and T config 5
+    """(node, state) of path S, T, U, V or W on ``device``: S and T config 5
     with the AGC (make_flagship) in scan_mode "auto" and "parallel"; U
-    BASELINE config 2 (path B's chain, 10 s) and V config 5's unfused chain
-    ("pallas"), both f64 (build them under ``_SampleMode``). S, T and V take
-    ``streams`` streams: the checks' 16, or 512 for the runs."""
+    BASELINE config 2 (path B's chain, 10 s), V config 5's unfused chain
+    ("pallas") and W its per-stream chain (path C's), all three f64 (build
+    them under ``_SampleMode``). S, T, V and W take ``streams`` streams: the
+    checks' 16, or 512 for the runs."""
     import rodio_tpu_torch as rtt
     from rodio_tpu_torch.profile_slice import config2
 
     if task == "U":
         node = config2(device, 0)
         return node, node.init_state()
+    if task == "W":
+        return rtt.make_per_stream_chain(streams, seed=SEED + 3, device=device)
     mode = {"S": "auto", "T": "parallel", "V": "pallas"}[task]
     return rtt.make_flagship(streams, seconds=4.0, scan_mode=mode, with_agc=task != "V",
                              device=device, max_block=T, seed=SEED)
 
 
 def _scan_f64_render(task: str, device, n_blocks: int):
-    """The first ``n_blocks`` of path S, T, U or V (the checks' size)."""
+    """The first ``n_blocks`` of path S, T, U, V or W (the checks' size)."""
     import rodio_tpu_torch as rtt
 
     with _SampleMode(task):
         node, st = _scan_f64_graph(task, device)
         block = PATH_B_BLOCK if task == "U" else T
         return rtt.render_blocks(node, st, n_blocks, block)[1]
+
+
+def _dither_input():
+    """Path X's Dither input: seeded stereo, PATH_X_DITHER_SECONDS at 48 kHz."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 11).uniform(
+        -0.9, 0.9, (2, PATH_X_DITHER_SECONDS * 48000))
+
+
+def _noise_config4_nodes(task: str, device):
+    """Path X's graphs ({name: (node, blocks)}: the nine noise sources and
+    Dither by its four algorithms) or path Y's (config 4's parity case and
+    scene), built in the sample type of the moment, rendered in blocks of
+    PATH_K_BLOCK (X) or PATH_H_BLOCK (Y)."""
+    from rodio_tpu_torch.effects import Dither
+    from rodio_tpu_torch.profile_slice import (NOISE, config4_parity, config4_scene,
+                                               noise_source)
+    from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+    if task == "Y":
+        out = {}
+        for label, build in (("config4_parity", config4_parity),
+                             ("config4_scene", config4_scene)):
+            node = build(device)
+            out[label] = (node, -(-node.total_frames() // PATH_H_BLOCK))
+        return out
+    nk = -(-PATH_K_SECONDS * 48000 // PATH_K_BLOCK)
+    out = {name: (noise_source(name, device), nk) for name in NOISE}
+    data = _dither_input()
+    for algo in ("tpdf", "rpdf", "gpdf", "highpass"):
+        node = Dither(SamplesBuffer(2, 48000, data, device=device), 16, algo, seed=3)
+        out[f"dither_{algo}"] = (node, -(-data.shape[1] // PATH_K_BLOCK))
+    return out
+
+
+def _noise_config4_renders(task: str, device) -> dict:
+    """Path X's or Y's renders, whole ({name: numpy array})."""
+    import rodio_tpu_torch as rtt
+
+    block = PATH_H_BLOCK if task == "Y" else PATH_K_BLOCK
+    return {name: rtt.render_blocks(node, node.init_state(), n, block)[1].cpu().numpy()
+            for name, (node, n) in _noise_config4_nodes(task, device).items()}
+
+
+def _events_ms(node, n_blocks: int, block: int) -> float:
+    """Mean ms a block of ``node`` on the card by CUDA events, after a
+    warm-up block."""
+    import torch
+
+    import rodio_tpu_torch as rtt
+
+    st = node.init_state()
+    st, _, _ = rtt.render_blocks(node, st, 1, block)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    rtt.render_blocks(node, st, n_blocks, block)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n_blocks
 
 
 _T0 = time.perf_counter()
@@ -921,18 +1016,60 @@ def _scan_f64_paths(wants, h) -> dict:
     launches a block, device busy and idle share (3 profiled blocks) and
     the peak device memory; S, T and V at 16 streams, and U's first 2
     blocks, against the CPU's renders (the child processes'); U against
-    the same chain in f32 on the card, which it must differ from. ``wants``
-    holds the CPU renders. Returns the runs' launch counts."""
+    the same chain in f32 on the card, which it must differ from. W (config
+    5's per-stream chain in f64 at 512 streams: the f64 instances of K4, K6,
+    K5 and K3), as V, and against its f32 chain on the card as U; then Limit
+    mono and P = 2 on K5's f64 instance. ``wants`` holds the CPU renders.
+    Returns the runs' launch counts."""
     runs = {}
     paths = (("S", "agc_auto", N_BLOCKS, T, dict(K4=1, K7=1, K3=1)),
              ("T", "agc_parallel", N_BLOCKS, T, dict(K7=1)),
              ("U", "config2_f64", PATH_B_BLOCKS, PATH_B_BLOCK,
               dict(K4f64=1, K8f64=1, K7f64=1, K3f64=1)),
-             ("V", "config5_f64", N_BLOCKS, T, dict(K4f64=1, K3f64=1)))
+             ("V", "config5_f64", N_BLOCKS, T, dict(K4f64=1, K3f64=1)),
+             ("W", "per_stream_f64", N_BLOCKS, T, dict(K4f64=1, K6f64=1, K5f64=1, K3f64=1)))
     for task, name, n_blocks, block, per_block in paths:
         with _SampleMode(task):
             runs[name] = _scan_f64_path(task, name, n_blocks, block, per_block,
                                         wants[task], h)
+    with _SampleMode("W"):
+        runs.update(_limit_f64(h))
+    return runs
+
+
+def _limit_f64(h) -> dict:
+    """Path W's Limit on a mono input (blocks of 12800) and on stereo blocks
+    of 4410 (P = 2: off K3's blocked case), "pallas", f64: K5's f64 instance
+    once a block, card against CPU (output 1e-12, the envelope carries
+    bit-equal). Returns the runs' launch counts."""
+    import numpy as np
+
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.effects.limit import Limit, LimitSettings
+    from rodio_tpu_torch.sources.generators import SamplesBuffer
+
+    reset, counts, expect = h["reset"], h["counts"], h["expect"]
+    runs = {}
+    for label, channels, n in (("mono", 1, T), ("P=2", 2, 4410)):
+        data = np.random.default_rng(SEED + 4).uniform(-1, 1, (channels, 3 * n)) * 2.0
+        res = []
+        reset()
+        for device in ("cuda", "cpu"):
+            node = Limit(SamplesBuffer(channels, 48000, data, device=device),
+                         LimitSettings(), mode="pallas")
+            st, o, _ = rtt.render_blocks(node, node.init_state(), 3, n)
+            res.append((o.cpu(), st["integ"].cpu(), st["peak"].cpu()))
+        run = counts()
+        expect(run, f"path W: Limit f64 ({label})", K5f64=3)
+        err_o = _max_err(res[0][0], res[1][0])
+        err_e = max(_max_err(res[0][1], res[1][1]), _max_err(res[0][2], res[1][2]))
+        print(f"path W: Limit f64 ({label}, blocks of {n}): card vs CPU, 3 blocks: output "
+              f"max|d| {err_o:.3e} (bound {BOUND_F64}), envelope carries {err_e:.3e} "
+              f"(bound 0.0); {res[0][0].dtype}; launches {run}")
+        if not (err_o <= BOUND_F64 and err_e == 0.0 and res[0][0].dtype == res[1][0].dtype
+                and str(res[0][0].dtype) == "torch.float64"):
+            raise AssertionError(f"path W: Limit f64 ({label}) card vs CPU {err_o}, {err_e}")
+        runs[f"limit_f64_{'mono' if channels == 1 else 'p2'}"] = run
     return runs
 
 
@@ -959,7 +1096,7 @@ def _scan_f64_path(task, name, n_blocks, block, per_block, want, h) -> dict:
     torch.cuda.synchronize()
     peak_mem = torch.cuda.max_memory_allocated()
     expect(run, f"path {task}", **{k: v * n_blocks for k, v in per_block.items()})
-    want_dtype = torch.float64 if task in ("U", "V") else torch.float32
+    want_dtype = torch.float64 if task in ("U", "V", "W") else torch.float32
     n_valid = int(valids.sum().item())
     if (out.dtype != want_dtype or not bool(torch.isfinite(out).all())
             or n_valid != (10 * PATH_B_RATE if task == "U" else n_blocks * block)):
@@ -972,14 +1109,17 @@ def _scan_f64_path(task, name, n_blocks, block, per_block, want, h) -> dict:
     err = _max_err(got, want)
     bound = {"S": BOUND_S, "T": BOUND_B}.get(task, BOUND_F64)
     extra = ""
-    if task == "U":  # the same chain in f32 on the card
+    if task in ("U", "W"):  # the same chain in f32 on the card
         with _SampleMode("f32"):
-            o32 = config2("cuda", 0)
+            if task == "U":
+                o32 = config2("cuda", 0)
+            else:
+                o32, _ = _scan_f64_graph("W", "cuda")
             _, o32, _ = rtt.render_blocks(o32, o32.init_state(), 2, block)
         d32 = _max_err(got, o32.cpu().double())
         extra = f"; against the f32 chain on the card {d32:.3e} (must exceed 1e-9)"
         if not d32 > 1e-9:
-            raise AssertionError(f"path U: f64 vs f32 {d32}: the f64 mode did not run")
+            raise AssertionError(f"path {task}: f64 vs f32 {d32}: the f64 mode did not run")
     if task == "T":  # the torch-op scans: the card and the CPU bit for bit
         rng = np.random.default_rng(SEED + 9)
         a, b, c = (rng.uniform(0.5, 1.0, (64, block)), rng.standard_normal((64, block)),
@@ -1034,6 +1174,88 @@ def _scan_f64_path(task, name, n_blocks, block, per_block, want, h) -> dict:
           f"{peak_mem} B, {peak_mem - base_mem} B above the smoke's tensors before the "
           f"path {tag}")
     return run
+
+
+def _noise_config4_f64_paths(wants, h) -> dict:
+    """Paths X (the nine noise sources and Dither's four algorithms in f64:
+    threefry's f64 instance once a block, Brownian and Red K7's too) and Y
+    (BASELINE config 4 in f64: the phase accumulator's f64 instance once a
+    branch a block). Each render on the card with its launches counted,
+    against the f64 CPU render (``wants``: the child processes'), Y also
+    against its f32 render on the card; then ms a block (CUDA events),
+    launches a block, device busy and idle share (profiled blocks) and the
+    peak device memory. Returns the runs' launch counts."""
+    import torch
+
+    import rodio_tpu_torch as rtt
+    from rodio_tpu_torch.profile_slice import profile_pulls
+
+    reset, counts, expect, tag = h["reset"], h["counts"], h["expect"], h["tag"]
+    runs = {}
+    for task, path in (("X", "noise_f64"), ("Y", "config4_f64")):
+        block = PATH_H_BLOCK if task == "Y" else PATH_K_BLOCK
+        total, by_name = {}, {}
+        with _SampleMode(task):
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            nodes = _noise_config4_nodes(task, "cuda")
+            for name, (node, n) in nodes.items():
+                reset()
+                _, out, valids = rtt.render_blocks(node, node.init_state(), n, block)
+                torch.cuda.synchronize()
+                run = counts()
+                if task == "Y":  # the sine emits once a branch a block
+                    want_run = dict(phasef64=n * (2 if name == "config4_scene" else 1))
+                else:
+                    want_run = dict(threefryf64=n)
+                    if name in ("Brownian", "Red"):
+                        want_run["K7f64"] = n
+                expect(run, f"path {task} ({name})", **want_run)
+                err = _max_err(out.cpu(), torch.from_numpy(wants[task][name]))
+                bound = {"WhiteGaussian": BOUND_GAUSS64, "Brownian": BOUND_BROWN64,
+                         "dither_gpdf": BOUND_GAUSS64 * 2.0 ** -15 + 2.0 ** -53}.get(
+                             name, BOUND_F64 if task == "Y" else 0.0)
+                extra = ""
+                if task == "Y":  # the same graph in f32 on the card
+                    with _SampleMode("f32"):
+                        n32, _ = _noise_config4_nodes("Y", "cuda")[name]
+                        _, o32, _ = rtt.render_blocks(n32, n32.init_state(), n, block)
+                    d32 = _max_err(out.cpu(), o32.cpu().double())
+                    extra = f"; against the f32 render on the card {d32:.3e} (must exceed 1e-9)"
+                    if not d32 > 1e-9:
+                        raise AssertionError(f"path Y ({name}): f64 vs f32 {d32}")
+                frames = node.total_frames() or n * block
+                ok = (out.dtype == torch.float64 and int(valids.sum().item()) == frames
+                      and bool(torch.isfinite(out).all()) and err <= bound)
+                print(f"path {task} ({path}, {name}): {n} x {block}, card vs CPU, the whole "
+                      f"render: max|d| {err:.3e} (bound {bound:.3e}){extra}; launches {run}")
+                if not ok:
+                    raise AssertionError(f"path {task} ({name}): {out.dtype}, card vs CPU {err}")
+                for k, v in run.items():
+                    total[k] = total.get(k, 0) + v
+                by_name[name] = {k: v / n for k, v in run.items() if v}
+                del out
+            torch.cuda.synchronize()
+            peak_mem = torch.cuda.max_memory_allocated()
+            for name, (node, n) in nodes.items():
+                ms = _events_ms(node, n - 1, block)
+                st_p = [node.init_state()]
+
+                def pull(node=node, st_p=st_p):
+                    st_p[0], _, _ = node.emit(st_p[0], block)
+
+                prof = profile_pulls(pull, 10)
+                print(f"path {task} ({path}, {name}): {ms:.4f} ms a block of {block} frames "
+                      f"(CUDA events), launches a block {by_name[name]}; "
+                      f"device busy {prof['device_busy_ms']:.4f} ms a block, idle share "
+                      f"{prof['idle_share']:.3f}, {prof['launches_per_block']:.1f} device events "
+                      f"a block {tag}")
+            print(f"path {task} ({path}): launches {total} over "
+                  f"{sum(n for _, n in nodes.values())} blocks; peak device memory {peak_mem} B, "
+                  f"{peak_mem - base_mem} B above the smoke's tensors before the path {tag}")
+        runs[path] = total
+    return runs
 
 
 def main() -> int:
@@ -1137,7 +1359,11 @@ def _main(start_references) -> int:
                 "K4f64": (cuda_scan, "f64_launches"),
                 "K7f64": (cuda_scan, "first_order_f64_launches"),
                 "K3f64": (limiter_block, "f64_launches"),
-                "K8f64": (limiter_block, "bma_f64_launches")}
+                "K8f64": (limiter_block, "bma_f64_launches"),
+                "K6f64": (cuda_scan, "agc_f64_launches"),
+                "K5f64": (cuda_scan, "limiter_stream_f64_launches"),
+                "threefryf64": (threefry, "f64_launches"),
+                "phasef64": (phase, "f64_launches")}
 
     def reset():
         for mod, attr in counters.values():
@@ -1582,6 +1808,68 @@ def _main(start_references) -> int:
             "table an f64 cumprod)", "config2_f64")
     del desf, x8f
 
+    # K6's f64 instance at path W's [512, 25600] (the same draws as K6's
+    # row, in f64); ~24 ops a step, the smoother's 5 on the chain
+    xs64 = dev_f64(np.abs(rng.standard_normal((N_STREAMS, M6)) * 0.05))
+    sq64 = xs64 * xs64
+    d64 = sq64 - sq64.roll(4096, 1)
+    c64, p64 = tuple(c.double() for c in c6), params.double()
+    f64_row("K6f64", "agc (f64)", "rodio_tpu_torch/csrc/agc.cu",
+            "rodio_tpu/ops/pallas_scan.py:330", BOUND_K6F64,
+            lambda: cuda_scan.agc(xs64, d64, *c64, p64),
+            lambda: cuda_scan.agc_plain(xs64, d64, *c64, p64),
+            3 * N_STREAMS * M6 * 8, 24 * N_STREAMS * M6, M6 * 5,
+            f" [{N_STREAMS}, {M6}] f64, 4 lanes a block, the ring in dynamic shared memory",
+            "per_stream_f64", plain_reps=1)
+    del xs64, sq64, d64
+
+    # K5's f64 instances at path W's [1024, 12800] in stereo groups
+    # (limiter_stream, the Limit node's whole pass; limiter_env beside it),
+    # and held at ragged shapes in groups of 1 and 6; the integrator's chain
+    # mul, add, max
+    lim_kw = dict(att=lim.attack, rel=lim.release)
+    lims_kw = dict(lim_kw, threshold=lim.threshold, knee_width=lim.knee_width,
+                   inv_knee_8=lim.inv_knee_8)
+    err5f = 0.0
+    for shape, cg in (((6, 700), 1), ((12, 129), 6), ((L, T), 2)):
+        level = rng.choice([0.05, 0.6, 2.5], (shape[0], 1))
+        x5f = dev_f64(rng.uniform(-1, 1, shape) * level)
+        e0f, q0f = dev_f64(rng.uniform(0, 6, shape[0])), dev_f64(rng.uniform(0, 6, shape[0]))
+        dbf = limiter_block.limiter_gain_db(x5f, lim.threshold, lim.knee_width, lim.inv_knee_8)
+        for k, p_ in ((cuda_scan.limiter_stream(x5f, e0f, q0f, group_channels=cg, **lims_kw),
+                       cuda_scan.limiter_stream_plain(x5f, e0f, q0f, group_channels=cg,
+                                                      **lims_kw)),
+                      (cuda_scan.limiter_env(dbf, e0f, q0f, **lim_kw),
+                       cuda_scan.limiter_env_plain(dbf, e0f, q0f, **lim_kw))):
+            err5f = max(err5f, _max_err(k[0], p_[0]),
+                        *(_max_err(a, b) for a, b in zip(k[1], p_[1])))
+    ms5ef = _time_ms(lambda: cuda_scan.limiter_env(dbf, e0f, q0f, **lim_kw), 20)
+    if not err5f <= BOUND_K5F64:
+        raise AssertionError(f"K5 f64 at [6, 700], [12, 129]: max|d| {err5f}")
+    f64_row("K5f64", "limiter_stream (f64)", "rodio_tpu_torch/csrc/limiter_env.cu",
+            "rodio_tpu/ops/pallas_scan.py:389", BOUND_K5F64,
+            lambda: cuda_scan.limiter_stream(x5f, e0f, q0f, group_channels=2, **lims_kw),
+            lambda: cuda_scan.limiter_stream_plain(x5f, e0f, q0f, group_channels=2, **lims_kw),
+            2 * L * T * 8, 65 * L * T, T * 3,
+            f" [{L}, {T}] stereo groups f64 (+ [6, 700] mono, [12, 129] groups of 6, and "
+            f"limiter_env, all max|d| {err5f:.3e}); limiter_env (the envelopes alone) "
+            f"{ms5ef:.4f} ms, roofline {_bound(2 * L * T * 8, 7 * L * T, F64_FLOPS_S)[0]:.4f} ms",
+            "per_stream_f64", plain_reps=1)
+    del x5f, dbf
+
+    # the phase accumulator's f64 instance at path Y's block: the f32 step
+    # widened, DADD, FRND.F64, DADD a sample on one thread
+    # (``phase`` is K1's output phases by now: the module under another name)
+    from rodio_tpu_torch.ops import phase as phase_ops
+
+    p0hf, stephf = p0h.double(), steph.double()
+    f64_row("phasef64", "phase_accumulate (f64)", "rodio_tpu_torch/csrc/phase.cu",
+            "rodio_tpu/sources/generators.py:106", BOUND_PHASEF64,
+            lambda: phase_ops.phase_accumulate(p0hf, stephf, PATH_H_BLOCK),
+            lambda: phase_ops.phase_accumulate_plain(p0hf, stephf, PATH_H_BLOCK),
+            PATH_H_BLOCK * 8 + 24, 3 * PATH_H_BLOCK, PATH_H_BLOCK * 3,
+            f" [1, {PATH_H_BLOCK}] f64 (a lax.scan, no pallas_call)", "config4_f64")
+
     # K5: the Limit node's per-stream pass (limiter_stream) at path C's
     # shape [1024, 12800] in stereo groups, and at ragged shapes in groups
     # of 1, 2 and 6 (lanes at quiet, limited and loud levels, carries in
@@ -1696,6 +1984,43 @@ def _main(start_references) -> int:
                note=f"; in a CUDA graph {gmst:.4f} ms; bits of {nbig} draws equal; library: "
                     f"torch.rand({n}) (Philox), a yardstick only")
 
+    # threefry's f64 instance (path X: jax.random under x64): 64-bit draws
+    # (both words of a hash), an int64 seed; the same hashes as the f32
+    # draws, so the same INT32 bound, and 8 bytes a draw. Library:
+    # torch.rand(dtype=torch.float64), a yardstick only
+    key64 = threefry.seed_key(-12, dev, x64=True)
+    bits_k = threefry.threefry(key64, ctr_t, nbig, "bits", dtype=torch.float64)
+    if not torch.equal(bits_k, threefry.threefry_plain(key64, ctr_t, nbig, "bits",
+                                                       dtype=torch.float64)):
+        raise AssertionError("threefry's f64 instance: 64-bit bits differ from the plain version")
+    del bits_k
+    for label, n, kw in (("uniform", PATH_K_BLOCK, dict(lo=-1.0, hi=1.0)),
+                         ("velvet", PATH_K_BLOCK, dict(grid=24)),
+                         ("pink", PATH_K_BLOCK, {}),
+                         ("uniform", nbig, dict(lo=-1.0, hi=1.0))):
+        mode = label
+
+        def call(mode=mode, n=n, kw=kw):
+            return threefry.threefry(key64, ctr_t, n, mode, dtype=torch.float64, **kw)
+
+        def plain(mode=mode, n=n, kw=kw):
+            return threefry.threefry_plain(key64, ctr_t, n, mode, dtype=torch.float64, **kw)
+
+        errt = _max_err(call(), plain())
+        reps = 50 if n < nbig else 20
+        mst = _time_ms(call, reps)
+        gmst = warp_cycles.graph_ms(call, reps)
+        pmst = _time_ms(plain, 2)
+        libt = _time_ms(lambda: torch.rand(n, device=dev, dtype=torch.float64), reps)
+        record("threefryf64", f"threefry f64 ({label}, {n} draws)",
+               "rodio_tpu_torch/csrc/threefry.cu",
+               "rodio_tpu/sources/noise.py:40 (jax.random, no pallas_call)", errt,
+               BOUND_THREEFRY, mst, pmst, 8 * n + 24,
+               _threefry_ops(mode, i_t, n, kw.get("grid", 1)), 0.0,
+               library_ms=libt, path="noise_f64", ops_per_s=INT32_OPS_S,
+               note=f"; in a CUDA graph {gmst:.4f} ms; 64-bit bits of {nbig} draws equal; "
+                    f"library: torch.rand({n}, dtype=torch.float64), a yardstick only")
+
     # K7's linear op at Brownian's and Red's shape, [1, 4096]: their leaky
     # integrator, 2 ops a step, both on the chain
     w7 = dev_f32(rng.uniform(-1, 1, (1, PATH_K_BLOCK)))
@@ -1714,7 +2039,7 @@ def _main(start_references) -> int:
         if not r["max_abs_err"] <= r["bound_err"]:
             raise AssertionError(f"{r['kid']}: max|d| {r['max_abs_err']} exceeds "
                                  f"{r['bound_err']}")
-    refs.update(start_references(("L", "K", "J", "S", "T", "U", "V"), 3))
+    refs.update(start_references(("L", "K", "J", "S", "T", "U", "V", "W", "X", "Y"), 3))
 
     _stamp("phase 4, the slice")
     # -- 4. the paths --------------------------------------------------------
@@ -2168,9 +2493,9 @@ def _main(start_references) -> int:
                              f"{tuple(out3.shape)} {want3.shape}, card vs CPU {err_i}")
     del out3, want3
 
-    # paths S, T, U and V's CPU renders, fetched before any later timing
-    want_scan_f64 = {t: refs[t].get() for t in ("S", "T", "U", "V")}
-    _stamp("paths S-V's CPU references fetched")
+    # paths S to Y's CPU renders, fetched before any later timing
+    want_scan_f64 = {t: refs[t].get() for t in ("S", "T", "U", "V", "W", "X", "Y")}
+    _stamp("paths S-Y's CPU references fetched")
 
     _stamp("paths M, N, O")
     # -- the io layer (M7): paths M, N and O ----------------------------------
@@ -2193,23 +2518,17 @@ def _main(start_references) -> int:
     finally:
         shutil.rmtree(farm_dir, ignore_errors=True)
 
-    _stamp("paths S, T, U, V")
-    # -- the associative scans (M10) and f64 (M9): paths S, T, U and V ------
-    scan_f64_runs = _scan_f64_paths(want_scan_f64, dict(reset=reset, counts=counts,
-                                                        expect=expect, tag=tag))
+    _stamp("paths S, T, U, V, W")
+    # -- the associative scans (M10) and f64 (M9): paths S to Y ---------------
+    h = dict(reset=reset, counts=counts, expect=expect, tag=tag)
+    scan_f64_runs = _scan_f64_paths(want_scan_f64, h)
+    _stamp("paths X, Y")
+    scan_f64_runs.update(_noise_config4_f64_paths(want_scan_f64, h))
 
     _stamp("phase 5")
     # -- 5. times ----------------------------------------------------------
-    def time_render(node, n_blocks, block):
-        st = node.init_state()
-        st, _, _ = rtt.render_blocks(node, st, 1, block)  # warm-up block
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        rtt.render_blocks(node, st, n_blocks, block)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / 1e3 / n_blocks
+    def time_render(node, n_blocks, block):  # s a block
+        return _events_ms(node, n_blocks, block) / 1e3
 
     for label, node in (("slice", master), ("path A (AGC)", agc_master),
                         ("path C (per-stream chain)", path_c_node),
@@ -2308,7 +2627,9 @@ def _main(start_references) -> int:
                     "K2": "agc_fused",
                     "K2r": "agc_rel0f", "K2b": "agc_rel0b16",
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",
-                    "K8": "config2", "K5": "per_stream", "K9": "dma_probe"}
+                    "K8": "config2", "K5": "per_stream", "K9": "dma_probe",
+                    "K6f64": "per_stream_f64", "K5f64": "per_stream_f64",
+                    "threefryf64": "noise_f64", "phasef64": "config4_f64"}
     print(json.dumps({"kernels": [
         {"name": r["name"], "id": r["kid"], "route": "cuda", "source": r["source"],
          "replaces": r["replaces"],

@@ -42,6 +42,17 @@
 // data, so a live knob rebuilds nothing. Every op is agc_math.cuh's, each
 // rounding alone in the same order, so the gains and the carries (peak,
 // rsum, gain at the last step) equal the plain PyTorch version bit for bit.
+//
+// The f64 instance (set_float64: the JAX kernel runs in its input's dtype,
+// pallas_scan.py:337, its params stacked in that dtype, :346-349) is the
+// same kernel on C = double: the rows, the chains, the parameters [6] and
+// every op f64, rounded alone (agc_math.cuh's f64 path: the IEEE f64 sqrt
+// and divides, NaN-propagating min and max as selects). Its ring of four
+// lanes takes 49920 bytes, past the 48 KB a static allocation may hold, so
+// it lives in dynamic shared memory (opted in with cudaFuncSetAttribute):
+// 128 blocks for 512 lanes, one wave on 132 SMs, where 2 lanes a block in
+// static memory would take two (the chain threads' registers allow one
+// block an SM). Warps 1 and 2 hold 16 steps at a time in registers.
 #include "agc_math.cuh"
 #include "chain_pipeline.cuh"
 
@@ -57,6 +68,15 @@ constexpr int kDepth = 4;          // iterations from a tile's chains to its sto
 // times spread 10 % apart (block 0 the fastest); with 32 they match
 constexpr int kHalf6 = 32;
 static_assert(kNWork == kTile, "an elementwise thread takes one step of each lane");
+// steps a chain thread holds, by the chain's type; the f64 ring is dynamic
+// (the f32 instance keeps its static ring as it was measured)
+template <class C>
+constexpr int kHalfOf = std::is_same<C, double>::value ? kHalf6 / 2 : kHalf6;
+template <class C>
+constexpr bool kDynamic = std::is_same<C, double>::value;
+// one input's tile: lane l's steps in row l
+template <class C>
+using Tile = C[kBL][kLdOf<C>];
 
 // the elementwise slot of a warp (SMSPs 3, 0, 3, 0), or -1
 __device__ __forceinline__ int work_slot(int warp) {
@@ -66,10 +86,11 @@ __device__ __forceinline__ int work_slot(int warp) {
 
 // warp 1's step: the peak detector over |x| (row 0) and the window sum over
 // d (row 1), each value replaced by the carry after it
+template <class C>
 struct PeakSum {
-  float peak, rsum, rel;
+  C peak, rsum, rel;
   template <int H>
-  __device__ __forceinline__ void operator()(float (&v)[2][H], int u) {
+  __device__ __forceinline__ void operator()(C (&v)[2][H], int u) {
     peak = rt::peak_select(peak, v[0][u], rel);
     rsum = rt::add(rsum, v[1][u]);
     v[0][u] = peak;
@@ -78,39 +99,52 @@ struct PeakSum {
 };
 
 // warp 2's step: the smoother toward the desired gain, replaced by the gain
+template <class C>
 struct Smooth {
-  float g, att, rel, max_gain;
+  C g, att, rel, max_gain;
   template <int H>
-  __device__ __forceinline__ void operator()(float (&v)[1][H], int u) {
+  __device__ __forceinline__ void operator()(C (&v)[1][H], int u) {
     g = rt::smooth_gain(g, v[0][u], att, rel, max_gain);
     v[0][u] = g;
   }
 };
 
+template <class C>
 __global__ void __launch_bounds__(kThreads6, 1)
-agc_kernel(const float* __restrict__ xs, const float* __restrict__ d,
-           const float* __restrict__ params, const float* __restrict__ peak0,
-           const float* __restrict__ sum0, const float* __restrict__ gain0,
-           float* __restrict__ gain_out, float* __restrict__ carry_out, int L,
+agc_kernel(const C* __restrict__ xs, const C* __restrict__ d,
+           const C* __restrict__ params, const C* __restrict__ peak0,
+           const C* __restrict__ sum0, const C* __restrict__ gain0,
+           C* __restrict__ gain_out, C* __restrict__ carry_out, int L,
            long long T, int vec) {
+  constexpr int BL = kBL, H = kHalfOf<C>;
   // X: |x|, then the peaks; D: d, then the window sums, the desired gains
-  // and the gains
-  __shared__ __align__(16) Rows X[kRing], D[kRing];
-  const rt::AgcParams p = rt::load_agc_params(params);
+  // and the gains; kRing tiles each
+  Tile<C>* X;
+  Tile<C>* D;
+  if constexpr (kDynamic<C>) {
+    extern __shared__ float4 smem6[];
+    X = reinterpret_cast<Tile<C>*>(smem6);
+    D = X + kRing;
+  } else {
+    __shared__ __align__(16) C sx[kRing][BL][kLdOf<C>], sd[kRing][BL][kLdOf<C>];
+    X = sx;
+    D = sd;
+  }
+  const auto p = rt::load_agc_params(params);
   const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
-  const long long lane0 = (long long)blockIdx.x * kBL;
-  const int nl = (int)min((long long)kBL, L - lane0);
+  const long long lane0 = (long long)blockIdx.x * BL;
+  const int nl = (int)min((long long)BL, L - lane0);
   const int n_tiles = (int)((T + kTile - 1) / kTile);
   auto live = [&](int j) { return j >= 0 && j < n_tiles; };
   auto copy = [&](int j) {
     const int s = j % kRing, tt = tile_len(T, j);
     const long long t0 = (long long)j * kTile;
-    copy_rows(X[s], xs, lane0, nl, T, t0, tt, vec, wl, 32);
-    copy_rows(D[s], d, lane0, nl, T, t0, tt, vec, wl, 32);
+    copy_lanes(X[s][0], xs, lane0, BL, nl, T, t0, tt, vec, wl, 32);
+    copy_lanes(D[s][0], d, lane0, BL, nl, T, t0, tt, vec, wl, 32);
   };
 
-  PeakSum ps{0.f, 0.f, p.rel};
-  Smooth sm{0.f, p.att, p.rel, p.max_gain};
+  PeakSum<C> ps{C(0), C(0), p.rel};
+  Smooth<C> sm{C(0), p.att, p.rel, p.max_gain};
   if (warp == 1 && wl < nl) {
     ps.peak = peak0[lane0 + wl];
     ps.rsum = sum0[lane0 + wl];
@@ -132,35 +166,35 @@ agc_kernel(const float* __restrict__ xs, const float* __restrict__ d,
       const int j = it - 1;
       if (live(j) && wl < nl) {
         const int s = j % kRing;
-        float* const rows[2] = {X[s][wl], D[s][wl]};
+        C* const rows[2] = {X[s][wl], D[s][wl]};
         full_or_tail(tile_len(T, j),
-                     [&](auto tt) { chain_row<2, 2, kHalf6>(rows, tt, ps); });
+                     [&](auto tt) { chain_row<2, 2, H, C>(rows, tt, ps); });
       }
     } else if (warp == 2) {
       const int j = it - 3;
       if (live(j) && wl < nl) {
-        float* const rows[1] = {D[j % kRing][wl]};
+        C* const rows[1] = {D[j % kRing][wl]};
         full_or_tail(tile_len(T, j),
-                     [&](auto tt) { chain_row<1, 1, kHalf6>(rows, tt, sm); });
+                     [&](auto tt) { chain_row<1, 1, H, C>(rows, tt, sm); });
       }
     } else if (slot >= 0) {
       const int sub = slot * 32 + wl;
       if (live(it - kDepth)) {
         const int j = it - kDepth;
-        store_rows(gain_out, D[j % kRing], lane0, nl, T, (long long)j * kTile,
-                   tile_len(T, j), vec, sub, kNWork);
+        store_lanes<C, C>(gain_out, D[j % kRing][0], lane0, BL, nl, T,
+                          (long long)j * kTile, tile_len(T, j), vec, sub, kNWork);
       }
       if (live(it - 2)) {
         // step sub of each lane: every read first, then the desired gains
         const int s = (it - 2) % kRing, tt = tile_len(T, it - 2);
-        float rs[kBL], pk[kBL];
+        C rs[BL], pk[BL];
 #pragma unroll
-        for (int l = 0; l < kBL; ++l) {
+        for (int l = 0; l < BL; ++l) {
           rs[l] = D[s][l][sub];
           pk[l] = X[s][l][sub];
         }
 #pragma unroll
-        for (int l = 0; l < kBL; ++l)
+        for (int l = 0; l < BL; ++l)
           if (l < nl && sub < tt) D[s][l][sub] = rt::desired_gain(rs[l], pk[l], p);
       }
     }
@@ -176,18 +210,41 @@ agc_kernel(const float* __restrict__ xs, const float* __restrict__ d,
   }
 }
 
+template <class C>
+int launch(const C* xs, const C* d, const C* params, const C* peak0,
+           const C* sum0, const C* gain0, C* gain_out, C* carry_out, int L,
+           long long T, void* stream) {
+  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (L + kBL - 1) / kBL;
+  if (blocks == 0) return 0;
+  const int vec = T % kVec<C> == 0 && aligned16(xs) && aligned16(d) &&
+                  aligned16(gain_out);
+  const size_t shmem = kDynamic<C> ? 2 * kRing * sizeof(Tile<C>) : 0;
+  if (shmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        agc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  agc_kernel<C><<<blocks, kThreads6, shmem, (cudaStream_t)stream>>>(
+      xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rt_agc(const float* xs, const float* d, const float* params,
                       const float* peak0, const float* sum0,
                       const float* gain0, float* gain_out, float* carry_out,
                       int L, long long T, void* stream) {
-  if (L < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (L + kBL - 1) / kBL;
-  if (blocks == 0) return 0;
-  const int vec = T % 4 == 0 && aligned16(xs) && aligned16(d) &&
-                  aligned16(gain_out);
-  agc_kernel<<<blocks, kThreads6, 0, (cudaStream_t)stream>>>(
-      xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, vec);
-  return (int)cudaGetLastError();
+  return launch(xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T,
+                stream);
+}
+
+// K6's f64 instance: every array and the parameters f64
+extern "C" int rt_agc_f64(const double* xs, const double* d, const double* params,
+                          const double* peak0, const double* sum0,
+                          const double* gain0, double* gain_out,
+                          double* carry_out, int L, long long T, void* stream) {
+  return launch(xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T,
+                stream);
 }

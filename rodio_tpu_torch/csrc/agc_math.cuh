@@ -74,8 +74,9 @@ __device__ __forceinline__ float smooth_gain(float g, float des, float att,
   return des > g ? up : down;
 }
 
-// f64 (K7's f64 instance): NaN-propagating min and max as selects (PTX's
-// min.NaN has no f64 form), and the smoother with the f64 clip bound 0.1
+// f64 (the f64 instances of K6, K7 and K5): NaN-propagating min and max as
+// selects (PTX's min.NaN has no f64 form), the smoother with the f64 clip
+// bound 0.1, and K6's peak detector and desired gain
 __device__ __forceinline__ double min_nan(double a, double b) {
   return (a != a || a < b) ? a : b;
 }
@@ -92,6 +93,33 @@ __device__ __forceinline__ double smooth_gain(double g, double des, double att,
   const double down = clip_nan(add(mul(g, rel), mul(des, sub(1.0, rel))), 0.1,
                                max_gain);
   return des > g ? up : down;
+}
+
+__device__ __forceinline__ double rsqrt_rn(double x) {
+  return __ddiv_rn(1.0, __dsqrt_rn(x));
+}
+
+struct AgcParams64 {
+  double att, rel, target, max_gain, floor, inv_window;
+};
+
+__device__ __forceinline__ AgcParams64 load_agc_params(const double* p) {
+  return AgcParams64{p[0], p[1], p[2], p[3], p[4], p[5]};
+}
+
+__device__ __forceinline__ double desired_gain(double rs, double pk,
+                                               const AgcParams64& p) {
+  const double rg =
+      rs > 0.0 ? mul(p.target, rsqrt_rn(mul(rs, p.inv_window))) : p.max_gain;
+  const double pg =
+      pk > 0.0 ? min_nan(__ddiv_rn(p.target, pk), p.max_gain) : p.max_gain;
+  return max_nan(min_nan(rg, pg), p.floor);
+}
+
+__device__ __forceinline__ double peak_select(double peak, double x, double rel) {
+  const double up = add(mul(peak, 0.0), mul(x, 1.0));
+  const double down = add(mul(peak, rel), mul(x, sub(1.0, rel)));
+  return x > peak ? up : down;
 }
 
 // The rel0 plans (release coefficient 0, rodio_tpu/ops/fused.py:810-1158).

@@ -63,6 +63,8 @@ SIGNATURES = {
     # db, integ0, peak0, peak_out, carry_out, L, T, att, rel, 1-att, 1-rel,
     # stream
     "rt_limiter_env": (P, P, P, P, P, I, LL, F, F, F, F, P),
+    # the same with every array and coefficient f64 (K5's f64 instance)
+    "rt_limiter_env_f64": (P, P, P, P, P, I, LL, D, D, D, D, P),
     # the same with x and y bf16
     "rt_biquad_df1_bf16": (P, P, P, P, P, P, P, P, P, P, P, I, LL, P),
     # the same with every array f64 (K4's f64 instance)
@@ -73,15 +75,24 @@ SIGNATURES = {
                               D, D, D, D, D, D, D, D, D, D, D, P),
     # phase0, step, phases, phase_out, G, n, stream
     "rt_phase_accumulate": (P, P, P, P, I, LL, P),
+    # the same on f64 phases and steps (its f64 instance)
+    "rt_phase_accumulate_f64": (P, P, P, P, I, LL, P),
     # key, counter (or null), mode, n, lo, hi, grid, out, stream
     "rt_threefry": (P, P, I, LL, F, F, I, P, P),
+    # the same with lo and hi f64 (its f64 instance: 64-bit draws, f64 out)
+    "rt_threefry_f64": (P, P, I, LL, D, D, I, P, P),
     # x, integ0, peak0, y, carry_out, L, T, channels per group, att, rel,
     # 1-att, 1-rel, threshold, knee_width, inv_knee_8, log2->dB scale,
     # dB->log2 scale, stream
     "rt_limiter_stream": (P, P, P, P, P, I, LL, I, F, F, F, F, F, F, F, F, F,
                           P),
+    # the same with every array and parameter f64 (K5's f64 instance)
+    "rt_limiter_stream_f64": (P, P, P, P, P, I, LL, I, D, D, D, D, D, D, D, D,
+                              D, P),
     # xs, d, params, peak0, sum0, gain0, gain_out, carry_out, L, T, stream
     "rt_agc": (P, P, P, P, P, P, P, P, I, LL, P),
+    # the same with every array and the parameters f64 (K6's f64 instance)
+    "rt_agc_f64": (P, P, P, P, P, P, P, P, I, LL, P),
     # a, b, c, init, params, y, L, T, op, stream
     "rt_first_order": (P, P, P, P, P, P, I, LL, I, P),
     # the same on f64 arrays and parameters (K7's f64 instance)
@@ -124,6 +135,8 @@ SIGNATURES = {
     # no arguments; returns the most channels a group of rt_limiter_stream
     # may have, not an error code
     "rt_limiter_stream_max_group": (),
+    # ... and of rt_limiter_stream_f64
+    "rt_limiter_stream_f64_max_group": (),
     # T, P; returns the floats of global scratch K3 needs (0: none, it
     # stages [2, T] in shared memory), not an error code
     "rt_limiter_master_scratch_floats": (I, I),
@@ -252,9 +265,9 @@ def f32_arg(name: str, t: torch.Tensor, device: torch.device,
 
 def refuse_f64(name: str, t: torch.Tensor, row: str) -> None:
     """Raise ``NotImplementedError`` for an f64 CUDA tensor given to a
-    kernel that has no f64 instance: it neither casts to f32 nor falls back
-    to its plain version. ``row`` names its item in ROADMAP queue 2 (or
-    queue 3)."""
+    kernel that has no f64 instance (K1 and K2: ROADMAP F8): it neither
+    casts to f32 nor falls back to its plain version. ``row`` names its
+    item in ROADMAP."""
     if t.dtype == torch.float64 and t.device.type == "cuda":
         raise NotImplementedError(
             f"{name}: no float64 instance of this kernel ({row})")

@@ -6,8 +6,10 @@
 - :func:`limiter_env` (K5, ``csrc/limiter_env.cu``): the limiter's two
   envelope recurrences; :func:`limiter_stream`, the same kernel with the
   ``Limit`` node's gain computer before them and its coupling and gain
-  after them: the node's whole non-K3 path in one pass.
-- :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop.
+  after them: the node's whole non-K3 path in one pass. On f32 or (their
+  f64 instances) f64 arrays.
+- :func:`agc` (K6, ``csrc/agc.cu``): the AGC's whole per-sample loop, on
+  f32 or (its f64 instance) f64 arrays.
 - :func:`first_order` (K7, ``csrc/first_order.cu``): a first-order
   recurrence, ``linear``, ``max_affine`` or ``agc_gain`` (the AGC's gain
   smoother), on f32 or (its f64 instance) f64 arrays.
@@ -17,9 +19,9 @@ sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
 ``launches``, ``bf16_launches``, ``f64_launches``, ``limiter_env_launches``,
 ``limiter_stream_launches``, ``agc_launches``, ``first_order_launches`` and
-``first_order_f64_launches`` count each wrapper's launches. K5 and K6 have
-no f64 instance: given an f64 CUDA tensor they raise
-``NotImplementedError`` (ROADMAP queue 2).
+``first_order_f64_launches`` count each wrapper's launches, and
+``limiter_env_f64_launches``, ``limiter_stream_f64_launches`` and
+``agc_f64_launches`` those of the f64 instances of K5 and K6.
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -33,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.math import DB_TO_LOG2, LOG2_TO_DB, db_to_linear, sqrt_rn
+from ..core.math import db_to_linear, db_to_log2_scale, log2_to_db_scale, sqrt_rn
 from . import _build
 from .limiter_block import limiter_gain_db
 from .scan import biquad_df1 as _biquad_scan
@@ -51,6 +53,10 @@ limiter_env_launches = 0
 limiter_stream_launches = 0
 #: kernel launches made by :func:`agc` (K6)
 agc_launches = 0
+#: the f64 instances' launches: K5's (limiter_env, limiter_stream) and K6's
+limiter_env_f64_launches = 0
+limiter_stream_f64_launches = 0
+agc_f64_launches = 0
 #: kernel launches made by :func:`first_order` on f32 arrays (K7)
 first_order_launches = 0
 #: kernel launches made by :func:`first_order` on f64 arrays (K7's f64 instance)
@@ -147,7 +153,8 @@ def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     the carries integ0, peak0 [L]; att and rel are the f32 coefficients as
     floats. Per step ``integ = max(db, rel*integ + (1-rel)*db)``, ``peak =
     att*peak + (1-att)*integ``. Returns (peak [L, T], (integ', peak')), the
-    carries of the last step. T >= 1."""
+    carries of the last step. T >= 1. On f64 arrays K5's f64 instance runs,
+    1 - att and 1 - rel unrounded (as the plain version takes them)."""
     if db.device.type == "cpu":
         return limiter_env_plain(db, integ0, peak0, att=att, rel=rel)
     if db.device.type != "cuda":
@@ -156,20 +163,24 @@ def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
         raise ValueError(f"limiter_env: db must be [L, T >= 1], got {tuple(db.shape)}")
     L, T = db.shape
     dev = db.device
-    _build.refuse_f64("limiter_env", db, "ROADMAP queue 2: K5's f64 instance")
-    db = _build.f32_arg("db", db, dev, (L, T))
-    integ0 = _build.f32_arg("integ0", integ0, dev, (L,))
-    peak0 = _build.f32_arg("peak0", peak0, dev, (L,))
+    f64 = db.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    db = _build._typed_arg("db", db, dt, dev, (L, T))
+    integ0 = _build._typed_arg("integ0", integ0, dt, dev, (L,))
+    peak0 = _build._typed_arg("peak0", peak0, dt, dev, (L,))
     peak = torch.empty_like(db)
-    out = torch.empty((2, L), dtype=torch.float32, device=dev)
-    lib = _build.load_library()
-    err = lib.rt_limiter_env(db.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
-                             peak.data_ptr(), out.data_ptr(), L, T, att, rel,
-                             _one_minus(att), _one_minus(rel),
-                             _build.stream_handle(dev))
-    _build.check(err, "rt_limiter_env")
-    global limiter_env_launches
-    limiter_env_launches += 1
+    out = torch.empty((2, L), dtype=db.dtype, device=dev)
+    name = "rt_limiter_env_f64" if f64 else "rt_limiter_env"
+    err = getattr(_build.load_library(), name)(
+        db.data_ptr(), integ0.data_ptr(), peak0.data_ptr(), peak.data_ptr(),
+        out.data_ptr(), L, T, att, rel, _one_minus(att, db.dtype),
+        _one_minus(rel, db.dtype), _build.stream_handle(dev))
+    _build.check(err, name)
+    global limiter_env_launches, limiter_env_f64_launches
+    if f64:
+        limiter_env_f64_launches += 1
+    else:
+        limiter_env_launches += 1
     return peak, (out[0], out[1])
 
 
@@ -220,9 +231,10 @@ def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     channel c takes the fresh peaks of channels <= c and the previous
     frame's of channels > c) and applied. Returns (y [L, T], (integ',
     peak')), the carries of the last step. T >= 1. On the card a group of
-    at most 32 channels runs the whole pass in one kernel; a wider one runs
-    its envelopes on :func:`limiter_env` and the gain computer, coupling
-    and gain in torch around them."""
+    at most 32 channels (16 in f64) runs the whole pass in one kernel; a
+    wider one runs its envelopes on :func:`limiter_env` and the gain
+    computer, coupling and gain in torch around them. On f64 arrays the f64
+    instance runs, every parameter f64."""
     cg = int(group_channels)
     if x.dim() != 2 or x.shape[1] < 1 or cg < 1 or x.shape[0] % cg:
         raise ValueError(f"limiter_stream: x must be [L, T >= 1] in groups of "
@@ -233,27 +245,35 @@ def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
         return limiter_stream_plain(x, integ0, peak0, group_channels=cg, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"limiter_stream: unsupported device {x.device}")
-    _build.refuse_f64("limiter_stream", x, "ROADMAP queue 2: K5's f64 instance")
     lib = _build.load_library()
-    if cg > lib.rt_limiter_stream_max_group():  # wider than a chain warp
+    f64 = x.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    widest = (lib.rt_limiter_stream_f64_max_group() if f64
+              else lib.rt_limiter_stream_max_group())
+    if cg > widest:  # wider than a block's rings hold
         db = limiter_gain_db(x, threshold, knee_width, inv_knee_8)
         peak, carries = limiter_env(db, integ0, peak0, att=att, rel=rel)
         return limiter_couple_gain(x, peak, peak0, cg), carries
     L, T = x.shape
     dev = x.device
-    x = _build.f32_arg("x", x, dev, (L, T))
-    integ0 = _build.f32_arg("integ0", integ0, dev, (L,))
-    peak0 = _build.f32_arg("peak0", peak0, dev, (L,))
+    x = _build._typed_arg("x", x, dt, dev, (L, T))
+    integ0 = _build._typed_arg("integ0", integ0, dt, dev, (L,))
+    peak0 = _build._typed_arg("peak0", peak0, dt, dev, (L,))
     y = torch.empty_like(x)
-    out = torch.empty((2, L), dtype=torch.float32, device=dev)
-    err = lib.rt_limiter_stream(x.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
-                                y.data_ptr(), out.data_ptr(), L, T, cg, att, rel,
-                                _one_minus(att), _one_minus(rel), threshold,
-                                knee_width, inv_knee_8, LOG2_TO_DB, DB_TO_LOG2,
-                                _build.stream_handle(dev))
-    _build.check(err, "rt_limiter_stream")
-    global limiter_stream_launches
-    limiter_stream_launches += 1
+    out = torch.empty((2, L), dtype=x.dtype, device=dev)
+    name = "rt_limiter_stream_f64" if f64 else "rt_limiter_stream"
+    err = getattr(lib, name)(x.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+                             y.data_ptr(), out.data_ptr(), L, T, cg, att, rel,
+                             _one_minus(att, x.dtype), _one_minus(rel, x.dtype),
+                             threshold, knee_width, inv_knee_8,
+                             log2_to_db_scale(x.dtype), db_to_log2_scale(x.dtype),
+                             _build.stream_handle(dev))
+    _build.check(err, name)
+    global limiter_stream_launches, limiter_stream_f64_launches
+    if f64:
+        limiter_stream_f64_launches += 1
+    else:
+        limiter_stream_launches += 1
     return y, (out[0], out[1])
 
 
@@ -346,8 +366,9 @@ def agc(xs: torch.Tensor, delta: torch.Tensor, peak0: torch.Tensor,
         sum0: torch.Tensor, gain0: torch.Tensor, params):
     """The AGC's per-sample loop over xs = |x| [L, M] and delta = sq - old
     [L, M] from the carries peak0, sum0, gain0 [L]; params = (att, rel,
-    target, max_gain, floor, 1/window), floats, 0-dim tensors or an f32
-    [6] tensor. Returns (gain_seq [L, M], (peak', sum', gain'))."""
+    target, max_gain, floor, 1/window), floats, 0-dim tensors or a [6]
+    tensor, taken in xs's dtype (f32, or f64: K6's f64 instance). Returns
+    (gain_seq [L, M], (peak', sum', gain'))."""
     if xs.device.type == "cpu":
         return agc_plain(xs, delta, peak0, sum0, gain0, params)
     if xs.device.type != "cuda":
@@ -356,21 +377,25 @@ def agc(xs: torch.Tensor, delta: torch.Tensor, peak0: torch.Tensor,
         raise ValueError(f"agc: xs must be [L, M], got {tuple(xs.shape)}")
     L, M = xs.shape
     dev = xs.device
-    _build.refuse_f64("agc", xs, "ROADMAP queue 2: K6's f64 instance")
-    xs = _build.f32_arg("xs", xs, dev, (L, M))
-    delta = _build.f32_arg("delta", delta, dev, (L, M))
-    carries = [_build.f32_arg(name, v, dev, (L,)) for name, v in
+    f64 = xs.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    xs = _build._typed_arg("xs", xs, dt, dev, (L, M))
+    delta = _build._typed_arg("delta", delta, dt, dev, (L, M))
+    carries = [_build._typed_arg(name, v, dt, dev, (L,)) for name, v in
                (("peak0", peak0), ("sum0", sum0), ("gain0", gain0))]
-    p = _build.f32_arg("params", _scalars(params, 6, xs), dev, (6,))
+    p = _build._typed_arg("params", _scalars(params, 6, xs), dt, dev, (6,))
     g = torch.empty_like(xs)
-    out = torch.empty((3, L), dtype=torch.float32, device=dev)
-    lib = _build.load_library()
-    err = lib.rt_agc(xs.data_ptr(), delta.data_ptr(), p.data_ptr(),
-                     *[c.data_ptr() for c in carries], g.data_ptr(),
-                     out.data_ptr(), L, M, _build.stream_handle(dev))
-    _build.check(err, "rt_agc")
-    global agc_launches
-    agc_launches += 1
+    out = torch.empty((3, L), dtype=xs.dtype, device=dev)
+    name = "rt_agc_f64" if f64 else "rt_agc"
+    err = getattr(_build.load_library(), name)(
+        xs.data_ptr(), delta.data_ptr(), p.data_ptr(), *[c.data_ptr() for c in carries],
+        g.data_ptr(), out.data_ptr(), L, M, _build.stream_handle(dev))
+    _build.check(err, name)
+    global agc_launches, agc_f64_launches
+    if f64:
+        agc_f64_launches += 1
+    else:
+        agc_launches += 1
     return g, (out[0], out[1], out[2])
 
 

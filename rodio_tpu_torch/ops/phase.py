@@ -9,8 +9,10 @@ a host loop of per-sample launches.
 
 :func:`phase_accumulate` launches the kernel on a CUDA tensor and runs
 :func:`phase_accumulate_plain`, a loop of PyTorch ops, on a CPU tensor;
-both round every op alone, so they agree bit for bit. ``launches`` counts
-the kernel's launches.
+both round every op alone, so they agree bit for bit. On f64 tensors
+(``set_float64``: JAX's f32 step widened to f64, then f64 adds) the
+kernel's f64 instance runs. ``launches`` counts the kernel's f32 launches,
+``f64_launches`` its f64 instance's.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ import torch
 
 from . import _build
 
-#: kernel launches made by :func:`phase_accumulate`
+#: kernel launches made by :func:`phase_accumulate` on f32 phases
 launches = 0
+#: ... and on f64 phases (the f64 instance)
+f64_launches = 0
 
 
 def phase_accumulate_plain(phase0: torch.Tensor, step: torch.Tensor, n: int):
@@ -36,8 +40,8 @@ def phase_accumulate_plain(phase0: torch.Tensor, step: torch.Tensor, n: int):
 
 def phase_accumulate(phase0: torch.Tensor, step: torch.Tensor, n: int):
     """The phases of G generators over n samples from phase0 [G] with
-    steps step [G] (f32): returns (phases [G, n], the phase after them
-    [G]); phases[:, k] is the phase sample k is computed from."""
+    steps step [G] (f32, or both f64): returns (phases [G, n], the phase
+    after them [G]); phases[:, k] is the phase sample k is computed from."""
     if phase0.device.type == "cpu":
         return phase_accumulate_plain(phase0, step, n)
     if phase0.device.type != "cuda":
@@ -46,16 +50,20 @@ def phase_accumulate(phase0: torch.Tensor, step: torch.Tensor, n: int):
         raise ValueError(f"phase_accumulate: phase0 must be [G] and n >= 0, got "
                          f"{tuple(phase0.shape)}, n={n}")
     G, dev = phase0.shape[0], phase0.device
-    _build.refuse_f64("phase_accumulate", phase0,
-                      "ROADMAP queue 2: the phase accumulator's f64 instance")
-    phase0 = _build.f32_arg("phase0", phase0, dev, (G,))
-    step = _build.f32_arg("step", step, dev, (G,))
-    phases = torch.empty((G, n), dtype=torch.float32, device=dev)
-    out = torch.empty(G, dtype=torch.float32, device=dev)
-    err = _build.load_library().rt_phase_accumulate(
+    f64 = phase0.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    phase0 = _build._typed_arg("phase0", phase0, dt, dev, (G,))
+    step = _build._typed_arg("step", step, dt, dev, (G,))
+    phases = torch.empty((G, n), dtype=phase0.dtype, device=dev)
+    out = torch.empty(G, dtype=phase0.dtype, device=dev)
+    name = "rt_phase_accumulate_f64" if f64 else "rt_phase_accumulate"
+    err = getattr(_build.load_library(), name)(
         phase0.data_ptr(), step.data_ptr(), phases.data_ptr(), out.data_ptr(), G, n,
         _build.stream_handle(dev))
-    _build.check(err, "rt_phase_accumulate")
-    global launches
-    launches += 1
+    _build.check(err, name)
+    global launches, f64_launches
+    if f64:
+        f64_launches += 1
+    else:
+        launches += 1
     return phases, out

@@ -10,7 +10,8 @@ infinite, as in the reference.
 - WhiteUniform  — U[-1, 1] (RPDF), variance 1/3
 - WhiteTriangular — Triangular(-1, 1, 0) (TPDF)
 - WhiteGaussian — Normal(0, 0.6) (GPDF); its draws go through XLA's
-  ``erf_inv`` polynomial, within 3 ulp of JAX's (``ops/threefry.erf_inv``)
+  ``erf_inv`` polynomial, within 3 ulp of JAX's (f64: ERFINV64_ULPS;
+  ``ops/threefry.erf_inv``)
 - Velvet — one +-1 impulse per grid cell, default density 2000/s
 - Pink — Voss-McCartney's 16 octave generators in closed form
 - Blue, Violet — differentiated white and blue
@@ -18,6 +19,10 @@ infinite, as in the reference.
   centre frequency, variance-normalised; the integration is K7's
   ``linear`` op on the card (``ops/cuda_scan.first_order``), the
   sequential ``linear_scan`` on the CPU
+
+A source built under ``set_float64`` draws as JAX does with x64 on: an
+int64 seed, 64-bit draws, f64 samples and f64 constants (the threefry
+kernel's f64 instance on the card; Brownian and Red integrate on K7's).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.node import Node, State, full_valid
-from ..core.types import StreamSpec, float64_enabled
+from ..core.types import StreamSpec, to_sample
 from ..ops import threefry
 from ..ops.cuda_scan import first_order
 from ..utils.device import DeviceLike, resolve_device
@@ -39,23 +44,14 @@ TRIANGULAR_STD = float(2.0 / np.sqrt(6.0))
 GAUSSIAN_STD = 0.6
 
 
-def _refuse_float64(name: str) -> None:
-    """The f64 draws of ``jax.random`` (64-bit threefry bits, f64 erf_inv)
-    are not ported: under ``set_float64`` the noise sources and ``Dither``
-    refuse to build (ROADMAP queue 2, threefry's f64 draws)."""
-    if float64_enabled():
-        raise NotImplementedError(
-            f"{name}: f64 noise draws are not ported (ROADMAP queue 2: "
-            "threefry's f64 draws)")
-
-
-def _f32(v: float, device) -> torch.Tensor:
-    return torch.full((), float(np.float32(v)), dtype=torch.float32, device=device)
+def constant(v: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host constant as a 0-dim tensor of the sample type ``dtype`` (f32:
+    rounded, as JAX takes a Python float against an f32 array)."""
+    return torch.full((), to_sample(v, dtype), dtype=dtype, device=device)
 
 
 class _NoiseBase(Node):
     def __init__(self, sample_rate: int, seed: int = 0, *, device: DeviceLike = None):
-        _refuse_float64(type(self).__name__)
         self.spec = StreamSpec(1, sample_rate)
         self.seed = seed
         self.device = resolve_device(device)
@@ -64,14 +60,20 @@ class _NoiseBase(Node):
         return None
 
     def init_state(self) -> State:
-        return {"key": threefry.seed_key(self.seed, self.device),
+        return {"key": threefry.seed_key(self.seed, self.device,
+                                         x64=self.dtype == torch.float64),
                 "i": torch.zeros((), dtype=torch.int64, device=self.device)}
 
     def _advance(self, state: State, n: int) -> State:
         return {"key": state["key"], "i": threefry.wrap_i32(state["i"] + n)}
 
     def _uniform(self, state: State, n: int, lo: float = -1.0, hi: float = 1.0):
-        return threefry.uniform(state["key"], state["i"], n, lo, hi)
+        return threefry.uniform(state["key"], state["i"], n, lo, hi, self.dtype)
+
+    def _normal(self, state: State, n: int):
+        """``normal * 0.6`` (GPDF) in the sample type."""
+        g = threefry.normal(state["key"], state["i"], n, self.dtype)
+        return g * constant(GAUSSIAN_STD, self.dtype, self.device)
 
 
 class WhiteUniform(_NoiseBase):
@@ -101,8 +103,7 @@ class WhiteGaussian(_NoiseBase):
         return GAUSSIAN_STD
 
     def emit(self, state: State, n: int):
-        g = threefry.normal(state["key"], state["i"], n)
-        block = (g * _f32(GAUSSIAN_STD, self.device))[None, :]
+        block = self._normal(state, n)[None, :]
         return self._advance(state, n), block, full_valid(n, self.device)
 
 
@@ -119,7 +120,7 @@ class Velvet(_NoiseBase):
 
     def emit(self, state: State, n: int):
         block = threefry.threefry(state["key"], state["i"], n, "velvet",
-                                  grid=self.grid_size)[None, :]
+                                  grid=self.grid_size, dtype=self.dtype)[None, :]
         return self._advance(state, n), block, full_valid(n, self.device)
 
 
@@ -129,8 +130,8 @@ class Pink(_NoiseBase):
     2^o samples; the 16 values of a sample are summed in octave order."""
 
     def emit(self, state: State, n: int):
-        acc = threefry.threefry(state["key"], state["i"], n, "pink")
-        block = (acc / _f32(PINK_NOISE_GENERATORS, self.device))[None, :]
+        acc = threefry.threefry(state["key"], state["i"], n, "pink", dtype=self.dtype)
+        block = (acc / constant(PINK_NOISE_GENERATORS, self.dtype, self.device))[None, :]
         return self._advance(state, n), block, full_valid(n, self.device)
 
 
@@ -139,7 +140,7 @@ class Blue(_NoiseBase):
 
     def init_state(self) -> State:
         st = super().init_state()
-        st["prev"] = torch.zeros((), dtype=torch.float32, device=self.device)
+        st["prev"] = torch.zeros((), dtype=self.dtype, device=self.device)
         return st
 
     def emit(self, state: State, n: int):
@@ -155,8 +156,8 @@ class Violet(_NoiseBase):
 
     def init_state(self) -> State:
         st = super().init_state()
-        st["prev_white"] = torch.zeros((), dtype=torch.float32, device=self.device)
-        st["prev_blue"] = torch.zeros((), dtype=torch.float32, device=self.device)
+        st["prev_white"] = torch.zeros((), dtype=self.dtype, device=self.device)
+        st["prev_blue"] = torch.zeros((), dtype=self.dtype, device=self.device)
         return st
 
     def emit(self, state: State, n: int):
@@ -184,7 +185,7 @@ class _Integrated(_NoiseBase):
 
     def init_state(self) -> State:
         st = super().init_state()
-        st["acc"] = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        st["acc"] = torch.zeros((1,), dtype=self.dtype, device=self.device)
         return st
 
     def _white(self, state: State, n: int) -> torch.Tensor:
@@ -192,11 +193,12 @@ class _Integrated(_NoiseBase):
 
     def emit(self, state: State, n: int):
         white = self._white(state, n)[None, :]
-        leak = torch.full_like(white, float(np.float32(self.leak)))
+        leak = torch.full_like(white, to_sample(self.leak, self.dtype))
         acc = first_order(leak, white, state["acc"], op="linear")
         new = self._advance(state, n)
         new["acc"] = acc[:, -1]
-        return new, acc * _f32(self.scale, self.device), full_valid(n, self.device)
+        scale = constant(self.scale, self.dtype, self.device)
+        return new, acc * scale, full_valid(n, self.device)
 
 
 class Brownian(_Integrated):
@@ -205,7 +207,7 @@ class Brownian(_Integrated):
     white_std = GAUSSIAN_STD
 
     def _white(self, state: State, n: int) -> torch.Tensor:
-        return threefry.normal(state["key"], state["i"], n) * _f32(GAUSSIAN_STD, self.device)
+        return self._normal(state, n)
 
 
 class Red(_Integrated):

@@ -18,11 +18,13 @@ K1's front end) as K2; K9 bit-equal on both routes (the same sum order; the
 contiguous stream's max is order-free), eager and in a CUDA graph. K2r and K2b (K2's rel0 plans) as K2, their peak carry
 untouched. K4's bf16 instance and the generators' phase kernel bit-equal;
 the ring resampler on the card within 1e-6 of the CPU (the same ops).
-The f64 instances of K4, K7 and K8 bit-equal to their f64 plain versions,
-K3's within 1e-12 (its f32 instance is held at 1e-6); the associative
-scans of ``mode="parallel"`` (torch ops) bit-equal between the card and the
-CPU; every kernel without an f64 instance raises ``NotImplementedError``
-by name on an f64 CUDA tensor.
+The f64 instances of K4, K5, K6, K7, K8, threefry and the phase
+accumulator bit-equal to their f64 plain versions, K3's within 1e-12 (its
+f32 instance is held at 1e-6); the f64 noise sources and Dither on the card
+against the CPU bit-equal but the erf_inv ones (NOISE_BOUNDS_F64); the
+associative scans of ``mode="parallel"`` (torch ops) bit-equal between the
+card and the CPU; K1 and K2, which have no f64 instance (ROADMAP F8), raise
+``NotImplementedError`` by name on an f64 CUDA tensor.
 """
 import numpy as np
 import pytest
@@ -1665,24 +1667,13 @@ def test_f64_flagship_on_card_matches_cpu(dev, f64_mode, mode):
 
 
 def test_kernels_without_f64_raise_by_name(dev, f64_mode):
-    """K5, K6, the phase accumulator and K1/K2 refuse an f64 CUDA tensor by
-    name (no cast, no fallback); the fused pipelines and the noise sources
-    (threefry's f64 draws) refuse to build under set_float64."""
+    """F8: K1 and K2 refuse an f64 CUDA tensor by name (no cast, no
+    fallback), and the fused pipelines refuse to build under set_float64;
+    every other kernel has its f64 instance."""
     from rodio_tpu_torch.flagship import FusedWidePipeline
-    from rodio_tpu_torch.ops import phase
-    from rodio_tpu_torch.sources.noise import WhiteUniform
 
     x = torch.zeros((2, 256), dtype=torch.float64, device=dev)
     v = torch.zeros(2, dtype=torch.float64, device=dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        cuda_scan.limiter_env(x, v, v, att=0.9, rel=0.9)
-    with pytest.raises(NotImplementedError, match="K5"):
-        cuda_scan.limiter_stream(x, v, v, att=0.9, rel=0.9, threshold=-1.0,
-                                 knee_width=4.0, inv_knee_8=1 / 32, group_channels=2)
-    with pytest.raises(NotImplementedError, match="K6"):
-        cuda_scan.agc(x, x, v, v, v, [0.9] * 6)
-    with pytest.raises(NotImplementedError, match="phase accumulator"):
-        phase.phase_accumulate(v, v, 16)
     with pytest.raises(NotImplementedError, match="F8"):
         fused.fused_resample_biquad_mix(x, torch.zeros(8, dtype=torch.int64, device=dev),
                                         x, gains=v, coeffs=v, bq=v, channels=2)
@@ -1692,6 +1683,213 @@ def test_kernels_without_f64_raise_by_name(dev, f64_mode):
                                             agc_params=v, ring=x, ring_row=0)
     with pytest.raises(NotImplementedError, match="F8"):
         make_flagship(4, seconds=0.1, scan_mode="fused", device=dev)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        WhiteUniform(48000, device=dev)
     assert FusedWidePipeline  # the class the fused mode builds
+
+
+# ---- the last f64 instances: K6, K5, threefry and the phase accumulator ----
+
+@pytest.mark.parametrize("S,M", [(1, 1), (3, 129), (5, 383), (9, 1000), (64, 2561),
+                                 (512, 25600)])
+def test_k6_f64_matches_plain(dev, S, M):
+    """K6's f64 instance (its ring in dynamic shared memory): gains and
+    carries bit-equal to the f64 plain loop; its f32 launch count
+    untouched."""
+    xs, delta, p0, s0, g0 = (t.double() for t in _agc_inputs(S, M, dev, S + M))
+    params = _f64(AGC_PARAMS, dev)
+    before = (cuda_scan.agc_f64_launches, cuda_scan.agc_launches)
+    gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, params)
+    gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
+    torch.cuda.synchronize()
+    assert (cuda_scan.agc_f64_launches, cuda_scan.agc_launches) == (before[0] + 1, before[1])
+    assert gk.dtype == torch.float64 and torch.equal(gk, gp)
+    for a, b in zip(ck, cp):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+
+
+def test_k6_f64_zeros_and_nans_take_the_plain_branches(dev):
+    S, M = 6, 700
+    xs, delta, p0, s0, g0 = (t.double() for t in _agc_inputs(S, M, dev, 11))
+    xs[:, :200] = 0.0
+    delta[:, :200] = 0.0
+    delta[2, 320:330] = -1.0
+    xs[3, 400] = float("nan")
+    delta[4, 500] = float("nan")
+    p0[:] = 0.0
+    s0[:] = 0.0
+    gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, _f64(AGC_PARAMS, dev))
+    gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, _f64(AGC_PARAMS, dev))
+    torch.cuda.synchronize()
+    assert bool(ck[0][3].isnan()) and bool(ck[1][4].isnan())
+    _equal_nan(gk, gp)
+    for a, b in zip(ck, cp):
+        _equal_nan(a, b)
+
+
+@pytest.mark.parametrize("L,T", [(6, 700), (1024, 12800), (3, 1), (9, 129), (17, 4410)])
+def test_k5_f64_limiter_env_matches_plain(dev, L, T):
+    rng = np.random.default_rng(L + T)
+    db = _f64(rng.uniform(0.0, 12.0, (L, T)) * (rng.uniform(size=(L, T)) < 0.3), dev)
+    i0, p0 = _f64(rng.uniform(0, 6, L), dev), _f64(rng.uniform(0, 6, L), dev)
+    kw = {k: _limit_kw(1)[k] for k in ("att", "rel")}
+    before = (cuda_scan.limiter_env_f64_launches, cuda_scan.limiter_env_launches)
+    pk, ck = cuda_scan.limiter_env(db, i0, p0, **kw)
+    pp, cp = cuda_scan.limiter_env_plain(db, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_scan.limiter_env_f64_launches,
+            cuda_scan.limiter_env_launches) == (before[0] + 1, before[1])
+    assert pk.dtype == torch.float64 and torch.equal(pk, pp)
+    assert all(torch.equal(a, b) for a, b in zip(ck, cp))
+
+
+def _k5_f64_stream_check(x, i0, p0, cg):
+    kw = _limit_kw(cg)
+    before = (cuda_scan.limiter_stream_f64_launches, cuda_scan.limiter_stream_launches)
+    yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
+    yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_scan.limiter_stream_f64_launches,
+            cuda_scan.limiter_stream_launches) == (before[0] + 1, before[1])
+    assert yk.dtype == torch.float64
+    _equal_nan(yk, yp)
+    for a, b in zip(ck, cp):
+        _equal_nan(a, b)
+
+
+@pytest.mark.parametrize("cg,streams,T", [
+    (1, 3, 129), (2, 512, 12800), (2, 3, 4410), (6, 2, 127), (8, 3, 1), (12, 3, 700),
+    (16, 2, 300)])
+def test_k5_f64_limiter_stream_matches_plain(dev, cg, streams, T):
+    """Groups of 1-16 channels (16 is the f64 instance's widest: its two
+    rings of 16 f64 lanes take 166 KB), path C's [1024, 12800] among them."""
+    x, i0, p0 = (t.double() for t in _limit_inputs(cg * streams, T, cg + streams + T, dev))
+    _k5_f64_stream_check(x, i0, p0, cg)
+
+
+def test_k5_f64_special_values(dev):
+    x, i0, p0 = (t.double() for t in _limit_inputs(12, 700, 5, dev))
+    x[:, :150] = 0.0
+    x[1, 200] = float("nan")
+    x[2, 300] = float("inf")
+    x[5, 310] = -float("inf")
+    i0[9] = float("nan")
+    for cg in (1, 2, 6):
+        _k5_f64_stream_check(x, i0, p0, cg)
+
+
+def test_k5_f64_limiter_stream_wider_groups(dev):
+    """Past 16 channels the f64 pass runs its envelopes on limiter_env's
+    f64 instance and the rest in torch: bit-equal, one limiter_env launch."""
+    from rodio_tpu_torch.ops import _build
+
+    assert _build.load_library().rt_limiter_stream_f64_max_group() == 16
+    x, i0, p0 = (t.double() for t in _limit_inputs(40, 300, 7, dev))
+    kw = _limit_kw(20)
+    before = (cuda_scan.limiter_stream_f64_launches, cuda_scan.limiter_env_f64_launches)
+    yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
+    yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_scan.limiter_stream_f64_launches,
+            cuda_scan.limiter_env_f64_launches) == (before[0], before[1] + 1)
+    assert torch.equal(yk, yp) and all(torch.equal(a, b) for a, b in zip(ck, cp))
+
+
+@pytest.mark.parametrize("mode,n,kw", [
+    ("bits", 4097, {}), ("bits", 1 << 20, {}),
+    ("uniform", 4096, dict(lo=-1.0, hi=1.0)), ("uniform", 777, {}),
+    ("uniform", 3001, dict(lo=float(np.nextafter(-1.0, 0.0)), hi=1.0)),
+    ("uniform", 999, dict(lo=0.1, hi=0.75)),   # an odd span: each op rounded alone
+    ("velvet", 4096, dict(grid=24)), ("velvet", 513, dict(grid=7)),
+    ("pink", 4096, {}), ("pink", 1, {})])
+@pytest.mark.parametrize("i", [0, 2 ** 31 - 100, -2 ** 31])
+def test_threefry_f64_matches_plain(dev, mode, n, kw, i):
+    """The f64 instance (64-bit draws, an int64 seed) bit-equal to its plain
+    version, its f32 launch count untouched."""
+    from rodio_tpu_torch.ops import threefry
+
+    key = threefry.seed_key(-77, dev, x64=True)
+    ctr = torch.full((), i, dtype=torch.int64, device=dev)
+    before = (threefry.f64_launches, threefry.launches)
+    k = threefry.threefry(key, ctr, n, mode, dtype=torch.float64, **kw)
+    p = threefry.threefry_plain(key, ctr, n, mode, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    assert (threefry.f64_launches, threefry.launches) == (before[0] + 1, before[1])
+    assert k.dtype == (torch.int64 if mode == "bits" else torch.float64)
+    assert torch.equal(k, p)
+
+
+#: the f64 erf_inv sources on the card against the CPU: PyTorch's f64 log1p
+#: rounds apart on the two devices here and there (a draw within
+#: ERFINV64_ULPS of 2^-50 at |z| < 8, times 0.6); Brownian's integrator
+#: carries a draw's difference over ~1/(1 - leak) = 1500 steps
+NOISE_BOUNDS_F64 = {"WhiteGaussian": 1e-13, "Brownian": 1e-11}
+
+
+@pytest.mark.parametrize("name", ["WhiteUniform", "WhiteTriangular", "WhiteGaussian",
+                                  "Velvet", "Pink", "Blue", "Violet", "Brownian", "Red"])
+def test_noise_sources_f64_on_card_match_cpu(dev, f64_mode, name):
+    from rodio_tpu_torch.ops import threefry
+    from rodio_tpu_torch.profile_slice import noise_source
+
+    outs = []
+    for d in (dev, "cpu"):
+        node = noise_source(name, d)
+        st = node.init_state()
+        st["i"] = torch.full((), 2 ** 31 - 700, dtype=torch.int64, device=st["i"].device)
+        before = (threefry.f64_launches, cuda_scan.first_order_f64_launches)
+        _, out, _ = render_blocks(node, st, 3, 511)
+        if d is dev:
+            torch.cuda.synchronize()
+            k7 = 3 if name in ("Brownian", "Red") else 0
+            assert (threefry.f64_launches,
+                    cuda_scan.first_order_f64_launches) == (before[0] + 3, before[1] + k7)
+        outs.append(out.cpu())
+    assert outs[0].dtype == torch.float64
+    assert (outs[0] - outs[1]).abs().max().item() <= NOISE_BOUNDS_F64.get(name, 0.0)
+
+
+@pytest.mark.parametrize("algo", ["tpdf", "rpdf", "gpdf", "highpass"])
+def test_dither_f64_on_card_matches_cpu(dev, f64_mode, algo):
+    from rodio_tpu_torch.effects import Dither
+
+    data = np.random.default_rng(2).uniform(-0.9, 0.9, (2, 3000))
+    outs = [render_blocks(n, n.init_state(), 4, 1000)[1].cpu() for n in (
+        Dither(SamplesBuffer(2, 48000, data, device=d), 16, algo, seed=4) for d in (dev, "cpu"))]
+    assert outs[0].dtype == torch.float64
+    # gpdf: the noise's bound times the lsb, plus an ulp of an output below 1
+    # where x - noise * lsb rounds the other way (the f32 test's 2^-24)
+    bound = NOISE_BOUNDS_F64["WhiteGaussian"] * 2.0 ** -15 + 2.0 ** -53 if algo == "gpdf" else 0.0
+    assert (outs[0] - outs[1]).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("G,n", [(1, 4096), (1, 1), (3, 777), (130, 64), (1, 0)])
+def test_phase_f64_matches_plain(dev, G, n):
+    from rodio_tpu_torch.ops import phase
+
+    rng = np.random.default_rng(G + n)
+    p0 = _f64(rng.uniform(0, 1, G), dev)
+    step = _f64(rng.uniform(1e-3, 0.2, G).astype(np.float32), dev)  # f32 steps widened
+    before = (phase.f64_launches, phase.launches)
+    pk, ck = phase.phase_accumulate(p0, step, n)
+    pp, cp = phase.phase_accumulate_plain(p0, step, n)
+    torch.cuda.synchronize()
+    assert (phase.f64_launches, phase.launches) == (before[0] + 1, before[1])
+    assert pk.dtype == torch.float64 and torch.equal(pk, pp) and torch.equal(ck, cp)
+
+
+def test_f64_per_stream_chain_on_card_matches_cpu(dev, f64_mode):
+    """Config 5's per-stream chain in f64 at 16 streams ("pallas"): K4, K6,
+    K5 (limiter_stream) and K3's f64 instances once a block, against the f64
+    plain versions on the CPU (the mix sums in another order: 1e-12)."""
+    from rodio_tpu_torch import make_per_stream_chain
+    from rodio_tpu_torch.ops import limiter_block
+
+    node_g, st_g = make_per_stream_chain(16, seconds=0.2, seed=3, device=dev)
+    node_c, st_c = make_per_stream_chain(16, seconds=0.2, seed=3, device="cpu")
+    names = ("f64_launches", "agc_f64_launches", "limiter_stream_f64_launches")
+    before = [getattr(cuda_scan, a) for a in names] + [limiter_block.f64_launches]
+    _, og, _ = render_blocks(node_g, st_g, 3, 640)
+    _, oc, _ = render_blocks(node_c, st_c, 3, 640)
+    torch.cuda.synchronize()
+    after = [getattr(cuda_scan, a) for a in names] + [limiter_block.f64_launches]
+    assert og.dtype == torch.float64 and [a - b for a, b in zip(after, before)] == [3] * 4
+    assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-12

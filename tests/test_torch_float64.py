@@ -15,6 +15,8 @@ f64 render to JAX's f64 render. Bounds:
 - ``BltFilter`` in f64 against ``scipy.signal.lfilter`` run with the node's
   own coefficients: 1e-12 (measured 1.5e-14; test_independent_oracles.py's
   pattern).
+- the AGC in "pallas" past 8 streams (K6's route) and ``Limit`` on a mono
+  input and with ``streams`` = 4 (K5's): 1e-12, as the nodes above.
 - config 2 and ``make_flagship(4)`` unfused: 1e-12 from JAX (measured
   3.1e-16 and 4.7e-17), float64 out, and at least 1e-9 away from the f32
   render somewhere (the f64 mode ran); a JAX f64 state carried across,
@@ -159,12 +161,26 @@ NODES = [
                                        J.AutomaticGainControl(j, mode="pallas"))),
     ("Agc_parallel", 1024, lambda t, j: (T.AutomaticGainControl(t, mode="parallel"),
                                          J.AutomaticGainControl(j, mode="parallel"))),
+    # past 8 streams "pallas" is K6's whole loop (its f64 instance on the card)
+    ("Agc_pallas_streams10", 1024, lambda t, j: (
+        T.AutomaticGainControl(t, mode="pallas", streams=10),
+        J.AutomaticGainControl(j, mode="pallas", streams=10))),
+    # off the blocked stereo case "pallas" is K5 (limiter_stream)
+    ("Limit_pallas_mono", 512, lambda t, j: (
+        T.Limit(T.Amplify(t, 3.0), T.LimitSettings(), mode="pallas"),
+        J.Limit(J.Amplify(j, 3.0), J.LimitSettings(), mode="pallas"))),
+    ("Limit_pallas_streams4", 512, lambda t, j: (
+        T.Limit(T.Amplify(t, 3.0), T.LimitSettings(), mode="pallas", streams=4),
+        J.Limit(J.Amplify(j, 3.0), J.LimitSettings(), mode="pallas", streams=4))),
 ]
+#: the cases' channel counts where they are not stereo
+CHANNELS = {"ChannelVolume": 3, "Agc_pallas_streams10": 20, "Limit_pallas_mono": 1,
+            "Limit_pallas_streams4": 8}
 
 
 @pytest.mark.parametrize("name,block,build", NODES, ids=[n[0] for n in NODES])
 def test_node_renders_f64_like_jax(f64, name, block, build):
-    channels = 2 if name.startswith(("Limit", "Agc")) else 3 if name == "ChannelVolume" else 2
+    channels = CHANNELS.get(name, 2)
     t, j, _ = _buffers(channels, 9000 if name.startswith("Agc") else 3000, len(name),
                        rate=44100 if "Resample" in name or "Uniform" in name else 48000)
     tn, jn = build(t, j)
@@ -306,18 +322,6 @@ def test_fused_family_refused_in_f64_by_both_packages(f64):
         make_flagship(4, seconds=0.1, scan_mode="fused", device="cpu")
     with pytest.raises(NotImplementedError, match="F8"):
         make_flagship(4, seconds=0.1, scan_mode="fused", with_agc=True, device="cpu")
-
-
-def test_noise_refused_in_f64(f64):
-    """The f64 draws of jax.random are not ported (ROADMAP queue 2)."""
-    from rodio_tpu_torch.effects.dither import Dither
-    from rodio_tpu_torch.sources.noise import Brownian, WhiteUniform
-
-    for build in (lambda: WhiteUniform(48000, device="cpu"),
-                  lambda: Brownian(48000, device="cpu"),
-                  lambda: Dither(SineWave(440.0, device="cpu"), 16)):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            build()
 
 
 def test_state_from_jax_f64(f64):
