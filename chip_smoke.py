@@ -131,7 +131,7 @@ Phases (each raises on failure, so the script exits non-zero):
      fused=True (K1's ring mode and K3 once a block), 48 blocks, every
      step but the first under sync-debug "error" (the 32-block read-backs
      aside): ms a block and the aggregate realtime multiple (host clock),
-     the host assembly, push and emit split (FarmSpans), device memory
+     the host assembly, push and emit split (Spans), device memory
      after block 8 and at the end (equal), host RSS growth; then 12
      profiled blocks of a fresh farm: device busy, idle share;
    - path Q: the same farm with fused=False (K4 and K3 once a block),
@@ -908,7 +908,7 @@ def _farm_paths(farm_dir: str, h) -> dict:
     from rodio_tpu_torch.parallel.sharded_farm import ShardedStreamFarm
     from rodio_tpu_torch.parallel.sharding import stream_mesh
     from rodio_tpu_torch.profile_slice import _kernel_intervals, _union_us
-    from rodio_tpu_torch.utils.trace import FarmSpans
+    from rodio_tpu_torch.utils.trace import Spans
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from test_torch_io_fixtures import pcm16_master, write_pcm_wav
@@ -965,7 +965,7 @@ def _farm_paths(farm_dir: str, h) -> dict:
     runs = {}
     # path P: the fused farm, K1's ring mode + K3 a block, every step under
     # sync-debug "error" but the 32-block read-backs
-    spans = FarmSpans("cuda")
+    spans = Spans("cuda")
     farm_p = StreamFarm(paths, fused=True, device="cuda", **kw)
     out_p, runs["farm_fused"], sec_p, mem_p = run_farm(farm_p, "path P", spans=spans)
     expect(runs["farm_fused"], "path P", K1r=blocks, K3=blocks)

@@ -50,6 +50,7 @@ from ..core.types import duration_to_nanos
 from ..ops.cuda_scan import agc, desired_gain, first_order, ipow, smooth_gains
 from ..ops.limiter_block import blocked_max_affine_const
 from ..ops.scan import check_mode, max_affine_scan
+from ..utils.trace import spanned
 
 RMS_WINDOW_SIZE = 8192
 _MAX_NANOS = 10_000_000_000  # times clamped to 10 s (src/source/mod.rs:432-433)
@@ -162,6 +163,7 @@ class AutomaticGainControl(Node):
         merged = {k: torch.where(en, v, state[k]) for k, v in new_fields.items()}
         return {**state, "in": s_in, **merged}, out, valid
 
+    @spanned("rodio.emit.AutomaticGainControl")
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
         if not self.enabled:

@@ -15,6 +15,7 @@ import torch
 from ..core.node import Node, State, mask_block
 from ..ops.cuda_scan import biquad_df1
 from ..ops.scan import biquad_df1 as biquad_scan, check_mode
+from ..utils.trace import spanned
 
 F = np.float32
 
@@ -105,6 +106,7 @@ class BltFilter(Node):
         return {**state, "coef": torch.tensor(co, dtype=state["coef"].dtype,
                                               device=self.device)}
 
+    @spanned("rodio.emit.BltFilter")
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
         st = (state["x1"], state["x2"], state["y1"], state["y2"])

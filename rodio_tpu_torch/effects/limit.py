@@ -43,6 +43,7 @@ from ..core.types import duration_to_nanos
 from ..ops.cuda_scan import limiter_couple_gain, limiter_env_plain, limiter_stream
 from ..ops.limiter_block import limiter_gain_db, limiter_master
 from ..ops.scan import check_mode
+from ..utils.trace import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +127,7 @@ class Limit(Node):
         z = torch.zeros(self.spec.channels, dtype=self.dtype, device=self.device)
         return {"in": self.input.init_state(), "integ": z, "peak": z}
 
+    @spanned("rodio.emit.Limit")
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
         if self.mode == "parallel":

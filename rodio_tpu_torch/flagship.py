@@ -54,6 +54,7 @@ from .ops.fused import (
 from .parallel.batch import WideMixer
 from .sources.generators import SamplesBuffer
 from .utils.device import DeviceLike
+from .utils.trace import span, spanned
 
 PRECISIONS = ("auto", "highest", "int3", "int2", "i8", "i24")
 #: the scan modes make_flagship takes (the JAX package's documented names)
@@ -81,16 +82,17 @@ def _content_probe(input_node) -> tuple:
     cached = getattr(input_node, "_content_probe_cache", None)
     if cached is not None:
         return cached
-    s = data * 32768.0  # exact: a pure exponent shift in f32
-    k = torch.round(s)
-    g16 = ((s == k) & (k >= -32768.0) & (k <= 32767.0)).all()
-    s24 = data * 8388608.0
-    k24 = torch.round(s24)
-    g24 = ((s24 == k24) & (k24 >= -8388608.0) & (k24 <= 8388607.0)).all()
-    p1 = data.to(torch.bfloat16).to(data.dtype)
-    r = data - p1
-    tp = (r == r.to(torch.bfloat16).to(data.dtype)).all()
-    res = torch.stack([g16, g24, tp]).cpu().tolist()  # one read-back
+    with span("rodio.setup.probe"):
+        s = data * 32768.0  # exact: a pure exponent shift in f32
+        k = torch.round(s)
+        g16 = ((s == k) & (k >= -32768.0) & (k <= 32767.0)).all()
+        s24 = data * 8388608.0
+        k24 = torch.round(s24)
+        g24 = ((s24 == k24) & (k24 >= -8388608.0) & (k24 <= 8388607.0)).all()
+        p1 = data.to(torch.bfloat16).to(data.dtype)
+        r = data - p1
+        tp = (r == r.to(torch.bfloat16).to(data.dtype)).all()
+        res = torch.stack([g16, g24, tp]).cpu().tolist()  # one read-back
     out = (bool(res[0]), bool(res[1]), bool(res[2]))
     input_node._content_probe_cache = out
     return out
@@ -285,7 +287,8 @@ class FusedWidePipeline(Node):
         in_state = self.input.init_state()
         # one-time restructure of the PCM: time-major [frames, lanes], so a
         # block's lerp reads whole rows; the upstream's copy is dropped
-        pcm = in_state["data"][:, self._s0:].T.contiguous()
+        with span("rodio.setup.time_major"):
+            pcm = in_state["data"][:, self._s0:].T.contiguous()
         in_state = {k: v for k, v in in_state.items() if k != "data"}
         dev = self.device
         return {
@@ -358,6 +361,7 @@ class FusedWidePipeline(Node):
         return {**state, "coeffs": torch.tensor(co, dtype=torch.float32,
                                                 device=self.device)}
 
+    @spanned("rodio.emit.FusedWidePipeline")
     def emit(self, state: State, n: int):
         o0 = state["out_o"]
         left, wts = self._taps(o0, n)

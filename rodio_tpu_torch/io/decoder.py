@@ -24,6 +24,7 @@ import torch
 from ..core.node import Node, State, full_valid
 from ..sources.generators import SamplesBuffer
 from ..utils.device import DeviceLike
+from ..utils.trace import span, spanned
 
 
 class DecoderError(Exception):
@@ -199,7 +200,8 @@ class LoopedDecoder(Node):
 
     def __init__(self, source, settings: Optional[Settings] = None,
                  *, device: DeviceLike = None):
-        inner = Decoder(source, settings, device=device)
+        with span("rodio.setup.decode"):
+            inner = Decoder(source, settings, device=device)
         self.inner = inner
         self.spec = inner.spec
         self.device = inner.device
@@ -222,6 +224,7 @@ class LoopedDecoder(Node):
     def init_state(self) -> State:
         return {**self.inner.init_state(), "data": self._data}
 
+    @spanned("rodio.emit.LoopedDecoder")
     def emit(self, state: State, n: int):
         pos = state["pos"]
         idx = pos + torch.arange(n, device=self.device)

@@ -27,6 +27,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..utils.trace import span
+
 _PKG = Path(__file__).resolve().parents[1]
 NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "rodio_tpu_torch_native"
@@ -91,7 +93,8 @@ def build(name: str) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = ["g++", *CXX_FLAGS, *[str(NATIVE_DIR / s) for s in sources],
            "-o", str(tmp), *link]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("rodio.setup.build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         err = LibavUnavailable if name == "ffdec" else NativeBuildError
@@ -152,16 +155,17 @@ def lib(name: str = "core") -> ctypes.CDLL:
     "ffdec" raises :class:`LibavUnavailable` where libav is missing."""
     if name not in _libs:
         path = build(name)
-        try:
-            handle = ctypes.CDLL(str(path))
-        except OSError as e:
-            if name == "ffdec":
-                raise LibavUnavailable(f"libav libraries not loadable: {e}") from e
-            raise
-        for fn_name, restype, argtypes in _SIGNATURES[name]:
-            fn = getattr(handle, fn_name)
-            fn.restype = restype
-            fn.argtypes = argtypes
+        with span("rodio.setup.load"):
+            try:
+                handle = ctypes.CDLL(str(path))
+            except OSError as e:
+                if name == "ffdec":
+                    raise LibavUnavailable(f"libav libraries not loadable: {e}") from e
+                raise
+            for fn_name, restype, argtypes in _SIGNATURES[name]:
+                fn = getattr(handle, fn_name)
+                fn.restype = restype
+                fn.argtypes = argtypes
         _libs[name] = handle
     return _libs[name]
 

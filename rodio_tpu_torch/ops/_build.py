@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import span
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rodio_tpu_torch"
@@ -207,10 +209,11 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                        for s, o in zip(srcs, objs)])
-        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                          "-shared", "-o", str(tmp), *map(str, objs)]])
+        with span("rodio.setup.build"):
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                            for s, o in zip(srcs, objs)])
+            log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                              "-shared", "-o", str(tmp), *map(str, objs)]])
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
@@ -225,13 +228,15 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
     """The bound kernel library, built at first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build(verbose)))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
+        path = build(verbose)
+        with span("rodio.setup.load"):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

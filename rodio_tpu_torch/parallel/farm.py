@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-import contextlib
 import logging
 import threading
 from typing import List, Optional, Sequence
@@ -32,6 +31,7 @@ import torch
 from ..core.types import StreamSpec
 from ..io.uniform_host import SpanUniformStream, _UniformStream
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.trace import NO_SPANS
 
 WIRES = ("f32", "i16", "i24")
 
@@ -480,12 +480,12 @@ class StreamFarm:
         """Drive n_blocks; returns (total valid frames, energy, overflow).
 
         ``on_block(k, out, valid)`` sees each block (a read there waits for
-        the card). ``spans`` (a :class:`~rodio_tpu_torch.utils.trace.FarmSpans`)
+        the card). ``spans`` (a :class:`~rodio_tpu_torch.utils.trace.Spans`)
         times each block's host assembly, push and emit. ``sync_debug``
         runs every step but the first under sync-debug "error", the 32-block
         read-backs aside (on the card)."""
         sync_debug = sync_debug and self.device.type == "cuda"
-        spans = spans if spans is not None else _NO_SPANS
+        spans = spans if spans is not None else NO_SPANS
         if self.fused:
             return self._run_fused(n_blocks, on_block, spans, sync_debug)
         self._host.prime()
@@ -572,16 +572,3 @@ class StreamFarm:
 
     def close(self):
         self._host.close()
-
-
-class _NoSpans:
-    """Spans that time nothing."""
-
-    @contextlib.contextmanager
-    def span(self, name):
-        yield
-
-    host = span
-
-
-_NO_SPANS = _NoSpans()

@@ -27,8 +27,9 @@ import torch
 
 from ..core.types import StreamSpec
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.trace import NO_SPANS
 from .farm import (
-    HostDecodePool, _find_feed_state, _get_path, _set_path, _SyncDebug, _NO_SPANS,
+    HostDecodePool, _find_feed_state, _get_path, _set_path, _SyncDebug,
     _wire_decode, _wire_encode, _wire_staging, WIRES)
 from .sharding import ShardedFusedPipeline, StreamMesh
 
@@ -200,7 +201,7 @@ class ShardedStreamFarm:
         as :meth:`StreamFarm.run`."""
         core = self.core
         sync_debug = sync_debug and self.device.type == "cuda"
-        spans = spans if spans is not None else _NO_SPANS
+        spans = spans if spans is not None else NO_SPANS
         self._host.prime()
         state = core.init_state()
         fr, Kp = core._fr, core._Kp

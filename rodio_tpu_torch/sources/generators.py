@@ -26,6 +26,7 @@ from ..core.types import (DEFAULT_SAMPLE_RATE, StreamSpec, np_float_dtype,
                           to_sample)
 from ..ops.phase import phase_accumulate
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.trace import span
 
 #: 2*pi rounded to f32, the factor the JAX package's f32 ``sin`` argument takes
 TWO_PI = float(np.float32(2.0 * np.pi))
@@ -254,9 +255,10 @@ class SamplesBuffer(Node):
         elif arr.dim() != 2 or arr.shape[0] != channels:
             raise ValueError("data must be 1-D interleaved or [channels, frames]")
         self._frames = arr.shape[1]
-        data_t = torch.zeros((channels, self._frames + self.PAD_FRAMES),
-                             dtype=self.dtype, device=self.device)
-        data_t[:, : self._frames] = arr
+        with span("rodio.setup.buffer"):
+            data_t = torch.zeros((channels, self._frames + self.PAD_FRAMES),
+                                 dtype=self.dtype, device=self.device)
+            data_t[:, : self._frames] = arr
         self._data = data_t
         self._start = int(start_frame)
 

@@ -1,25 +1,59 @@
-"""Host-side tracing for the control plane (the port's part of
-rodio_tpu/utils/trace.py).
+"""Tracing of the port: the program's spans, the recorder that times them,
+the Chrome-trace exporter, and the control plane's events.
 
-- :func:`log_event`: a structured control-plane event, on stdlib logging
-  under the ``rodio_tpu_torch`` namespace (the reference's optional
-  ``tracing`` events: stream errors, sink drops);
-- :class:`BlockTimer`: per-block wall times of a render or playback loop
-  against the realtime deadline of a block;
-- :class:`FarmSpans`: named spans of a loop (the farm's host assembly,
-  push and emit), each by the host clock and, on the card, by a pair of
-  CUDA events on the current stream;
+- :func:`span` (and :func:`spanned`, the same around a whole method) is
+  the program's span. With no profiler active and no recorder installed
+  it returns :data:`NULL`, one shared no-op context, after one check of
+  the profiler's own state; under ``torch.profiler`` it opens a
+  ``record_function`` range of its name, so the span lies on the clock of
+  the device trace; with a recorder installed (:func:`recording`) it
+  records into it; with both it does both. The spans the port opens:
+
+  - ``rodio.emit.<Class>`` around the whole ``emit`` of ``Limit``,
+    ``FusedWidePipeline``, ``AutomaticGainControl``, ``BltFilter`` and
+    ``LoopedDecoder``, nested as the chain is: a node's self time is its
+    span less its input's. The benchmark's ``emit_ms.render``,
+    ``emit_ms.file`` and ``idle_in_emit_share`` read them
+    (``gpubench/metrics/``);
+  - a job's set-up on the card: ``rodio.setup.buffer`` (``SamplesBuffer``'s
+    zero-padded device copy), ``rodio.setup.probe`` (the fused pipeline's
+    content probe, when it misses its cache), ``rodio.setup.time_major``
+    (``FusedWidePipeline.init_state``'s transposed copy): read by
+    ``job_setup_ms.render``;
+  - a process's set-up: ``rodio.setup.decode`` (``LoopedDecoder``'s
+    whole-file decode), ``rodio.setup.build`` (a compiler run for the
+    kernels or the host C++), ``rodio.setup.load`` (loading a library from
+    ``build/``): read by an operator with a recorder installed, to split a
+    run's set-up time; which of them happen says whether a library was
+    built again.
+
+- :class:`Spans`: the recorder. A span by the host clock, the thread's CPU
+  time (``time.thread_time``) and, when ``device`` is a card, a pair of
+  CUDA events on the current stream; :meth:`Spans.summary` reads them
+  after the run. ``StreamFarm.run(spans=)`` and
+  ``ShardedStreamFarm.run(spans=)`` take one directly for their ``push``,
+  ``emit``, ``step`` and ``assemble`` (``chip_smoke.py``'s path P prints
+  them); :data:`NO_SPANS` is what they use without one.
 - :func:`device_trace`: ``torch.profiler`` with CUDA activity, writing a
-  Chrome trace (the JAX module's ``jax.profiler`` trace).
+  Chrome trace (the JAX module's ``jax.profiler`` trace), the program's
+  spans among its events.
+- :class:`BlockTimer`: per-block wall times of a render or playback loop
+  against the block's realtime deadline (the sink's tests).
+- :func:`log_event`: a structured control-plane event on stdlib logging
+  under the ``rodio_tpu_torch`` namespace (the sink's error event).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import time
-from dataclasses import dataclass, field
 from collections import defaultdict
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+from torch.autograd.profiler import record_function
 
 logger = logging.getLogger("rodio_tpu_torch")
 
@@ -63,31 +97,89 @@ class BlockTimer:
         }
 
 
-class FarmSpans:
-    """Named spans of a loop: :meth:`span` times a stretch by the host
-    clock and, when ``device`` is a card, by CUDA events recorded on the
-    current stream before and after it (the device time between them);
-    :meth:`host` by the host clock only. Events are read in
-    :meth:`summary`, after the run, which waits for the card once."""
+#: whether a ``torch.profiler`` is active (the profiler's own state)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+#: the one no-op context a span is when nothing is running
+NULL = contextlib.nullcontext()
+#: the recorder :func:`recording` installed, if any
+_recorder: Optional["Spans"] = None
+
+
+def span(name: str):
+    """The program's span ``name`` (a context): :data:`NULL` when no
+    profiler is active and no recorder installed."""
+    if _recorder is None and not _profiler_enabled():
+        return NULL
+    return _open(name)
+
+
+def spanned(name: str):
+    """Decorate a method so that its whole call is the span ``name``; with
+    nothing running the call costs one check more."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if _recorder is None and not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with _open(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def _open(name: str):
+    rec = _recorder
+    if not _profiler_enabled():
+        return rec.span(name)
+    if rec is None:
+        return record_function(name)
+    return _both(name, rec)
+
+
+@contextlib.contextmanager
+def _both(name: str, rec: "Spans"):
+    with record_function(name), rec.span(name):
+        yield
+
+
+@contextlib.contextmanager
+def recording(rec: "Spans"):
+    """Install ``rec`` as the recorder of every :func:`span` inside the
+    block (the one before it comes back after)."""
+    global _recorder
+    prev, _recorder = _recorder, rec
+    try:
+        yield rec
+    finally:
+        _recorder = prev
+
+
+class Spans:
+    """A recorder of named spans: :meth:`span` times a stretch by the host
+    clock, the thread's CPU time and, when ``device`` is a card, CUDA
+    events recorded on the current stream before and after it (the device
+    time between them); :meth:`host` by the two clocks only. Events are
+    read in :meth:`summary`, after the run, which waits for the card
+    once."""
 
     def __init__(self, device=None):
-        import torch
-
         self.cuda = device is not None and torch.device(device).type == "cuda"
         self._host = defaultdict(list)
+        self._cpu = defaultdict(list)
         self._events = defaultdict(list)
 
     @contextlib.contextmanager
     def span(self, name: str):
-        import torch
-
         e0 = None
         if self.cuda:
             e0 = torch.cuda.Event(enable_timing=True)
             e0.record()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         yield
-        self._host[name].append(time.perf_counter() - t0)
+        self._note(name, t0, c0)
         if e0 is not None:
             e1 = torch.cuda.Event(enable_timing=True)
             e1.record()
@@ -95,15 +187,18 @@ class FarmSpans:
 
     @contextlib.contextmanager
     def host(self, name: str):
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         yield
+        self._note(name, t0, c0)
+
+    def _note(self, name: str, t0: float, c0: float) -> None:
         self._host[name].append(time.perf_counter() - t0)
+        self._cpu[name].append(time.thread_time() - c0)
 
     def summary(self) -> dict:
-        """{name: {"n", "host_ms", "device_ms" (None off the card)}}, means
-        over the spans."""
+        """{name: {"n", "host_ms", "cpu_ms", "device_ms" (None off the
+        card)}}, means over the spans."""
         import numpy as np
-        import torch
 
         if self._events:
             torch.cuda.synchronize()
@@ -112,9 +207,23 @@ class FarmSpans:
             ev = self._events.get(name)
             out[name] = {
                 "n": len(times), "host_ms": float(np.mean(times) * 1e3),
+                "cpu_ms": float(np.mean(self._cpu[name]) * 1e3),
                 "device_ms": (float(np.mean([a.elapsed_time(b) for a, b in ev]))
                               if ev else None)}
         return out
+
+
+class _NoRecorder:
+    """A recorder that records nothing: its spans are :data:`NULL`."""
+
+    def span(self, name: str):
+        return NULL
+
+    host = span
+
+
+#: what a loop that takes a recorder uses without one
+NO_SPANS = _NoRecorder()
 
 
 @contextlib.contextmanager
@@ -123,7 +232,6 @@ def device_trace(log_dir: str):
     is present), its Chrome trace written to ``log_dir/trace.json``."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -463,9 +463,9 @@ def test_sharded_stream_farm_group_of_one_equals_stream_farm(corpus):
 def test_device_trace_and_spans(tmp_path, corpus):
     """device_trace writes a Chrome trace; the farm's spans time its host
     assembly, push and emit."""
-    from rodio_tpu_torch.utils.trace import FarmSpans, device_trace
+    from rodio_tpu_torch.utils.trace import Spans, device_trace
 
-    spans = FarmSpans("cpu")
+    spans = Spans("cpu")
     with device_trace(str(tmp_path / "tr")):
         _run(StreamFarm(corpus[:2], block_frames=1280, fused=True, loop=False,
                         device="cpu"), 3)
