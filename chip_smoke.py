@@ -39,7 +39,10 @@ Phases (each raises on failure, so the script exits non-zero):
    versions, their operations over 34 TFLOP/s FP64 and their chain floors
    at the f64 op's latency; threefry's f64 instance (64-bit draws) at path
    X's block (uniform, Velvet, Pink) and at 2^24 draws, with
-   torch.rand(dtype=torch.float64) as its yardstick;
+   torch.rand(dtype=torch.float64) as its yardstick; the job set-up's
+   content probe (csrc/content_probe.cu, no pallas_call: the XLA-fused
+   probe of rodio_tpu/flagship.py) at a render job's buffer, its flags
+   equal to the plain version's, eager and in a CUDA graph;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -238,6 +241,9 @@ PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
 PATH_F_SECONDS, PATH_F_BLOCK = 180, 4096
 #: path H: BASELINE config 4's graphs, in the parity tool's blocks
 PATH_H_BLOCK = 1024
+#: the content probe at a render job's buffer (c5_render_jobs' SamplesBuffer:
+#: 1024 lanes of 470,547 frames and 12,288 of padding, 1.98 GB)
+PROBE_SHAPE = (1024, 482835)
 #: path I: BASELINE config 3, 64 sources taken for 10 s (the test's 0.25 s
 #: would give the timing 6 blocks), pulled in blocks of 2048
 PATH_I_SECONDS, PATH_I_BLOCK = 10.0, 2048
@@ -321,7 +327,8 @@ PATH_Z_WAV = ("automatic_gain_control", "distortion", "into_file", "limit_settin
 #: a run on the H100); an example not named launches none
 PATH_Z_KERNELS = {"automatic_gain_control": ("K7", "K8"), "into_file": ("K3", "K4"),
                   "limit_settings": ("K5",), "limit_wav": ("K3",), "low_pass": ("K4",),
-                  "noise_generator": ("K7", "threefry"), "stream_farm": ("K1", "K3"),
+                  "noise_generator": ("K7", "threefry"),
+                  "stream_farm": ("K1", "K3", "probe"),
                   "streaming_farm_512": ("K1r", "K3")}
 #: the kernels path Z as a whole must launch
 PATH_Z_REQUIRED = ("K1", "K1r", "K3", "K4", "threefry")
@@ -384,6 +391,42 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _probe_timing(dev) -> dict:
+    """The content probe's kernel at :data:`PROBE_SHAPE` on 16-bit-grid
+    content against its plain version: the flags of the content as it is
+    and with an element off a grid at the first or the last index (each
+    must equal the plain version's), the kernel's ms eager (the flags' reset
+    and the launch, no read-back) and in a CUDA graph, the whole probe's
+    with its read-back, and the plain version's. The buffer is 40 times the
+    L2 cache: every read is cold."""
+    import torch
+
+    from rodio_tpu_torch.benches.dma_roofline import graph_ms
+    from rodio_tpu_torch.ops import probe
+
+    x = torch.randint(-32768, 32768, PROBE_SHAPE, dtype=torch.int32, device=dev)
+    x = x.to(torch.float32).div_(32768.0)
+    flat = x.view(-1)
+    flags = []
+    for index, value in ((None, None), (0, 2.0**-23), (-1, 2.0**-24),
+                         (-1, (2**22 + 2**11 + 1) / 2.0**23)):
+        if index is not None:
+            flat[index] = value
+        got, want = probe.content_probe(x), probe.content_probe_plain(x)
+        if got != want:
+            raise AssertionError(f"content probe: kernel {got}, plain {want} "
+                                 f"(element {index} = {value})")
+        flags.append(got)
+        if index is not None:
+            flat[index] = 0.0
+    ms = _time_ms(lambda: probe.probe_fails(x), 20)
+    gms = graph_ms(lambda: probe.probe_fails(x), 20)
+    whole_ms = _time_ms(lambda: probe.content_probe(x), 10)
+    plain_ms = _time_ms(lambda: probe.content_probe_plain(x), 3)
+    return dict(flags=flags, ms=ms, graph_ms=gms, whole_ms=whole_ms, plain_ms=plain_ms,
+                nbytes=x.numel() * 4, numel=x.numel())
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -1473,7 +1516,8 @@ def _main(start_references) -> int:
     from rodio_tpu_torch.graph import seek
     from rodio_tpu_torch.graph.seek import seek_state
     from rodio_tpu_torch.graph.checkpoint import load_state, save_state
-    from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block, phase, threefry
+    from rodio_tpu_torch.ops import (
+        _build, cuda_scan, fused, limiter_block, phase, probe, threefry)
     from rodio_tpu_torch.profile_slice import (
         NOISE, config1, config2, config3, config4_parity, config4_scene, noise_source,
         player_script, profile_pulls, pull_to_end, ring_chain)
@@ -1533,7 +1577,7 @@ def _main(start_references) -> int:
                 "K6f64": (cuda_scan, "agc_f64_launches"),
                 "K5f64": (cuda_scan, "limiter_stream_f64_launches"),
                 "threefryf64": (threefry, "f64_launches"),
-                "phasef64": (phase, "f64_launches")}
+                "phasef64": (phase, "f64_launches"), "probe": (probe, "launches")}
 
     def reset():
         for mod, attr in counters.values():
@@ -1629,6 +1673,19 @@ def _main(start_references) -> int:
            PATH_H_BLOCK * 4 + 12, 3 * PATH_H_BLOCK, _chain_ms(PATH_H_BLOCK, 3),
            note=f" [1, {PATH_H_BLOCK}] (a lax.scan, no pallas_call); in a CUDA graph "
                 f"{gmsp:.4f} ms (eager: the wrapper's host time)", path="config4_scene")
+
+    # the job set-up's content probe at a render job's buffer: one read of
+    # 1.98 GB; per element two products, two roundings, two bf16 round trips
+    # and a subtraction, and their compares (~16 ops)
+    pr = _probe_timing(dev)
+    record("probe", "content_probe", "rodio_tpu_torch/csrc/content_probe.cu",
+           "rodio_tpu/flagship.py:91-121", 0.0, 0.0, pr["ms"], pr["plain_ms"],
+           pr["nbytes"], 16 * pr["numel"], 0.0, path="example_stream_farm",
+           note=f" {list(PROBE_SHAPE)} (no pallas_call: an XLA-fused pass); flags "
+                f"{pr['flags']} equal to the plain version's; in a CUDA graph "
+                f"{pr['graph_ms']:.4f} ms ({pr['nbytes'] / pr['graph_ms'] / 1e6:.0f} GB/s), "
+                f"with its read-back {pr['whole_ms']:.4f} ms")
+    del pr
 
     # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
     # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its

@@ -47,6 +47,7 @@ from .effects.agc import RMS_WINDOW_SIZE, AgcSettings, AutomaticGainControl
 from .effects.basic import Amplify
 from .effects.blt import BltFilter, blt_coefficients
 from .effects.limit import Limit, LimitSettings
+from .ops.probe import content_probe
 from .ops.scan import check_mode
 from .ops.fused import (
     AGC_REL0_PLANS, AGC_RING_FRAMES, fused_resample_biquad_agc_mix,
@@ -75,7 +76,9 @@ INT_PIECES = ("int3", "int2", "i8", "i24")
 
 def _content_probe(input_node) -> tuple:
     """(int16_grid_exact, int24_grid_exact, two_piece_exact) of the node's
-    PCM, in one device pass with one read-back, cached on the node."""
+    PCM, cached on the node: on the card one kernel launch over the buffer
+    and one read-back of its three flags (``ops.probe``), on the CPU the
+    same flags in PyTorch ops."""
     data = getattr(input_node, "_data", None)
     if data is None:
         return (False, False, False)
@@ -83,17 +86,7 @@ def _content_probe(input_node) -> tuple:
     if cached is not None:
         return cached
     with span("rodio.setup.probe"):
-        s = data * 32768.0  # exact: a pure exponent shift in f32
-        k = torch.round(s)
-        g16 = ((s == k) & (k >= -32768.0) & (k <= 32767.0)).all()
-        s24 = data * 8388608.0
-        k24 = torch.round(s24)
-        g24 = ((s24 == k24) & (k24 >= -8388608.0) & (k24 <= 8388607.0)).all()
-        p1 = data.to(torch.bfloat16).to(data.dtype)
-        r = data - p1
-        tp = (r == r.to(torch.bfloat16).to(data.dtype)).all()
-        res = torch.stack([g16, g24, tp]).cpu().tolist()  # one read-back
-    out = (bool(res[0]), bool(res[1]), bool(res[2]))
+        out = content_probe(data)
     input_node._content_probe_cache = out
     return out
 

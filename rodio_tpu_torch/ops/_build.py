@@ -122,6 +122,8 @@ SIGNATURES = {
     "rt_dma_ring": (P, LL, I, I, I, I, I, P, P),
     # x, float4 count, blocks, out, stream
     "rt_stream_max": (P, LL, I, P, P),
+    # x, n, the card's SM count, fails (int32 [3]), stream
+    "rt_content_probe": (P, LL, I, P, P),
     # (x0, a, b), out, iterations, stream
     "rt_op_chain": (P, P, LL, P),
     # the same with x, a, b and out f64 (DMUL and DADD)

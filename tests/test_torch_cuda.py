@@ -24,7 +24,8 @@ f32 instance is held at 1e-6); the f64 noise sources and Dither on the card
 against the CPU bit-equal but the erf_inv ones (NOISE_BOUNDS_F64); the
 associative scans of ``mode="parallel"`` (torch ops) bit-equal between the
 card and the CPU; K1 and K2, which have no f64 instance (ROADMAP F8), raise
-``NotImplementedError`` by name on an f64 CUDA tensor.
+``NotImplementedError`` by name on an f64 CUDA tensor. The job set-up's
+content probe gives its plain version's flags (``probe_cases.py``).
 """
 import numpy as np
 import pytest
@@ -36,7 +37,11 @@ from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
 from rodio_tpu_torch.effects import AgcSettings, AutomaticGainControl
 from rodio_tpu_torch.effects.blt import blt_coefficients
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
-from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block
+from probe_cases import FAIL_ONE as PROBE_FAIL_ONE
+from probe_cases import NAMES as PROBE_CASES
+from probe_cases import case as probe_case
+from rodio_tpu_torch.flagship import _content_probe
+from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block, probe
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 
 pytestmark = pytest.mark.cuda
@@ -1893,3 +1898,59 @@ def test_f64_per_stream_chain_on_card_matches_cpu(dev, f64_mode):
     after = [getattr(cuda_scan, a) for a in names] + [limiter_block.f64_launches]
     assert og.dtype == torch.float64 and [a - b for a, b in zip(after, before)] == [3] * 4
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-12
+
+
+@pytest.mark.parametrize("name", PROBE_CASES)
+def test_content_probe_matches_plain(dev, name):
+    """The content probe's kernel against its plain version on the card, on
+    every content case of the CPU test: one launch, the same flags."""
+    arr, want = probe_case(name)
+    x = _f32(arr, dev)
+    before = probe.launches
+    got = probe.content_probe(x)
+    assert probe.launches == before + 1
+    assert got == probe.content_probe_plain(x) == want
+
+
+#: (rows, cols, offset): numel not a multiple of 4, one lane, a base off its
+#: 16-byte boundary by ``offset`` floats (a scalar head), and buffers
+#: larger than one sweep of the grid (2 blocks an SM x 512 threads x 8
+#: float4s: 4.3 M floats at 132 SMs)
+PROBE_SHAPES = [(1, 1, 0), (1, 1, 3), (1, 5, 0), (3, 7, 0), (3, 7, 1), (2, 6, 2), (3, 7, 3),
+                (1, 4096, 0), (1024, 5000, 0), (1024, 5003, 1)]
+
+
+@pytest.mark.parametrize("rows,cols,offset", PROBE_SHAPES)
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_content_probe_ragged(dev, rows, cols, offset, where):
+    """16-bit-grid content with an element off each grid at the first
+    element (the scalar head where the base is off its boundary) or the last
+    (the scalar tail where numel - head is not a multiple of 4): the
+    kernel's flags equal the plain version's and the expected ones."""
+    n = rows * cols
+    rng = np.random.default_rng(n * 4 + offset)
+    flat = _f32(rng.integers(-32768, 32768, offset + n) / 32768.0, dev)
+    x = flat[offset:].view(rows, cols)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset % 16
+    assert probe.content_probe(x) == probe.content_probe_plain(x) == (True, True, True)
+    index = 0 if where == "first" else n - 1
+    for value, want in PROBE_FAIL_ONE.values():
+        x.view(-1)[index] = float(value)
+        assert probe.content_probe(x) == probe.content_probe_plain(x) == want
+        x.view(-1)[index] = 0.0
+
+
+def test_content_probe_once_a_node_and_only_on_f32(dev):
+    """One launch for a node's first probe, none for its cached second; a
+    CUDA tensor the kernel does not take raises, with no plain fallback."""
+    arr, want = probe_case("corpus16")
+    buf = SamplesBuffer(arr.shape[0], 44100, arr, device=dev)
+    before = probe.launches
+    assert _content_probe(buf) == want and probe.launches == before + 1
+    assert _content_probe(buf) == want and probe.launches == before + 1
+    x = _f32(arr, dev)
+    for bad in (x.to(torch.bfloat16), x.to(torch.float64), x.to(torch.float16),
+                x.reshape(-1), x[:, ::2], x[None]):
+        with pytest.raises(ValueError, match="contiguous 2-D float32"):
+            probe.content_probe(bad)
+    assert probe.launches == before + 1
