@@ -296,6 +296,7 @@ class FusedWidePipeline(Node):
             "gains": torch.from_numpy(self._gains.copy()).to(dev),
         } | (self._agc_state() if self.with_agc else {})
 
+    @spanned("rodio.setup.agc_state")
     def _agc_state(self) -> State:
         dev = self.device
         S = self.n_streams

@@ -19,7 +19,9 @@ the Chrome-trace exporter, and the control plane's events.
     zero-padded device copy), ``rodio.setup.probe`` (the fused pipeline's
     content probe, when it misses its cache), ``rodio.setup.time_major``
     (``FusedWidePipeline.init_state``'s transposed copy): read by
-    ``job_setup_ms.render``;
+    ``job_setup_ms.render``; ``rodio.setup.agc_state`` (the fused AGC's
+    per-job carries and its ring of squares, ``with_agc=True``): named in
+    a traced run's idle gaps;
   - a process's set-up: ``rodio.setup.decode`` (``LoopedDecoder``'s
     whole-file decode), ``rodio.setup.build`` (a compiler run for the
     kernels or the host C++), ``rodio.setup.load`` (loading a library from

@@ -738,13 +738,84 @@ def test_k2_fused_agc_matches_plain(dev, ring_dtype, S, n, o0, F, to):
               coeffs=_f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev),
               bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
               agc_params=_f32(AGC_PARAMS, dev), ring=ring, ring_row=o0 % 4096)
+    _k2_matches_plain(pcm, left, wts, kw)
+
+
+def _k2_matches_plain(pcm, left, wts, kw):
+    """One launch of K2 against its plain version on the same inputs: the
+    mix within 1e-6 (the order of its sum over streams and blocks), the
+    biquad and AGC carries and the ring bit for bit."""
     before = fused.agc_launches
     mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
     mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
     torch.cuda.synchronize()
     assert fused.agc_launches == before + 1
+    assert rk.dtype == kw["ring"].dtype
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
+
+
+def _agc512(streams, dev, blocks, seed=0xA6C):
+    """The benchmark's ``config5_agc512`` at ``streams``: its config module,
+    its plain reference, its sizes, and a job's seeded PCM and gains."""
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from gpubench import harness, signals
+
+    bench = os.path.join(root, "gpubench")
+    cfg = json.load(open(os.path.join(bench, "configs", "config5_agc512.json")))
+    cfg["streams"] = streams
+    config = harness.load_module(os.path.join(bench, "configs", "config5_agc512.py"),
+                                 "cuda_test_config5_agc512")
+    ref = harness.load_module(os.path.join(bench, "reference", "config5_agc512.py"),
+                              "cuda_test_reference_config5_agc512")
+    fr, to = config.ratio(cfg)
+    n_out = blocks * cfg["block_frames"]
+    n_in = n_out * fr // to + fr
+    rng = np.random.default_rng([seed, 0])
+    pcm = signals.corpus(signals.generator(seed, dev), rng, streams, 2, n_in, 44100, dev)
+    gains = rng.uniform(0.5, 1.5, streams).astype(np.float32) / np.float32(streams)
+    return config, ref, cfg, pcm, gains, n_out
+
+
+def test_config5_agc512_job_runs_k2_once_a_block(dev):
+    """One job of the benchmark's config5_agc512 at 16 streams, 3 blocks of
+    the cell's 12800: one K2 launch a block and no K1, and the mix within
+    1e-5 of the plain reference (the CPU's chain reads 4e-7-6e-7 against it;
+    the card's K2 sums the mix in another order and K3 limits in its blocked
+    order, 4e-6 from the CPU's sequential one)."""
+    config, ref, cfg, pcm, gains, n_out = _agc512(16, dev, 3)
+    chain = config.job_chain(pcm, gains, cfg, dev)
+    state = chain.init_state()
+    assert state["in"]["ring"].dtype == torch.float32
+    before = (fused.agc_launches, fused.launches)
+    blocks = []
+    for i in range(3):
+        state, y, valid = chain.emit(state, cfg["block_frames"])
+        assert (fused.agc_launches, fused.launches) == (before[0] + i + 1, before[1])
+        blocks.append(y)
+    got = torch.cat(blocks, 1).double()
+    want = ref.render(pcm, gains, cfg, n_out)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k2_f32_ring_at_the_cell_block_matches_plain(dev):
+    """K2's serial plan with the f32 ring at the cell's shape (512 stereo
+    streams, a block of 12800), on the second block of a job, so the
+    carries and the ring are a running job's."""
+    config, _, cfg, pcm, gains, _ = _agc512(512, dev, 2)
+    node = config.job_chain(pcm, gains, cfg, dev).input
+    n = cfg["block_frames"]
+    st, _, _ = node.emit(node.init_state(), n)
+    left, wts = node._taps(n, n)
+    assert st["ring"].dtype == torch.float32
+    _k2_matches_plain(st["pcm"], left, wts,
+                      dict(gains=st["gains"], coeffs=st["coeffs"], bq=st["bq"], agc=st["agc"],
+                           agc_params=st["agc_par"], ring=st["ring"], ring_row=n % 4096))
 
 
 def test_agc_flagship_on_card_matches_cpu(dev):
