@@ -109,6 +109,19 @@ def drain_bookkeeping(left: torch.Tensor, in_end: torch.Tensor,
     return n_full, drain_ok, clip_valid(valid, n), drained_new
 
 
+def host_drain_bookkeeping(o0: int, n: int, n_in: int, drained: bool,
+                           from_: int, to: int):
+    """:func:`drain_bookkeeping` in host ints, for the outputs o0 .. o0+n-1
+    of one continuous stream of ``n_in`` input frames (left taps
+    ``lerp_left(o0 + arange(n))``, ``in_end`` = ``n_in``): returns (valid,
+    drained'). The left taps never decrease, so the block's full lerps are
+    those of the stream's that fall in it."""
+    n_full = min(max(_resample_counts(n_in, from_, to)[0] - o0, 0), n)
+    drain_ok = n_full < n and lerp_left(o0 + n_full, from_, to) == n_in - 1
+    valid = 0 if drained else n_full + drain_ok
+    return valid, drained or drain_ok or valid < n
+
+
 class Resample(Node):
     """Resample to ``to_rate``. ``segment_frames``: the span length in
     input frames after which the phase re-bootstraps (None: one continuous

@@ -156,7 +156,8 @@ def state_from_jax(node: Node, jstate) -> State:
         st.update(
             {"in": state_from_jax(node.input, jstate["in"]),
              "out_o": int(jstate["out_o"]),
-             "drained": _t(jstate["drained"], node),
+             # the port keeps the drain flag on the host: read here, once
+             "drained": bool(np.asarray(jstate["drained"])),
              "bq": _t(np.stack([np.asarray(b)[lanes] for b in jstate["bq"]]),
                       node),
              "coeffs": _t(jstate["coeffs"], node)})

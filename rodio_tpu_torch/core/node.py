@@ -15,6 +15,20 @@ A node is a plain object with an explicit ``device``:
   at index >= valid are zero. After a stream ends, further emits return
   ``valid == 0``. ``emit`` never reads a device value back to the host, so
   a loop of emits never waits for the card.
+- ``host_valid(state, n)`` — the block's ``valid`` as a host int, where the
+  node knows it without asking the card; ``None`` (the default) where it
+  does not. ``state`` is the one its ``emit(..., n)`` just returned. A
+  node that computes its validity from host values supplies it
+  (``FusedWidePipeline``: its output offset, drain flag and input length
+  live on the host; ``FusedFarmPipeline``: every block is full); a node
+  that passes its input's ``valid`` on unchanged forwards its input's
+  (``Limit``). A consumer that would mask its block against ``valid``
+  skips the mask when the host count says the block is full
+  (:func:`mask_unless_full`): masking a full block is the identity. The
+  device ``valid`` that such a node returns beside its host count is made
+  on the card by a fill (:func:`full_valid`) or kept from one, never copied
+  from the host: a copy from pageable memory synchronises the stream,
+  which would make the loop of emits wait for the card.
 
 The combinators of the JAX package's Node are here, ``to_file`` (the
 WAV writer of :mod:`rodio_tpu_torch.io.wav`) included.
@@ -59,6 +73,11 @@ class Node:
 
     def emit(self, state: State, n: int) -> Tuple[State, torch.Tensor, torch.Tensor]:
         raise NotImplementedError
+
+    def host_valid(self, state: State, n: int) -> Optional[int]:
+        """The valid count of the block of ``n`` whose ``emit`` returned
+        ``state``, where the host knows it; ``None`` where it does not."""
+        return None
 
     # combinators (src/source/mod.rs:222-731)
     def amplify(self, factor) -> "Node":
@@ -260,6 +279,27 @@ def mask_block(block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     n = block.shape[-1]
     idx = torch.arange(n, device=block.device)
     return torch.where(idx[None, :] < valid, block, torch.zeros_like(block))
+
+
+#: blocks a node passed on unmasked because its input's host count said
+#: they were full (:func:`mask_unless_full`)
+host_valid_blocks = 0
+#: blocks a node masked on the card against its input's device ``valid``
+#: (:func:`mask_unless_full`, where the host count was unknown or short)
+device_masked_blocks = 0
+
+
+def mask_unless_full(block: torch.Tensor, valid: torch.Tensor,
+                     known: Optional[int], n: int) -> torch.Tensor:
+    """``mask_block(block, valid)``, skipped when the host count ``known``
+    (an input's :meth:`Node.host_valid`) is ``n``: a full block is its own
+    mask. Counted in ``host_valid_blocks`` or ``device_masked_blocks``."""
+    global host_valid_blocks, device_masked_blocks
+    if known == n:
+        host_valid_blocks += 1
+        return block
+    device_masked_blocks += 1
+    return mask_block(block, valid)
 
 
 def clip_valid(valid: torch.Tensor, n: int) -> torch.Tensor:

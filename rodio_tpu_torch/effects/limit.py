@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.math import duration_to_coefficient
-from ..core.node import Node, State, mask_block
+from ..core.node import Node, State, mask_unless_full
 from ..core.types import duration_to_nanos
 from ..ops.cuda_scan import limiter_couple_gain, limiter_env_plain, limiter_stream
 from ..ops.limiter_block import limiter_gain_db, limiter_master
@@ -130,24 +130,36 @@ class Limit(Node):
     @spanned("rodio.emit.Limit")
     def emit(self, state: State, n: int):
         s, x, valid = self.input.emit(state["in"], n)
+        known = self._input_host_valid(s, n)
         if self.mode == "parallel":
-            y, (integ_c, peak_c) = self._parallel(x, state)
-            return {"in": s, "integ": integ_c, "peak": peak_c}, mask_block(y, valid), valid
-        P = min(128, n & -n)
-        blocked = (self.mode in ("auto", "pallas") and self.streams == 1
-                   and self.spec.channels == 2 and P >= 8)
-        if blocked and (x.device.type == "cuda" or self.mode == "pallas"):
-            y, (integ, peak) = limiter_master(
-                x, state["integ"], state["peak"],
-                att=self.attack, rel=self.release, threshold=self.threshold,
-                knee_width=self.knee_width, inv_knee_8=self.inv_knee_8, P=P)
-            return {"in": s, "integ": integ, "peak": peak}, mask_block(y, valid), valid
-        y, (integ_c, peak_c) = limiter_stream(
-            x, state["integ"], state["peak"], att=self.attack, rel=self.release,
-            threshold=self.threshold, knee_width=self.knee_width,
-            inv_knee_8=self.inv_knee_8,
-            group_channels=self.spec.channels // self.streams)
-        return {"in": s, "integ": integ_c, "peak": peak_c}, mask_block(y, valid), valid
+            y, (integ, peak) = self._parallel(x, state)
+        else:
+            P = min(128, n & -n)
+            blocked = (self.mode in ("auto", "pallas") and self.streams == 1
+                       and self.spec.channels == 2 and P >= 8)
+            if blocked and (x.device.type == "cuda" or self.mode == "pallas"):
+                y, (integ, peak) = limiter_master(
+                    x, state["integ"], state["peak"],
+                    att=self.attack, rel=self.release, threshold=self.threshold,
+                    knee_width=self.knee_width, inv_knee_8=self.inv_knee_8, P=P)
+            else:
+                y, (integ, peak) = limiter_stream(
+                    x, state["integ"], state["peak"], att=self.attack,
+                    rel=self.release, threshold=self.threshold,
+                    knee_width=self.knee_width, inv_knee_8=self.inv_knee_8,
+                    group_channels=self.spec.channels // self.streams)
+        return ({"in": s, "integ": integ, "peak": peak},
+                mask_unless_full(y, valid, known, n), valid)
+
+    def host_valid(self, state: State, n: int) -> Optional[int]:
+        """The input's host count: the limiter passes its ``valid`` on."""
+        return self._input_host_valid(state["in"], n)
+
+    def _input_host_valid(self, in_state: State, n: int) -> Optional[int]:
+        # a source outside the Node hierarchy (a PushPort, the sharded
+        # master bus's block feed) gives no host count
+        known = getattr(self.input, "host_valid", None)
+        return None if known is None else known(in_state, n)
 
     def _parallel(self, x, state):
         """Both envelopes through the associative scans, then the coupled

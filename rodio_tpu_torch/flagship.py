@@ -36,10 +36,10 @@ import numpy as np
 import torch
 
 from .conversions.resample import (
-    Resample, drain_bookkeeping, lerp_weights, output_positions,
+    Resample, host_drain_bookkeeping, lerp_weights, output_positions,
     resample_output_frames)
 from .conversions.blockdtype import Bf16Boundary
-from .core.node import Node, State, full_valid, mask_block
+from .core.node import Node, State, full_valid
 from .core.types import StreamSpec, float64_enabled
 from .core.math import duration_to_coefficient
 from .core.types import duration_to_nanos
@@ -204,6 +204,10 @@ class FusedWidePipeline(Node):
         self._taps = _LerpTaps(self.from_, self.to, self.device)
         self._wide = wide
         self._s0 = getattr(input_node, "_start", 0)
+        # the validity of every block follows from host ints: the output
+        # offset, the drain flag and the input's frames from its start
+        self._n_in = input_node.total_frames()
+        self._valids = {}  # valid count -> its 0-dim device tensor
         self.with_agc = bool(with_agc)
         if self.with_agc:
             self._init_agc(C, to_rate, agc_settings, agc_ring, agc_group,
@@ -288,7 +292,8 @@ class FusedWidePipeline(Node):
             "in": in_state,
             "pcm": pcm,
             "out_o": 0,  # host int: advances by n per emit
-            "drained": torch.tensor(False, device=dev),
+            "drained": False,  # host bool: the stream has ended
+            "n_valid": None,  # host int: the last block's valid count
             "bq": torch.zeros((4, self._wide), dtype=torch.float32, device=dev),
             # coefficients and gains live in the state: the kernel reads
             # them as data, so a retune rebuilds nothing
@@ -377,11 +382,27 @@ class FusedWidePipeline(Node):
                 state["pcm"], left, wts, gains=state["gains"],
                 coeffs=state["coeffs"], bq=state["bq"],
                 channels=self.spec.channels)
-        # validity + drain bookkeeping (conversions/resample.py)
-        _, in_end = self.input.access_window(state["in"])
-        _, _, valid, drained = drain_bookkeeping(left, in_end, state["drained"], n)
-        return ({**state, "out_o": o0 + n, "drained": drained, "bq": bq,
-                 **extra}, mask_block(mix, valid), valid)
+        # validity + drain bookkeeping (conversions/resample.py), on the host
+        valid, drained = host_drain_bookkeeping(
+            o0, n, self._n_in, state["drained"], self.from_, self.to)
+        if valid < n:
+            mix[:, valid:] = 0  # the kernel's fresh output: one fill, no mask
+        return ({**state, "out_o": o0 + n, "drained": drained,
+                 "n_valid": valid, "bq": bq, **extra}, mix,
+                self._valid_tensor(valid))
+
+    def host_valid(self, state: State, n: int) -> Optional[int]:
+        return state["n_valid"]
+
+    def _valid_tensor(self, valid: int) -> torch.Tensor:
+        """``valid`` as a 0-dim int64 device tensor, filled on the device
+        once per value and kept (a copy from the host would synchronise)."""
+        t = self._valids.get(valid)
+        if t is None:
+            if len(self._valids) >= 8:
+                self._valids.clear()
+            t = self._valids[valid] = full_valid(valid, self.device)
+        return t
 
 
 class ChunkRingFeed:
@@ -556,6 +577,9 @@ class FusedFarmPipeline(Node):
             bq=state["bq"], channels=self.spec.channels, ring=True)
         return ({**state, "in": ins, "out_o": o0 + n, "bq": bq}, mix,
                 full_valid(n, self.device))
+
+    def host_valid(self, state: State, n: int) -> Optional[int]:
+        return n  # the live feed never ends a block early
 
 
 def make_flagship(n_streams: int = 512, *, seconds: float = 4.0,

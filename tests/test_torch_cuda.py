@@ -755,9 +755,10 @@ def _k2_matches_plain(pcm, left, wts, kw):
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
 
 
-def _agc512(streams, dev, blocks, seed=0xA6C):
-    """The benchmark's ``config5_agc512`` at ``streams``: its config module,
-    its plain reference, its sizes, and a job's seeded PCM and gains."""
+def _bench_job(name, streams, dev, blocks, seed=0xA6C):
+    """The benchmark's configuration ``name`` at ``streams``: its config
+    module, its plain reference, its sizes, and a job's seeded PCM and
+    gains."""
     import json
     import os
     import sys
@@ -767,12 +768,12 @@ def _agc512(streams, dev, blocks, seed=0xA6C):
     from gpubench import harness, signals
 
     bench = os.path.join(root, "gpubench")
-    cfg = json.load(open(os.path.join(bench, "configs", "config5_agc512.json")))
+    cfg = json.load(open(os.path.join(bench, "configs", f"{name}.json")))
     cfg["streams"] = streams
-    config = harness.load_module(os.path.join(bench, "configs", "config5_agc512.py"),
-                                 "cuda_test_config5_agc512")
-    ref = harness.load_module(os.path.join(bench, "reference", "config5_agc512.py"),
-                              "cuda_test_reference_config5_agc512")
+    config = harness.load_module(os.path.join(bench, "configs", f"{name}.py"),
+                                 f"cuda_test_{name}")
+    ref = harness.load_module(os.path.join(bench, "reference", f"{name}.py"),
+                              f"cuda_test_reference_{name}")
     fr, to = config.ratio(cfg)
     n_out = blocks * cfg["block_frames"]
     n_in = n_out * fr // to + fr
@@ -788,7 +789,7 @@ def test_config5_agc512_job_runs_k2_once_a_block(dev):
     1e-5 of the plain reference (the CPU's chain reads 4e-7-6e-7 against it;
     the card's K2 sums the mix in another order and K3 limits in its blocked
     order, 4e-6 from the CPU's sequential one)."""
-    config, ref, cfg, pcm, gains, n_out = _agc512(16, dev, 3)
+    config, ref, cfg, pcm, gains, n_out = _bench_job("config5_agc512", 16, dev, 3)
     chain = config.job_chain(pcm, gains, cfg, dev)
     state = chain.init_state()
     assert state["in"]["ring"].dtype == torch.float32
@@ -803,11 +804,51 @@ def test_config5_agc512_job_runs_k2_once_a_block(dev):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def test_jobs_chain_block_is_k1_k3_and_little_else(dev):
+    """The jobs cell's chain (``config5_mix512`` at its 512 streams and
+    block of 12800), its second block under the profiler: K1's two
+    kernels, K3 and at most 3 other device operations, since the block's
+    validity is counted on the host and a full block is not masked; every
+    block known full on the host. The blocks equal the same chain's plain
+    versions on the CPU within K1's 1e-6 (its mix sums in another order;
+    the CPU's Limit runs K3's blocked order, ``mode="pallas"``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rodio_tpu_torch.core import node as core_node
+
+    config, _, cfg, pcm, gains, _ = _bench_job("config5_mix512", 512, dev, 3)
+    n = cfg["block_frames"]
+    chain = config.job_chain(pcm, gains, cfg, dev)
+    plain = Limit(config.job_chain(pcm.cpu(), gains, cfg, "cpu").input,
+                  LimitSettings(), mode="pallas")
+    state, st_c = chain.init_state(), plain.init_state()
+    counted = np.zeros(2, np.int64)  # the card chain's blocks: host, device
+    for i in range(3):
+        torch.cuda.synchronize()
+        before = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, y, v = chain.emit(state, n)
+            torch.cuda.synchronize()
+        counted += np.subtract((core_node.host_valid_blocks,
+                                core_node.device_masked_blocks), before)
+        st_c, y_c, v_c = plain.emit(st_c, n)
+        assert int(v) == int(v_c) == n
+        assert (y.cpu() - y_c).abs().max().item() <= 1e-6
+        if i == 1:
+            ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            k1 = [o for o in ops if "fused_kernel" in o or "mix_partials" in o]
+            k3 = [o for o in ops if "limiter_master" in o]
+            assert (len(k1), len(k3)) == (2, 1), ops
+            assert len(ops) <= 6, ops
+    assert counted.tolist() == [3, 0]
+
+
 def test_k2_f32_ring_at_the_cell_block_matches_plain(dev):
     """K2's serial plan with the f32 ring at the cell's shape (512 stereo
     streams, a block of 12800), on the second block of a job, so the
     carries and the ring are a running job's."""
-    config, _, cfg, pcm, gains, _ = _agc512(512, dev, 2)
+    config, _, cfg, pcm, gains, _ = _bench_job("config5_agc512", 512, dev, 2)
     node = config.job_chain(pcm, gains, cfg, dev).input
     n = cfg["block_frames"]
     st, _, _ = node.emit(node.init_state(), n)
