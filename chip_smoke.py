@@ -323,7 +323,7 @@ PATH_Z_BUDGET_S = 90
 #: segments in the order of its SOURCES: bit-equal but the erf_inv sources)
 PATH_Z_WAV = ("automatic_gain_control", "distortion", "into_file", "limit_settings",
               "limit_wav", "low_pass", "noise_generator", "reverb")
-#: the kernels each example launches on the card (read off the counters of
+#: the kernels each example launches on the card (read off ``trace.counts`` in
 #: a run on the H100); an example not named launches none
 PATH_Z_KERNELS = {"automatic_gain_control": ("K7", "K8"), "into_file": ("K3", "K4"),
                   "limit_settings": ("K5",), "limit_wav": ("K3",), "low_pass": ("K4",),
@@ -1517,11 +1517,12 @@ def _main(start_references) -> int:
     from rodio_tpu_torch.graph.seek import seek_state
     from rodio_tpu_torch.graph.checkpoint import load_state, save_state
     from rodio_tpu_torch.ops import (
-        _build, cuda_scan, fused, limiter_block, phase, probe, threefry)
+        _build, cuda_scan, fused, limiter_block, phase, threefry)
     from rodio_tpu_torch.profile_slice import (
         NOISE, config1, config2, config3, config4_parity, config4_scene, noise_source,
         player_script, profile_pulls, pull_to_end, ring_chain)
     from rodio_tpu_torch.sources.generators import SamplesBuffer
+    from rodio_tpu_torch.utils import trace
 
     # -- 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -1556,35 +1557,30 @@ def _main(start_references) -> int:
         rounded ops of a step, at the latency just measured."""
         return steps * ops * op_s * 1e3
 
-    # Each run's launch counts are its own: every counter is set to 0 just
-    # before the run (a render, or K9's probe) and read just after it.
-    counters = {"K1": (fused, "launches"), "K1r": (fused, "ring_launches"),
-                "K2": (fused, "agc_launches"),
-                "K2r": (fused, "agc_rel0_launches"),
-                "K2b": (fused, "agc_blocked_launches"),
-                "K2g": (fused, "agc_group_launches"),
-                "K3": (limiter_block, "launches"), "K4": (cuda_scan, "launches"),
-                "K4bf": (cuda_scan, "bf16_launches"), "phase": (phase, "launches"),
-                "K5": (cuda_scan, "limiter_stream_launches"),
-                "K6": (cuda_scan, "agc_launches"),
-                "K7": (cuda_scan, "first_order_launches"),
-                "K8": (limiter_block, "bma_launches"),
-                "K9": (dma_roofline, "launches"), "threefry": (threefry, "launches"),
-                "K4f64": (cuda_scan, "f64_launches"),
-                "K7f64": (cuda_scan, "first_order_f64_launches"),
-                "K3f64": (limiter_block, "f64_launches"),
-                "K8f64": (limiter_block, "bma_f64_launches"),
-                "K6f64": (cuda_scan, "agc_f64_launches"),
-                "K5f64": (cuda_scan, "limiter_stream_f64_launches"),
-                "threefryf64": (threefry, "f64_launches"),
-                "phasef64": (phase, "f64_launches"), "probe": (probe, "launches")}
+    # Each run's launch counts are its own: the table is cleared just before
+    # the run (a render, or K9's probe) and read just after it. Each label
+    # reads the launches of one kernel entry point (``trace.counts``).
+    entries = {"K1": "rt_fused_resample_biquad_mix",
+               "K1r": "rt_fused_resample_biquad_mix_ring",
+               "K2": "rt_fused_resample_biquad_agc_mix",
+               "K2r": "rt_fused_resample_biquad_agc_rel0_mix",
+               "K2b": "rt_fused_resample_biquad_agc_blocked_mix",
+               "K2g": "rt_fused_resample_biquad_agc_group_mix",
+               "K3": "rt_limiter_master", "K4": "rt_biquad_df1",
+               "K4bf": "rt_biquad_df1_bf16", "phase": "rt_phase_accumulate",
+               "K5": "rt_limiter_stream", "K6": "rt_agc", "K7": "rt_first_order",
+               "K8": "rt_blocked_max_affine", "K9": "rt_dma_ring",
+               "threefry": "rt_threefry", "K4f64": "rt_biquad_df1_f64",
+               "K7f64": "rt_first_order_f64", "K3f64": "rt_limiter_master_f64",
+               "K8f64": "rt_blocked_max_affine_f64", "K6f64": "rt_agc_f64",
+               "K5f64": "rt_limiter_stream_f64", "threefryf64": "rt_threefry_f64",
+               "phasef64": "rt_phase_accumulate_f64", "probe": "rt_content_probe"}
 
     def reset():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        trace.counts.clear()
 
     def counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        return {k: trace.counts[e] for k, e in entries.items()}
 
     def expect(run, name, **want):
         got = {k: v for k, v in run.items() if v}

@@ -26,9 +26,9 @@ route, lanes and depth whose ring fits in a block's shared memory, beside
 the contiguous stream and ``torch.clone`` of the same buffer (which reads
 and writes it), each timed in a CUDA graph of calls that rotate through
 copies of the buffer, so that each reads it from memory, not from the L2
-cache (:func:`time_ms_cold`). ``launches`` counts K9's launches where its
-wrapper enqueues them: a graph's replays add none. Without a card the
-measurement fails.
+cache (:func:`time_ms_cold`). ``utils.trace.counts["rt_dma_ring"]``
+counts K9's launches where its wrapper enqueues them: a graph's replays
+add none. Without a card the measurement fails.
 """
 from __future__ import annotations
 
@@ -39,9 +39,6 @@ import subprocess
 import torch
 
 from ..ops import _build
-
-#: kernel launches made by :func:`dma_ring` (K9)
-launches = 0
 
 HBM_GBS = 3350.0  # the H100 SXM's memory rate, GB/s
 L2_BYTES = 50 << 20  # the H100's L2 cache
@@ -128,12 +125,8 @@ def dma_ring(x: torch.Tensor, *, tr: int, depth: int = K9_DEPTH, lanes: int = K1
     R, L = x.shape
     x = _build.f32_arg("x", x, x.device, (R, L))
     out = torch.empty(L, dtype=torch.float32, device=x.device)
-    err = _build.load_library().rt_dma_ring(x.data_ptr(), R, L, tr, depth, lanes,
-                                            ROUTES[route], out.data_ptr(),
-                                            _build.stream_handle(x.device))
-    _build.check(err, "rt_dma_ring")
-    global launches
-    launches += 1
+    _build.launch("rt_dma_ring", x.data_ptr(), R, L, tr, depth, lanes,
+                  ROUTES[route], out.data_ptr(), device=x.device)
     return out
 
 
@@ -169,10 +162,8 @@ def stream_max(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("stream_max: x's base must be 16-byte aligned")
     out = torch.empty(blocks, dtype=torch.float32, device=x.device)
-    err = _build.load_library().rt_stream_max(x.data_ptr(), x.numel() // 4,
-                                              blocks, out.data_ptr(),
-                                              _build.stream_handle(x.device))
-    _build.check(err, "rt_stream_max")
+    _build.launch("rt_stream_max", x.data_ptr(), x.numel() // 4, blocks,
+                  out.data_ptr(), device=x.device)
     return out
 
 

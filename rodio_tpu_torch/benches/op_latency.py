@@ -46,10 +46,8 @@ def op_chain(xab: torch.Tensor, iters: int) -> torch.Tensor:
     dt = torch.float64 if f64 else torch.float32
     xab = _build._typed_arg("xab", xab, dt, xab.device, (3,))
     out = torch.empty(1, dtype=dt, device=xab.device)
-    name = "rt_op_chain_f64" if f64 else "rt_op_chain"
-    err = getattr(_build.load_library(), name)(xab.data_ptr(), out.data_ptr(),
-                                               iters, _build.stream_handle(xab.device))
-    _build.check(err, name)
+    _build.launch("rt_op_chain_f64" if f64 else "rt_op_chain", xab.data_ptr(),
+                  out.data_ptr(), iters, device=xab.device)
     return out
 
 
@@ -72,9 +70,8 @@ def smooth_chain(p: torch.Tensor, iters: int) -> torch.Tensor:
         raise ValueError(f"smooth_chain: unsupported device {p.device}")
     p = _build.f32_arg("p", p, p.device, (6,))
     out = torch.empty(2, dtype=torch.float32, device=p.device)
-    err = _build.load_library().rt_smooth_chain(p.data_ptr(), out.data_ptr(), iters,
-                                                _build.stream_handle(p.device))
-    _build.check(err, "rt_smooth_chain")
+    _build.launch("rt_smooth_chain", p.data_ptr(), out.data_ptr(), iters,
+                  device=p.device)
     return out
 
 

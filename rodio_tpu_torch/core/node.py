@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .types import StreamSpec, float_dtype
 
@@ -281,24 +282,17 @@ def mask_block(block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(idx[None, :] < valid, block, torch.zeros_like(block))
 
 
-#: blocks a node passed on unmasked because its input's host count said
-#: they were full (:func:`mask_unless_full`)
-host_valid_blocks = 0
-#: blocks a node masked on the card against its input's device ``valid``
-#: (:func:`mask_unless_full`, where the host count was unknown or short)
-device_masked_blocks = 0
-
-
 def mask_unless_full(block: torch.Tensor, valid: torch.Tensor,
                      known: Optional[int], n: int) -> torch.Tensor:
     """``mask_block(block, valid)``, skipped when the host count ``known``
     (an input's :meth:`Node.host_valid`) is ``n``: a full block is its own
-    mask. Counted in ``host_valid_blocks`` or ``device_masked_blocks``."""
-    global host_valid_blocks, device_masked_blocks
+    mask. ``utils.trace.counts`` counts the block as ``host_valid_block``
+    (passed on unmasked) or ``device_masked_block`` (masked on the card,
+    the host count being unknown or short)."""
     if known == n:
-        host_valid_blocks += 1
+        trace.count("host_valid_block")
         return block
-    device_masked_blocks += 1
+    trace.count("device_masked_block")
     return mask_block(block, valid)
 
 

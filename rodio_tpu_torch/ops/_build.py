@@ -11,8 +11,11 @@ rounded on its own, as the sequential scans of the JAX package and the plain
 PyTorch versions round; no fast math, IEEE division, no flush to zero.
 
 Each C entry point launches on the stream it is given and returns the
-``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
-code.
+``cudaGetLastError()`` after its launch. :func:`launch` is the one way the
+port calls one: it passes the current stream, raises through :func:`check`
+on a nonzero code and counts the launch in ``utils.trace.counts`` under the
+entry point's name. The entry points that return a value (the lanes,
+scratch and group-size queries) are called directly.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -252,6 +255,14 @@ def check(err: int, name: str) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, *args, device) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device``; raise on a nonzero return, else count it in
+    ``utils.trace.counts[name]``."""
+    check(getattr(load_library(), name)(*args, stream_handle(device)), name)
+    count(name)
 
 
 def _typed_arg(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -17,11 +17,10 @@
 Each wrapper runs its kernel on a CUDA tensor and its plain version, a
 sequential loop of PyTorch ops, on a CPU tensor. Both round every mul and
 add alone in the same order, so on the card they agree bit for bit.
-``launches``, ``bf16_launches``, ``f64_launches``, ``limiter_env_launches``,
-``limiter_stream_launches``, ``agc_launches``, ``first_order_launches`` and
-``first_order_f64_launches`` count each wrapper's launches, and
-``limiter_env_f64_launches``, ``limiter_stream_f64_launches`` and
-``agc_f64_launches`` those of the f64 instances of K5 and K6.
+``utils.trace.counts`` counts each launch under its entry point's name
+(``rt_biquad_df1``, ``rt_biquad_df1_bf16``, ``rt_limiter_env``,
+``rt_limiter_stream``, ``rt_agc``, ``rt_first_order``, each f64
+instance's with ``_f64`` at the end).
 
 :func:`desired_gain` and :func:`smooth_gain` are the AGC's arithmetic as
 the kernels write it (``csrc/agc_math.cuh``), shared by the plain versions
@@ -40,27 +39,6 @@ from . import _build
 from .limiter_block import limiter_gain_db
 from .scan import biquad_df1 as _biquad_scan
 from .scan import linear_scan, max_affine_scan
-
-#: kernel launches made by :func:`biquad_df1` on f32 blocks (K4)
-launches = 0
-#: kernel launches made by :func:`biquad_df1` on bf16 blocks (K4's bf16 instance)
-bf16_launches = 0
-#: kernel launches made by :func:`biquad_df1` on f64 blocks (K4's f64 instance)
-f64_launches = 0
-#: kernel launches made by :func:`limiter_env` (K5)
-limiter_env_launches = 0
-#: kernel launches made by :func:`limiter_stream` (K5, the Limit node's pass)
-limiter_stream_launches = 0
-#: kernel launches made by :func:`agc` (K6)
-agc_launches = 0
-#: the f64 instances' launches: K5's (limiter_env, limiter_stream) and K6's
-limiter_env_f64_launches = 0
-limiter_stream_f64_launches = 0
-agc_f64_launches = 0
-#: kernel launches made by :func:`first_order` on f32 arrays (K7)
-first_order_launches = 0
-#: kernel launches made by :func:`first_order` on f64 arrays (K7's f64 instance)
-first_order_f64_launches = 0
 
 FIRST_ORDER_OPS = ("linear", "max_affine", "agc_gain")
 
@@ -110,23 +88,14 @@ def biquad_df1(x: torch.Tensor, coeffs: torch.Tensor, state):
     coeffs = _build._typed_arg("coeffs", coeffs, cdt, x.device, (5,))
     st = [_build._typed_arg(f"state[{i}]", s, cdt, x.device, (L,))
           for i, s in enumerate(state)]
-    lib = _build.load_library()
     y = torch.empty_like(x)
     out = torch.empty((4, L), dtype=cdt, device=x.device)
     name = ("rt_biquad_df1_f64" if f64 else "rt_biquad_df1_bf16" if bf16
             else "rt_biquad_df1")
-    err = getattr(lib, name)(x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
-                             *[s.data_ptr() for s in st],
-                             *[out[i].data_ptr() for i in range(4)],
-                             L, T, _build.stream_handle(x.device))
-    _build.check(err, name)
-    global launches, bf16_launches, f64_launches
-    if bf16:
-        bf16_launches += 1
-    elif f64:
-        f64_launches += 1
-    else:
-        launches += 1
+    _build.launch(name, x.data_ptr(), y.data_ptr(), coeffs.data_ptr(),
+                  *[s.data_ptr() for s in st],
+                  *[out[i].data_ptr() for i in range(4)], L, T,
+                  device=x.device)
     return y, (out[0], out[1], out[2], out[3])
 
 
@@ -170,17 +139,11 @@ def limiter_env(db: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     peak0 = _build._typed_arg("peak0", peak0, dt, dev, (L,))
     peak = torch.empty_like(db)
     out = torch.empty((2, L), dtype=db.dtype, device=dev)
-    name = "rt_limiter_env_f64" if f64 else "rt_limiter_env"
-    err = getattr(_build.load_library(), name)(
-        db.data_ptr(), integ0.data_ptr(), peak0.data_ptr(), peak.data_ptr(),
-        out.data_ptr(), L, T, att, rel, _one_minus(att, db.dtype),
-        _one_minus(rel, db.dtype), _build.stream_handle(dev))
-    _build.check(err, name)
-    global limiter_env_launches, limiter_env_f64_launches
-    if f64:
-        limiter_env_f64_launches += 1
-    else:
-        limiter_env_launches += 1
+    _build.launch("rt_limiter_env_f64" if f64 else "rt_limiter_env",
+                  db.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+                  peak.data_ptr(), out.data_ptr(), L, T, att, rel,
+                  _one_minus(att, db.dtype), _one_minus(rel, db.dtype),
+                  device=dev)
     return peak, (out[0], out[1])
 
 
@@ -261,19 +224,13 @@ def limiter_stream(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     peak0 = _build._typed_arg("peak0", peak0, dt, dev, (L,))
     y = torch.empty_like(x)
     out = torch.empty((2, L), dtype=x.dtype, device=dev)
-    name = "rt_limiter_stream_f64" if f64 else "rt_limiter_stream"
-    err = getattr(lib, name)(x.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
-                             y.data_ptr(), out.data_ptr(), L, T, cg, att, rel,
-                             _one_minus(att, x.dtype), _one_minus(rel, x.dtype),
-                             threshold, knee_width, inv_knee_8,
-                             log2_to_db_scale(x.dtype), db_to_log2_scale(x.dtype),
-                             _build.stream_handle(dev))
-    _build.check(err, name)
-    global limiter_stream_launches, limiter_stream_f64_launches
-    if f64:
-        limiter_stream_f64_launches += 1
-    else:
-        limiter_stream_launches += 1
+    _build.launch("rt_limiter_stream_f64" if f64 else "rt_limiter_stream",
+                  x.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
+                  y.data_ptr(), out.data_ptr(), L, T, cg, att, rel,
+                  _one_minus(att, x.dtype), _one_minus(rel, x.dtype),
+                  threshold, knee_width, inv_knee_8,
+                  log2_to_db_scale(x.dtype), db_to_log2_scale(x.dtype),
+                  device=dev)
     return y, (out[0], out[1])
 
 
@@ -386,16 +343,10 @@ def agc(xs: torch.Tensor, delta: torch.Tensor, peak0: torch.Tensor,
     p = _build._typed_arg("params", _scalars(params, 6, xs), dt, dev, (6,))
     g = torch.empty_like(xs)
     out = torch.empty((3, L), dtype=xs.dtype, device=dev)
-    name = "rt_agc_f64" if f64 else "rt_agc"
-    err = getattr(_build.load_library(), name)(
-        xs.data_ptr(), delta.data_ptr(), p.data_ptr(), *[c.data_ptr() for c in carries],
-        g.data_ptr(), out.data_ptr(), L, M, _build.stream_handle(dev))
-    _build.check(err, name)
-    global agc_launches, agc_f64_launches
-    if f64:
-        agc_f64_launches += 1
-    else:
-        agc_launches += 1
+    _build.launch("rt_agc_f64" if f64 else "rt_agc", xs.data_ptr(),
+                  delta.data_ptr(), p.data_ptr(),
+                  *[c.data_ptr() for c in carries], g.data_ptr(),
+                  out.data_ptr(), L, M, device=dev)
     return g, (out[0], out[1], out[2])
 
 
@@ -441,16 +392,8 @@ def first_order(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
     p = (_build._typed_arg("params", _scalars(params, 3, a), dt, dev, (3,))
          if op == "agc_gain" else init)
     y = torch.empty_like(a)
-    lib = _build.load_library()
-    name = "rt_first_order_f64" if f64 else "rt_first_order"
-    err = getattr(lib, name)(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                             init.data_ptr(), p.data_ptr(), y.data_ptr(), L,
-                             T, FIRST_ORDER_OPS.index(op),
-                             _build.stream_handle(dev))
-    _build.check(err, name)
-    global first_order_launches, first_order_f64_launches
-    if f64:
-        first_order_f64_launches += 1
-    else:
-        first_order_launches += 1
+    _build.launch("rt_first_order_f64" if f64 else "rt_first_order",
+                  a.data_ptr(), b.data_ptr(), c.data_ptr(), init.data_ptr(),
+                  p.data_ptr(), y.data_ptr(), L, T,
+                  FIRST_ORDER_OPS.index(op), device=dev)
     return y

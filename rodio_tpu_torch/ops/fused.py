@@ -34,10 +34,10 @@ With ``ring=True`` (K1's ring mode, the farm's ``FusedFarmPipeline``) the
 PCM is a rolling ring of R rows: input row r is ring row r mod R, and no
 row reads as zero (rodio_tpu/ops/fused.py:300-309, ``ring_chunks``).
 
-``launches`` counts K1's launches, ``ring_launches`` its ring mode's,
-``agc_launches`` K2's,
-``agc_group_launches`` K2g's, ``agc_rel0_launches`` K2r's and
-``agc_blocked_launches`` K2b's.
+``utils.trace.counts`` counts each launch under its entry point's name:
+K1 ``rt_fused_resample_biquad_mix`` (``..._mix_ring`` in ring mode), K2
+``rt_fused_resample_biquad_agc_mix``, K2g ``..._agc_group_mix``, K2r
+``..._agc_rel0_mix`` and K2b ``..._agc_blocked_mix``.
 """
 from __future__ import annotations
 
@@ -50,21 +50,8 @@ from . import _build
 from .cuda_scan import desired_gain, ipow, rsqrt_rn, smooth_gains
 from .scan import biquad_df1
 
-#: kernel launches made by :func:`fused_resample_biquad_mix` (K1)
-launches = 0
-#: ... and with ``ring=True`` (K1's ring mode)
-ring_launches = 0
 #: the fewest rows K1's ring mode takes (a tile stages at most this many)
 RING_MIN_ROWS = 192
-#: kernel launches made by :func:`fused_resample_biquad_agc_mix` (K2)
-agc_launches = 0
-#: ... and with ``agc_group`` > 0 (K2g, K2's group branch)
-agc_group_launches = 0
-#: ... and with the serial rel0 plans ``rel0``, ``rel0f`` (K2r)
-agc_rel0_launches = 0
-#: ... and with the blocked rel0 plans ``rel0b*``, ``rel0c*`` (K2b)
-agc_blocked_launches = 0
-
 #: frames of K2's RMS window: 8192 interleaved samples of a stereo stream
 AGC_RING_FRAMES = 4096
 
@@ -165,18 +152,11 @@ def fused_resample_biquad_mix(pcm: torch.Tensor, left: torch.Tensor,
     partial = torch.empty((nblk, C, n), dtype=torch.float32, device=dev)
     mix = torch.empty((C, n), dtype=torch.float32, device=dev)
     bq_out = torch.empty_like(bq)
-    name = "rt_fused_resample_biquad_mix" + ("_ring" if ring else "")
-    err = getattr(_build.load_library(), name)(
+    _build.launch(
+        "rt_fused_resample_biquad_mix" + ("_ring" if ring else ""),
         pcm.data_ptr(), F, L, left.data_ptr(), wts.data_ptr(),
         gains.data_ptr(), coeffs.data_ptr(), bq.data_ptr(), bq_out.data_ptr(),
-        partial.data_ptr(), mix.data_ptr(), n, C, _build.stream_handle(dev),
-    )
-    _build.check(err, name)
-    global launches, ring_launches
-    if ring:
-        ring_launches += 1
-    else:
-        launches += 1
+        partial.data_ptr(), mix.data_ptr(), n, C, device=dev)
     return mix, bq_out
 
 
@@ -497,8 +477,7 @@ def fused_resample_biquad_agc_mix(pcm: torch.Tensor, left: torch.Tensor,
     # the kernel reads and rewrites its rows in place, on a copy (8 MB at
     # 1024 lanes in bf16), so the state passed in stays valid
     new_ring = ring.clone(memory_format=torch.contiguous_format)
-    lib = _build.load_library()
-    nblk = -(-L // lib.rt_fused_agc_block_lanes())
+    nblk = -(-L // _build.load_library().rt_fused_agc_block_lanes())
     partial = torch.empty((nblk, 2, n), dtype=torch.float32, device=dev)
     mix = torch.empty((2, n), dtype=torch.float32, device=dev)
     bq_out = torch.empty_like(bq)
@@ -508,25 +487,16 @@ def fused_resample_biquad_agc_mix(pcm: torch.Tensor, left: torch.Tensor,
             bq_out.data_ptr(), agc.data_ptr(), agc_out.data_ptr(),
             agc_params.data_ptr(), new_ring.data_ptr(),
             int(ring.dtype == torch.bfloat16), ring_row)
-    tail = (partial.data_ptr(), mix.data_ptr(), n, _build.stream_handle(dev))
-    global agc_launches, agc_group_launches, agc_rel0_launches
-    global agc_blocked_launches
-    if rpc:
-        err = lib.rt_fused_resample_biquad_agc_blocked_mix(
-            *args, step_frames // rpc, int(agc_plan.startswith("rel0c")), *tail)
-        _build.check(err, "rt_fused_resample_biquad_agc_blocked_mix")
-        agc_blocked_launches += 1
-    elif agc_plan != "serial":
-        err = lib.rt_fused_resample_biquad_agc_rel0_mix(
-            *args, int(agc_plan == "rel0f"), *tail)
-        _build.check(err, "rt_fused_resample_biquad_agc_rel0_mix")
-        agc_rel0_launches += 1
-    elif ag:
-        err = lib.rt_fused_resample_biquad_agc_group_mix(*args, ag, *tail)
-        _build.check(err, "rt_fused_resample_biquad_agc_group_mix")
-        agc_group_launches += 1
-    else:
-        err = lib.rt_fused_resample_biquad_agc_mix(*args, *tail)
-        _build.check(err, "rt_fused_resample_biquad_agc_mix")
-        agc_launches += 1
+    if rpc:  # K2b
+        name = "rt_fused_resample_biquad_agc_blocked_mix"
+        extra = (step_frames // rpc, int(agc_plan.startswith("rel0c")))
+    elif agc_plan != "serial":  # K2r
+        name = "rt_fused_resample_biquad_agc_rel0_mix"
+        extra = (int(agc_plan == "rel0f"),)
+    elif ag:  # K2g
+        name, extra = "rt_fused_resample_biquad_agc_group_mix", (ag,)
+    else:  # K2
+        name, extra = "rt_fused_resample_biquad_agc_mix", ()
+    _build.launch(name, *args, *extra, partial.data_ptr(), mix.data_ptr(), n,
+                  device=dev)
     return mix, bq_out, agc_out, new_ring

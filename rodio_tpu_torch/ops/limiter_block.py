@@ -16,10 +16,11 @@ PyTorch with the same rounding order, on a CPU tensor.
 
 K8, :func:`blocked_max_affine_const` (``csrc/bma.cu``), is the same blocked
 order for one max-affine recurrence with its coefficient as data: the
-AGC's peak detector. ``launches`` counts K3's launches, ``bma_launches``
-K8's; ``f64_launches`` and ``bma_f64_launches`` their f64 instances'
-(``set_float64``: the same kernels on f64 blocks, every op in f64, the
-power tables f64).
+AGC's peak detector. Both have f64 instances (``set_float64``: the same
+kernels on f64 blocks, every op in f64, the power tables f64).
+``utils.trace.counts`` counts each launch under its entry point's name:
+``rt_limiter_master`` (K3), ``rt_blocked_max_affine`` (K8), and each with
+``_f64`` at the end.
 """
 from __future__ import annotations
 
@@ -31,15 +32,6 @@ import torch
 from ..core.math import (TINY, db_to_log2_scale, exp2_precise, linear_to_db,
                          log2_to_db_scale)
 from . import _build
-
-#: kernel launches made by :func:`limiter_master` (K3)
-launches = 0
-#: kernel launches made by :func:`blocked_max_affine_const` (K8)
-bma_launches = 0
-#: kernel launches of K3's f64 instance
-f64_launches = 0
-#: kernel launches of K8's f64 instance
-bma_f64_launches = 0
 
 _BIG = 3.0e38
 
@@ -192,21 +184,14 @@ def limiter_master(x: torch.Tensor, integ0: torch.Tensor, peak0: torch.Tensor,
     nscratch = _scratch_floats(T, P, dt)
     scratch = (torch.empty(nscratch, dtype=dt, device=x.device)
                if nscratch else None)
-    name = "rt_limiter_master_f64" if f64 else "rt_limiter_master"
-    err = getattr(_build.load_library(), name)(
+    _build.launch(
+        "rt_limiter_master_f64" if f64 else "rt_limiter_master",
         x.data_ptr(), y.data_ptr(), integ0.data_ptr(), peak0.data_ptr(),
         carries[0].data_ptr(), carries[1].data_ptr(), relpow.data_ptr(),
         attpow.data_ptr(), None if scratch is None else scratch.data_ptr(), T, P,
         att, rel, 1.0 - att, 1.0 - rel, att ** Lc, rel ** Lc,
         threshold, knee_width, inv_knee_8, log2_to_db_scale(dt),
-        db_to_log2_scale(dt), _build.stream_handle(x.device),
-    )
-    _build.check(err, name)
-    global launches, f64_launches
-    if f64:
-        f64_launches += 1
-    else:
-        launches += 1
+        db_to_log2_scale(dt), device=x.device)
     return y, (carries[0], carries[1])
 
 
@@ -312,15 +297,8 @@ def blocked_max_affine_const(x: torch.Tensor, v0: torch.Tensor, a, *, P: int):
     nscratch = _bma_scratch_floats(L, M, P, dt)
     scratch = (torch.empty(nscratch, dtype=dt, device=dev)
                if nscratch else None)
-    name = "rt_blocked_max_affine_f64" if f64 else "rt_blocked_max_affine"
-    err = getattr(_build.load_library(), name)(
+    _build.launch(
+        "rt_blocked_max_affine_f64" if f64 else "rt_blocked_max_affine",
         x.data_ptr(), v0.data_ptr(), pw.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), L, M, P,
-        _build.stream_handle(dev))
-    _build.check(err, name)
-    global bma_launches, bma_f64_launches
-    if f64:
-        bma_f64_launches += 1
-    else:
-        bma_launches += 1
+        None if scratch is None else scratch.data_ptr(), L, M, P, device=dev)
     return y

@@ -11,19 +11,14 @@ a host loop of per-sample launches.
 :func:`phase_accumulate_plain`, a loop of PyTorch ops, on a CPU tensor;
 both round every op alone, so they agree bit for bit. On f64 tensors
 (``set_float64``: JAX's f32 step widened to f64, then f64 adds) the
-kernel's f64 instance runs. ``launches`` counts the kernel's f32 launches,
-``f64_launches`` its f64 instance's.
+kernel's f64 instance runs. ``utils.trace.counts`` counts the launches
+as ``rt_phase_accumulate`` and ``rt_phase_accumulate_f64``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-
-#: kernel launches made by :func:`phase_accumulate` on f32 phases
-launches = 0
-#: ... and on f64 phases (the f64 instance)
-f64_launches = 0
 
 
 def phase_accumulate_plain(phase0: torch.Tensor, step: torch.Tensor, n: int):
@@ -56,14 +51,7 @@ def phase_accumulate(phase0: torch.Tensor, step: torch.Tensor, n: int):
     step = _build._typed_arg("step", step, dt, dev, (G,))
     phases = torch.empty((G, n), dtype=phase0.dtype, device=dev)
     out = torch.empty(G, dtype=phase0.dtype, device=dev)
-    name = "rt_phase_accumulate_f64" if f64 else "rt_phase_accumulate"
-    err = getattr(_build.load_library(), name)(
-        phase0.data_ptr(), step.data_ptr(), phases.data_ptr(), out.data_ptr(), G, n,
-        _build.stream_handle(dev))
-    _build.check(err, name)
-    global launches, f64_launches
-    if f64:
-        f64_launches += 1
-    else:
-        launches += 1
+    _build.launch("rt_phase_accumulate_f64" if f64 else "rt_phase_accumulate",
+                  phase0.data_ptr(), step.data_ptr(), phases.data_ptr(),
+                  out.data_ptr(), G, n, device=dev)
     return phases, out

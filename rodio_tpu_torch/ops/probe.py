@@ -12,16 +12,14 @@ They are the counterpart of the XLA-fused probe of
 on a CUDA tensor (one pass over the buffer, then one read-back of three
 words) and runs :func:`content_probe_plain`, the same expression in PyTorch
 ops, on a CPU tensor; the two give the same flags, NaN, infinities, -0.0
-and subnormals included. ``launches`` counts the kernel's launches.
+and subnormals included. ``utils.trace.counts["rt_content_probe"]``
+counts the kernel's launches.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-
-#: kernel launches made by :func:`content_probe`
-launches = 0
 
 
 def content_probe_plain(data: torch.Tensor) -> tuple:
@@ -53,12 +51,8 @@ def probe_fails(data: torch.Tensor) -> torch.Tensor:
             f"{'' if data.is_contiguous() else ' (not contiguous)'}")
     fails = torch.empty(3, dtype=torch.int32, device=data.device)
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-    err = _build.load_library().rt_content_probe(
-        data.data_ptr(), data.numel(), sms, fails.data_ptr(),
-        _build.stream_handle(data.device))
-    _build.check(err, "rt_content_probe")
-    global launches
-    launches += 1
+    _build.launch("rt_content_probe", data.data_ptr(), data.numel(), sms,
+                  fails.data_ptr(), device=data.device)
     return fails
 
 

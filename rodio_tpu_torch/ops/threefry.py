@@ -45,8 +45,9 @@ add and shift, on any device; the wrappers launch the kernel on a CUDA
 tensor and run the plain version on a CPU one. Three fused shapes serve the
 noise module: a block's draws under ``fold_in(key, i)`` (raw bits or the
 uniform conversion), Velvet's per-sample cell draws and Pink's 16 octave
-draws a sample. ``launches`` counts the kernel's f32 launches,
-``f64_launches`` those of its f64 instance (``dtype=torch.float64``).
+draws a sample. ``utils.trace.counts`` counts the kernel's launches as
+``rt_threefry``, its f64 instance's (``dtype=torch.float64``) as
+``rt_threefry_f64``.
 """
 from __future__ import annotations
 
@@ -62,11 +63,6 @@ ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 PINK_OCTAVES = 16
 #: the kernel's modes (csrc/threefry.cu)
 MODES = ("bits", "uniform", "velvet", "pink")
-
-#: kernel launches made by the wrappers below (f32 draws)
-launches = 0
-#: kernel launches of the f64 instance (``dtype=torch.float64``)
-f64_launches = 0
 
 
 def _i64(v, device) -> torch.Tensor:
@@ -275,15 +271,8 @@ def threefry(key: torch.Tensor, i, n: int, mode: str, lo: float = 0.0,
         name, bounds = "rt_threefry_f64", (float(lo), float(hi))
     else:
         name, bounds = "rt_threefry", (float(np.float32(lo)), float(np.float32(hi)))
-    err = getattr(_build.load_library(), name)(
-        key.data_ptr(), ctr.data_ptr(), MODES.index(mode), n, *bounds, grid,
-        out.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, name)
-    global launches, f64_launches
-    if f64:
-        f64_launches += 1
-    else:
-        launches += 1
+    _build.launch(name, key.data_ptr(), ctr.data_ptr(), MODES.index(mode), n,
+                  *bounds, grid, out.data_ptr(), device=dev)
     return out
 
 

@@ -43,6 +43,27 @@ the Chrome-trace exporter, and the control plane's events.
   against the block's realtime deadline (the sink's tests).
 - :func:`log_event`: a structured control-plane event on stdlib logging
   under the ``rodio_tpu_torch`` namespace (the sink's error event).
+- :data:`counts`: the port's one record of what ran, a ``Counter`` that
+  :func:`count` adds to, by name:
+
+  - every kernel launch, under its C entry point's name, counted by
+    ``ops._build.launch`` after the launch returned no error: K1
+    ``rt_fused_resample_biquad_mix`` (``..._ring`` in ring mode), K2
+    ``rt_fused_resample_biquad_agc_mix`` (K2g ``..._agc_group_mix``, K2r
+    ``..._agc_rel0_mix``, K2b ``..._agc_blocked_mix``), K3
+    ``rt_limiter_master``, K4 ``rt_biquad_df1`` (``..._bf16``), K5
+    ``rt_limiter_env`` and ``rt_limiter_stream``, K6 ``rt_agc``, K7
+    ``rt_first_order``, K8 ``rt_blocked_max_affine``, ``rt_threefry``,
+    ``rt_phase_accumulate``, ``rt_content_probe``, each f64 instance
+    under the same name with ``_f64`` at the end; K9 ``rt_dma_ring``,
+    ``rt_stream_max``, ``rt_op_chain`` (``_f64``) and ``rt_smooth_chain``
+    (the benches);
+  - ``host_valid_block`` and ``device_masked_block``: the blocks
+    ``core.node.mask_unless_full`` passed on unmasked on its input's host
+    count, and those it masked on the card.
+
+  A reader takes a difference across a run, or clears the table first
+  (``counts.clear()``); no metric of the benchmark reads it.
 """
 from __future__ import annotations
 
@@ -50,7 +71,7 @@ import contextlib
 import functools
 import logging
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -63,6 +84,15 @@ logger = logging.getLogger("rodio_tpu_torch")
 def log_event(event: str, **fields) -> None:
     """Structured control-plane event (the tracing::debug! analog)."""
     logger.debug("%s %s", event, fields)
+
+
+#: launches and blocks counted by name (the module's docstring lists them)
+counts: Counter = Counter()
+
+
+def count(name: str) -> None:
+    """Add one to ``counts[name]``."""
+    counts[name] += 1
 
 
 @dataclass

@@ -35,6 +35,7 @@ from rodio_tpu_torch.effects.basic import Amplify
 from rodio_tpu_torch.effects.blt import BltFilter
 from rodio_tpu_torch.flagship import FusedWidePipeline
 from rodio_tpu_torch.ops import fused
+from rodio_tpu_torch.utils import trace
 from rodio_tpu_torch.parallel.batch import WideMixer
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 
@@ -183,7 +184,8 @@ def test_blocked_plan_refuses_blocks_off_the_step_grid():
     for bad in (dict(ring_row=32), dict(step_frames=300), dict(agc_group=16)):
         with pytest.raises(ValueError, match="rel0b16"):
             fused.fused_resample_biquad_agc_mix(st["pcm"], left, wts, **{**kw, **bad})
-    assert fused.agc_blocked_launches == fused.agc_rel0_launches == 0
+    assert trace.counts["rt_fused_resample_biquad_agc_blocked_mix"] == 0
+    assert trace.counts["rt_fused_resample_biquad_agc_rel0_mix"] == 0
 
 
 def test_plans_at_22050_match_jax():

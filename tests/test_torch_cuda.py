@@ -43,8 +43,15 @@ from probe_cases import case as probe_case
 from rodio_tpu_torch.flagship import _content_probe
 from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block, probe
 from rodio_tpu_torch.sources.generators import SamplesBuffer
+from rodio_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
+
+
+def launched(*entries):
+    """The launches counted so far of each kernel entry point named
+    (``trace.counts``), as a tuple."""
+    return tuple(trace.counts[e] for e in entries)
 
 
 @pytest.fixture
@@ -76,11 +83,11 @@ def _k4_check(dev, x, st):
     """K4 against its plain version: y and the four carries bit-equal (NaN
     where the plain version has NaN), one launch."""
     coef = _f32(blt_coefficients("high_pass", 48000, 300.0, 0.8).as_tuple(), dev)
-    before = cuda_scan.launches
+    before = trace.counts["rt_biquad_df1"]
     yk, sk = cuda_scan.biquad_df1(x, coef, st)
     yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
     torch.cuda.synchronize()
-    assert cuda_scan.launches == before + 1
+    assert trace.counts["rt_biquad_df1"] == before + 1
     assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
     assert torch.equal(yk.isnan(), yp.isnan())
     for a, b in zip(sk, sp):
@@ -131,11 +138,11 @@ def test_k3_limiter_matches_plain(dev, T, P, scale):
               knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
     x = _f32(rng.standard_normal((2, T)) * scale, dev)
     i0, p0 = _f32([0.3, 1.2], dev), _f32([0.6, 0.1], dev)
-    before = limiter_block.launches
+    before = trace.counts["rt_limiter_master"]
     yk, ck = limiter_block.limiter_master(x, i0, p0, **kw)
     yp, cp = limiter_block.limiter_master_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert limiter_block.launches == before + 1
+    assert trace.counts["rt_limiter_master"] == before + 1
     assert (yk - yp).abs().max().item() <= 1e-6
     for a, b in zip(ck, cp):
         assert (a - b).abs().max().item() <= 1e-6
@@ -200,11 +207,11 @@ def _k1_two_blocks(dev, S, C, n, o0, F, fr, to):
     for block in range(2):
         left, phase = output_positions(o0 + block * n, n, fr, to, dev)
         wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
-        before = fused.launches
+        before = trace.counts["rt_fused_resample_biquad_mix"]
         mk, bk = fused.fused_resample_biquad_mix(pcm, left, wts, bq=bk, **kw)
         mp, bp = fused.fused_resample_biquad_mix_plain(pcm, left, wts, bq=bp, **kw)
         torch.cuda.synchronize()
-        assert fused.launches == before + 1
+        assert trace.counts["rt_fused_resample_biquad_mix"] == before + 1
         assert (mk - mp).abs().max().item() <= 1e-6, block
         assert torch.equal(bk, bp), block
 
@@ -215,10 +222,11 @@ def test_flagship_on_card_matches_cpu(dev):
     for mode, bound in (("fused", 1e-6), ("auto", 1e-6)):
         node_g, st_g = make_flagship(8, seconds=0.5, scan_mode=mode, device=dev)
         node_c, st_c = make_flagship(8, seconds=0.5, scan_mode=mode, device="cpu")
-        before = (fused.launches, limiter_block.launches, cuda_scan.launches)
+        kernels = ("rt_fused_resample_biquad_mix", "rt_limiter_master", "rt_biquad_df1")
+        before = launched(*kernels)
         _, og, vg = render_blocks(node_g, st_g, 3, 640)
         _, oc, vc = render_blocks(node_c, st_c, 3, 640)
-        after = (fused.launches, limiter_block.launches, cuda_scan.launches)
+        after = launched(*kernels)
         assert torch.equal(vg.cpu(), vc)
         # the card's limiter is the blocked order, the CPU's the sequential
         assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= bound + 4e-6
@@ -236,11 +244,11 @@ def test_k5_limiter_env_matches_plain(dev, L, T):
     lim = Limit(SamplesBuffer(2, 48000, np.zeros((2, 1), np.float32), device="cpu"),
                 LimitSettings())
     kw = dict(att=lim.attack, rel=lim.release)
-    before = cuda_scan.limiter_env_launches
+    before = trace.counts["rt_limiter_env"]
     pk, ck = cuda_scan.limiter_env(x, i0, p0, **kw)
     pp, cp = cuda_scan.limiter_env_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert cuda_scan.limiter_env_launches == before + 1
+    assert trace.counts["rt_limiter_env"] == before + 1
     assert torch.equal(pk, pp)
     for a, b in zip(ck, cp):
         assert torch.equal(a, b)
@@ -258,10 +266,10 @@ def test_limit_off_k3_on_card_matches_cpu(dev):
         for device in (dev, "cpu"):
             node = Limit(SamplesBuffer(channels, 48000, data, device=device),
                          LimitSettings(), mode=mode, streams=streams)
-            before = cuda_scan.limiter_stream_launches
+            before = trace.counts["rt_limiter_stream"]
             st, out, _ = render_blocks(node, node.init_state(), 3, n)
             if device != "cpu":
-                assert cuda_scan.limiter_stream_launches == before + 3
+                assert trace.counts["rt_limiter_stream"] == before + 3
             outs.append(out.cpu())
             states.append((st["integ"].cpu(), st["peak"].cpu()))
         assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
@@ -292,11 +300,11 @@ def _k5_stream_check(dev, x, i0, p0, cg, xp=None):
     the carries bit-equal, NaN where the plain version has NaN; one
     launch."""
     kw = _limit_kw(cg)
-    before = cuda_scan.limiter_stream_launches
+    before = trace.counts["rt_limiter_stream"]
     yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
     yp, cp = cuda_scan.limiter_stream_plain(x if xp is None else xp, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert cuda_scan.limiter_stream_launches == before + 1
+    assert trace.counts["rt_limiter_stream"] == before + 1
     _equal_nan(yk, yp)
     for a, b in zip(ck, cp):
         _equal_nan(a, b)
@@ -327,11 +335,11 @@ def test_k5_limiter_stream_wider_groups(dev):
     ops: bit-equal to it, one limiter_env launch."""
     x, i0, p0 = _limit_inputs(80, 300, 7, dev)
     kw = _limit_kw(40)
-    before = (cuda_scan.limiter_stream_launches, cuda_scan.limiter_env_launches)
+    before = launched("rt_limiter_stream", "rt_limiter_env")
     yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
     yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert (cuda_scan.limiter_stream_launches, cuda_scan.limiter_env_launches) == (
+    assert launched("rt_limiter_stream", "rt_limiter_env") == (
         before[0], before[1] + 1)
     assert torch.equal(yk, yp)
     assert all(torch.equal(a, b) for a, b in zip(ck, cp))
@@ -422,11 +430,12 @@ def test_k2g_fused_agc_group_matches_plain(dev, ring_dtype, S, n, o0, F, ag):
               bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
               agc_params=_f32(AGC_PARAMS, dev), ring=ring,
               ring_row=(o0 // ag) % rows, agc_group=ag)
-    before = (fused.agc_group_launches, fused.agc_launches)
+    kernels = ("rt_fused_resample_biquad_agc_group_mix", "rt_fused_resample_biquad_agc_mix")
+    before = launched(*kernels)
     mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
     mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
     torch.cuda.synchronize()
-    assert (fused.agc_group_launches, fused.agc_launches) == (before[0] + 1, before[1])
+    assert launched(*kernels) == (before[0] + 1, before[1])
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
 
@@ -437,9 +446,9 @@ def test_group_agc_flagship_on_card_matches_cpu(dev):
     kw = dict(seconds=0.5, scan_mode="fused", with_agc=True, agc_group=16)
     node_g, st_g = make_flagship(12, device=dev, **kw)
     node_c, st_c = make_flagship(12, device="cpu", **kw)
-    before = (fused.agc_group_launches, limiter_block.launches)
+    before = launched("rt_fused_resample_biquad_agc_group_mix", "rt_limiter_master")
     _, og, _ = render_blocks(node_g, st_g, 3, 640)
-    after = (fused.agc_group_launches, limiter_block.launches)
+    after = launched("rt_fused_resample_biquad_agc_group_mix", "rt_limiter_master")
     _, oc, _ = render_blocks(node_c, st_c, 3, 640)
     assert tuple(a - b for a, b in zip(after, before)) == (3, 3)
     # the card's master limiter is the blocked order, the CPU's the
@@ -459,17 +468,17 @@ K9_SHAPES = [(11761, 1024, 118), (100, 36, 7), (5, 8, 59), (300, 64, 100)]
 @pytest.mark.parametrize("R,L,tr", K9_SHAPES)
 def test_k9_dma_ring_matches_plain(dev, R, L, tr, route, lanes, depth):
     x = _f32(np.random.default_rng(R).standard_normal((R, L)), dev)
-    before = dma_roofline.launches
+    before = trace.counts["rt_dma_ring"]
     want = dma_roofline.dma_ring_plain(x, tr=tr)
     kw = dict(tr=tr, depth=depth, lanes=lanes, route=route)
     if dma_roofline.ring_bytes(tr, lanes, depth, route) > dma_roofline.SMEM_OPTIN:
         with pytest.raises(ValueError, match="shared memory"):
             dma_roofline.dma_ring(x, **kw)  # refused before it launches
-        assert dma_roofline.launches == before
+        assert trace.counts["rt_dma_ring"] == before
         return
     got = dma_roofline.dma_ring(x, **kw)
     torch.cuda.synchronize()
-    assert dma_roofline.launches == before + 1
+    assert trace.counts["rt_dma_ring"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -493,18 +502,18 @@ def test_k9_in_a_cuda_graph_equals_the_eager_call(dev):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     g = torch.cuda.CUDAGraph()
-    before = dma_roofline.launches
+    before = trace.counts["rt_dma_ring"]
     with torch.cuda.graph(g, stream=side):
         outs = [(dma_roofline.dma_ring(x, tr=tr),
                  dma_roofline.dma_ring(x, tr=tr, depth=3, route="cp.async"),
                  dma_roofline.stream_max(x)) for x in xs]
-    assert dma_roofline.launches == before + 6  # counted where captured
+    assert trace.counts["rt_dma_ring"] == before + 6  # counted where captured
     for _ in range(2):
         g.replay()
         torch.cuda.synchronize()
         for got, want in zip(outs, eager):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert dma_roofline.launches == before + 6  # replays add none
+    assert trace.counts["rt_dma_ring"] == before + 6  # replays add none
     assert dma_roofline.time_ms_cold(lambda t: dma_roofline.dma_ring(t, tr=tr),
                                      xs[0], reps=4, copies=xs) > 0.0
 
@@ -562,11 +571,11 @@ K6_SHAPES = [(S, M) for S in (1, 3, 4, 5, 9, 512) for M in (1, 127, 128, 129, 38
 def test_k6_agc_matches_plain(dev, S, M):
     xs, delta, p0, s0, g0 = _agc_inputs(S, M, dev, S + M)
     params = _f32(AGC_PARAMS, dev)
-    before = cuda_scan.agc_launches
+    before = trace.counts["rt_agc"]
     gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, params)
     gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
     torch.cuda.synchronize()
-    assert cuda_scan.agc_launches == before + 1
+    assert trace.counts["rt_agc"] == before + 1
     assert torch.equal(gk, gp)
     for a, b in zip(ck, cp):
         assert torch.equal(a, b)
@@ -649,11 +658,11 @@ def test_k7_first_order_matches_plain(dev, op, L, T):
     a, b, c, init = (_f32(v, dev) for v in _k7_inputs(op, L, T, L * T))
     params = _f32([AGC_PARAMS[0], AGC_PARAMS[1], AGC_PARAMS[3]], dev)
     kw = dict(op=op, params=params)
-    before = cuda_scan.first_order_launches
+    before = trace.counts["rt_first_order"]
     yk = cuda_scan.first_order(a, b, init, c, **kw)
     yp = cuda_scan.first_order_plain(a, b, init, c, **kw)
     torch.cuda.synchronize()
-    assert cuda_scan.first_order_launches == before + 1
+    assert trace.counts["rt_first_order"] == before + 1
     assert torch.equal(yk, yp)
 
 
@@ -702,11 +711,11 @@ def test_k8_blocked_max_affine_matches_plain(dev, L, P, M, special):
     x = _f32(x, dev)
     for v0 in (_f32(rng.uniform(0, 1, L), dev), torch.zeros(L, device=dev)):
         for a in (0.0, 0.99896, _f32(0.9, dev), 1.0):
-            before = limiter_block.bma_launches
+            before = trace.counts["rt_blocked_max_affine"]
             yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
             yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
             torch.cuda.synchronize()
-            assert limiter_block.bma_launches == before + 1
+            assert trace.counts["rt_blocked_max_affine"] == before + 1
             assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
             assert torch.equal(yk.isnan(), yp.isnan())
 
@@ -745,11 +754,11 @@ def _k2_matches_plain(pcm, left, wts, kw):
     """One launch of K2 against its plain version on the same inputs: the
     mix within 1e-6 (the order of its sum over streams and blocks), the
     biquad and AGC carries and the ring bit for bit."""
-    before = fused.agc_launches
+    before = trace.counts["rt_fused_resample_biquad_agc_mix"]
     mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
     mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
     torch.cuda.synchronize()
-    assert fused.agc_launches == before + 1
+    assert trace.counts["rt_fused_resample_biquad_agc_mix"] == before + 1
     assert rk.dtype == kw["ring"].dtype
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
@@ -793,11 +802,12 @@ def test_config5_agc512_job_runs_k2_once_a_block(dev):
     chain = config.job_chain(pcm, gains, cfg, dev)
     state = chain.init_state()
     assert state["in"]["ring"].dtype == torch.float32
-    before = (fused.agc_launches, fused.launches)
+    kernels = ("rt_fused_resample_biquad_agc_mix", "rt_fused_resample_biquad_mix")
+    before = launched(*kernels)
     blocks = []
     for i in range(3):
         state, y, valid = chain.emit(state, cfg["block_frames"])
-        assert (fused.agc_launches, fused.launches) == (before[0] + i + 1, before[1])
+        assert launched(*kernels) == (before[0] + i + 1, before[1])
         blocks.append(y)
     got = torch.cat(blocks, 1).double()
     want = ref.render(pcm, gains, cfg, n_out)
@@ -815,7 +825,6 @@ def test_jobs_chain_block_is_k1_k3_and_little_else(dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rodio_tpu_torch.core import node as core_node
 
     config, _, cfg, pcm, gains, _ = _bench_job("config5_mix512", 512, dev, 3)
     n = cfg["block_frames"]
@@ -826,12 +835,11 @@ def test_jobs_chain_block_is_k1_k3_and_little_else(dev):
     counted = np.zeros(2, np.int64)  # the card chain's blocks: host, device
     for i in range(3):
         torch.cuda.synchronize()
-        before = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+        before = launched("host_valid_block", "device_masked_block")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, y, v = chain.emit(state, n)
             torch.cuda.synchronize()
-        counted += np.subtract((core_node.host_valid_blocks,
-                                core_node.device_masked_blocks), before)
+        counted += np.subtract(launched("host_valid_block", "device_masked_block"), before)
         st_c, y_c, v_c = plain.emit(st_c, n)
         assert int(v) == int(v_c) == n
         assert (y.cpu() - y_c).abs().max().item() <= 1e-6
@@ -862,8 +870,8 @@ def test_k2_f32_ring_at_the_cell_block_matches_plain(dev):
 def test_agc_flagship_on_card_matches_cpu(dev):
     """The fused AGC slice and the unfused pallas AGC chain on the card
     against the same graphs on the CPU (plain versions), 3 blocks of 640."""
-    counters = (lambda: (fused.agc_launches, cuda_scan.agc_launches,
-                         limiter_block.launches, cuda_scan.launches))
+    counters = (lambda: launched("rt_fused_resample_biquad_agc_mix", "rt_agc",
+                                 "rt_limiter_master", "rt_biquad_df1"))
     for mode, want in (("fused", (3, 0, 3, 0)), ("pallas", (0, 3, 3, 3))):
         node_g, st_g = make_flagship(12, seconds=0.5, scan_mode=mode,
                                      with_agc=True, device=dev)
@@ -893,9 +901,9 @@ def test_config2_chain_on_card_matches_cpu(dev):
             node = AutomaticGainControl(node, AgcSettings(), mode="pallas",
                                         group=group)
             node = Limit(node, LimitSettings(), mode="pallas")
-            before = (limiter_block.bma_launches, cuda_scan.first_order_launches)
+            before = launched("rt_blocked_max_affine", "rt_first_order")
             _, out, _ = render_blocks(node, node.init_state(), 3, 4096)
-            after = (limiter_block.bma_launches, cuda_scan.first_order_launches)
+            after = launched("rt_blocked_max_affine", "rt_first_order")
             if device != "cpu":
                 assert after == (before[0] + 3, before[1] + 3)
             outs.append(out.cpu().numpy())
@@ -952,11 +960,13 @@ def test_k2r_k2b_rel0_plans_match_plain(dev, ring_dtype, plan, S, n, o0, F, to):
               agc_params=_f32(AGC_PARAMS_REL0, dev), ring=ring, ring_row=o0 % 4096,
               agc_plan=plan, step_frames=2 * to)
     blocked = fused.rel0_chunks(plan) > 0
-    before = (fused.agc_rel0_launches, fused.agc_blocked_launches, fused.agc_launches)
+    kernels = ("rt_fused_resample_biquad_agc_rel0_mix",
+               "rt_fused_resample_biquad_agc_blocked_mix", "rt_fused_resample_biquad_agc_mix")
+    before = launched(*kernels)
     mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
     mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
     torch.cuda.synchronize()
-    after = (fused.agc_rel0_launches, fused.agc_blocked_launches, fused.agc_launches)
+    after = launched(*kernels)
     assert after == (before[0] + (not blocked), before[1] + blocked, before[2])
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
@@ -991,11 +1001,11 @@ def test_k2b_chunks_across_tiles(dev, ring_dtype, plan, to, m, S, n):
               bq=_f32(rng.standard_normal((4, L)) * 0.01, dev), agc=agc,
               agc_params=_f32(AGC_PARAMS_REL0, dev), ring=ring, ring_row=o0 % 4096,
               agc_plan=plan, step_frames=step)
-    before = fused.agc_blocked_launches
+    before = trace.counts["rt_fused_resample_biquad_agc_blocked_mix"]
     mk, bk, ak, rk = fused.fused_resample_biquad_agc_mix(pcm, left, wts, **kw)
     mp, bp, ap, rp = fused.fused_resample_biquad_agc_mix_plain(pcm, left, wts, **kw)
     torch.cuda.synchronize()
-    assert fused.agc_blocked_launches == before + 1
+    assert trace.counts["rt_fused_resample_biquad_agc_blocked_mix"] == before + 1
     assert (mk - mp).abs().max().item() <= 1e-6
     assert torch.equal(bk, bp) and torch.equal(ak, ap) and torch.equal(rk, rp)
 
@@ -1009,8 +1019,9 @@ def test_rel0_flagship_on_card_matches_cpu(dev, plan):
               precision="int2")
     node_g, st_g = make_flagship(12, device=dev, **kw)
     node_c, st_c = make_flagship(12, device="cpu", **kw)
-    counters = (lambda: (fused.agc_rel0_launches, fused.agc_blocked_launches,
-                         limiter_block.launches))
+    counters = (lambda: launched("rt_fused_resample_biquad_agc_rel0_mix",
+                                 "rt_fused_resample_biquad_agc_blocked_mix",
+                                 "rt_limiter_master"))
     before = counters()
     st_g, og1, _ = render_blocks(node_g, st_g, 1, 640)
     torch.cuda.set_sync_debug_mode("error")
@@ -1039,11 +1050,11 @@ def test_k4_bf16_matches_plain(dev, L, T):
     x = _f32(rng.standard_normal((L, T)) * 0.3, dev).to(torch.bfloat16)
     st = tuple(_f32(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
     coef = _f32(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev)
-    before = cuda_scan.bf16_launches
+    before = trace.counts["rt_biquad_df1_bf16"]
     yk, sk = cuda_scan.biquad_df1(x, coef, st)
     yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
     torch.cuda.synchronize()
-    assert cuda_scan.bf16_launches == before + 1
+    assert trace.counts["rt_biquad_df1_bf16"] == before + 1
     assert yk.dtype == torch.bfloat16 and torch.equal(yk, yp)
     for a, b in zip(sk, sp):
         assert a.dtype == torch.float32 and torch.equal(a, b)
@@ -1074,11 +1085,11 @@ def test_phase_kernel_matches_plain(dev, G, n):
     rng = np.random.default_rng(G + n)
     p0 = _f32(rng.uniform(0, 1, G), dev)
     step = _f32(rng.uniform(1e-3, 0.2, G), dev)
-    before = phase.launches
+    before = trace.counts["rt_phase_accumulate"]
     pk, ck = phase.phase_accumulate(p0, step, n)
     pp, cp = phase.phase_accumulate_plain(p0, step, n)
     torch.cuda.synchronize()
-    assert phase.launches == before + 1
+    assert trace.counts["rt_phase_accumulate"] == before + 1
     assert torch.equal(pk, pp) and torch.equal(ck, cp)
 
 
@@ -1124,11 +1135,11 @@ def test_threefry_kernel_matches_plain(dev, mode, n, kw, i):
 
     key = threefry.seed_key(77, dev)
     ctr = torch.full((), i, dtype=torch.int64, device=dev)
-    before = threefry.launches
+    before = trace.counts["rt_threefry"]
     k = threefry.threefry(key, ctr, n, mode, **kw)
     p = threefry.threefry_plain(key, ctr, n, mode, **kw)
     torch.cuda.synchronize()
-    assert threefry.launches == before + 1
+    assert trace.counts["rt_threefry"] == before + 1
     if mode == "bits":
         k = k.to(torch.int64) & threefry.M32
     assert torch.equal(k, p)
@@ -1156,7 +1167,6 @@ def test_noise_sources_on_card_match_cpu(dev, name):
     """Path K at a small size: 3 blocks on the card against the CPU,
     bit-equal but the erf_inv sources (PyTorch's log1p and sqrt may round
     an ulp apart on the two devices)."""
-    from rodio_tpu_torch.ops import threefry
     from rodio_tpu_torch.profile_slice import noise_source
 
     outs = []
@@ -1164,11 +1174,11 @@ def test_noise_sources_on_card_match_cpu(dev, name):
         node = noise_source(name, d)
         st = node.init_state()
         st["i"] = torch.full((), 2 ** 31 - 700, dtype=torch.int64, device=st["i"].device)
-        before = threefry.launches
+        before = trace.counts["rt_threefry"]
         _, out, _ = render_blocks(node, st, 3, 511)
         if d is dev:
             torch.cuda.synchronize()
-            assert threefry.launches == before + 3
+            assert trace.counts["rt_threefry"] == before + 3
         outs.append(out.cpu())
     assert (outs[0] - outs[1]).abs().max().item() <= NOISE_BOUNDS.get(name, 0.0)
 
@@ -1210,16 +1220,15 @@ def test_varispeed_on_card_matches_cpu(dev):
 
 def test_config3_small_on_card_matches_cpu(dev):
     """Path I at 0.1 s: the 64-source mix on the card against the CPU."""
-    from rodio_tpu_torch.ops import phase
     from rodio_tpu_torch.profile_slice import config3, pull_to_end
 
     res = []
     for d in (dev, "cpu"):
         _, rx = config3(d, 0.1)
-        before = phase.launches
+        before = trace.counts["rt_phase_accumulate"]
         blocks, pulls = pull_to_end(rx, 2048)
         if d is dev:
-            assert phase.launches - before == 60 * pulls
+            assert trace.counts["rt_phase_accumulate"] - before == 60 * pulls
         res.append((torch.cat(blocks, dim=1).cpu(), pulls))
     assert res[0][1] == res[1][1]
     assert (res[0][0] - res[1][0]).abs().max().item() <= 1e-6
@@ -1443,11 +1452,11 @@ def test_k1_ring_mode_matches_plain_across_the_seam(dev, S, C, n, R, c0):
         crossed |= bool(((left // R) != ((left + 1) // R)).any() or
                         (left[0] // R != left[-1] // R))
         wts = _f32(np.stack(lerp_weights(fr, to), axis=1), dev)[phase]
-        before = fused.ring_launches
+        before = trace.counts["rt_fused_resample_biquad_mix_ring"]
         mk, bk = fused.fused_resample_biquad_mix(ring, left, wts, bq=bk, ring=True, **kw)
         mp, bp = fused.fused_resample_biquad_mix_plain(ring, left, wts, bq=bp, ring=True, **kw)
         torch.cuda.synchronize()
-        assert fused.ring_launches == before + 1
+        assert trace.counts["rt_fused_resample_biquad_mix_ring"] == before + 1
         assert (mk - mp).abs().max().item() <= 1e-6, block
         assert torch.equal(bk, bp), block
     assert crossed
@@ -1515,7 +1524,6 @@ def test_stream_farm_on_card_matches_cpu(dev, tmp_path, fused_path):
     """The farm on the card (K1's ring mode + K3, or K4 + K3; every step
     under sync-debug "error" but the 32-block read-backs) against the CPU
     farm, on the i16 wire with looping staggered streams."""
-    from rodio_tpu_torch.ops import cuda_scan
     from rodio_tpu_torch.parallel.farm import StreamFarm
 
     paths = _farm_corpus(tmp_path)
@@ -1524,12 +1532,13 @@ def test_stream_farm_on_card_matches_cpu(dev, tmp_path, fused_path):
         farm = StreamFarm(paths, block_frames=1280, fused=fused_path, wire="i16", loop=True,
                           start_offsets=[0.0, 0.5, 1.2, 1.9], device=d)
         blocks = []
-        launches = (fused.ring_launches, cuda_scan.launches, limiter_block.launches)
+        kernels = ("rt_fused_resample_biquad_mix_ring", "rt_biquad_df1", "rt_limiter_master")
+        launches = launched(*kernels)
         res = farm.run(40, on_block=lambda k, o, v: blocks.append(o),
                        sync_debug=d is dev)
         farm.close()
         runs[str(d)] = (res, tuple(a - b for a, b in zip(
-            (fused.ring_launches, cuda_scan.launches, limiter_block.launches), launches)))
+            launched(*kernels), launches)))
         outs[str(d)] = torch.cat(blocks, 1).cpu()
     (res_card, l_card), (res_cpu, _) = runs[str(dev)], runs["cpu"]
     assert res_card[0] == res_cpu[0] == 40 * 1280 and res_card[2] is res_cpu[2] is False
@@ -1627,11 +1636,11 @@ def test_k4_f64_matches_plain(dev, L, T):
     x = _f64(rng.standard_normal((L, T)) * 0.3, dev)
     st = tuple(_f64(rng.standard_normal(L) * 0.1, dev) for _ in range(4))
     coef = _f64(blt_coefficients("low_pass", 48000, 2000.0, 0.5).as_tuple(), dev)
-    before = (cuda_scan.f64_launches, cuda_scan.launches)
+    before = launched("rt_biquad_df1_f64", "rt_biquad_df1")
     yk, sk = cuda_scan.biquad_df1(x, coef, st)
     yp, sp = cuda_scan.biquad_df1_plain(x, coef, st)
     torch.cuda.synchronize()
-    assert (cuda_scan.f64_launches, cuda_scan.launches) == (before[0] + 1, before[1])
+    assert launched("rt_biquad_df1_f64", "rt_biquad_df1") == (before[0] + 1, before[1])
     assert yk.dtype == torch.float64 and torch.equal(yk, yp)
     for a, b in zip(sk, sp):
         assert a.dtype == torch.float64 and torch.equal(a, b)
@@ -1642,12 +1651,11 @@ def test_k4_f64_matches_plain(dev, L, T):
 def test_k7_f64_first_order_matches_plain(dev, op, L, T):
     a, b, c, init = (_f64(v, dev) for v in _k7_inputs(op, L, T, L + T))
     params = _f64([AGC_PARAMS[0], AGC_PARAMS[1], AGC_PARAMS[3]], dev)
-    before = (cuda_scan.first_order_f64_launches, cuda_scan.first_order_launches)
+    before = launched("rt_first_order_f64", "rt_first_order")
     yk = cuda_scan.first_order(a, b, init, c, op=op, params=params)
     yp = cuda_scan.first_order_plain(a, b, init, c, op=op, params=params)
     torch.cuda.synchronize()
-    assert (cuda_scan.first_order_f64_launches,
-            cuda_scan.first_order_launches) == (before[0] + 1, before[1])
+    assert launched("rt_first_order_f64", "rt_first_order") == (before[0] + 1, before[1])
     assert yk.dtype == torch.float64 and torch.equal(yk, yp)
 
 
@@ -1663,11 +1671,11 @@ def test_k8_f64_matches_plain(dev, L, P, M):
     x = _f64(x, dev)
     for v0 in (_f64(rng.uniform(0, 1, L), dev), torch.zeros(L, dtype=torch.float64, device=dev)):
         for a in (0.99896, _f64(0.9, dev)[0], 1.0):
-            before = limiter_block.bma_f64_launches
+            before = trace.counts["rt_blocked_max_affine_f64"]
             yk = limiter_block.blocked_max_affine_const(x, v0, a, P=P)
             yp = limiter_block.blocked_max_affine_const_plain(x, v0, a, P=P)
             torch.cuda.synchronize()
-            assert limiter_block.bma_f64_launches == before + 1
+            assert trace.counts["rt_blocked_max_affine_f64"] == before + 1
             assert yk.dtype == torch.float64
             assert torch.equal(yk.nan_to_num(7.0), yp.nan_to_num(7.0))
             assert torch.equal(yk.isnan(), yp.isnan())
@@ -1687,11 +1695,11 @@ def _k3_f64(dev, T, P, scale):
               knee_width=lim.knee_width, inv_knee_8=lim.inv_knee_8, P=P)
     x = _f64(rng.standard_normal((2, T)) * scale, dev)
     i0, p0 = _f64([0.3, 1.2], dev), _f64([0.6, 0.1], dev)
-    before = (limiter_block.f64_launches, limiter_block.launches)
+    before = launched("rt_limiter_master_f64", "rt_limiter_master")
     yk, ck = limiter_block.limiter_master(x, i0, p0, **kw)
     yp, cp = limiter_block.limiter_master_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert (limiter_block.f64_launches, limiter_block.launches) == (before[0] + 1, before[1])
+    assert launched("rt_limiter_master_f64", "rt_limiter_master") == (before[0] + 1, before[1])
     assert yk.dtype == torch.float64
     assert (yk - yp).abs().max().item() <= 1e-12
     for a, b in zip(ck, cp):
@@ -1756,11 +1764,11 @@ def test_assoc_agc_flagship_on_card_matches_cpu(dev, mode):
     "parallel", K7's smoother in both) against the CPU's plain versions."""
     node_g, st_g = make_flagship(16, seconds=0.2, scan_mode=mode, with_agc=True, device=dev)
     node_c, st_c = make_flagship(16, seconds=0.2, scan_mode=mode, with_agc=True, device="cpu")
-    before = cuda_scan.first_order_launches
+    before = trace.counts["rt_first_order"]
     _, og, _ = render_blocks(node_g, st_g, 3, 640)
     _, oc, _ = render_blocks(node_c, st_c, 3, 640)
     torch.cuda.synchronize()
-    assert cuda_scan.first_order_launches == before + 3
+    assert trace.counts["rt_first_order"] == before + 3
     # the card's limiter is K3's blocked order under "auto", the CPU's the
     # sequential one (as test_flagship_on_card_matches_cpu)
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-6 + 4e-6 * (mode == "auto")
@@ -1773,12 +1781,12 @@ def test_f64_flagship_on_card_matches_cpu(dev, f64_mode, mode):
     (the mix over streams sums in another order: 1e-12)."""
     node_g, st_g = make_flagship(16, seconds=0.2, scan_mode=mode, device=dev)
     node_c, st_c = make_flagship(16, seconds=0.2, scan_mode=mode, device="cpu")
-    before = (cuda_scan.f64_launches, limiter_block.f64_launches)
+    before = launched("rt_biquad_df1_f64", "rt_limiter_master_f64")
     _, og, _ = render_blocks(node_g, st_g, 3, 640)
     _, oc, _ = render_blocks(node_c, st_c, 3, 640)
     torch.cuda.synchronize()
     assert og.dtype == torch.float64
-    assert (cuda_scan.f64_launches, limiter_block.f64_launches) == (before[0] + 3, before[1] + 3)
+    assert launched("rt_biquad_df1_f64", "rt_limiter_master_f64") == (before[0] + 3, before[1] + 3)
     bound = 1e-12 if mode == "pallas" else 4e-6  # "auto": the CPU's limiter is sequential
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= bound
 
@@ -1813,11 +1821,11 @@ def test_k6_f64_matches_plain(dev, S, M):
     untouched."""
     xs, delta, p0, s0, g0 = (t.double() for t in _agc_inputs(S, M, dev, S + M))
     params = _f64(AGC_PARAMS, dev)
-    before = (cuda_scan.agc_f64_launches, cuda_scan.agc_launches)
+    before = launched("rt_agc_f64", "rt_agc")
     gk, ck = cuda_scan.agc(xs, delta, p0, s0, g0, params)
     gp, cp = cuda_scan.agc_plain(xs, delta, p0, s0, g0, params)
     torch.cuda.synchronize()
-    assert (cuda_scan.agc_f64_launches, cuda_scan.agc_launches) == (before[0] + 1, before[1])
+    assert launched("rt_agc_f64", "rt_agc") == (before[0] + 1, before[1])
     assert gk.dtype == torch.float64 and torch.equal(gk, gp)
     for a, b in zip(ck, cp):
         assert a.dtype == torch.float64 and torch.equal(a, b)
@@ -1848,24 +1856,22 @@ def test_k5_f64_limiter_env_matches_plain(dev, L, T):
     db = _f64(rng.uniform(0.0, 12.0, (L, T)) * (rng.uniform(size=(L, T)) < 0.3), dev)
     i0, p0 = _f64(rng.uniform(0, 6, L), dev), _f64(rng.uniform(0, 6, L), dev)
     kw = {k: _limit_kw(1)[k] for k in ("att", "rel")}
-    before = (cuda_scan.limiter_env_f64_launches, cuda_scan.limiter_env_launches)
+    before = launched("rt_limiter_env_f64", "rt_limiter_env")
     pk, ck = cuda_scan.limiter_env(db, i0, p0, **kw)
     pp, cp = cuda_scan.limiter_env_plain(db, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert (cuda_scan.limiter_env_f64_launches,
-            cuda_scan.limiter_env_launches) == (before[0] + 1, before[1])
+    assert launched("rt_limiter_env_f64", "rt_limiter_env") == (before[0] + 1, before[1])
     assert pk.dtype == torch.float64 and torch.equal(pk, pp)
     assert all(torch.equal(a, b) for a, b in zip(ck, cp))
 
 
 def _k5_f64_stream_check(x, i0, p0, cg):
     kw = _limit_kw(cg)
-    before = (cuda_scan.limiter_stream_f64_launches, cuda_scan.limiter_stream_launches)
+    before = launched("rt_limiter_stream_f64", "rt_limiter_stream")
     yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
     yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert (cuda_scan.limiter_stream_f64_launches,
-            cuda_scan.limiter_stream_launches) == (before[0] + 1, before[1])
+    assert launched("rt_limiter_stream_f64", "rt_limiter_stream") == (before[0] + 1, before[1])
     assert yk.dtype == torch.float64
     _equal_nan(yk, yp)
     for a, b in zip(ck, cp):
@@ -1901,12 +1907,11 @@ def test_k5_f64_limiter_stream_wider_groups(dev):
     assert _build.load_library().rt_limiter_stream_f64_max_group() == 16
     x, i0, p0 = (t.double() for t in _limit_inputs(40, 300, 7, dev))
     kw = _limit_kw(20)
-    before = (cuda_scan.limiter_stream_f64_launches, cuda_scan.limiter_env_f64_launches)
+    before = launched("rt_limiter_stream_f64", "rt_limiter_env_f64")
     yk, ck = cuda_scan.limiter_stream(x, i0, p0, **kw)
     yp, cp = cuda_scan.limiter_stream_plain(x, i0, p0, **kw)
     torch.cuda.synchronize()
-    assert (cuda_scan.limiter_stream_f64_launches,
-            cuda_scan.limiter_env_f64_launches) == (before[0], before[1] + 1)
+    assert launched("rt_limiter_stream_f64", "rt_limiter_env_f64") == (before[0], before[1] + 1)
     assert torch.equal(yk, yp) and all(torch.equal(a, b) for a, b in zip(ck, cp))
 
 
@@ -1925,11 +1930,11 @@ def test_threefry_f64_matches_plain(dev, mode, n, kw, i):
 
     key = threefry.seed_key(-77, dev, x64=True)
     ctr = torch.full((), i, dtype=torch.int64, device=dev)
-    before = (threefry.f64_launches, threefry.launches)
+    before = launched("rt_threefry_f64", "rt_threefry")
     k = threefry.threefry(key, ctr, n, mode, dtype=torch.float64, **kw)
     p = threefry.threefry_plain(key, ctr, n, mode, dtype=torch.float64, **kw)
     torch.cuda.synchronize()
-    assert (threefry.f64_launches, threefry.launches) == (before[0] + 1, before[1])
+    assert launched("rt_threefry_f64", "rt_threefry") == (before[0] + 1, before[1])
     assert k.dtype == (torch.int64 if mode == "bits" else torch.float64)
     assert torch.equal(k, p)
 
@@ -1944,7 +1949,6 @@ NOISE_BOUNDS_F64 = {"WhiteGaussian": 1e-13, "Brownian": 1e-11}
 @pytest.mark.parametrize("name", ["WhiteUniform", "WhiteTriangular", "WhiteGaussian",
                                   "Velvet", "Pink", "Blue", "Violet", "Brownian", "Red"])
 def test_noise_sources_f64_on_card_match_cpu(dev, f64_mode, name):
-    from rodio_tpu_torch.ops import threefry
     from rodio_tpu_torch.profile_slice import noise_source
 
     outs = []
@@ -1952,13 +1956,13 @@ def test_noise_sources_f64_on_card_match_cpu(dev, f64_mode, name):
         node = noise_source(name, d)
         st = node.init_state()
         st["i"] = torch.full((), 2 ** 31 - 700, dtype=torch.int64, device=st["i"].device)
-        before = (threefry.f64_launches, cuda_scan.first_order_f64_launches)
+        before = launched("rt_threefry_f64", "rt_first_order_f64")
         _, out, _ = render_blocks(node, st, 3, 511)
         if d is dev:
             torch.cuda.synchronize()
             k7 = 3 if name in ("Brownian", "Red") else 0
-            assert (threefry.f64_launches,
-                    cuda_scan.first_order_f64_launches) == (before[0] + 3, before[1] + k7)
+            assert launched("rt_threefry_f64", "rt_first_order_f64") == (
+                before[0] + 3, before[1] + k7)
         outs.append(out.cpu())
     assert outs[0].dtype == torch.float64
     assert (outs[0] - outs[1]).abs().max().item() <= NOISE_BOUNDS_F64.get(name, 0.0)
@@ -1985,11 +1989,11 @@ def test_phase_f64_matches_plain(dev, G, n):
     rng = np.random.default_rng(G + n)
     p0 = _f64(rng.uniform(0, 1, G), dev)
     step = _f64(rng.uniform(1e-3, 0.2, G).astype(np.float32), dev)  # f32 steps widened
-    before = (phase.f64_launches, phase.launches)
+    before = launched("rt_phase_accumulate_f64", "rt_phase_accumulate")
     pk, ck = phase.phase_accumulate(p0, step, n)
     pp, cp = phase.phase_accumulate_plain(p0, step, n)
     torch.cuda.synchronize()
-    assert (phase.f64_launches, phase.launches) == (before[0] + 1, before[1])
+    assert launched("rt_phase_accumulate_f64", "rt_phase_accumulate") == (before[0] + 1, before[1])
     assert pk.dtype == torch.float64 and torch.equal(pk, pp) and torch.equal(ck, cp)
 
 
@@ -1998,16 +2002,16 @@ def test_f64_per_stream_chain_on_card_matches_cpu(dev, f64_mode):
     K5 (limiter_stream) and K3's f64 instances once a block, against the f64
     plain versions on the CPU (the mix sums in another order: 1e-12)."""
     from rodio_tpu_torch import make_per_stream_chain
-    from rodio_tpu_torch.ops import limiter_block
 
     node_g, st_g = make_per_stream_chain(16, seconds=0.2, seed=3, device=dev)
     node_c, st_c = make_per_stream_chain(16, seconds=0.2, seed=3, device="cpu")
-    names = ("f64_launches", "agc_f64_launches", "limiter_stream_f64_launches")
-    before = [getattr(cuda_scan, a) for a in names] + [limiter_block.f64_launches]
+    kernels = ("rt_biquad_df1_f64", "rt_agc_f64", "rt_limiter_stream_f64",
+               "rt_limiter_master_f64")
+    before = launched(*kernels)
     _, og, _ = render_blocks(node_g, st_g, 3, 640)
     _, oc, _ = render_blocks(node_c, st_c, 3, 640)
     torch.cuda.synchronize()
-    after = [getattr(cuda_scan, a) for a in names] + [limiter_block.f64_launches]
+    after = launched(*kernels)
     assert og.dtype == torch.float64 and [a - b for a, b in zip(after, before)] == [3] * 4
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-12
 
@@ -2018,9 +2022,9 @@ def test_content_probe_matches_plain(dev, name):
     every content case of the CPU test: one launch, the same flags."""
     arr, want = probe_case(name)
     x = _f32(arr, dev)
-    before = probe.launches
+    before = trace.counts["rt_content_probe"]
     got = probe.content_probe(x)
-    assert probe.launches == before + 1
+    assert trace.counts["rt_content_probe"] == before + 1
     assert got == probe.content_probe_plain(x) == want
 
 
@@ -2057,12 +2061,12 @@ def test_content_probe_once_a_node_and_only_on_f32(dev):
     CUDA tensor the kernel does not take raises, with no plain fallback."""
     arr, want = probe_case("corpus16")
     buf = SamplesBuffer(arr.shape[0], 44100, arr, device=dev)
-    before = probe.launches
-    assert _content_probe(buf) == want and probe.launches == before + 1
-    assert _content_probe(buf) == want and probe.launches == before + 1
+    before = trace.counts["rt_content_probe"]
+    assert _content_probe(buf) == want and trace.counts["rt_content_probe"] == before + 1
+    assert _content_probe(buf) == want and trace.counts["rt_content_probe"] == before + 1
     x = _f32(arr, dev)
     for bad in (x.to(torch.bfloat16), x.to(torch.float64), x.to(torch.float16),
                 x.reshape(-1), x[:, ::2], x[None]):
         with pytest.raises(ValueError, match="contiguous 2-D float32"):
             probe.content_probe(bad)
-    assert probe.launches == before + 1
+    assert trace.counts["rt_content_probe"] == before + 1

@@ -6,7 +6,8 @@ host count and skips its mask on a block the host knows is full. These
 tests hold both to the device path they replace: ``drain_bookkeeping`` on
 the block's left taps and ``mask_block`` on the kernel's unmasked output,
 bit for bit, through the end of the stream; and count which blocks skipped
-the mask (``core.node.host_valid_blocks``, ``device_masked_blocks``).
+the mask (``trace.counts["host_valid_block"]`` and
+``["device_masked_block"]``).
 """
 import numpy as np
 import pytest
@@ -15,13 +16,13 @@ import torch
 from rodio_tpu_torch import flagship
 from rodio_tpu_torch.conversions.resample import (
     _resample_counts, drain_bookkeeping, host_drain_bookkeeping, lerp_left)
-from rodio_tpu_torch.core import node as core_node
 from rodio_tpu_torch.core.node import Node, mask_block
 from rodio_tpu_torch.effects.blt import BltFilter
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
 from rodio_tpu_torch.flagship import FusedWidePipeline
 from rodio_tpu_torch.ops.limiter_block import limiter_master
 from rodio_tpu_torch.sources.generators import SamplesBuffer
+from rodio_tpu_torch.utils import trace
 
 FR, TO = 147, 160  # 44.1 -> 48 kHz
 T = 640
@@ -145,12 +146,14 @@ def test_every_block_of_a_job_is_known_on_the_host():
     pcm, gains = _pcm(S, n_in, seed=3)
     chain = Limit(_fused(pcm, gains, S), LimitSettings(), mode="pallas")
     state = chain.init_state()
-    before = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+    before = (trace.counts["host_valid_block"],
+              trace.counts["device_masked_block"])
     valids = []
     for _ in range(nb):
         state, _, v = chain.emit(state, T)
         valids.append(v)
-    after = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+    after = (trace.counts["host_valid_block"],
+             trace.counts["device_masked_block"])
     assert (after[0] - before[0], after[1] - before[1]) == (nb, 0)
     assert torch.stack(valids).tolist() == [T] * nb
 
@@ -165,7 +168,8 @@ def test_a_chain_with_no_host_count_masks_on_the_device():
     chain = Limit(blt, LimitSettings(), mode="pallas")
     state, bstate = chain.init_state(), blt.init_state()
     integ = peak = torch.zeros(2)
-    before = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+    before = (trace.counts["host_valid_block"],
+              trace.counts["device_masked_block"])
     valids = []
     for _ in range(nb):
         state, y, v = chain.emit(state, T)
@@ -177,6 +181,7 @@ def test_a_chain_with_no_host_count_masks_on_the_device():
             inv_knee_8=chain.inv_knee_8, P=min(128, T & -T))
         assert torch.equal(y, mask_block(want, bv))
         valids.append(int(v))
-    after = (core_node.host_valid_blocks, core_node.device_masked_blocks)
+    after = (trace.counts["host_valid_block"],
+             trace.counts["device_masked_block"])
     assert (after[0] - before[0], after[1] - before[1]) == (0, nb)
     assert valids == [T, T, T, 200, 0]

@@ -28,6 +28,9 @@ Bounds and why:
   chain, whose AGC equals the scalar oracle bit for bit
   (tests/test_torch_flagship.py, tests/test_torch_agc.py).
 """
+import ast
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,8 +50,9 @@ from rodio_tpu_torch.conversions.resample import lerp_weights, output_positions
 from rodio_tpu_torch.effects.blt import blt_coefficients
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
 from rodio_tpu_torch.flagship import FusedWidePipeline
-from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block
+from rodio_tpu_torch.ops import _build, cuda_scan, fused, limiter_block
 from rodio_tpu_torch.sources.generators import SamplesBuffer
+from rodio_tpu_torch.utils import trace
 
 
 def _t(a):
@@ -228,9 +232,10 @@ def test_k1_plain_block_size_invariance():
 
 
 def _counts():
-    return (cuda_scan.launches, cuda_scan.agc_launches,
-            cuda_scan.first_order_launches, limiter_block.launches,
-            limiter_block.bma_launches, fused.launches, fused.agc_launches)
+    return tuple(trace.counts[e] for e in (
+        "rt_biquad_df1", "rt_agc", "rt_first_order", "rt_limiter_master",
+        "rt_blocked_max_affine", "rt_fused_resample_biquad_mix",
+        "rt_fused_resample_biquad_agc_mix"))
 
 
 def test_cpu_tensors_never_launch_a_kernel():
@@ -376,3 +381,60 @@ def test_kernel_wrappers_refuse_other_devices():
         limiter_block.limiter_master_plain(torch.zeros((2, 60)), torch.zeros(2),
                                            torch.zeros(2), P=8,
                                            **_limiter_kw(LimitSettings()))
+
+
+_PORT = Path(_build.__file__).resolve().parents[1]
+
+
+def test_kernel_launches_are_counted_in_one_place():
+    """Every kernel entry point is called, checked and counted by
+    ``ops._build.launch`` alone: no module of the port keeps a launch counter
+    of its own, and only ``_build`` checks a launch's error code
+    (``benches/warp_cycles.py`` times its own instrumented library)."""
+    counters, checks = [], []
+    for path in sorted(_PORT.rglob("*.py")):
+        rel = path.relative_to(_PORT).as_posix()
+        if rel == "benches/warp_cycles.py":
+            continue
+        src = path.read_text()
+        for node in ast.parse(src).body:
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target] if isinstance(node, (ast.AnnAssign, ast.AugAssign))
+                       else [])
+            counters += [f"{rel}:{node.lineno} {t.id}" for t in targets
+                         if isinstance(t, ast.Name) and t.id.endswith("launches")]
+        if rel != "ops/_build.py":
+            checks += [f"{rel}:{i}" for i, line in enumerate(src.splitlines(), 1)
+                       if "_build.check(" in line]
+    assert counters == [] and checks == []
+
+
+def test_launch_counts_only_a_launch_that_returned_no_error(monkeypatch):
+    """``trace.count`` adds one to ``trace.counts``; ``_build.launch`` passes
+    its arguments and the device's stream to the entry point, and counts it
+    only when it returned 0 (a stand-in library on the CPU)."""
+    calls = []
+
+    class StandIn:
+        def rt_ok(self, *args):
+            calls.append(args)
+            return 0
+
+        def rt_fails(self, *args):
+            calls.append(args)
+            return 700
+
+        def rt_error_string(self, err):
+            return b"stand-in error"
+
+    monkeypatch.setattr(_build, "_lib", StandIn())
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 42)
+    before = trace.counts["rule_test_name"]
+    trace.count("rule_test_name")
+    assert trace.counts["rule_test_name"] == before + 1
+    ok, fails = trace.counts["rt_ok"], trace.counts["rt_fails"]
+    _build.launch("rt_ok", 1, 2.5, device="cpu")
+    assert calls == [(1, 2.5, 42)] and trace.counts["rt_ok"] == ok + 1
+    with pytest.raises(RuntimeError, match=r"rt_fails: CUDA error 700 \(stand-in error\)"):
+        _build.launch("rt_fails", 3, device="cpu")
+    assert calls[-1] == (3, 42) and trace.counts["rt_fails"] == fails

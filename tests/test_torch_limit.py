@@ -41,8 +41,9 @@ from rodio_tpu.sources.generators import SamplesBuffer as JBuffer
 import rodio_tpu_torch as rtt
 from rodio_tpu_torch.benches import dma_roofline, op_latency
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
-from rodio_tpu_torch.ops import cuda_scan, limiter_block
+from rodio_tpu_torch.ops import cuda_scan
 from rodio_tpu_torch.sources.generators import SamplesBuffer
+from rodio_tpu_torch.utils import trace
 
 
 def _coefs(settings=None):
@@ -69,10 +70,10 @@ def test_k5_plain_matches_pallas_interpret(L, T, preset):
     pj, (ij, qj) = limiter_env_pallas(jnp.asarray(db), jnp.asarray(i0),
                                       jnp.asarray(p0), att=att, rel=rel,
                                       interpret=True)
-    before = cuda_scan.limiter_env_launches
+    before = trace.counts["rt_limiter_env"]
     pt, (it, qt) = cuda_scan.limiter_env(torch.from_numpy(db), torch.from_numpy(i0),
                                          torch.from_numpy(p0), att=att, rel=rel)
-    assert cuda_scan.limiter_env_launches == before  # the plain version
+    assert trace.counts["rt_limiter_env"] == before  # the plain version
     for a, b in ((pt, pj), (it, ij), (qt, qj)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=2e-6)
     # the recurrence written out, one rounded op at a time: 0.0
@@ -115,9 +116,9 @@ def test_limiter_stream_plain_matches_jax_node(cg, streams, T):
         np.testing.assert_allclose(peak.numpy(), np.asarray(js["peak"]), rtol=2e-6)
     assert np.abs(data).max() > 1.0  # loud enough that the limiter acts
     # the wrapper on a CPU tensor is the plain version
-    before = cuda_scan.limiter_stream_launches
+    before = trace.counts["rt_limiter_stream"]
     y2, _ = cuda_scan.limiter_stream(x, integ, peak, **kw)
-    assert cuda_scan.limiter_stream_launches == before
+    assert trace.counts["rt_limiter_stream"] == before
     assert torch.equal(y2, cuda_scan.limiter_stream_plain(x, integ, peak, **kw)[0])
 
 
@@ -140,14 +141,15 @@ def test_limit_pallas_matches_jax(channels, streams, n):
     jn, tn = _limit_pair(channels, streams, 4 * n + 100, channels * n)
     js, ts = jn.init_state(), tn.init_state()
     jemit = jax.jit(lambda s: jn.emit(s, n))
-    k3, k5 = limiter_block.launches, cuda_scan.limiter_stream_launches
+    k3, k5 = trace.counts["rt_limiter_master"], trace.counts["rt_limiter_stream"]
     for b in range(4):
         js, oj, vj = jemit(js)
         ts, ot, vt = tn.emit(ts, n)
         assert int(vt) == int(vj) == n
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-6, rtol=0,
                                    err_msg=f"block {b}")
-    assert (limiter_block.launches, cuda_scan.limiter_stream_launches) == (k3, k5)
+    assert trace.counts["rt_limiter_master"] == k3
+    assert trace.counts["rt_limiter_stream"] == k5
     np.testing.assert_allclose(ts["integ"].numpy(), np.asarray(js["integ"]), rtol=2e-6)
     np.testing.assert_allclose(ts["peak"].numpy(), np.asarray(js["peak"]), rtol=2e-6)
 
@@ -213,7 +215,7 @@ def test_dma_ring_plain_is_the_tile_row_sum():
             got = dma_roofline.dma_ring(torch.from_numpy(x), tr=118, depth=3,
                                         lanes=lanes, route=route)
             np.testing.assert_array_equal(got.numpy(), want)
-    assert dma_roofline.launches == 0  # the plain version, on the CPU
+    assert trace.counts["rt_dma_ring"] == 0  # the plain version, on the CPU
     # K1's block at n = 12800: 11761 rows, its 128-frame tile ~128 * 147/160
     assert dma_roofline.k1_stream(12800) == (11761, 118)
 
@@ -239,7 +241,7 @@ def test_dma_ring_refuses_what_its_kernel_cannot_take(shape, kw):
     kw = {"tr": 118, **kw}
     with pytest.raises(ValueError):
         dma_roofline.dma_ring(x, **kw)
-    assert dma_roofline.launches == 0
+    assert trace.counts["rt_dma_ring"] == 0
 
 
 def test_dma_ring_refuses_an_unaligned_base():

@@ -18,6 +18,7 @@ from probe_cases import NAMES, SUBNORMAL_CASES, case
 from rodio_tpu.flagship import _content_probe as j_content_probe
 from rodio_tpu_torch.flagship import FusedWidePipeline, _content_probe
 from rodio_tpu_torch.ops import probe
+from rodio_tpu_torch.utils import trace
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 
 
@@ -45,11 +46,12 @@ def ladder(flags) -> str:
 def test_plain_probe_matches_the_old_expression_and_jax(name):
     arr, want = case(name)
     data = torch.from_numpy(arr)
-    before = probe.launches
+    before = trace.counts["rt_content_probe"]
     assert torch_expression(data) == want
     assert probe.content_probe_plain(data) == want
     assert probe.content_probe(data) == want
-    assert probe.launches == before  # a CPU tensor takes the plain version
+    # a CPU tensor takes the plain version
+    assert trace.counts["rt_content_probe"] == before
     if name not in SUBNORMAL_CASES:
         assert j_content_probe(types.SimpleNamespace(_data=jnp.asarray(arr))) == want
     # the precision the fused pipeline resolves from it, through the node's
