@@ -39,10 +39,12 @@ Phases (each raises on failure, so the script exits non-zero):
    versions, their operations over 34 TFLOP/s FP64 and their chain floors
    at the f64 op's latency; threefry's f64 instance (64-bit draws) at path
    X's block (uniform, Velvet, Pink) and at 2^24 draws, with
-   torch.rand(dtype=torch.float64) as its yardstick; the job set-up's
-   content probe (csrc/content_probe.cu, no pallas_call: the XLA-fused
-   probe of rodio_tpu/flagship.py) at a render job's buffer, its flags
-   equal to the plain version's, eager and in a CUDA graph;
+   torch.rand(dtype=torch.float64) as its yardstick; the job set-up's pack
+   (csrc/pack_time_major.cu, no pallas_call: the XLA relayout and probe of
+   rodio_tpu/flagship.py) at a render job's slice of the cell's corpus, on
+   and off a 16-byte boundary, its PCM and flags equal to the plain
+   version's, beside its bytes' bound and the two torch copies it
+   replaced, and one job of config 5 with one launch of it;
 4. the paths, each render's kernel launches counted on their own:
    - the slice: make_flagship(512, scan_mode="fused") rendered for 12
      blocks of 12800 frames (finite output, K1 and K3 launched once per
@@ -241,9 +243,10 @@ PATH_B_RATE, PATH_B_BLOCK = 44100, 4096
 PATH_F_SECONDS, PATH_F_BLOCK = 180, 4096
 #: path H: BASELINE config 4's graphs, in the parity tool's blocks
 PATH_H_BLOCK = 1024
-#: the content probe at a render job's buffer (c5_render_jobs' SamplesBuffer:
-#: 1024 lanes of 470,547 frames and 12,288 of padding, 1.98 GB)
-PROBE_SHAPE = (1024, 482835)
+#: the pack at a render job's buffer (c5_render_jobs' SamplesBuffer: a slice
+#: of 1024 lanes x 470,547 frames of the [1024, 2,646,000] corpus, 1.93 GB,
+#: into 482,835 rows with 12,288 of padding, 1.98 GB)
+PACK_SHAPE, PACK_ROWS, PACK_CORPUS_FRAMES = (1024, 470547), 482835, 2646000
 #: path I: BASELINE config 3, 64 sources taken for 10 s (the test's 0.25 s
 #: would give the timing 6 blocks), pulled in blocks of 2048
 PATH_I_SECONDS, PATH_I_BLOCK = 10.0, 2048
@@ -324,11 +327,12 @@ PATH_Z_BUDGET_S = 90
 PATH_Z_WAV = ("automatic_gain_control", "distortion", "into_file", "limit_settings",
               "limit_wav", "low_pass", "noise_generator", "reverb")
 #: the kernels each example launches on the card (read off ``trace.counts`` in
-#: a run on the H100); an example not named launches none
+#: a run on the H100), the pack aside (every buffer built on the card runs
+#: it); an example not named launches none
 PATH_Z_KERNELS = {"automatic_gain_control": ("K7", "K8"), "into_file": ("K3", "K4"),
                   "limit_settings": ("K5",), "limit_wav": ("K3",), "low_pass": ("K4",),
                   "noise_generator": ("K7", "threefry"),
-                  "stream_farm": ("K1", "K3", "probe"),
+                  "stream_farm": ("K1", "K3"),
                   "streaming_farm_512": ("K1r", "K3")}
 #: the kernels path Z as a whole must launch
 PATH_Z_REQUIRED = ("K1", "K1r", "K3", "K4", "threefry")
@@ -393,40 +397,72 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _probe_timing(dev) -> dict:
-    """The content probe's kernel at :data:`PROBE_SHAPE` on 16-bit-grid
-    content against its plain version: the flags of the content as it is
-    and with an element off a grid at the first or the last index (each
-    must equal the plain version's), the kernel's ms eager (the flags' reset
-    and the launch, no read-back) and in a CUDA graph, the whole probe's
-    with its read-back, and the plain version's. The buffer is 40 times the
-    L2 cache: every read is cold."""
+def _pack_timing(dev) -> dict:
+    """The pack at :data:`PACK_SHAPE` from a 16-bit-grid corpus of the
+    cell's size, at a slice on a 16-byte boundary and one a float past it:
+    the kernel's PCM and flags against its plain version's, with an element
+    off a grid at the first or the last index too; the kernel's ms (the
+    fail words' reset and the launch, no read-back); the torch construction
+    it replaced (the zero fill, the slice copied in, the transposed copy)
+    as a yardstick; and one job of config 5 built as the benchmark builds
+    it (``SamplesBuffer`` -> ``FusedWidePipeline`` -> ``init_state``), its
+    launches of the pack and its channel-major copies. The slice is 40
+    times the L2 cache: every read is cold."""
+    import numpy as np
     import torch
 
-    from rodio_tpu_torch.benches.dma_roofline import graph_ms
-    from rodio_tpu_torch.ops import probe
+    from rodio_tpu_torch.flagship import FusedWidePipeline
+    from rodio_tpu_torch.ops import pack
+    from rodio_tpu_torch.sources.generators import SamplesBuffer
+    from rodio_tpu_torch.utils import trace
 
-    x = torch.randint(-32768, 32768, PROBE_SHAPE, dtype=torch.int32, device=dev)
-    x = x.to(torch.float32).div_(32768.0)
-    flat = x.view(-1)
-    flags = []
-    for index, value in ((None, None), (0, 2.0**-23), (-1, 2.0**-24),
-                         (-1, (2**22 + 2**11 + 1) / 2.0**23)):
-        if index is not None:
-            flat[index] = value
-        got, want = probe.content_probe(x), probe.content_probe_plain(x)
-        if got != want:
-            raise AssertionError(f"content probe: kernel {got}, plain {want} "
-                                 f"(element {index} = {value})")
-        flags.append(got)
-        if index is not None:
-            flat[index] = 0.0
-    ms = _time_ms(lambda: probe.probe_fails(x), 20)
-    gms = graph_ms(lambda: probe.probe_fails(x), 20)
-    whole_ms = _time_ms(lambda: probe.content_probe(x), 10)
-    plain_ms = _time_ms(lambda: probe.content_probe_plain(x), 3)
-    return dict(flags=flags, ms=ms, graph_ms=gms, whole_ms=whole_ms, plain_ms=plain_ms,
-                nbytes=x.numel() * 4, numel=x.numel())
+    L, frames = PACK_SHAPE
+    pad = PACK_ROWS - frames
+    corpus = torch.empty((L, PACK_CORPUS_FRAMES), dtype=torch.float32, device=dev)
+    corpus.random_(-32768, 32768, generator=torch.Generator(dev).manual_seed(SEED))
+    corpus.div_(32768.0)
+    flags, ms = [], {}
+    for offset in (0, 1):
+        x = corpus[:, 1000 + offset:1000 + offset + frames]
+        for index, value in ((None, None), ((0, 0), 2.0**-23), ((-1, -1), 2.0**-24),
+                             ((-1, -1), (2**22 + 2**11 + 1) / 2.0**23)):
+            if index is not None:
+                x[index] = value
+            tm, fails = pack.pack_time_major(x, PACK_ROWS)
+            tp, fp = pack.pack_time_major_plain(x, PACK_ROWS)
+            if not (torch.equal(tm, tp) and torch.equal(fails, fp)):
+                raise AssertionError(f"pack at offset {offset}: kernel and plain differ "
+                                     f"(element {index} = {value})")
+            del tm, tp
+            flags.append(pack.content_flags(fails))
+            if index is not None:
+                x[index] = 0.0
+        ms[offset] = _time_ms(lambda: pack.pack_time_major(x, PACK_ROWS), 20)
+
+    def two_copies():
+        data_t = torch.zeros((L, PACK_ROWS), dtype=torch.float32, device=dev)
+        data_t[:, :frames] = x
+        return data_t.T.contiguous()
+
+    torch_ms = _time_ms(two_copies, 5)
+    plain_ms = _time_ms(lambda: pack.pack_time_major_plain(x, PACK_ROWS), 3)
+    before = (trace.counts["rt_pack_time_major"], trace.counts["channel_major_copy"])
+    buf = SamplesBuffer(L, 44100, x, pad_frames=pad, device=dev)
+    fused = FusedWidePipeline(buf, 48000, np.full(L // 2, 1.0 / 512, np.float32), L // 2,
+                              "low_pass", 2000.0, 0.5)
+    state = fused.init_state()
+    torch.cuda.synchronize()
+    job = (trace.counts["rt_pack_time_major"] - before[0],
+           trace.counts["channel_major_copy"] - before[1])
+    if job != (1, 0) or fused.precision != "i8" or state["pcm"].shape != (PACK_ROWS, L):
+        raise AssertionError(f"a job's set-up: {job[0]} launches of the pack and {job[1]} "
+                             f"channel-major copies (expected 1 and 0), precision "
+                             f"{fused.precision!r}")
+    del buf, fused, state, corpus, x
+    torch.cuda.empty_cache()
+    nbytes = L * frames * 4 + PACK_ROWS * L * 4
+    return dict(flags=flags, ms=ms, torch_ms=torch_ms, plain_ms=plain_ms, nbytes=nbytes,
+                numel=PACK_ROWS * L, job=job)
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -1419,7 +1455,7 @@ def _examples_path(refs, h) -> dict:
               f"allocations, launches {launched}; {printed[-1] if printed else ''} {tag}")
         if allocs <= 0:
             raise AssertionError(f"path Z: {name} made no allocation on the card")
-        if set(launched) != set(PATH_Z_KERNELS.get(name, ())):
+        if set(launched) - {"pack"} != set(PATH_Z_KERNELS.get(name, ())):
             raise AssertionError(f"path Z: {name} launched {sorted(launched)}, expected "
                                  f"{sorted(PATH_Z_KERNELS.get(name, ()))}")
     total = {k: sum(r[k] for r in runs.values()) for k in runs[names[0]]}
@@ -1574,7 +1610,7 @@ def _main(start_references) -> int:
                "K7f64": "rt_first_order_f64", "K3f64": "rt_limiter_master_f64",
                "K8f64": "rt_blocked_max_affine_f64", "K6f64": "rt_agc_f64",
                "K5f64": "rt_limiter_stream_f64", "threefryf64": "rt_threefry_f64",
-               "phasef64": "rt_phase_accumulate_f64", "probe": "rt_content_probe"}
+               "phasef64": "rt_phase_accumulate_f64", "pack": "rt_pack_time_major"}
 
     def reset():
         trace.counts.clear()
@@ -1583,7 +1619,9 @@ def _main(start_references) -> int:
         return {k: trace.counts[e] for k, e in entries.items()}
 
     def expect(run, name, **want):
-        got = {k: v for k, v in run.items() if v}
+        # the pack runs wherever a buffer is built on the card: a run is
+        # held to its count where it names it
+        got = {k: v for k, v in run.items() if v and (k != "pack" or "pack" in want)}
         if got != want:
             raise AssertionError(f"{name} launches {run}, expected {want}")
 
@@ -1670,18 +1708,23 @@ def _main(start_references) -> int:
            note=f" [1, {PATH_H_BLOCK}] (a lax.scan, no pallas_call); in a CUDA graph "
                 f"{gmsp:.4f} ms (eager: the wrapper's host time)", path="config4_scene")
 
-    # the job set-up's content probe at a render job's buffer: one read of
-    # 1.98 GB; per element two products, two roundings, two bf16 round trips
-    # and a subtraction, and their compares (~16 ops)
-    pr = _probe_timing(dev)
-    record("probe", "content_probe", "rodio_tpu_torch/csrc/content_probe.cu",
-           "rodio_tpu/flagship.py:91-121", 0.0, 0.0, pr["ms"], pr["plain_ms"],
-           pr["nbytes"], 16 * pr["numel"], 0.0, path="example_stream_farm",
-           note=f" {list(PROBE_SHAPE)} (no pallas_call: an XLA-fused pass); flags "
-                f"{pr['flags']} equal to the plain version's; in a CUDA graph "
-                f"{pr['graph_ms']:.4f} ms ({pr['nbytes'] / pr['graph_ms'] / 1e6:.0f} GB/s), "
-                f"with its read-back {pr['whole_ms']:.4f} ms")
-    del pr
+    # the job set-up's pack at a render job's slice: one read of 1.93 GB
+    # and one write of 1.98 GB; per element two products, two roundings,
+    # two bf16 round trips and a subtraction, and their compares (~16 ops)
+    pk = _pack_timing(dev)
+    record("pack", "pack_time_major", "rodio_tpu_torch/csrc/pack_time_major.cu",
+           "rodio_tpu/flagship.py:454-470, 91-121", 0.0, 0.0, pk["ms"][1], pk["plain_ms"],
+           pk["nbytes"], 16 * pk["numel"], 0.0, library_ms=pk["torch_ms"], path="pack_job",
+           note=f" {list(PACK_SHAPE)} -> [{PACK_ROWS}, {PACK_SHAPE[0]}] (no pallas_call: an "
+                f"XLA relayout and probe); {pk['ms'][0]:.4f} ms on a 16-byte boundary, "
+                f"{pk['ms'][1]:.4f} ms off it "
+                f"({pk['nbytes'] / min(pk['ms'].values()) / 1e6:.0f}-"
+                f"{pk['nbytes'] / max(pk['ms'].values()) / 1e6:.0f} GB/s); flags "
+                f"{pk['flags']} equal to the plain version's; library: the zero fill and "
+                f"two torch copies it replaced; a job: {pk['job'][0]} launch, "
+                f"{pk['job'][1]} channel-major copies")
+    pack_run = {k: 0 for k in entries} | {"pack": pk["job"][0]}
+    del pk
 
     # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
     # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its
@@ -2850,7 +2893,7 @@ def _main(start_references) -> int:
             "config2_group8": path_b_runs[8], "per_stream": path_c_run,
             "limit_mono": path_c_limits["mono"], "limit_p2": path_c_limits["P=2"],
             "agc_group": path_d_run, "agc_rel0b16": rel0_runs["rel0b16"],
-            "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run,
+            "agc_rel0f": rel0_runs["rel0f"], "dma_probe": dma_run, "pack_job": pack_run,
             "config1": path_f_run, "ring_chain": path_g_run, "flagship_bf16": path_gb_run,
             **path_h_runs, "config3": path_i_run, "player": path_j_run, "noise": path_k_run,
             **{f"dither_{a}": r for a, r in dither_runs.items()}, "seek": path_l_run,

@@ -124,7 +124,7 @@ def state_from_jax(node: Node, jstate) -> State:
     if isinstance(node, SamplesBuffer):
         st = {"pos": _t(jstate["pos"], node), "end": _t(jstate["end"], node)}
         if "data" in jstate:
-            st["data"] = node._data
+            st["data"] = node.channel_major()
         return st
     for cls, keys in _PLAIN_STATES:
         if isinstance(node, cls):
@@ -154,8 +154,7 @@ def state_from_jax(node: Node, jstate) -> State:
         # the JAX kernel pads its lanes to 1024, channel-major under AGC
         lanes = _channel_major(L) if node.with_agc else np.arange(L)
         st.update(
-            {"in": state_from_jax(node.input, jstate["in"]),
-             "out_o": int(jstate["out_o"]),
+            {"out_o": int(jstate["out_o"]),
              # the port keeps the drain flag on the host: read here, once
              "drained": bool(np.asarray(jstate["drained"])),
              "bq": _t(np.stack([np.asarray(b)[lanes] for b in jstate["bq"]]),

@@ -47,7 +47,6 @@ from .effects.agc import RMS_WINDOW_SIZE, AgcSettings, AutomaticGainControl
 from .effects.basic import Amplify
 from .effects.blt import BltFilter, blt_coefficients
 from .effects.limit import Limit, LimitSettings
-from .ops.probe import content_probe
 from .ops.scan import check_mode
 from .ops.fused import (
     AGC_REL0_PLANS, AGC_RING_FRAMES, fused_resample_biquad_agc_mix,
@@ -72,23 +71,6 @@ def refuse_float64(name: str) -> None:
             "raises a TypeError there (ROADMAP F8); build the unfused chain")
 #: the precisions whose PCM the JAX package splits into integer pieces
 INT_PIECES = ("int3", "int2", "i8", "i24")
-
-
-def _content_probe(input_node) -> tuple:
-    """(int16_grid_exact, int24_grid_exact, two_piece_exact) of the node's
-    PCM, cached on the node: on the card one kernel launch over the buffer
-    and one read-back of its three flags (``ops.probe``), on the CPU the
-    same flags in PyTorch ops."""
-    data = getattr(input_node, "_data", None)
-    if data is None:
-        return (False, False, False)
-    cached = getattr(input_node, "_content_probe_cache", None)
-    if cached is not None:
-        return cached
-    with span("rodio.setup.probe"):
-        out = content_probe(data)
-    input_node._content_probe_cache = out
-    return out
 
 
 class _LerpTaps:
@@ -122,7 +104,7 @@ class FusedWidePipeline(Node):
 
     Fuses the flagship's Resample -> BltFilter -> Amplify -> WideMixer
     chain so each block makes one pass over the input PCM. The upstream
-    must be a random-access, sliceable source (a SamplesBuffer).
+    must be a SamplesBuffer: the kernel reads its time-major PCM in place.
 
     Outputs match the unfused chain to ~1e-6 (the gain is applied before
     the biquad rather than after it, and the mix sums in another order),
@@ -176,9 +158,9 @@ class FusedWidePipeline(Node):
                  agc_ring: str = "bf16", agc_group: int = 0,
                  agc_plan: str = "auto"):
         refuse_float64("FusedWidePipeline")
-        if not (getattr(input_node, "RANDOM_ACCESS", False)
-                and hasattr(input_node, "slice_frames")):
-            raise TypeError("FusedWidePipeline needs a sliceable random-access source")
+        if not isinstance(input_node, SamplesBuffer):
+            raise TypeError("FusedWidePipeline needs a SamplesBuffer: it reads "
+                            "the buffer's time-major PCM")
         self.input = input_node
         self.device = input_node.device
         wide = input_node.spec.channels
@@ -203,7 +185,6 @@ class FusedWidePipeline(Node):
         self._gains = per_lane
         self._taps = _LerpTaps(self.from_, self.to, self.device)
         self._wide = wide
-        self._s0 = getattr(input_node, "_start", 0)
         # the validity of every block follows from host ints: the output
         # offset, the drain flag and the input's frames from its start
         self._n_in = input_node.total_frames()
@@ -261,12 +242,12 @@ class FusedWidePipeline(Node):
         if precision == "auto":
             if self.to > 1024:
                 return "highest"
-            g16, g24, tp2 = _content_probe(self.input)
+            g16, g24, tp2 = self.input.content_flags()
             return "i8" if g16 else "i24" if g24 else "int2" if tp2 else "int3"
         if precision in ("i8", "i24"):
             if self.to > 1024:
                 raise ValueError(f"precision={precision!r} needs to <= 1024")
-            g16, g24, _ = _content_probe(self.input)
+            g16, g24, _ = self.input.content_flags()
             if not (g16 if precision == "i8" else g24):
                 grid = "int16 grid (k / 2^15)" if precision == "i8" else "int24 grid (k / 2^23)"
                 raise ValueError(
@@ -281,15 +262,12 @@ class FusedWidePipeline(Node):
         return resample_output_frames(n_in, self.from_, self.to)
 
     def init_state(self) -> State:
-        in_state = self.input.init_state()
-        # one-time restructure of the PCM: time-major [frames, lanes], so a
-        # block's lerp reads whole rows; the upstream's copy is dropped
+        # the buffer's own time-major PCM from its start frame (a view: a
+        # block's lerp reads whole rows), so the state copies nothing
         with span("rodio.setup.time_major"):
-            pcm = in_state["data"][:, self._s0:].T.contiguous()
-        in_state = {k: v for k, v in in_state.items() if k != "data"}
+            pcm = self.input.time_major()
         dev = self.device
         return {
-            "in": in_state,
             "pcm": pcm,
             "out_o": 0,  # host int: advances by n per emit
             "drained": False,  # host bool: the stream has ended

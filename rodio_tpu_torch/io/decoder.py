@@ -207,7 +207,7 @@ class LoopedDecoder(Node):
         self.device = inner.device
         self._frames = inner._frames
         self._pad = min(Decoder.PAD_FRAMES, self._frames)
-        data = inner._data.clone()
+        data = inner.channel_major().clone()
         data[:, self._frames: self._frames + self._pad] = data[:, : self._pad]
         self._data = data
 

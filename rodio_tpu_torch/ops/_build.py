@@ -125,8 +125,11 @@ SIGNATURES = {
     "rt_dma_ring": (P, LL, I, I, I, I, I, P, P),
     # x, float4 count, blocks, out, stream
     "rt_stream_max": (P, LL, I, P, P),
-    # x, n, the card's SM count, fails (int32 [3]), stream
-    "rt_content_probe": (P, LL, I, P, P),
+    # src, C, frames, lane stride, frame stride, rows, out, fails (int32
+    # [3]), the card's SM count, stream
+    "rt_pack_time_major": (P, I, LL, LL, LL, LL, P, P, I, P),
+    # the same on doubles, without fails
+    "rt_pack_time_major_f64": (P, I, LL, LL, LL, LL, P, I, P),
     # (x0, a, b), out, iterations, stream
     "rt_op_chain": (P, P, LL, P),
     # the same with x, a, b and out f64 (DMUL and DADD)

@@ -24,9 +24,10 @@ import torch
 from ..core.node import Node, State, clip_valid, full_valid, mask_block
 from ..core.types import (DEFAULT_SAMPLE_RATE, StreamSpec, np_float_dtype,
                           to_sample)
+from ..ops.pack import content_flags, pack_time_major
 from ..ops.phase import phase_accumulate
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 #: 2*pi rounded to f32, the factor the JAX package's f32 ``sin`` argument takes
 TWO_PI = float(np.float32(2.0 * np.pi))
@@ -226,10 +227,19 @@ class SamplesBuffer(Node):
     """Device-resident PCM buffer source (src/buffer.rs:23-200).
 
     Accepts interleaved 1-D data (rodio layout) or a [channels, frames]
-    array or tensor (a tensor on the node's device is copied there, not
-    through the host). RANDOM_ACCESS marks the node as gatherable:
-    downstream stages (the resampler, the fused pipeline) read frames
-    directly.
+    array or tensor (a tensor on the node's device is read where it lies;
+    host data is uploaded first). RANDOM_ACCESS marks the node as
+    gatherable: downstream stages (the resampler, the fused pipeline) read
+    frames directly.
+
+    The buffer owns its PCM: one pass (``ops.pack``, a kernel on the card)
+    copies the data into a time-major ``[frames + pad, C]`` buffer, zero
+    padded, and gives the content probe's flags from the same read, so what
+    the node renders is fixed when it is built. The fused pipeline reads
+    that buffer (:meth:`time_major`) and the flags (:meth:`content_flags`);
+    the gathers of the other consumers read a channel-major copy, made from
+    it at their first use (:meth:`channel_major`, in ``init_state``'s
+    ``"data"``) and kept.
     """
 
     RANDOM_ACCESS = True
@@ -245,22 +255,48 @@ class SamplesBuffer(Node):
             if pad_frames < 1:
                 raise ValueError("pad_frames must be >= 1")
             self.PAD_FRAMES = int(pad_frames)
-        if isinstance(data, torch.Tensor):  # kept where it lies until copied below
-            arr = data.to(self.dtype)
-        else:
-            arr = torch.from_numpy(np.ascontiguousarray(np.asarray(data, dtype=np_float_dtype(self.dtype))))
-        if arr.dim() == 1:
-            frames = arr.shape[0] // channels
-            arr = arr[: frames * channels].reshape(frames, channels).T
-        elif arr.dim() != 2 or arr.shape[0] != channels:
-            raise ValueError("data must be 1-D interleaved or [channels, frames]")
-        self._frames = arr.shape[1]
         with span("rodio.setup.buffer"):
-            data_t = torch.zeros((channels, self._frames + self.PAD_FRAMES),
-                                 dtype=self.dtype, device=self.device)
-            data_t[:, : self._frames] = arr
-        self._data = data_t
+            if isinstance(data, torch.Tensor):
+                arr = data.to(self.device, self.dtype)
+            else:
+                arr = torch.from_numpy(np.ascontiguousarray(np.asarray(
+                    data, dtype=np_float_dtype(self.dtype)))).to(self.device)
+            if arr.dim() == 1:  # a view: frame stride C, lane stride 1
+                frames = arr.shape[0] // channels
+                arr = arr[: frames * channels].reshape(frames, channels).T
+            elif arr.dim() != 2 or arr.shape[0] != channels:
+                raise ValueError("data must be 1-D interleaved or [channels, frames]")
+            self._frames = arr.shape[1]
+            self._tm, self._fails = pack_time_major(arr, self._frames + self.PAD_FRAMES)
         self._start = int(start_frame)
+        self._flags = None  # the content flags, read back at their first use
+        self._cm = None  # the channel-major copy, made at its first use
+
+    def time_major(self) -> torch.Tensor:
+        """The PCM time-major from the start frame: ``[frames + pad -
+        start, C]``, a view of the buffer (frame ``start + f`` of lane l at
+        ``[f, l]``, zero past the end)."""
+        return self._tm[self._start:]
+
+    def content_flags(self) -> tuple:
+        """(int16_grid_exact, int24_grid_exact, two_piece_exact) of the
+        whole buffer (``ops.pack``): read back from the pass's fail words
+        at the first call, kept for the later ones. float32 only."""
+        if self._flags is None:
+            if self._fails is None:
+                raise ValueError("the content probe reads float32 PCM")
+            with span("rodio.setup.probe"):
+                self._flags = content_flags(self._fails)
+        return self._flags
+
+    def channel_major(self) -> torch.Tensor:
+        """The PCM channel-major, ``[C, frames + pad]``: copied from the
+        time-major buffer at the first call (``trace.counts
+        ["channel_major_copy"]``) and kept."""
+        if self._cm is None:
+            self._cm = self._tm.T.contiguous()
+            count("channel_major_copy")
+        return self._cm
 
     def total_frames(self) -> Optional[int]:
         return max(0, self._frames - self._start)
@@ -268,7 +304,7 @@ class SamplesBuffer(Node):
     def init_state(self) -> State:
         # the logical end lives in the state, as in the JAX package
         return {
-            "data": self._data,
+            "data": self.channel_major(),
             "pos": torch.tensor(self._start, dtype=torch.int64, device=self.device),
             "end": torch.tensor(self._frames, dtype=torch.int64, device=self.device),
         }

@@ -16,10 +16,11 @@ the Chrome-trace exporter, and the control plane's events.
     ``emit_ms.file`` and ``idle_in_emit_share`` read them
     (``gpubench/metrics/``);
   - a job's set-up on the card: ``rodio.setup.buffer`` (``SamplesBuffer``'s
-    zero-padded device copy), ``rodio.setup.probe`` (the fused pipeline's
-    content probe, when it misses its cache), ``rodio.setup.time_major``
-    (``FusedWidePipeline.init_state``'s transposed copy): read by
-    ``job_setup_ms.render``; ``rodio.setup.agc_state`` (the fused AGC's
+    one pass: the zero-padded time-major copy and the probe's flags,
+    ``ops/pack.py``), ``rodio.setup.probe`` (the read-back of the flags, at
+    the buffer's first ``content_flags()``), ``rodio.setup.time_major``
+    (``FusedWidePipeline.init_state`` taking the buffer's time-major view):
+    read by ``job_setup_ms.render``; ``rodio.setup.agc_state`` (the fused AGC's
     per-job carries and its ring of squares, ``with_agc=True``): named in
     a traced run's idle gaps;
   - a process's set-up: ``rodio.setup.decode`` (``LoopedDecoder``'s
@@ -54,13 +55,16 @@ the Chrome-trace exporter, and the control plane's events.
     ``rt_limiter_master``, K4 ``rt_biquad_df1`` (``..._bf16``), K5
     ``rt_limiter_env`` and ``rt_limiter_stream``, K6 ``rt_agc``, K7
     ``rt_first_order``, K8 ``rt_blocked_max_affine``, ``rt_threefry``,
-    ``rt_phase_accumulate``, ``rt_content_probe``, each f64 instance
+    ``rt_phase_accumulate``, ``rt_pack_time_major``, each f64 instance
     under the same name with ``_f64`` at the end; K9 ``rt_dma_ring``,
     ``rt_stream_max``, ``rt_op_chain`` (``_f64``) and ``rt_smooth_chain``
     (the benches);
   - ``host_valid_block`` and ``device_masked_block``: the blocks
     ``core.node.mask_unless_full`` passed on unmasked on its input's host
-    count, and those it masked on the card.
+    count, and those it masked on the card;
+  - ``channel_major_copy``: the channel-major copies a ``SamplesBuffer``
+    made of its time-major PCM (one a buffer, at its first
+    ``init_state``; the fused pipeline makes none).
 
   A reader takes a difference across a run, or clears the table first
   (``counts.clear()``); no metric of the benchmark reads it.

@@ -24,8 +24,9 @@ f32 instance is held at 1e-6); the f64 noise sources and Dither on the card
 against the CPU bit-equal but the erf_inv ones (NOISE_BOUNDS_F64); the
 associative scans of ``mode="parallel"`` (torch ops) bit-equal between the
 card and the CPU; K1 and K2, which have no f64 instance (ROADMAP F8), raise
-``NotImplementedError`` by name on an f64 CUDA tensor. The job set-up's
-content probe gives its plain version's flags (``probe_cases.py``).
+``NotImplementedError`` by name on an f64 CUDA tensor. The buffer's pack
+(the time-major PCM and the content probe's flags) bit-equal to its plain
+version, flags included (``probe_cases.py``), its f64 instance too.
 """
 import numpy as np
 import pytest
@@ -40,8 +41,7 @@ from rodio_tpu_torch.effects.limit import Limit, LimitSettings
 from probe_cases import FAIL_ONE as PROBE_FAIL_ONE
 from probe_cases import NAMES as PROBE_CASES
 from probe_cases import case as probe_case
-from rodio_tpu_torch.flagship import _content_probe
-from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block, probe
+from rodio_tpu_torch.ops import cuda_scan, fused, limiter_block, pack
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 from rodio_tpu_torch.utils import trace
 
@@ -2016,57 +2016,119 @@ def test_f64_per_stream_chain_on_card_matches_cpu(dev, f64_mode):
     assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-12
 
 
+def _pack_check(src, rows):
+    """The pack of ``src`` on the card, one launch, against its plain
+    version on the same tensor: ``tm`` bit-equal (NaN included: the bits are
+    compared), the fail words equal. Returns the flags."""
+    f64 = src.dtype == torch.float64
+    entry = "rt_pack_time_major" + ("_f64" if f64 else "")
+    before = trace.counts[entry]
+    tm, fails = pack.pack_time_major(src, rows)
+    assert trace.counts[entry] == before + 1
+    tp, fp = pack.pack_time_major_plain(src, rows)
+    bits = torch.int64 if f64 else torch.int32
+    assert tm.shape == tp.shape and tm.is_contiguous()
+    assert torch.equal(tm.view(bits), tp.view(bits))
+    if fails is None:
+        assert fp is None
+        return None
+    assert torch.equal(fails, fp)
+    return pack.content_flags(fails)
+
+
 @pytest.mark.parametrize("name", PROBE_CASES)
-def test_content_probe_matches_plain(dev, name):
-    """The content probe's kernel against its plain version on the card, on
-    every content case of the CPU test: one launch, the same flags."""
+def test_pack_flags_match_plain(dev, name):
+    """The pack's kernel against its plain version on the card, on every
+    content case of the CPU test, as a [C, frames] source and as its
+    transposed view (frame stride C): one launch each, the same PCM and
+    flags."""
     arr, want = probe_case(name)
     x = _f32(arr, dev)
-    before = trace.counts["rt_content_probe"]
-    got = probe.content_probe(x)
-    assert trace.counts["rt_content_probe"] == before + 1
-    assert got == probe.content_probe_plain(x) == want
+    for src in (x, x.T.contiguous().T):
+        assert _pack_check(src, arr.shape[1] + 7) == want
 
 
-#: (rows, cols, offset): numel not a multiple of 4, one lane, a base off its
-#: 16-byte boundary by ``offset`` floats (a scalar head), and buffers
-#: larger than one sweep of the grid (2 blocks an SM x 512 threads x 8
-#: float4s: 4.3 M floats at 132 SMs)
+#: (rows, cols, offset): one lane, a few lanes and frames, a source off its
+#: 16-byte boundary by ``offset`` floats, lanes past one tile of 32 and
+#: not a multiple of 4 (scalar stores), and sources larger than one sweep
+#: of the persistent grid
 PROBE_SHAPES = [(1, 1, 0), (1, 1, 3), (1, 5, 0), (3, 7, 0), (3, 7, 1), (2, 6, 2), (3, 7, 3),
-                (1, 4096, 0), (1024, 5000, 0), (1024, 5003, 1)]
+                (1, 4096, 0), (1024, 5000, 0), (1024, 5003, 1), (37, 1000, 2)]
 
 
 @pytest.mark.parametrize("rows,cols,offset", PROBE_SHAPES)
 @pytest.mark.parametrize("where", ["first", "last"])
-def test_content_probe_ragged(dev, rows, cols, offset, where):
-    """16-bit-grid content with an element off each grid at the first
-    element (the scalar head where the base is off its boundary) or the last
-    (the scalar tail where numel - head is not a multiple of 4): the
-    kernel's flags equal the plain version's and the expected ones."""
-    n = rows * cols
-    rng = np.random.default_rng(n * 4 + offset)
-    flat = _f32(rng.integers(-32768, 32768, offset + n) / 32768.0, dev)
-    x = flat[offset:].view(rows, cols)
-    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset % 16
-    assert probe.content_probe(x) == probe.content_probe_plain(x) == (True, True, True)
-    index = 0 if where == "first" else n - 1
+def test_pack_ragged(dev, rows, cols, offset, where):
+    """16-bit-grid content as a slice at ``offset`` of a wider source, with
+    an element off each grid at the first frame of the first lane or the
+    last of the last (the vectors read element by element at a row's ends
+    where it is off its boundary): the kernel's PCM and flags equal the
+    plain version's, and the flags the expected ones."""
+    rng = np.random.default_rng(rows * cols * 4 + offset)
+    wide = _f32(rng.integers(-32768, 32768, (rows, cols + offset + 5)) / 32768.0, dev)
+    x = wide[:, offset:offset + cols]
+    assert x.data_ptr() % 16 == 4 * offset % 16
+    assert _pack_check(x, cols + 33) == (True, True, True)
+    index = (0, 0) if where == "first" else (rows - 1, cols - 1)
     for value, want in PROBE_FAIL_ONE.values():
-        x.view(-1)[index] = float(value)
-        assert probe.content_probe(x) == probe.content_probe_plain(x) == want
-        x.view(-1)[index] = 0.0
+        x[index] = float(value)
+        assert _pack_check(x, cols + 33) == want
+        x[index] = 0.0
 
 
-def test_content_probe_once_a_node_and_only_on_f32(dev):
-    """One launch for a node's first probe, none for its cached second; a
-    CUDA tensor the kernel does not take raises, with no plain fallback."""
-    arr, want = probe_case("corpus16")
-    buf = SamplesBuffer(arr.shape[0], 44100, arr, device=dev)
-    before = trace.counts["rt_content_probe"]
-    assert _content_probe(buf) == want and trace.counts["rt_content_probe"] == before + 1
-    assert _content_probe(buf) == want and trace.counts["rt_content_probe"] == before + 1
-    x = _f32(arr, dev)
-    for bad in (x.to(torch.bfloat16), x.to(torch.float64), x.to(torch.float16),
-                x.reshape(-1), x[:, ::2], x[None]):
-        with pytest.raises(ValueError, match="contiguous 2-D float32"):
-            probe.content_probe(bad)
-    assert trace.counts["rt_content_probe"] == before + 1
+@pytest.fixture(scope="module")
+def cell_corpus():
+    """A corpus as the jobs cells hold it, [1024, 2,646,000] f32 on the
+    16-bit grid (10.8 GB); freed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    x = torch.empty((1024, 2646000), dtype=torch.float32, device="cuda")
+    x.random_(-32768, 32768, generator=torch.Generator("cuda").manual_seed(7))
+    yield x.div_(32768.0)
+    del x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_pack_at_the_cell_shape(dev, cell_corpus, offset):
+    """A render job's slice, [1024, 470,547] of the cell's corpus at an
+    offset of 0-3 floats past a 16-byte boundary, into [482,835, 1024]:
+    the kernel bit-equal to its plain version, flags included."""
+    x = cell_corpus[:, 1000 + offset:1000 + offset + 470547]
+    assert _pack_check(x, 482835) == (True, True, True)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pack_stereo_interleaved_and_f64(dev, offset):
+    """C = 2: a stereo slice and 1-D interleaved stereo (frame stride 2)
+    through ``SamplesBuffer``, and the f64 instance, against the plain
+    version."""
+    rng = np.random.default_rng(offset)
+    arr = (rng.integers(-32768, 32768, (2, 300001)) / 32768.0).astype(np.float32)
+    x = _f32(arr, dev)[:, offset:]
+    assert _pack_check(x, x.shape[1] + 8192) == (True, True, True)
+    inter = _f32(np.ascontiguousarray(arr.T).reshape(-1), dev)[2 * offset:]
+    assert _pack_check(inter.view(-1, 2).T, 300001 - offset + 100) == (True, True, True)
+    buf = SamplesBuffer(2, 44100, inter, device=dev)
+    assert torch.equal(buf.time_major()[:300001 - offset], x.T)
+    assert buf.content_flags() == (True, True, True)
+    assert _pack_check(_f64(arr, dev)[:, offset:], 300001 + 50) is None
+
+
+def test_pack_once_a_job_and_only_on_floats(dev):
+    """A job of the benchmark's config5_mix512 at 16 streams: one launch of
+    the pack from ``SamplesBuffer(...)`` through ``init_state()``, one
+    read-back of its flags, no channel-major copy; a tensor the kernel
+    does not take raises, with no plain fallback."""
+    config, _, cfg, pcm, gains, _ = _bench_job("config5_mix512", 16, dev, 3)
+    before = launched("rt_pack_time_major", "channel_major_copy")
+    chain = config.job_chain(pcm, gains, cfg, dev)
+    chain.init_state()
+    assert launched("rt_pack_time_major", "channel_major_copy") == (before[0] + 1, before[1])
+    assert chain.input.precision == "i8"
+    x = _f32(np.zeros((4, 64)), dev)
+    for bad in (x.to(torch.bfloat16), x.to(torch.float16), x.to(torch.int32),
+                x.reshape(-1), x[None]):
+        with pytest.raises(ValueError, match="2-D float32 or float64"):
+            pack.pack_time_major(bad, 64)
+    assert launched("rt_pack_time_major")[0] == before[0] + 1

@@ -1,8 +1,9 @@
-"""The job set-up's content probe (``rodio_tpu_torch/ops/probe.py``) on the
-CPU: its plain version against the expression it replaced in
-``flagship._content_probe`` (kept below as it was) and the JAX package's
-probe, and the precision ``FusedWidePipeline`` resolves from it. The kernel
-is held to the plain version on the card in ``test_torch_cuda.py``.
+"""The job set-up's content probe (``rodio_tpu_torch/ops/pack.py``, the
+flags of the buffer's one pass) on the CPU: its plain version against the
+expression ``flagship._content_probe`` ran before the kernel (kept below as
+it was) and the JAX package's probe, and the precision
+``FusedWidePipeline`` resolves from it. The kernel is held to the plain
+version on the card in ``test_torch_cuda.py``.
 
 The JAX package is held to the same flags on every case but subnormals,
 where XLA's CPU may flush them; the port follows torch there.
@@ -16,8 +17,8 @@ import torch
 
 from probe_cases import NAMES, SUBNORMAL_CASES, case
 from rodio_tpu.flagship import _content_probe as j_content_probe
-from rodio_tpu_torch.flagship import FusedWidePipeline, _content_probe
-from rodio_tpu_torch.ops import probe
+from rodio_tpu_torch.flagship import FusedWidePipeline
+from rodio_tpu_torch.ops import pack
 from rodio_tpu_torch.utils import trace
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 
@@ -46,20 +47,23 @@ def ladder(flags) -> str:
 def test_plain_probe_matches_the_old_expression_and_jax(name):
     arr, want = case(name)
     data = torch.from_numpy(arr)
-    before = trace.counts["rt_content_probe"]
     assert torch_expression(data) == want
-    assert probe.content_probe_plain(data) == want
-    assert probe.content_probe(data) == want
-    # a CPU tensor takes the plain version
-    assert trace.counts["rt_content_probe"] == before
+    assert pack.content_flags(pack.probe_fails_plain(data)) == want
+    # the pack's flags, of the case as a [C, frames] source and of its
+    # transposed view: a CPU tensor takes the plain version
+    before = trace.counts["rt_pack_time_major"]
+    for src in (data, data.T.contiguous().T):
+        _, fails = pack.pack_time_major(src, arr.shape[1] + 5)
+        assert pack.content_flags(fails) == want
+    assert trace.counts["rt_pack_time_major"] == before
     if name not in SUBNORMAL_CASES:
         assert j_content_probe(types.SimpleNamespace(_data=jnp.asarray(arr))) == want
-    # the precision the fused pipeline resolves from it, through the node's
-    # cached probe
+    # the precision the fused pipeline resolves from it, through the
+    # buffer's flags, read back once and kept
     buf = SamplesBuffer(arr.shape[0], 44100, data, device="cpu")
     fused = FusedWidePipeline(buf, 48000, np.ones(arr.shape[0], np.float32),
                               arr.shape[0] // 2)
-    assert buf._content_probe_cache == want and _content_probe(buf) is buf._content_probe_cache
+    assert buf.content_flags() == want and buf.content_flags() is buf.content_flags()
     assert fused.precision == ladder(want)
     for precision, flag in (("i8", want[0]), ("i24", want[1])):
         if flag:
@@ -72,5 +76,14 @@ def test_plain_probe_matches_the_old_expression_and_jax(name):
 
 
 def test_the_kernel_wrapper_takes_only_cuda_tensors():
-    with pytest.raises(ValueError, match="a CUDA tensor is needed"):
-        probe.probe_fails(torch.zeros((2, 8)))
+    """The pack takes a CPU tensor (its plain version) or a CUDA one (the
+    kernel), 2-D float32 or float64, into at least its frames' rows; it
+    raises on anything else."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack.pack_time_major(torch.zeros((2, 8), device="meta"), 8)
+    for bad in (torch.zeros((2, 8), dtype=torch.bfloat16), torch.zeros(8),
+                torch.zeros((1, 2, 8)), torch.zeros((2, 8), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="2-D float32 or float64"):
+            pack.pack_time_major(bad, 8)
+    with pytest.raises(ValueError, match="fewer than the 8 frames"):
+        pack.pack_time_major(torch.zeros((2, 8)), 7)

@@ -109,8 +109,6 @@ def test_emit_spans_nest_as_the_chain_does(track):
 
 
 def test_a_job_gives_each_setup_span_once_and_a_cached_probe_none():
-    from rodio_tpu_torch.flagship import _content_probe
-
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         buf, chain, state = config5_job()
         chain.emit(state, 1280)
@@ -118,7 +116,7 @@ def test_a_job_gives_each_setup_span_once_and_a_cached_probe_none():
     assert {n: found.get(n) for n in SETUP} == {n: 1 for n in SETUP}
     assert found["rodio.emit.Limit"] == found["rodio.emit.FusedWidePipeline"] == 1
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        assert _content_probe(buf) is buf._content_probe_cache
+        assert buf.content_flags() is buf.content_flags()
     assert counts(spans_of(prof)) == {}
 
 
