@@ -40,6 +40,7 @@ import torch
 
 from ..core.node import Node, State, clip_valid, mask_block, tree_select
 from ..core.types import StreamSpec, np_float_dtype
+from ..utils.trace import spanned
 
 #: the ring path's "not ended yet" input end (the JAX package's int32 max)
 BIG = 2**31 - 1
@@ -219,6 +220,7 @@ class Resample(Node):
     def _lerp(self, lval, rval, num):
         return lval + (rval - lval) * self._frac[num][None, :]
 
+    @spanned("rodio.emit.Resample")
     def emit(self, state: State, n: int):
         if self.identity:
             s, block, valid = self.input.emit(state["in"], n)

@@ -18,6 +18,7 @@ from ..core.node import (Node, State, clip_valid, full_valid, mask_block,
                          tree_select, widen)
 from ..core.types import (NANOS_PER_SEC, StreamSpec, duration_to_nanos,
                           np_float_dtype, to_sample)
+from ..utils.trace import spanned
 
 
 def _scalar(value, device, dtype) -> torch.Tensor:
@@ -66,6 +67,7 @@ class Amplify(_Wrap):
             f = f[:, None]  # broadcast over time
         return {"in": self.input.init_state(), "factor": f}
 
+    @spanned("rodio.emit.Amplify")
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state["in"], n)
         return ({"in": s, "factor": state["factor"]},

@@ -19,6 +19,7 @@ import torch
 
 from ..core.node import Node, State, widen
 from ..core.types import StreamSpec, np_float_dtype
+from ..utils.trace import spanned
 
 
 def _tree_map(fn, *trees):
@@ -122,6 +123,7 @@ class WideMixer(Node):
     def init_state(self) -> State:
         return self.input.init_state()
 
+    @spanned("rodio.emit.WideMixer")
     def emit(self, state: State, n: int):
         s, block, valid = self.input.emit(state, n)
         # the stream sum is f32 whatever the block's dtype: a bf16 block is

@@ -292,9 +292,11 @@ class SamplesBuffer(Node):
     def channel_major(self) -> torch.Tensor:
         """The PCM channel-major, ``[C, frames + pad]``: copied from the
         time-major buffer at the first call (``trace.counts
-        ["channel_major_copy"]``) and kept."""
+        ["channel_major_copy"]``, the span ``rodio.setup.channel_major``)
+        and kept."""
         if self._cm is None:
-            self._cm = self._tm.T.contiguous()
+            with span("rodio.setup.channel_major"):
+                self._cm = self._tm.T.contiguous()
             count("channel_major_copy")
         return self._cm
 

@@ -10,19 +10,22 @@ the Chrome-trace exporter, and the control plane's events.
   records into it; with both it does both. The spans the port opens:
 
   - ``rodio.emit.<Class>`` around the whole ``emit`` of ``Limit``,
-    ``FusedWidePipeline``, ``AutomaticGainControl``, ``BltFilter`` and
-    ``LoopedDecoder``, nested as the chain is: a node's self time is its
-    span less its input's. The benchmark's ``emit_ms.render``,
-    ``emit_ms.file`` and ``idle_in_emit_share`` read them
-    (``gpubench/metrics/``);
+    ``FusedWidePipeline``, ``AutomaticGainControl``, ``BltFilter``,
+    ``LoopedDecoder``, ``Resample``, ``Amplify`` and ``WideMixer``, nested
+    as the chain is: a node's self time is its span less its input's. The
+    benchmark's ``emit_ms.render``, ``emit_ms.file`` and
+    ``idle_in_emit_share`` read the outermost ones, ``resample_emit_ms``
+    the ``Resample`` ones (``gpubench/metrics/``);
   - a job's set-up on the card: ``rodio.setup.buffer`` (``SamplesBuffer``'s
     one pass: the zero-padded time-major copy and the probe's flags,
     ``ops/pack.py``), ``rodio.setup.probe`` (the read-back of the flags, at
     the buffer's first ``content_flags()``), ``rodio.setup.time_major``
     (``FusedWidePipeline.init_state`` taking the buffer's time-major view):
     read by ``job_setup_ms.render``; ``rodio.setup.agc_state`` (the fused AGC's
-    per-job carries and its ring of squares, ``with_agc=True``): named in
-    a traced run's idle gaps;
+    per-job carries and its ring of squares, ``with_agc=True``) and
+    ``rodio.setup.channel_major`` (``SamplesBuffer.channel_major``'s copy
+    for the unfused consumers, once a buffer): named in a traced run's idle
+    gaps;
   - a process's set-up: ``rodio.setup.decode`` (``LoopedDecoder``'s
     whole-file decode), ``rodio.setup.build`` (a compiler run for the
     kernels or the host C++), ``rodio.setup.load`` (loading a library from

@@ -814,6 +814,35 @@ def test_config5_agc512_job_runs_k2_once_a_block(dev):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def test_config5_strip512_job_runs_k4_k6_k5_k3_once_a_block(dev):
+    """One job of the benchmark's config5_strip512 at 16 streams, 3 blocks of
+    the cell's 12800, through the node graph: one launch a block of each of
+    K4, K6, K5 (``limiter_stream``) and K3, none of K1's or K2's, and one
+    channel-major copy a job. The blocks equal the same chain's plain
+    versions on the CPU within 1e-6, as path C's check holds them: K4, K6
+    and K5 equal their plain versions bit for bit, the mixer sums the
+    streams in another order, and the CPU's master Limit runs K3's blocked
+    order (``mode="pallas"``)."""
+    config, _, cfg, pcm, gains, _ = _bench_job("config5_strip512", 16, dev, 3)
+    n = cfg["block_frames"]
+    kernels = ("rt_biquad_df1", "rt_agc", "rt_limiter_stream", "rt_limiter_master")
+    fused_kernels = ("rt_fused_resample_biquad_mix", "rt_fused_resample_biquad_agc_mix")
+    before = launched(*kernels, *fused_kernels, "channel_major_copy")
+    chain = config.job_chain(pcm, gains, cfg, dev)
+    state = chain.init_state()
+    assert launched("channel_major_copy") == (before[-1] + 1,)
+    plain = Limit(config.job_chain(pcm.cpu(), gains, cfg, "cpu").input,
+                  LimitSettings(), mode="pallas")
+    st_c = plain.init_state()
+    for i in range(3):
+        state, y, v = chain.emit(state, n)
+        assert launched(*kernels) == tuple(b + i + 1 for b in before[:4])
+        st_c, y_c, v_c = plain.emit(st_c, n)
+        assert int(v) == int(v_c) == n
+        assert (y.cpu() - y_c).abs().max().item() <= 1e-6
+    assert launched(*fused_kernels) == before[4:6]
+
+
 def test_jobs_chain_block_is_k1_k3_and_little_else(dev):
     """The jobs cell's chain (``config5_mix512`` at its 512 streams and
     block of 12800), its second block under the profiler: K1's two
