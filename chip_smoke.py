@@ -182,7 +182,7 @@ Phases (each raises on failure, so the script exits non-zero):
      stream_farm, K1's ring mode and K3 streaming_farm_512 at 512 streams
      for 30 s, K4 low_pass and into_file, K3 into_file and limit_wav, K5
      limit_settings, K8 and K7 automatic_gain_control, threefry and K7
-     noise_generator); the eight WAV-writing examples against the same
+     noise_generator, the resampler's pass into_file and seek); the eight WAV-writing examples against the same
      example on the CPU (1e-6; noise_generator at path K's bounds), and
      low_pass against rodio_tpu_torch.refimpl rendering its graph (1e-6:
      K4's recursion only, since the oracle takes the port's own
@@ -247,6 +247,11 @@ PATH_H_BLOCK = 1024
 #: of 1024 lanes x 470,547 frames of the [1024, 2,646,000] corpus, 1.93 GB,
 #: into 482,835 rows with 12,288 of padding, 1.98 GB)
 PACK_SHAPE, PACK_ROWS, PACK_CORPUS_FRAMES = (1024, 470547), 482835, 2646000
+#: the resampler's pass at c5strip_render_jobs' block: [1024, 12800] output
+#: frames at 44.1 -> 48 kHz over a render job's [1024, 482835] buffer; the
+#: timed calls rotate through RESAMPLE_BLOCKS blocks of a job, whose input
+#: windows (48.2 MB each) are disjoint, so no call finds its window in L2
+RESAMPLE_SHAPE, RESAMPLE_BLOCKS = (1024, 12800), 8
 #: path I: BASELINE config 3, 64 sources taken for 10 s (the test's 0.25 s
 #: would give the timing 6 blocks), pulled in blocks of 2048
 PATH_I_SECONDS, PATH_I_BLOCK = 10.0, 2048
@@ -329,9 +334,10 @@ PATH_Z_WAV = ("automatic_gain_control", "distortion", "into_file", "limit_settin
 #: the kernels each example launches on the card (read off ``trace.counts`` in
 #: a run on the H100), the pack aside (every buffer built on the card runs
 #: it); an example not named launches none
-PATH_Z_KERNELS = {"automatic_gain_control": ("K7", "K8"), "into_file": ("K3", "K4"),
-                  "limit_settings": ("K5",), "limit_wav": ("K3",), "low_pass": ("K4",),
-                  "noise_generator": ("K7", "threefry"),
+PATH_Z_KERNELS = {"automatic_gain_control": ("K7", "K8"),
+                  "into_file": ("K3", "K4", "resample"), "limit_settings": ("K5",),
+                  "limit_wav": ("K3",), "low_pass": ("K4",),
+                  "noise_generator": ("K7", "threefry"), "seek": ("resample",),
                   "stream_farm": ("K1", "K3"),
                   "streaming_farm_512": ("K1r", "K3")}
 #: the kernels path Z as a whole must launch
@@ -463,6 +469,66 @@ def _pack_timing(dev) -> dict:
     nbytes = L * frames * 4 + PACK_ROWS * L * 4
     return dict(flags=flags, ms=ms, torch_ms=torch_ms, plain_ms=plain_ms, nbytes=nbytes,
                 numel=PACK_ROWS * L, job=job)
+
+
+def _resample_timing(dev) -> dict:
+    """The resampler's pass (``ops.resample.resample_lerp``) at
+    :data:`RESAMPLE_SHAPE` over a 16-bit-grid buffer of a render job's
+    size, for the blocks 0 .. RESAMPLE_BLOCKS - 1 of the job and for the
+    block that holds the drain frame: bit for bit against its plain version
+    on the card, its scalars too; then the kernel's ms eager (events over
+    calls that rotate through the blocks) and in a CUDA graph (the card's
+    time alone), and the plain version's ms."""
+    import itertools
+
+    import torch
+
+    from rodio_tpu_torch.benches import warp_cycles
+    from rodio_tpu_torch.conversions.resample import lerp_weights
+    from rodio_tpu_torch.ops import resample
+
+    (L, n), frames = RESAMPLE_SHAPE, PACK_SHAPE[1]
+    fr, to = 147, 160
+    data = torch.empty((L, PACK_ROWS), dtype=torch.float32, device=dev)
+    data.random_(-32768, 32768, generator=torch.Generator(dev).manual_seed(SEED))
+    data.div_(32768.0)
+    data[:, frames:] = 0.0
+    w0, w1 = (torch.from_numpy(w).to(dev) for w in lerp_weights(fr, to))
+
+    def scalars(out_o, in_end):
+        i64 = lambda v: torch.full((), v, dtype=torch.int64, device=dev)  # noqa: E731
+        return (i64(0), i64(in_end), i64(out_o), torch.zeros((), dtype=torch.bool, device=dev),
+                w0, w1, n, fr, to)
+
+    # the job's blocks, then a buffer one frame short of a whole number of
+    # blocks' windows, where the drain frame lands inside the last block
+    cases = [scalars(k * n, frames) for k in range(RESAMPLE_BLOCKS)]
+    cases.append(scalars(36 * n, 36 * n * fr // to + n // 2))
+    err = 0.0
+    for k, args in enumerate(cases):
+        got = resample.resample_lerp(data, *args)
+        want = resample.resample_lerp_plain(data, *args)
+        err = max(err, _max_err(got[0], want[0]))
+        same = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and all(
+            int(a) == int(b) for a, b in zip(got[1:], want[1:]))
+        if not same:
+            raise AssertionError(f"resample_lerp, case {k}: kernel and plain differ")
+    if int(got[2]) in (0, n):
+        raise AssertionError(f"resample_lerp: the drain case gave valid {int(got[2])}")
+    turns = itertools.cycle(cases[:RESAMPLE_BLOCKS])
+
+    def call():
+        return resample.resample_lerp(data, *next(turns))
+
+    ms = _time_ms(call, 40)
+    gms = warp_cycles.graph_ms(call, 2 * RESAMPLE_BLOCKS)
+    plain_ms = _time_ms(lambda: resample.resample_lerp_plain(data, *cases[0]), 3)
+    del data, got, want
+    torch.cuda.empty_cache()
+    # the least a block reads: the frames its taps span, a lane
+    nbytes = L * ((n - 1) * fr // to + 2) * 4 + L * n * 4
+    return dict(ms=ms, graph_ms=gms, plain_ms=plain_ms, nbytes=nbytes, ops=3 * L * n,
+                cases=len(cases), err=err)
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -1144,11 +1210,11 @@ def _scan_f64_paths(wants, h) -> dict:
     mono and P = 2 on K5's f64 instance. ``wants`` holds the CPU renders.
     Returns the runs' launch counts."""
     runs = {}
-    paths = (("S", "agc_auto", N_BLOCKS, T, dict(K4=1, K7=1, K3=1)),
-             ("T", "agc_parallel", N_BLOCKS, T, dict(K7=1)),
+    paths = (("S", "agc_auto", N_BLOCKS, T, dict(K4=1, K7=1, K3=1, resample=1)),
+             ("T", "agc_parallel", N_BLOCKS, T, dict(K7=1, resample=1)),
              ("U", "config2_f64", PATH_B_BLOCKS, PATH_B_BLOCK,
               dict(K4f64=1, K8f64=1, K7f64=1, K3f64=1)),
-             ("V", "config5_f64", N_BLOCKS, T, dict(K4f64=1, K3f64=1)),
+             ("V", "config5_f64", N_BLOCKS, T, dict(K4f64=1, K3f64=1, resample_f64=1)),
              ("W", "per_stream_f64", N_BLOCKS, T, dict(K4f64=1, K6f64=1, K5f64=1, K3f64=1)))
     for task, name, n_blocks, block, per_block in paths:
         with _SampleMode(task):
@@ -1610,7 +1676,8 @@ def _main(start_references) -> int:
                "K7f64": "rt_first_order_f64", "K3f64": "rt_limiter_master_f64",
                "K8f64": "rt_blocked_max_affine_f64", "K6f64": "rt_agc_f64",
                "K5f64": "rt_limiter_stream_f64", "threefryf64": "rt_threefry_f64",
-               "phasef64": "rt_phase_accumulate_f64", "pack": "rt_pack_time_major"}
+               "phasef64": "rt_phase_accumulate_f64", "pack": "rt_pack_time_major",
+               "resample": "rt_resample_lerp", "resample_f64": "rt_resample_lerp_f64"}
 
     def reset():
         trace.counts.clear()
@@ -1725,6 +1792,19 @@ def _main(start_references) -> int:
                 f"{pk['job'][1]} channel-major copies")
     pack_run = {k: 0 for k in entries} | {"pack": pk["job"][0]}
     del pk
+
+    # the resampler's weight form over a buffer at the strip cell's block:
+    # the frames each lane's taps span read once (48.2 MB), the block
+    # written (52.4 MB); per sample two products and a sum. Its launches
+    # are the unfused chain's (its Resample over a SamplesBuffer)
+    rs = _resample_timing(dev)
+    record("resample", "resample_lerp", "rodio_tpu_torch/csrc/resample_lerp.cu",
+           "rodio_tpu/conversions/resample.py (an XLA matmul through G0/g1)", rs["err"], 0.0,
+           rs["ms"], rs["plain_ms"], rs["nbytes"], rs["ops"], 0.0,
+           note=f" {list(RESAMPLE_SHAPE)} at 147/160 (no pallas_call); in a CUDA graph "
+                f"{rs['graph_ms']:.4f} ms ({rs['nbytes'] / rs['graph_ms'] / 1e6:.0f} GB/s); "
+                f"{rs['cases']} blocks bit-equal to the plain version, the drain block too")
+    del rs
 
     # K3: the master limiter over [2, 12800], P = 128, loud enough to limit;
     # per sample ~60 ops (the dB gain computer, two envelopes, exp2); its
@@ -2343,7 +2423,7 @@ def _main(start_references) -> int:
     unfused_run = counts()
     torch.cuda.synchronize()
     print(f"slice: unfused chain render of 2 x {T}: launches {unfused_run}")
-    expect(unfused_run, "unfused chain", K3=2, K4=2)
+    expect(unfused_run, "unfused chain", K3=2, K4=2, resample=2)
     nv = int(uvalids.sum().item())  # no drain frame inside the first blocks
     err_slice = _max_err(out[:, :nv], uout[:, :nv])
     print(f"slice: fused vs unfused chain (K4 + K3), 2 blocks: max|d| "
@@ -2376,7 +2456,7 @@ def _main(start_references) -> int:
     agc_unfused_run = counts()
     torch.cuda.synchronize()
     print(f"path A': unfused AGC chain render of 2 x {T}: launches {agc_unfused_run}")
-    expect(agc_unfused_run, "path A'", K3=2, K4=2, K6=2)
+    expect(agc_unfused_run, "path A'", K3=2, K4=2, K6=2, resample=2)
     nv = int(auvalids.sum().item())
     err_a = _max_err(aout[:, :nv], auout[:, :nv])
     print(f"path A: fused (K2, bf16 ring) vs unfused AGC chain (K4 + K6 + K3), "
@@ -2579,7 +2659,7 @@ def _main(start_references) -> int:
     path_gb_run = counts()
     torch.cuda.synchronize()
     print(f"path G': the bf16-block chain, {N_BLOCKS} x {T}: launches {path_gb_run}")
-    expect(path_gb_run, "path G'", K3=N_BLOCKS, K4bf=N_BLOCKS)
+    expect(path_gb_run, "path G'", K3=N_BLOCKS, K4bf=N_BLOCKS, resample=N_BLOCKS)
     hpeak = check_output(hout, hvalids, "path G'", N_BLOCKS, T)
     cnode = bf16_chain("cpu")
     _, hcpu, _ = rtt.render_blocks(cnode, cnode.init_state(), 2, T)
@@ -2904,7 +2984,8 @@ def _main(start_references) -> int:
                     "K2g": "agc_group", "K6": "agc_unfused", "K7": "config2",
                     "K8": "config2", "K5": "per_stream", "K9": "dma_probe",
                     "K6f64": "per_stream_f64", "K5f64": "per_stream_f64",
-                    "threefryf64": "noise_f64", "phasef64": "config4_f64"}
+                    "threefryf64": "noise_f64", "phasef64": "config4_f64",
+                    "resample": "unfused"}
     print(json.dumps({"kernels": [
         {"name": r["name"], "id": r["kid"], "route": "cuda", "source": r["source"],
          "replaces": r["replaces"],

@@ -16,7 +16,11 @@ Three emit paths, chosen as the JAX package chooses them:
   weights of the JAX package's lerp operator ``G0``/``g1``: the JAX
   package's matmul path, taken when the upstream is random-access with
   ``slice_frames``, there are no spans, and a block's window
-  ``(n // to + 2) * from + 1`` fits in the upstream's zero padding;
+  ``(n // to + 2) * from + 1`` fits in the upstream's zero padding. Over a
+  ``SamplesBuffer`` it is one pass over the buffer's PCM
+  (``ops.resample.resample_lerp``: a kernel on the card); over any other
+  such upstream (a ``PushPort``, whose gathers wrap its ring) it is the
+  same function in PyTorch ops through the upstream's ``gather_frames``;
 - the lerp form, ``x[left] + (x[right] - x[left]) * frac``, over a
   random-access upstream otherwise (``_emit_random_access``), spans
   included: ``segment_frames`` re-bootstraps the phase every segment, each
@@ -38,8 +42,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.node import Node, State, clip_valid, mask_block, tree_select
+from ..core.node import Node, State, tree_select
 from ..core.types import StreamSpec, np_float_dtype
+from ..ops.resample import drain_and_mask, lerp_block_plain, resample_lerp
 from ..utils.trace import spanned
 
 #: the ring path's "not ended yet" input end (the JAX package's int32 max)
@@ -91,29 +96,10 @@ def output_positions(o0, n: int, from_: int, to: int, device):
     return lerp_left(o, from_, to), o % to
 
 
-def drain_bookkeeping(left: torch.Tensor, in_end: torch.Tensor,
-                      drained: torch.Tensor, n: int, seg_drain=None):
-    """Validity of a block of outputs whose left taps are ``left``
-    (resample.py:326-345): returns (n_full, drain_ok, valid, drained').
-    ``seg_drain`` marks a span's own drain frame, valid while its left
-    frame exists."""
-    full = left <= in_end - 2
-    if seg_drain is not None:
-        full = full | (seg_drain & (left <= in_end - 1))
-    n_full = full.sum()
-    # index_select, not left[n_full]: a 0-dim tensor index reads it back
-    cand_left = left.index_select(0, torch.clamp(n_full, max=n - 1).view(1))[0]
-    drain_ok = (n_full < n) & (cand_left == in_end - 1)
-    valid = torch.where(drained, torch.zeros_like(n_full),
-                        n_full + drain_ok.to(n_full.dtype))
-    drained_new = drained | drain_ok | (valid < n)
-    return n_full, drain_ok, clip_valid(valid, n), drained_new
-
-
 def host_drain_bookkeeping(o0: int, n: int, n_in: int, drained: bool,
                            from_: int, to: int):
-    """:func:`drain_bookkeeping` in host ints, for the outputs o0 .. o0+n-1
-    of one continuous stream of ``n_in`` input frames (left taps
+    """``ops.resample.drain_bookkeeping`` in host ints, for the outputs
+    o0 .. o0+n-1 of one continuous stream of ``n_in`` input frames (left taps
     ``lerp_left(o0 + arange(n))``, ``in_end`` = ``n_in``): returns (valid,
     drained'). The left taps never decrease, so the block's full lerps are
     those of the stream's that fall in it."""
@@ -227,27 +213,26 @@ class Resample(Node):
             return {"in": s}, block, valid
         if not self.random_access:
             return self._emit_ring(state, n)
-        o = state["out_o"] + torch.arange(n, device=self.device)
         start, in_end = self.input.access_window(state["in"])
-        weight = self.uses_weight_form(n)
-        if weight:
-            j = o % self.to
-            left, seg_drain = (o // self.to) * self.from_ + (self.from_ * j) // self.to, None
-        else:
-            left, num, seg_drain = self._left_num(o)
+        if self.uses_weight_form(n):
+            from ..sources.generators import SamplesBuffer
+
+            args = (start, in_end, state["out_o"], state["drained"], self._w0, self._w1, n,
+                    self.from_, self.to)
+            if isinstance(self.input, SamplesBuffer):
+                out, out_o, valid, drained = resample_lerp(self.input.pcm(state["in"]), *args)
+            else:
+                out, out_o, valid, drained = lerp_block_plain(
+                    lambda idx: self.input.gather_frames(state["in"], idx), *args)
+            return {"in": state["in"], "out_o": out_o, "drained": drained}, out, valid
+        o = state["out_o"] + torch.arange(n, device=self.device)
+        left, num, seg_drain = self._left_num(o)
         lval = self.input.gather_frames(state["in"], start + left)
-        rval = self.input.gather_frames(state["in"], start + left + 1)
-        if weight:
-            out = lval * self._w0[j][None, :] + rval * self._w1[j][None, :]
-        else:
-            out = self._lerp(lval, rval, num)
-        n_full, drain_ok, valid, drained = drain_bookkeeping(
-            left, in_end, state["drained"], n, seg_drain)
-        i_idx = torch.arange(n, device=self.device)
-        # the drain output is the final input frame, unmodified
-        out = torch.where(((i_idx == n_full) & drain_ok)[None, :], lval, out)
+        out = self._lerp(lval, self.input.gather_frames(state["in"], start + left + 1), num)
+        out, valid, drained = drain_and_mask(out, lval, left, in_end, state["drained"], n,
+                                             seg_drain)
         return ({"in": state["in"], "out_o": state["out_o"] + n, "drained": drained},
-                mask_block(out, valid), valid)
+                out, valid)
 
     def _emit_ring(self, state: State, n: int):
         """The streaming path over an upstream that is not random-access
@@ -294,11 +279,9 @@ class Resample(Node):
         idx = left - base_g
         lval = gather(idx)
         out = self._lerp(lval, gather(idx + 1), num)
-        n_full, drain_ok, valid, drained = drain_bookkeeping(
-            left, in_end, state["drained"], n, seg_drain)
-        i_idx = torch.arange(n, device=dev)
-        out = torch.where(((i_idx == n_full) & drain_ok)[None, :], lval, out)
+        out, valid, drained = drain_and_mask(out, lval, left, in_end, state["drained"], n,
+                                             seg_drain)
         return ({"in": in_state, "ring": ring, "base_g": base_g, "fill": fill,
                  "out_o": state["out_o"] + n, "in_pulled": in_pulled,
                  "in_end": in_end, "drained": drained},
-                mask_block(out, valid), valid)
+                out, valid)

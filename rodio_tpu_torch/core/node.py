@@ -282,6 +282,13 @@ def mask_block(block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(idx[None, :] < valid, block, torch.zeros_like(block))
 
 
+def take_frames(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Frames ``idx`` of ``data`` [C, W]; zero outside ``[0, W)``."""
+    inside = (idx >= 0) & (idx < data.shape[1])
+    out = data[:, torch.clamp(idx, 0, data.shape[1] - 1)]
+    return torch.where(inside[None, :], out, torch.zeros_like(out))
+
+
 def mask_unless_full(block: torch.Tensor, valid: torch.Tensor,
                      known: Optional[int], n: int) -> torch.Tensor:
     """``mask_block(block, valid)``, skipped when the host count ``known``

@@ -130,6 +130,11 @@ SIGNATURES = {
     "rt_pack_time_major": (P, I, LL, LL, LL, LL, P, P, I, P),
     # the same on doubles, without fails
     "rt_pack_time_major_f64": (P, I, LL, LL, LL, LL, P, I, P),
+    # data, C, W, row stride, out, n, from, to, w0, w1, out_o, start, in_end,
+    # drained, out_o', valid, drained' (the scalars 0-dim), stream
+    "rt_resample_lerp": (P, I, LL, LL, P, I, I, I, P, P, P, P, P, P, P, P, P, P),
+    # the same on doubles
+    "rt_resample_lerp_f64": (P, I, LL, LL, P, I, I, I, P, P, P, P, P, P, P, P, P, P),
     # (x0, a, b), out, iterations, stream
     "rt_op_chain": (P, P, LL, P),
     # the same with x, a, b and out f64 (DMUL and DADD)

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.node import Node, State, clip_valid, full_valid, mask_block
+from ..core.node import Node, State, clip_valid, full_valid, mask_block, take_frames
 from ..core.types import (DEFAULT_SAMPLE_RATE, StreamSpec, np_float_dtype,
                           to_sample)
 from ..ops.pack import content_flags, pack_time_major
@@ -321,19 +321,21 @@ class SamplesBuffer(Node):
         """(start_frame, frames_from_start) of the remaining stream."""
         return state["pos"], state["end"] - state["pos"]
 
+    def pcm(self, state: State) -> torch.Tensor:
+        """The ``[C, frames + pad]`` tensor that :meth:`gather_frames` and
+        :meth:`slice_frames` read in ``state``."""
+        return state["data"]
+
     def gather_frames(self, state: State, idx: torch.Tensor) -> torch.Tensor:
         """Frames at device indices ``idx``; zero outside the buffer."""
-        data = state["data"]
-        inside = (idx >= 0) & (idx < data.shape[1])
-        out = data[:, torch.clamp(idx, 0, data.shape[1] - 1)]
-        return torch.where(inside[None, :], out, torch.zeros_like(out))
+        return take_frames(self.pcm(state), idx)
 
     def slice_frames(self, state: State, start: torch.Tensor, length: int):
         """Contiguous [C, length] window at a device start (clamped into
         the zero padding when past the end)."""
         start = torch.clamp(start, 0, self._frames + self.PAD_FRAMES - length)
         idx = start + torch.arange(length, device=self.device)
-        return state["data"][:, idx]
+        return self.pcm(state)[:, idx]
 
     def emit(self, state: State, n: int):
         pos = state["pos"]

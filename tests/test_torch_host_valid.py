@@ -15,12 +15,13 @@ import torch
 
 from rodio_tpu_torch import flagship
 from rodio_tpu_torch.conversions.resample import (
-    _resample_counts, drain_bookkeeping, host_drain_bookkeeping, lerp_left)
+    _resample_counts, host_drain_bookkeeping, lerp_left)
 from rodio_tpu_torch.core.node import Node, mask_block
 from rodio_tpu_torch.effects.blt import BltFilter
 from rodio_tpu_torch.effects.limit import Limit, LimitSettings
 from rodio_tpu_torch.flagship import FusedWidePipeline
 from rodio_tpu_torch.ops.limiter_block import limiter_master
+from rodio_tpu_torch.ops.resample import drain_bookkeeping
 from rodio_tpu_torch.sources.generators import SamplesBuffer
 from rodio_tpu_torch.utils import trace
 
